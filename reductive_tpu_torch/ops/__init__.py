@@ -1,0 +1,31 @@
+"""Hand-written CUDA kernels for the hot paths, each beside its plain
+PyTorch version.
+
+* :mod:`~reductive_tpu_torch.ops.assign`: fused distance + argmin encode.
+* :mod:`~reductive_tpu_torch.ops.decode`: decode (codes -> reconstructions),
+  f32 and weight-only int8 tables.
+* :mod:`~reductive_tpu_torch.ops.adc`: ADC scoring (lookup tables x codes),
+  f32 and int8 tables.
+
+The kernels are compiled at first use (:mod:`~reductive_tpu_torch.ops._build`).
+"""
+
+from ._build import build_all, launch_counts, reset_launch_counts
+from .adc import adc_scores_kernel, adc_scores_reference, max_query_batch
+from .assign import assign_nearest, pq_encode, pq_encode_reference
+from .decode import pq_decode, pq_decode_reference, split_bf16
+
+__all__ = [
+    "pq_encode",
+    "pq_encode_reference",
+    "assign_nearest",
+    "pq_decode",
+    "pq_decode_reference",
+    "split_bf16",
+    "adc_scores_kernel",
+    "adc_scores_reference",
+    "max_query_batch",
+    "build_all",
+    "launch_counts",
+    "reset_launch_counts",
+]

@@ -1,0 +1,123 @@
+"""Quantization primitives: encode and reconstruct against a codebook tensor.
+
+The exact float32 paths of the library, in plain tensor code (counterpart of
+``reductive_tpu.pq.primitives``).  Codebooks are ``(m, k, ds)`` =
+(subquantizers, centroids per subquantizer, subvector length).  The
+hand-written kernels live in :mod:`reductive_tpu_torch.ops`.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+__all__ = [
+    "reconstructed_len",
+    "check_code_dtype",
+    "quantize_batch",
+    "quantize",
+    "reconstruct_batch",
+    "reconstruct",
+]
+
+# quantize_batch walks the rows in chunks so that the (rows, m, k) distance
+# tensor stays below this many elements (256 MB of float32).
+_DIST_ELEMS = 1 << 26
+
+
+def reconstructed_len(codebooks: Tensor) -> int:
+    """Length of a reconstructed vector: ``m * ds``."""
+    return codebooks.shape[0] * codebooks.shape[2]
+
+
+def check_code_dtype(codebooks: Tensor, dtype: torch.dtype) -> None:
+    """Reject code dtypes too narrow to hold ``k - 1``: ``TypeError`` for a
+    dtype that is not an integer type, ``OverflowError`` when ``k - 1``
+    exceeds its maximum."""
+    name = str(dtype).removeprefix("torch.")
+    if not isinstance(dtype, torch.dtype) or dtype.is_floating_point or dtype.is_complex \
+            or dtype == torch.bool:
+        raise TypeError(f"Quantized code dtype must be an integer type, got {name}")
+    k = codebooks.shape[1]
+    if k - 1 > torch.iinfo(dtype).max:
+        raise OverflowError(
+            f"Cannot store centroids in quantizer index type: k={k} exceeds {name}"
+        )
+
+
+def nearest_centroids(cb2: Tensor, c_sqn: Tensor, xs: Tensor) -> Tensor:
+    """``argmin_c (c_sqn[j, c] - cb2[j, c] . xs[i, j])`` as int64 ``(n, m)``,
+    the first index on ties (``torch.argmin`` returns the first minimum).
+    ``cb2`` holds the doubled centroids ``2c``, ``xs`` is ``(n, m, ds)``.
+    Rows are taken in chunks that bound the distance tensor."""
+    n, m, _ = xs.shape
+    k = cb2.shape[1]
+    step = max(1, _DIST_ELEMS // (m * k))
+    out = torch.empty((n, m), dtype=torch.int64, device=xs.device)
+    for i in range(0, n, step):
+        cross2 = torch.einsum("nmd,mkd->nmk", xs[i:i + step], cb2)
+        out[i:i + step] = torch.argmin(c_sqn[None] - cross2, dim=2)
+    return out
+
+
+def quantize_batch(codebooks: Tensor, x: Tensor, dtype: torch.dtype = torch.uint8) -> Tensor:
+    """Encode ``(n, m * ds)`` vectors to ``(n, m)`` centroid indices of
+    ``dtype``, in float32 (``allow_tf32`` stays off).  Argmin ties break to
+    the first index.
+
+    ``|x|^2`` does not affect the argmin, so the distance is
+    ``|c|^2 - (c.x + c.x)``; doubling the centroids before the product gives
+    the same bits (a scaling by two is exact).
+    """
+    check_code_dtype(codebooks, dtype)
+    m, k, ds = codebooks.shape
+    if x.ndim != 2 or x.shape[1] != m * ds:
+        raise ValueError(
+            f"Quantizer and vector length mismatch: input has {x.shape[-1]} columns, "
+            f"quantizer reconstructs {m * ds}"
+        )
+    c_sqn = torch.einsum("mkd,mkd->mk", codebooks, codebooks)
+    xs = x.reshape(x.shape[0], m, ds)
+    return nearest_centroids(codebooks + codebooks, c_sqn, xs).to(dtype)
+
+
+def quantize(codebooks: Tensor, x: Tensor, dtype: torch.dtype = torch.uint8) -> Tensor:
+    """Encode a single vector."""
+    if x.ndim != 1:
+        raise ValueError(f"quantize expects a rank-1 vector, got rank {x.ndim}")
+    return quantize_batch(codebooks, x[None, :], dtype=dtype)[0]
+
+
+def reconstruct_batch(codebooks: Tensor, codes: Tensor, *, method: str = "auto") -> Tensor:
+    """Decode ``(n, m)`` code rows to ``(n, m * ds)`` vectors.
+
+    Two bit-identical implementations: ``"gather"`` indexes the codebook,
+    ``"onehot"`` multiplies a one-hot matrix with it (each output element
+    receives one nonzero product, so float32 reproduces the entry exactly).
+    ``"auto"`` is the gather: a GPU gathers well, so the reason the JAX
+    package prefers the one-hot form on its device does not carry over.
+    """
+    m, k, ds = codebooks.shape
+    if codes.ndim != 2 or codes.shape[1] != m:
+        raise ValueError(
+            f"Quantization length does not match number of subquantizers: "
+            f"{tuple(codes.shape)} vs m={m}"
+        )
+    if method == "auto":
+        method = "gather"
+    idx = codes.to(torch.int64)
+    if method == "onehot":
+        onehot = torch.nn.functional.one_hot(idx, k).to(codebooks.dtype)  # (n, m, k)
+        out = torch.einsum("nmk,mkd->nmd", onehot, codebooks)
+        return out.reshape(codes.shape[0], m * ds)
+    if method == "gather":
+        sub = torch.arange(m, device=codebooks.device)
+        return codebooks[sub[None, :], idx].reshape(codes.shape[0], m * ds)
+    raise ValueError(f"unknown reconstruct method {method!r}")
+
+
+def reconstruct(codebooks: Tensor, code: Tensor) -> Tensor:
+    """Decode a single code row."""
+    if code.ndim != 1:
+        raise ValueError(f"reconstruct expects a rank-1 code vector, got rank {code.ndim}")
+    return reconstruct_batch(codebooks, code[None, :])[0]

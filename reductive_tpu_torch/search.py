@@ -1,0 +1,303 @@
+"""ADC (asymmetric distance computation) search over PQ-encoded corpora.
+
+Counterpart of ``reductive_tpu.search``: distances from a query to millions
+of compressed vectors are computed from per-subquantizer lookup tables
+without reconstructing anything (Jégou et al., 2011, §IV).
+
+All functions honor the quantizer's projection: queries are rotated into
+codebook space first (codes were produced there too), and Euclidean
+distances and inner products are preserved because the projection is
+orthonormal.  Matrix products are float32.
+
+Top-k order: results are sorted ascending by score, and among equal scores
+by ascending index (a stable sort of the small ``(nq, top_k)`` result), which
+is the order the JAX package's ``top_k`` gives.  Which of several rows tied
+exactly at the k-th score is kept is ``torch.topk``'s choice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import Tensor
+
+from .ops.decode import _PACKED_MSG
+from .pq import primitives
+from .pq.model import Pq
+
+__all__ = ["adc_tables", "adc_scores", "adc_scores_decode", "search"]
+
+# search() switches to the streamed scorer when the full (nq, n) score
+# matrix would exceed this many f32 elements (64M = 256 MB).
+_STREAM_SCORE_ELEMS = 64 * (1 << 20)
+_DEFAULT_STREAM_CHUNK = 1 << 20
+
+_READER_MSG = (
+    "refine_with a reader is not ported yet (it needs the IVF module's reader "
+    "protocol): see ROADMAP.md, 'ivf.py' under 'Modules to port'; pass an (n, d) tensor"
+)
+
+
+def _resolve_stream_chunk(
+    nq: int, n: int, stream_chunk: Optional[int], method: str = "einsum", d: int = 0,
+) -> Optional[int]:
+    """The effective streaming chunk: the caller's explicit choice, or the
+    default chunk when the dense intermediates would be too large, or
+    None (dense path) otherwise.  ``method="decode"`` additionally bounds
+    the ``(n, d)`` f32 reconstruction it materializes."""
+    if stream_chunk is not None:
+        return stream_chunk
+    # The per-chunk (nq, chunk) score transient is bounded by the same
+    # budget that triggers streaming.
+    chunk = min(_DEFAULT_STREAM_CHUNK, max(1 << 16, _STREAM_SCORE_ELEMS // max(nq, 1)))
+    if nq * n > _STREAM_SCORE_ELEMS:
+        return min(chunk, n)
+    if method == "decode" and n * d > _STREAM_SCORE_ELEMS:
+        return min(chunk, n)
+    return None
+
+
+def _check_metric(metric: str) -> None:
+    if metric not in ("l2", "dot"):
+        raise ValueError(f"unknown metric {metric!r} (expected 'l2' or 'dot')")
+
+
+def adc_tables(pq: Pq, queries: Tensor, *, metric: str = "l2") -> Tensor:
+    """Per-query lookup tables, ``(nq, m, k)``.
+
+    With ``metric="l2"`` (default) entry ``[q, j, c]`` is the squared
+    Euclidean distance between subvector ``j`` of (rotated) query ``q`` and
+    centroid ``c`` of subquantizer ``j``; summed over ``j`` that is the
+    exact squared distance to the reconstruction.  With ``metric="dot"`` the
+    entry is the **negated** inner product, so ascending score order ranks
+    by descending inner product and every top-k downstream works unchanged.
+    """
+    _check_metric(metric)
+    if queries.ndim != 2:
+        raise ValueError(f"queries must be (nq, d), got {tuple(queries.shape)}")
+    codebooks = pq.codebooks
+    m, k, ds = codebooks.shape
+    if queries.shape[1] != m * ds:
+        raise ValueError(
+            f"query length {queries.shape[1]} does not match quantizer "
+            f"reconstructed length {m * ds}"
+        )
+    if pq.projection is not None:
+        queries = torch.matmul(queries, pq.projection)
+    qs = queries.reshape(-1, m, ds)
+    cross = torch.einsum("qmd,mkd->qmk", qs, codebooks)
+    if metric == "dot":
+        return -cross
+    q_sqn = torch.einsum("qmd,qmd->qm", qs, qs)
+    c_sqn = torch.einsum("mkd,mkd->mk", codebooks, codebooks)
+    return q_sqn[:, :, None] + c_sqn[None, :, :] - (cross + cross)
+
+
+def adc_scores(tables: Tensor, codes: Tensor, *, chunk_size: int = 16384) -> Tensor:
+    """Approximate squared distances from each query to each encoded vector,
+    in plain tensor code with f32 tables (the library's exact scorer; the
+    JAX package calls it the einsum scorer).
+
+    ``tables`` is ``(nq, m, k)`` from :func:`adc_tables`; ``codes`` is the
+    ``(n, m)`` encoded corpus.  Returns ``(nq, n)``.  The JAX package
+    multiplies each table with a one-hot matrix; that product has one
+    nonzero term, so it is the table entry itself, and here it is looked up.
+    The ``m`` entries are added in the same order, ``j = 0..m-1``.  The
+    corpus is walked in ``chunk_size`` blocks to bound the index transient.
+    """
+    nq, m, k = tables.shape
+    n = codes.shape[0]
+    if codes.shape[1] != m:
+        raise ValueError(f"codes have {codes.shape[1]} subquantizers, tables have {m}")
+    scores = torch.empty((nq, n), dtype=tables.dtype, device=tables.device)
+    for i in range(0, n, chunk_size):
+        idx = codes[i:i + chunk_size].to(torch.int64)
+        acc = torch.zeros((nq, idx.shape[0]), dtype=tables.dtype, device=tables.device)
+        for j in range(m):
+            acc = acc + tables[:, j, idx[:, j]]
+        scores[:, i:i + chunk_size] = acc
+    return scores
+
+
+def adc_scores_decode(
+    pq: Pq, queries: Tensor, codes: Tensor, *, splits=1, use_kernel: bool = True,
+    metric: str = "l2",
+) -> Tensor:
+    """``(nq, n)`` approximate squared distances via decode + one dense
+    product: ``|q - rec|^2 = |q|^2 + |rec|^2 - 2 q.rec``.
+
+    It wins over the table scorer only when the query batch is large
+    (``nq`` of the order of ``d``), where the decode amortizes.  ``splits``
+    forwards to the decode kernel.  ``q.rec`` is an fp32 ``torch.matmul``
+    (the JAX package leaves that product at its backend's default precision,
+    which is f32 on the CPU).
+    """
+    cb = pq.codebooks
+    qr = torch.matmul(queries, pq.projection) if pq.projection is not None else queries
+    if use_kernel:
+        from .ops.decode import pq_decode
+
+        rec = pq_decode(cb, codes, splits=splits)  # rotated space
+    else:
+        rec = primitives.reconstruct_batch(cb, codes, method="gather")
+    qrec = torch.matmul(qr.to(torch.float32), rec.to(torch.float32).T)
+    if metric == "dot":
+        return -qrec
+    rec_sqn = torch.sum(rec.to(torch.float32) ** 2, dim=1)  # (n,)
+    q_sqn = torch.sum(qr.to(torch.float32) ** 2, dim=1)     # (nq,)
+    return q_sqn[:, None] + rec_sqn[None, :] - 2.0 * qrec
+
+
+def _smallest(scores: Tensor, idx: Optional[Tensor], top_k: int) -> Tuple[Tensor, Tensor]:
+    """The ``top_k`` smallest of each row of ``scores`` with their ids
+    (column numbers, or ``idx`` where given), ascending by score and, among
+    equal scores, by id."""
+    vals, sel = torch.topk(scores, min(top_k, scores.shape[1]), dim=1, largest=False)
+    ids = sel if idx is None else torch.gather(idx, 1, sel)
+    ids, order = torch.sort(ids, dim=1, stable=True)
+    vals = torch.gather(vals, 1, order)
+    vals, order = torch.sort(vals, dim=1, stable=True)
+    return vals, torch.gather(ids, 1, order)
+
+
+def _scores(pq, tables, queries, codes, chunk_size, method, splits, packed, metric) -> Tensor:
+    if method == "kernel":
+        from .ops.adc import adc_scores_kernel
+
+        return adc_scores_kernel(tables, codes, splits=splits, packed=packed)
+    if method == "decode":
+        return adc_scores_decode(
+            pq, queries, codes, splits=splits, use_kernel=codes.is_cuda, metric=metric,
+        )
+    return adc_scores(tables, codes, chunk_size=chunk_size)
+
+
+def _search_one(
+    pq: Pq, queries: Tensor, codes: Tensor, top_k: int, chunk: Optional[int],
+    chunk_size: int, method: str, splits, packed: bool, metric: str,
+) -> Tuple[Tensor, Tensor]:
+    """Dense search (``chunk`` None), or streamed: a loop over corpus chunks
+    keeps only a running ``(nq, top_k)`` best-so-far, so memory is
+    O(nq * (chunk + top_k)) whatever the corpus size."""
+    tables = adc_tables(pq, queries, metric=metric) if method != "decode" else None
+    n = codes.shape[0]
+    if chunk is None:
+        scores = _scores(pq, tables, queries, codes, chunk_size, method, splits, packed, metric)
+        return _smallest(scores, None, top_k)
+    best_d = best_i = None
+    for start in range(0, n, chunk):
+        part = codes[start:start + chunk]
+        d, i = _smallest(
+            _scores(pq, tables, queries, part, chunk_size, method, splits, packed, metric),
+            None, top_k,
+        )
+        i = i + start
+        if best_d is not None:
+            d, i = _smallest(torch.cat([best_d, d], dim=1), torch.cat([best_i, i], dim=1), top_k)
+        best_d, best_i = d, i
+    return best_d, best_i
+
+
+def _refine(
+    queries: Tensor, corpus: Tensor, cand_idx: Tensor, top_k: int, metric: str,
+) -> Tuple[Tensor, Tensor]:
+    """Exact re-scoring of ADC candidates against the original vectors:
+    gather the candidate rows, compute true squared distances (or negated
+    inner products), and keep the best ``top_k``.  O(nq * R * d)."""
+    cand = corpus[cand_idx.clamp(0, corpus.shape[0] - 1)].to(torch.float32)  # (nq, R, d)
+    q = queries.to(torch.float32)
+    if metric == "dot":
+        d2 = -torch.einsum("qrd,qd->qr", cand, q)
+    else:
+        diff = cand - q[:, None, :]
+        d2 = torch.sum(diff * diff, dim=-1)
+    d2 = torch.where(cand_idx >= 0, d2, torch.full_like(d2, float("inf")))
+    return _smallest(d2, cand_idx, top_k)
+
+
+def search(
+    pq: Pq,
+    queries: Tensor,
+    codes: Tensor,
+    top_k: int = 10,
+    *,
+    chunk_size: int = 16384,
+    method: str = "auto",
+    splits=2,
+    stream_chunk: Optional[int] = None,
+    packed: bool = False,
+    refine_with: Optional[Tensor] = None,
+    refine_factor: int = 4,
+    metric: str = "l2",
+) -> Tuple[Tensor, Tensor]:
+    """Top-``top_k`` best encoded vectors per query by ADC.
+
+    Returns ``(distances, indices)`` of shape ``(nq, top_k)`` each (f32 and
+    int64), sorted ascending by approximate squared distance.
+    ``metric="dot"`` ranks by descending inner product instead (returned
+    scores are the negated inner products, still ascending).
+
+    ``method="auto"`` (default) scores through the fused ADC kernel
+    (:func:`reductive_tpu_torch.ops.adc.adc_scores_kernel`) when ``codes`` is
+    a CUDA tensor of ``uint8``, and through the plain scorer
+    (:func:`adc_scores`) otherwise.  Force ``method="einsum"`` for rankings
+    that do not depend on the device; ``splits`` sets the kernel's table
+    precision (1, 2, 3 or ``"int8"``).
+    ``method="decode"`` scores by decode + one dense product.
+
+    ``refine_with`` (an ``(n, d)`` tensor of the original vectors) enables
+    the two-stage refine: ADC retrieves ``top_k * refine_factor``
+    candidates, which are re-scored with exact distances and the best
+    ``top_k`` returned.
+
+    ``stream_chunk`` switches to the streamed search: the ``(nq, n)`` score
+    matrix never materializes.  When it is not given and the score matrix
+    would exceed 64M f32 elements (256 MB), streaming engages by itself.
+    """
+    if top_k <= 0:
+        raise ValueError("top_k must be >= 1")
+    if top_k > codes.shape[0]:
+        raise ValueError(f"top_k={top_k} exceeds corpus size {codes.shape[0]}")
+    if packed:
+        raise NotImplementedError(_PACKED_MSG)
+    if method == "auto":
+        method = "kernel" if codes.is_cuda and codes.dtype == torch.uint8 else "einsum"
+    if method not in ("einsum", "kernel", "decode"):
+        raise ValueError(f"unknown search method {method!r}")
+    _check_metric(metric)
+    if refine_with is not None:
+        if refine_factor < 1:
+            raise ValueError("refine_factor must be >= 1")
+        if not isinstance(refine_with, Tensor):
+            raise NotImplementedError(_READER_MSG)
+        if refine_with.shape[0] != codes.shape[0]:
+            raise ValueError(
+                f"refine_with has {refine_with.shape[0]} rows, codes have {codes.shape[0]}"
+            )
+        r = min(top_k * refine_factor, codes.shape[0])
+        _, cand_idx = search(
+            pq, queries, codes, r, chunk_size=chunk_size, method=method,
+            splits=splits, stream_chunk=stream_chunk, metric=metric,
+        )
+        return _refine(queries, refine_with, cand_idx, top_k, metric)
+
+    stream_chunk = _resolve_stream_chunk(
+        queries.shape[0], codes.shape[0], stream_chunk, method, pq.reconstructed_len,
+    )
+
+    def one(q: Tensor) -> Tuple[Tensor, Tensor]:
+        return _search_one(
+            pq, q, codes, top_k, stream_chunk, chunk_size, method, splits, packed, metric
+        )
+
+    # The ADC kernel tiles the queries itself, so its per-call cap is the
+    # extent of its grid; queries are independent, so batch above it.
+    if method == "kernel":
+        from .ops.adc import max_query_batch
+
+        qb = max_query_batch(pq.n_subquantizers, pq.n_quantizer_centroids, splits)
+        if 0 < qb < queries.shape[0]:
+            parts = [one(queries[i:i + qb]) for i in range(0, queries.shape[0], qb)]
+            return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    return one(queries)

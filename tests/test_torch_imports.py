@@ -1,0 +1,105 @@
+"""The port stands alone: it imports without JAX, without the JAX package,
+without a CUDA compiler and without a GPU, and it does not quietly run on
+the CPU when asked for the default device."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import reductive_tpu_torch
+from reductive_tpu_torch import Pq, convert, io
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "reductive_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in PKG.rglob("*.py")
+)
+
+
+def test_every_module_is_listed():
+    for name in ("errors", "io", "convert", "search", "pq.model", "pq.primitives",
+                 "ops.assign", "ops.decode", "ops.adc", "ops._build"):
+        assert f"reductive_tpu_torch.{name}" in MODULES
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_import_pulls_in_no_jax(module):
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'jaxlib' or m == 'reductive_tpu' or m.startswith('reductive_tpu.')]\n"
+        "assert not bad, bad\n"
+        "assert 'triton' not in sys.modules\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize(
+    "path", [ROOT / "chip_smoke.py", *sorted(PKG.rglob("*.py"))],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_sources_import_neither_jax_nor_the_jax_package(path):
+    roots = _imported_roots(path)
+    assert not roots & {"jax", "jaxlib", "reductive_tpu", "triton"}, roots
+
+
+def test_package_imports_without_a_compiler_or_a_gpu():
+    # This process has neither; the import at the top of this file is the test.
+    assert reductive_tpu_torch.__version__
+    from reductive_tpu_torch.ops import launch_counts
+
+    assert all(v >= 0 for v in launch_counts().values())
+
+
+def test_allow_tf32_is_left_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    for path in PKG.rglob("*.py"):
+        assert "allow_tf32 = True" not in path.read_text()
+
+
+def test_default_device_is_cuda_and_raises_without_one(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA device")
+    cb = np.zeros((2, 4, 4), dtype=np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Pq.from_numpy(cb)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.from_jax_params(cb, None)
+    io.save(tmp_path / "pq.npz", Pq.from_numpy(cb, device="cpu"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        io.load(tmp_path / "pq.npz")
+    assert io.load(tmp_path / "pq.npz", device="cpu").codebooks.device.type == "cpu"
+
+
+def test_errors_mirror_the_jax_package():
+    from reductive_tpu import errors as jerrors
+    from reductive_tpu_torch import errors as terrors
+
+    assert terrors.__all__ == jerrors.__all__
+    for name in terrors.__all__:
+        assert getattr(terrors, name) is not getattr(jerrors, name)
+    with pytest.raises(terrors.ReductiveError) as terr:
+        terrors.check_quantizer_invariants(3, 8, 10, 1, 100, 10)
+    with pytest.raises(jerrors.ReductiveError) as jerr:
+        jerrors.check_quantizer_invariants(3, 8, 10, 1, 100, 10)
+    assert str(terr.value) == str(jerr.value)
+    assert type(terr.value).__name__ == type(jerr.value).__name__

@@ -1,0 +1,58 @@
+"""Shared helpers of the ``test_torch_*`` files: seeded float32 inputs that
+go through both packages, and distance bookkeeping for near-tie codes."""
+
+import numpy as np
+import torch
+
+import jax.numpy as jnp
+
+
+def make_pq_data(seed, n, m, k, ds):
+    """``(codebooks (m, k, ds), x (n, m*ds))`` as float32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    cb = rng.standard_normal((m, k, ds), dtype=np.float32)
+    x = rng.standard_normal((n, m * ds), dtype=np.float32)
+    return cb, x
+
+
+def orthonormal(seed, d):
+    """A random orthonormal ``(d, d)`` float32 matrix."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.standard_normal((d, d)))
+    return q.astype(np.float32)
+
+
+def t(a):
+    """numpy -> CPU tensor."""
+    return torch.from_numpy(np.array(a))
+
+
+def j(a):
+    """numpy -> JAX array of the same dtype."""
+    return jnp.asarray(a)
+
+
+def all_distances(cb, x):
+    """Exact squared distances ``(n, m, k)`` in float64."""
+    m, k, ds = cb.shape
+    xs = x.reshape(x.shape[0], m, ds).astype(np.float64)
+    diff = xs[:, :, None, :] - cb.astype(np.float64)[None]
+    return np.sum(diff * diff, axis=3)
+
+
+def assert_codes_near_optimal(cb, x, codes, other, min_equal, rel_tol):
+    """``codes`` equal ``other`` on at least ``min_equal`` of the entries,
+    and wherever they differ the centroid ``codes`` chose is within
+    ``rel_tol`` relative of the best distance."""
+    codes = np.asarray(codes).astype(np.int64)
+    other = np.asarray(other).astype(np.int64)
+    assert codes.shape == other.shape
+    equal = np.mean(codes == other)
+    assert equal >= min_equal, f"only {equal:.5f} of codes agree"
+    dist = all_distances(cb, x)
+    chosen = np.take_along_axis(dist, codes[:, :, None], axis=2)[:, :, 0]
+    best = dist.min(axis=2)
+    differ = codes != other
+    if differ.any():
+        rel = (chosen[differ] - best[differ]) / best[differ]
+        assert rel.max() <= rel_tol, f"a differing code is {rel.max():.3e} relative off the best"
