@@ -4,12 +4,13 @@
 
 Builds the CUDA kernels of ``reductive_tpu_torch`` from the sources in this
 checkout, holds each against its plain PyTorch version on the card, then
-drives the serving path (encode -> decode -> ADC search) at the flagship
-width d=128, m=16, k=256, ds=8 over a corpus of 4,000,000 rows, and checks
-what comes out.  Every phase prints one JSON line.  The run fails (non-zero
-exit, no result line) without a CUDA device, when a kernel does not build,
-does not launch or disagrees, or when the serving path did not go through
-every kernel.  The last line of a good run is
+drives the serving path (encode -> decode -> ADC search) and the training
+path (k-means, PQ and OPQ trainers) at the flagship width d=128, m=16,
+k=256, ds=8 over a corpus of 4,000,000 rows, and checks what comes out.
+Every phase prints one JSON line.  The run fails (non-zero exit, no result
+line) without a CUDA device, when a kernel does not build, does not launch
+or disagrees, or when a path did not go through its kernels.  The last line
+of a good run is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Times are CUDA-event medians after a warm-up.  ``bound_ms`` is the least time
@@ -20,16 +21,22 @@ for their type, from NVIDIA's H100 SXM data sheet.
 
 from __future__ import annotations
 
+import collections
 import json
+import logging
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
-from reductive_tpu_torch import Pq, ops
+from reductive_tpu_torch import Pq, io, kmeans, ops, train_opq_chunked, train_pq, train_pq_chunked
 from reductive_tpu_torch.pq import primitives
+from reductive_tpu_torch.pq.opq import create_projection_matrix
+from reductive_tpu_torch.pq.train import init_codebooks_random
 from reductive_tpu_torch.search import adc_tables, search
 
 SEED = 0
@@ -39,6 +46,8 @@ N_CORPUS = 4_000_000
 N_KERNELS = 65_536
 N_RAGGED = 50_001
 N_PREFIX = 262_144
+N_IN_MEMORY = 65_536            # rows the in-memory trainers take
+BITS = 8                        # K = 2**BITS
 TOP_K = 10
 
 # H100 SXM peaks (dense): bytes/s of HBM, operations/s by type.
@@ -52,7 +61,10 @@ KERNELS = {
     "decode_int8": ("reductive_tpu_torch/csrc/decode.cu", "reductive_tpu/ops/decode.py:180"),
     "adc": ("reductive_tpu_torch/csrc/adc.cu", "reductive_tpu/ops/adc.py:59"),
     "adc_int8": ("reductive_tpu_torch/csrc/adc.cu", "reductive_tpu/ops/decode.py:180"),
+    "stats_f32": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:50"),
+    "stats_bf16": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:50"),
 }
+SERVE_KERNELS = ("encode_f32", "encode_bf16", "decode", "decode_int8", "adc", "adc_int8")
 
 
 class SmokeFailure(RuntimeError):
@@ -155,9 +167,39 @@ def compare_adc(tables, codes, splits):
     return {"n_mismatch": n_mismatch, "max_abs_err": float(err.max())}
 
 
+def compare_stats(codebooks, x, compute_dtype):
+    """Kernel against plain version, and the kernel against itself.  Two
+    launches must give the same bits.  The counts sum to n*m exactly; they
+    may differ from the plain version's only where f32 summation order flips
+    a near-tie: per subquantizer at most n/1000 (f32) or n/100 (bf16) rows
+    moved.  On cells whose counts agree the sums are within rtol 1e-5 plus
+    atol 1e-4 * max|sums| (f32 sums taken in another order)."""
+    n = x.shape[0]
+    sums, counts = ops.pq_assign_stats(codebooks, x, compute_dtype=compute_dtype)
+    sums2, counts2 = ops.pq_assign_stats(codebooks, x, compute_dtype=compute_dtype)
+    want_sums, want_counts = ops.pq_assign_stats_reference(codebooks, x, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    name = f"stats {compute_dtype}"
+    require(sums.shape == want_sums.shape and counts.shape == want_counts.shape, f"{name}: shape")
+    require(bool(torch.equal(sums, sums2)) and bool(torch.equal(counts, counts2)),
+            f"{name}: two launches on the same inputs differ")
+    require(float(counts.double().sum()) == n * codebooks.shape[0], f"{name}: counts do not sum to n*m")
+    moved = (counts - want_counts).abs().sum(dim=1) / 2
+    limit = n * (1e-3 if compute_dtype == torch.float32 else 1e-2)
+    require(float(moved.max()) <= limit, f"{name}: {float(moved.max())} rows of a subquantizer moved")
+    same = counts == want_counts
+    err = (sums - want_sums).abs()
+    tol = 1e-5 * want_sums.abs() + 1e-4 * float(want_sums.abs().max())
+    n_bad = int(((err > tol) & same[:, :, None]).sum())
+    require(n_bad == 0, f"{name}: {n_bad} sums beyond tolerance")
+    return {"n_mismatch": int(moved.sum()), "max_abs_err": float(err[same].max()),
+            "bit_equal_launches": True}
+
+
 def phase_kernels(pq, corpus, gen):
     """Each kernel against its plain version at n = 65,536 and one ragged n,
-    at the flagship width and, for ADC / decode / encode, at d=768, m=24."""
+    at the flagship width and, for ADC / decode / encode / stats, at d=768,
+    m=24."""
     dev = corpus.device
     rows = []
     for n in (N_KERNELS, N_RAGGED):
@@ -172,6 +214,8 @@ def phase_kernels(pq, corpus, gen):
             ("decode_int8", compare_decode(pq.codebooks, codes, "int8")),
             ("adc_splits2", compare_adc(tables, codes, 2)),
             ("adc_int8", compare_adc(tables, codes, "int8")),
+            ("stats_f32", compare_stats(pq.codebooks, x, torch.float32)),
+            ("stats_bf16", compare_stats(pq.codebooks, x, torch.bfloat16)),
         ):
             rows.append({"kernel": name, "shape": f"n={n} d={D} m={M} k={K}", **res})
 
@@ -184,6 +228,8 @@ def phase_kernels(pq, corpus, gen):
     rows.append({"kernel": "encode_f32", "shape": shape2,
                  **compare_encode(cb2, x2, torch.float32)})
     rows.append({"kernel": "decode_splits3", "shape": shape2, **compare_decode(cb2, codes2, 3)})
+    rows.append({"kernel": "stats_f32", "shape": shape2, **compare_stats(cb2, x2, torch.float32)})
+    rows.append({"kernel": "stats_bf16", "shape": shape2, **compare_stats(cb2, x2, torch.bfloat16)})
     for nq in (16, 128):
         tables2 = adc_tables(pq2, x2[:nq])
         for splits in (2, "int8"):
@@ -228,7 +274,7 @@ def phase_serve(pq, corpus):
 
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    for name in KERNELS:
+    for name in SERVE_KERNELS:
         require(launches.get(name, 0) > 0, f"serve: kernel {name} was never launched")
     # method="auto" resolved to the kernel, and 128 queries streamed by the
     # 64M-element rule: one launch per chunk of 64M // 128 rows; the 16-query
@@ -304,8 +350,143 @@ def phase_serve(pq, corpus):
     return codes, launches
 
 
+# -- the training path ---------------------------------------------------------
+
+
+class LossLog(logging.Handler):
+    """Collects the per-iteration losses the trainers log at INFO."""
+
+    def __init__(self):
+        super().__init__(level=logging.INFO)
+        self.losses = []
+
+    def emit(self, record):
+        if isinstance(record.msg, str) and "iteration %d" in record.msg:
+            self.losses.append(float(record.args[1]))
+
+
+def reconstruction_mse(pq, corpus):
+    codes = pq.quantize_batch(corpus, method="kernel-f32")
+    return float((pq.reconstruct_batch(codes, method="kernel") - corpus).pow(2).mean())
+
+
+def require_trained(name, pq, initial, corpus):
+    """Finite codebooks of the flagship shape, and a lower reconstruction
+    error on the corpus than the codebooks training began from."""
+    require(tuple(pq.codebooks.shape) == (M, K, DS), f"train: {name} codebooks shape")
+    require(bool(torch.isfinite(pq.codebooks).all()), f"train: {name} codebooks not finite")
+    mse, mse0 = reconstruction_mse(pq, corpus), reconstruction_mse(initial, corpus)
+    require(mse == mse and mse < mse0, f"train: {name} mse {mse} not below its initial {mse0}")
+    return {"mse": mse, "mse_initial": mse0}
+
+
+def phase_train(corpus):
+    """The trainers through their entry points: the chunked PQ trainer over
+    the whole corpus in both modes, with a checkpoint and a resume; chunked
+    OPQ; and the in-memory PQ trainer and k-means on a prefix."""
+    n = corpus.shape[0]
+    dev = corpus.device
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    expected = collections.Counter()
+    out = {}
+
+    # Chunked PQ, 4 Lloyd's iterations, each one launch of the stats kernel.
+    n_it = 4
+    for name, cd in (("f32", f32), ("bf16", bf16)):
+        state = gen.get_state()
+        pq, seconds = timed(lambda: train_pq_chunked(gen, corpus, M, BITS, n_it, compute_dtype=cd))
+        expected[f"stats_{name}"] += 2 * n_it
+        # Where that training began: the second call's draw, made again.
+        gen.set_state(state)
+        init_codebooks_random(corpus, gen, K, DS)
+        initial = Pq(codebooks=init_codebooks_random(corpus, gen, K, DS))
+        out[f"pq_chunked_{name}"] = {
+            **require_trained(f"pq_chunked_{name}", pq, initial, corpus),
+            "seconds_per_iteration": seconds / n_it, "rows_per_s": n_it * n / seconds,
+        }
+
+    # The loss of every iteration (read from the trainer's log, which makes it
+    # wait for the card), a checkpoint, and a resume from the reloaded file.
+    log = LossLog()
+    logger = logging.getLogger("reductive_tpu")
+    level = logger.level
+    logger.addHandler(log)
+    logger.setLevel(logging.INFO)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "pq.npz")
+            saved = train_pq_chunked(gen, corpus, M, BITS, n_it, checkpoint_every=2,
+                                     checkpoint_path=path)
+            loaded = io.load(path)
+            require(bool(torch.equal(loaded.codebooks, saved.codebooks)),
+                    "train: the checkpoint does not hold the trained codebooks")
+            resumed = train_pq_chunked(gen, corpus, M, BITS, 1, initial_model=loaded)
+    finally:
+        logger.removeHandler(log)
+        logger.setLevel(level)
+    expected["stats_f32"] += n_it + 1
+    require(len(log.losses) == n_it + 1, f"train: {len(log.losses)} losses logged")
+    require(all(b <= a * (1 + 1e-6) for a, b in zip(log.losses, log.losses[1:])),
+            f"train: the f32 loss rose: {log.losses}")
+    require(bool(torch.isfinite(resumed.codebooks).all()), "train: resumed codebooks not finite")
+    out["pq_chunked_f32"]["losses_then_resumed"] = log.losses
+
+    # Chunked OPQ, 2 alternations: per chunk one stats, one encode, one decode.
+    n_alt, chunk = 2, 32768
+    state = gen.get_state()
+    opq, seconds = timed(lambda: train_opq_chunked(gen, corpus, M, BITS, n_alt, chunk=chunk))
+    per_pass = -(-n // chunk)
+    for name in ("stats_f32", "encode_f32", "decode"):
+        expected[name] += 2 * n_alt * per_pass
+    gen.set_state(state)
+    projection0 = create_projection_matrix(corpus, M)
+    init_codebooks_random(corpus, gen, K, DS, projection0)
+    initial = Pq(codebooks=init_codebooks_random(corpus, gen, K, DS, projection0),
+                 projection=projection0)
+    gram = opq.projection.T @ opq.projection
+    ortho_err = float((gram - torch.eye(D, device=dev)).abs().max())
+    require(ortho_err <= 1e-4, f"train: OPQ projection is {ortho_err} off orthonormal")
+    out["opq_chunked_f32"] = {
+        **require_trained("opq_chunked_f32", opq, initial, corpus),
+        "seconds_per_iteration": seconds / n_alt, "rows_per_s": n_alt * n / seconds,
+        "orthonormal_err": ortho_err,
+    }
+    launches = ops.launch_counts()
+    # The quality checks above encode and decode the corpus through the
+    # kernels too: 2 launches of each per require_trained.
+    expected["encode_f32"] += 2 * 3
+    expected["decode"] += 2 * 3
+    for name, want in expected.items():
+        require(launches.get(name, 0) == want,
+                f"train: {launches.get(name, 0)} launches of {name}, expected {want}")
+
+    # In memory, on a prefix: PQ, and k-means until the loss converges.
+    prefix = corpus[:N_IN_MEMORY]
+    state = gen.get_state()
+    pq_mem, seconds = timed(lambda: train_pq(gen, prefix, M, BITS, n_it))
+    gen.set_state(state)
+    init_codebooks_random(prefix, gen, K, DS)
+    initial = Pq(codebooks=init_codebooks_random(prefix, gen, K, DS))
+    out["pq_in_memory"] = {**require_trained("pq_in_memory", pq_mem, initial, prefix),
+                           "rows": N_IN_MEMORY, "seconds_per_iteration": seconds / n_it}
+    stop = kmeans.LossConvergence(max_iterations=25, rel_tol=1e-3)
+    (centroids, loss), seconds = timed(lambda: kmeans.kmeans(gen, prefix, K, stop))
+    loss1 = float(kmeans.kmeans_with_centroids(prefix, centroids, 1)[1])
+    require(tuple(centroids.shape) == (K, D) and bool(torch.isfinite(centroids).all()),
+            "train: k-means centroids")
+    require(loss1 <= float(loss) * (1 + 1e-6), f"train: k-means loss rose from {float(loss)} to {loss1}")
+    out["kmeans"] = {"rows": N_IN_MEMORY, "k": K, "loss": float(loss), "seconds": seconds}
+
+    emit("train", n=n, d=D, m=M, k=K, **out, launches=launches,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return launches
+
+
 def kernel_table(pq, corpus, codes, launches):
-    """Each kernel at the shape the serving path gives it (n = 4,000,000 rows;
+    """Each kernel at the shape the main paths give it (n = 4,000,000 rows;
     ADC with 16 queries, the dense search): time, plain version's time, one
     library call's time, and the bound."""
     cb = pq.codebooks
@@ -331,7 +512,13 @@ def kernel_table(pq, corpus, codes, launches):
     def library_adc():
         return torch.nn.functional.embedding_bag(idx_flat, tables_t, mode="sum")
 
+    def library_stats():
+        cells = (library_encode() + torch.arange(M, device=corpus.device)[None, :] * K).reshape(-1)
+        sums = torch.zeros((M * K, DS), device=corpus.device)
+        return sums.index_add_(0, cells, corpus.reshape(-1, DS))
+
     f32, bf16 = torch.float32, torch.bfloat16
+    stats_bytes = 4 * n * D + cb_bytes + 4 * M * K * (DS + 1)
     enc_bytes = 4 * n * D + cb_bytes + n * M
     enc_ops = 2 * n * M * K * DS
     adc_bytes = 4 * nq * M * K + n * M + 4 * nq * n
@@ -355,6 +542,12 @@ def kernel_table(pq, corpus, codes, launches):
         ("adc_int8", lambda: ops.adc_scores_kernel(tables, codes, splits="int8"),
          lambda: ops.adc_scores_reference(tables, codes, splits="int8"), None,
          lambda: compare_adc(tables, codes, "int8"), bound(adc_bytes, nq * n * M, "int8")),
+        ("stats_f32", lambda: ops.pq_assign_stats(cb, corpus, compute_dtype=f32),
+         lambda: ops.pq_assign_stats_reference(cb, corpus, compute_dtype=f32), library_stats,
+         lambda: compare_stats(cb, corpus, f32), bound(stats_bytes, enc_ops, "f32")),
+        ("stats_bf16", lambda: ops.pq_assign_stats(cb, corpus, compute_dtype=bf16),
+         lambda: ops.pq_assign_stats_reference(cb, corpus, compute_dtype=bf16), None,
+         lambda: compare_stats(cb, corpus, bf16), bound(stats_bytes, enc_ops, "bf16")),
     ]
     rows = []
     for name, kernel, plain, library, compare, (bound_ms, bound_by) in specs:
@@ -396,7 +589,12 @@ def main() -> int:
     corpus = torch.randn((N_CORPUS, D), generator=gen, device=dev)
 
     phase_kernels(pq, corpus, gen)
-    codes, launches = phase_serve(pq, corpus)
+    codes, serve_launches = phase_serve(pq, corpus)
+    train_launches = phase_train(corpus)
+    for name in ("stats_f32", "stats_bf16", "encode_f32", "decode"):
+        require(train_launches.get(name, 0) > 0, f"train: kernel {name} was never launched")
+    # Launches of each kernel on the two main paths together.
+    launches = collections.Counter(serve_launches) + collections.Counter(train_launches)
     rows = kernel_table(pq, corpus, codes, launches)
     torch.cuda.synchronize()
 

@@ -1,23 +1,61 @@
 """reductive_tpu_torch: the PyTorch / CUDA port of ``reductive_tpu``.
 
-The serving path of the product-quantization engine on an NVIDIA Hopper
-GPU: encode vectors to codes, decode codes back, and answer queries by ADC
-search over the encoded corpus.  Plain tensor code is PyTorch; the hot loops
-are CUDA kernels written for ``sm_90a`` under ``csrc/``, compiled at first
-use, each beside a plain PyTorch version of the same function.
+The product-quantization engine on an NVIDIA Hopper GPU: train a quantizer
+(k-means, PQ, OPQ, Gaussian OPQ, in memory and at corpus scale), encode
+vectors to codes, decode codes back, and answer queries by ADC search over
+the encoded corpus.  Plain tensor code is PyTorch; the hot loops are CUDA
+kernels written for ``sm_90a`` under ``csrc/``, compiled at first use, each
+beside a plain PyTorch version of the same function.
 
 The package imports ``torch`` and ``numpy`` only.  Functions that take
-tensors run where their tensors are; everything that creates state takes
-``device=None``, and ``None`` means ``cuda``.
+tensors run where their tensors are; everything that creates state from
+host data takes ``device=None``, and ``None`` means ``cuda``.
 
 Top-level surface::
 
-    from reductive_tpu_torch import Pq, search, io, convert, ops, errors
+    from reductive_tpu_torch import (
+        Pq, train_pq, train_opq, train_gaussian_opq,
+        kmeans, linalg, search, io, convert, ops, errors,
+    )
 """
 
-from . import convert, errors, io, ops, pq, search
-from .pq import Pq
+from . import convert, errors, io, kmeans, linalg, ops, pq, search
+from .pq import (
+    GaussianOpq,
+    Opq,
+    Pq,
+    PqTrainer,
+    bucket_eigenvalues,
+    create_projection_matrix,
+    train_gaussian_opq,
+    train_gaussian_opq_chunked,
+    train_opq,
+    train_opq_chunked,
+    train_pq,
+    train_pq_chunked,
+)
 
 __version__ = "0.9.0"
 
-__all__ = ["Pq", "convert", "errors", "io", "ops", "pq", "search"]
+__all__ = [
+    "Pq",
+    "PqTrainer",
+    "Opq",
+    "GaussianOpq",
+    "train_pq",
+    "train_pq_chunked",
+    "train_opq",
+    "train_opq_chunked",
+    "train_gaussian_opq",
+    "train_gaussian_opq_chunked",
+    "bucket_eigenvalues",
+    "create_projection_matrix",
+    "convert",
+    "errors",
+    "io",
+    "kmeans",
+    "linalg",
+    "ops",
+    "pq",
+    "search",
+]

@@ -6,6 +6,8 @@ PyTorch version.
   f32 and weight-only int8 tables.
 * :mod:`~reductive_tpu_torch.ops.adc`: ADC scoring (lookup tables x codes),
   f32 and int8 tables.
+* :mod:`~reductive_tpu_torch.ops.stats`: fused assign + per-centroid sums
+  and counts, the Lloyd's iteration of the trainers.
 
 The kernels are compiled at first use (:mod:`~reductive_tpu_torch.ops._build`).
 """
@@ -14,6 +16,7 @@ from ._build import build_all, launch_counts, reset_launch_counts
 from .adc import adc_scores_kernel, adc_scores_reference, max_query_batch
 from .assign import assign_nearest, pq_encode, pq_encode_reference
 from .decode import pq_decode, pq_decode_reference, split_bf16
+from .stats import pq_assign_stats, pq_assign_stats_reference
 
 __all__ = [
     "pq_encode",
@@ -25,6 +28,8 @@ __all__ = [
     "adc_scores_kernel",
     "adc_scores_reference",
     "max_query_batch",
+    "pq_assign_stats",
+    "pq_assign_stats_reference",
     "build_all",
     "launch_counts",
     "reset_launch_counts",

@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
-SOURCES = ("encode", "decode", "adc")
+SOURCES = ("encode", "decode", "adc", "stats")
 
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,6 +42,7 @@ _ENTRIES = {
     "rt_decode_int8": ("decode", (_P, _I, _P, _P, _P, _L, _I, _I, _I, _P)),
     "rt_adc": ("adc", (_P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _P)),
     "rt_adc_int8": ("adc", (_P, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _P)),
+    "rt_assign_stats": ("stats", (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P)),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

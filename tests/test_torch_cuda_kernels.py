@@ -7,8 +7,10 @@ on the card with
 
 They cover the corners ``chip_smoke.py`` does not drive: k above one
 centroid tile, k that is no power of two, every ds the encode kernel takes,
-int32 codes, a number of subquantizers that is no multiple of four, and
-tables so large that fewer than eight queries share a block.
+int32 codes, a number of subquantizers that is no multiple of four, tables
+so large that fewer than eight queries share a block, and for the
+assign+statistics kernel a single row, ragged row counts and more centroids
+than one thread per centroid.
 """
 
 import pytest
@@ -78,12 +80,64 @@ def test_adc_kernel_equals_plain(dev, n, m, k, nq, code_dtype, splits):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "n,m,k,ds",
+    [(1, 3, 7, 4), (1000, 3, 7, 4), (4097, 16, 256, 8), (777, 2, 1000, 16), (513, 5, 300, 32),
+     (70001, 1, 257, 8), (300000, 2, 16, 32)],
+)
+def test_stats_kernel_equals_plain_and_itself(dev, n, m, k, ds, compute_dtype):
+    cb, x = _data(dev, n, m, k, ds)
+    sums, counts = ops.pq_assign_stats(cb, x, compute_dtype=compute_dtype)
+    again = ops.pq_assign_stats(cb, x, compute_dtype=compute_dtype)
+    # No float atomics: the order of every sum is fixed by the shapes.
+    assert torch.equal(sums, again[0]) and torch.equal(counts, again[1])
+    want_sums, want_counts = ops.pq_assign_stats_reference(cb, x, compute_dtype=compute_dtype)
+    assert float(counts.double().sum()) == n * m
+    # f32 summation order may flip a near-tie: one row in a thousand at most.
+    assert float((counts - want_counts).abs().sum()) / 2 <= max(1, n * m // 1000)
+    same = (counts == want_counts)[:, :, None].expand_as(sums)
+    # f32 sums of the same rows in another order.
+    tol = 1e-5 * want_sums.abs() + 1e-4 * float(want_sums.abs().max())
+    assert bool(((sums - want_sums).abs() <= tol)[same].all())
+    # The codes behind the counts are the encode kernel's.
+    codes = ops.pq_encode(cb, x, dtype=torch.int32, compute_dtype=compute_dtype).to(torch.int64)
+    by_code = torch.stack([torch.bincount(codes[:, jq], minlength=k) for jq in range(m)])
+    assert torch.equal(by_code.to(torch.float32), counts)
+
+
+def test_stats_kernel_feeds_the_trainers(dev):
+    from reductive_tpu_torch import train_opq_chunked, train_pq_chunked
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((20000, 32), generator=gen, device=dev)
+    ops.reset_launch_counts()
+    state = gen.get_state()
+    a = train_pq_chunked(gen, x, 4, 6, 5)
+    gen.set_state(state)
+    b = train_pq_chunked(gen, x, 4, 6, 5)
+    assert ops.launch_counts() == {"stats_f32": 10}
+    assert torch.equal(a.codebooks, b.codebooks)  # training repeats bit for bit
+    gen.set_state(state)
+    plain = train_pq_chunked(gen, x, 4, 6, 5, use_kernel=False)
+    assert float((a.codebooks - plain.codebooks).abs().max()) < 1e-3
+    ops.reset_launch_counts()
+    opq = train_opq_chunked(gen, x, 4, 6, 2, chunk=8192)
+    assert ops.launch_counts() == {"stats_f32": 6, "encode_f32": 6, "decode": 6}
+    eye = torch.eye(32, device=dev)
+    assert float((opq.projection.T @ opq.projection - eye).abs().max()) < 1e-4
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        train_pq_chunked(gen, x[:, :24], 2, 6, 2)  # ds = 12: not a width the kernel takes
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     cb, x = _data(dev, 10, 2, 4, 5)
     with pytest.raises(ValueError, match="encode kernel takes"):
         ops.pq_encode(cb, x)
     with pytest.raises(ValueError, match="decode kernel takes"):
         ops.pq_decode(cb, torch.zeros((10, 2), dtype=torch.uint8, device=dev))
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        ops.pq_assign_stats(cb, x)
     with pytest.raises(ValueError, match="no shared-memory tiling"):
         ops.adc_scores_kernel(torch.zeros((1, 1, 70000), device=dev),
                               torch.zeros((4, 1), dtype=torch.int32, device=dev))

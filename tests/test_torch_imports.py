@@ -24,7 +24,8 @@ MODULES = sorted(
 
 def test_every_module_is_listed():
     for name in ("errors", "io", "convert", "search", "pq.model", "pq.primitives",
-                 "ops.assign", "ops.decode", "ops.adc", "ops._build"):
+                 "ops.assign", "ops.decode", "ops.adc", "ops._build",
+                 "linalg", "kmeans", "pq.train", "pq.opq", "pq.traits", "ops.stats"):
         assert f"reductive_tpu_torch.{name}" in MODULES
 
 
@@ -88,6 +89,48 @@ def test_default_device_is_cuda_and_raises_without_one(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         io.load(tmp_path / "pq.npz")
     assert io.load(tmp_path / "pq.npz", device="cpu").codebooks.device.type == "cpu"
+
+
+def test_trainers_are_exported_under_the_jax_packages_names():
+    import reductive_tpu
+
+    for name in ("linalg", "kmeans", "train_pq", "train_pq_chunked", "train_opq",
+                 "train_opq_chunked", "train_gaussian_opq", "train_gaussian_opq_chunked",
+                 "bucket_eigenvalues", "create_projection_matrix"):
+        assert name in reductive_tpu_torch.__all__ and name in reductive_tpu.__all__
+        assert getattr(reductive_tpu_torch, name) is not getattr(reductive_tpu, name)
+    for name in ("PqTrainer", "Opq", "GaussianOpq"):
+        assert name in reductive_tpu_torch.__all__ and name in reductive_tpu_torch.pq.__all__
+        assert name in reductive_tpu.pq.__all__
+    from reductive_tpu_torch import ops
+
+    assert callable(ops.pq_assign_stats) and callable(ops.pq_assign_stats_reference)
+    assert reductive_tpu_torch.kmeans.__all__[:4] == reductive_tpu.kmeans.__all__[:4]
+
+
+def test_trainers_raise_without_a_cuda_device_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA device")
+    x = np.random.default_rng(0).random((64, 8), dtype=np.float32)
+    gen = torch.Generator().manual_seed(0)
+    for trainer in ("train_pq", "train_pq_chunked", "train_opq", "train_opq_chunked",
+                    "train_gaussian_opq", "train_gaussian_opq_chunked"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            getattr(reductive_tpu_torch, trainer)(gen, x, 2, 3, 2)
+        pq = getattr(reductive_tpu_torch, trainer)(gen, x, 2, 3, 2, device="cpu")
+        assert pq.codebooks.device.type == "cpu"
+    with pytest.raises(ValueError, match="instances lie on cpu"):
+        reductive_tpu_torch.train_pq(gen, torch.from_numpy(x), 2, 3, 2, device="cuda")
+
+
+def test_a_cuda_tensor_never_takes_the_plain_version():
+    # On a CUDA tensor the wrapper launches its kernel or raises: the only
+    # branch to the plain version is on ``not x.is_cuda``.
+    src = (PKG / "ops" / "stats.py").read_text()
+    body = src.split("def pq_assign_stats(")[1]
+    assert body.count("pq_assign_stats_reference(") == 1
+    assert "if not x.is_cuda:\n        return pq_assign_stats_reference(" in body
+    assert "try:" not in body
 
 
 def test_errors_mirror_the_jax_package():
