@@ -4,9 +4,12 @@
 
 Builds the CUDA kernels of ``reductive_tpu_torch`` from the sources in this
 checkout, holds each against its plain PyTorch version on the card, then
-drives the serving path (encode -> decode -> ADC search) and the training
-path (k-means, PQ and OPQ trainers) at the flagship width d=128, m=16,
-k=256, ds=8 over a corpus of 4,000,000 rows, and checks what comes out.
+drives the serving path (encode -> decode -> ADC search), the training path
+(k-means, PQ and OPQ trainers), the exact path (the verified encode,
+statistics and trainers against the f32 einsum path) and the packed path
+(4-bit codes, two a byte, through decode and search) at the flagship width
+d=128, m=16, ds=8 (k=256; k=16 for the packed path) over a corpus of
+4,000,000 rows, and checks what comes out.
 Every phase prints one JSON line.  The run fails (non-zero exit, no result
 line) without a CUDA device, when a kernel does not build, does not launch
 or disagrees, or when a path did not go through its kernels.  The last line
@@ -34,6 +37,8 @@ import time
 import torch
 
 from reductive_tpu_torch import Pq, io, kmeans, ops, train_opq_chunked, train_pq, train_pq_chunked
+from reductive_tpu_torch.ops.assign import pq_encode_verify_flags, verify_scale
+from reductive_tpu_torch.ops.stats import pq_assign_stats_verify_flags, stats_from_codes
 from reductive_tpu_torch.pq import primitives
 from reductive_tpu_torch.pq.opq import create_projection_matrix
 from reductive_tpu_torch.pq.train import init_codebooks_random
@@ -48,6 +53,7 @@ N_RAGGED = 50_001
 N_PREFIX = 262_144
 N_IN_MEMORY = 65_536            # rows the in-memory trainers take
 BITS = 8                        # K = 2**BITS
+K4 = 16                         # centroids of the packed (4-bit) path
 TOP_K = 10
 
 # H100 SXM peaks (dense): bytes/s of HBM, operations/s by type.
@@ -63,8 +69,15 @@ KERNELS = {
     "adc_int8": ("reductive_tpu_torch/csrc/adc.cu", "reductive_tpu/ops/decode.py:180"),
     "stats_f32": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:50"),
     "stats_bf16": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:50"),
+    "encode_verify": ("reductive_tpu_torch/csrc/encode.cu", "reductive_tpu/ops/assign.py:298"),
+    "stats_verify": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:272"),
+    "decode_u4": ("reductive_tpu_torch/csrc/decode.cu", "reductive_tpu/ops/decode.py:166"),
+    "decode_int8_u4": ("reductive_tpu_torch/csrc/decode.cu", "reductive_tpu/ops/decode.py:180"),
+    "adc_u4": ("reductive_tpu_torch/csrc/adc.cu", "reductive_tpu/ops/adc.py:59"),
+    "adc_int8_u4": ("reductive_tpu_torch/csrc/adc.cu", "reductive_tpu/ops/decode.py:180"),
 }
 SERVE_KERNELS = ("encode_f32", "encode_bf16", "decode", "decode_int8", "adc", "adc_int8")
+PACKED_KERNELS = ("decode_u4", "decode_int8_u4", "adc_u4", "adc_int8_u4")
 
 
 class SmokeFailure(RuntimeError):
@@ -196,10 +209,105 @@ def compare_stats(codebooks, x, compute_dtype):
             "bit_equal_launches": True}
 
 
+def compare_encode_verify(codebooks, x):
+    """Verify kernel against plain version and against the exact path.  A
+    flag may differ from the plain version's where a margin sits on the
+    limit (at most one row in a thousand); a code may differ only on a row
+    the kernel flagged; the wrapper's codes equal the exact path's."""
+    codes, flags = pq_encode_verify_flags(codebooks, x, dtype=torch.int32)
+    want_codes, want_flags = ops.pq_encode_verify_reference(codebooks, x, dtype=torch.int32)
+    oracle = primitives.quantize_batch(codebooks, x, dtype=torch.int32)
+    fixed = ops.pq_encode_verified(codebooks, x, dtype=torch.int32)
+    torch.cuda.synchronize()
+    n = x.shape[0]
+    differ = (codes != want_codes).any(dim=1)
+    n_codes, n_flags = int((codes != want_codes).sum()), int((flags != want_flags).sum())
+    require(not bool((differ & (flags == 0)).any()), "encode_verify: a code differs on an unflagged row")
+    require(n_flags <= max(2, n // 1000), f"encode_verify: {n_flags} of {n} flags differ")
+    n_wrong = int((fixed != oracle).sum())
+    require(n_wrong == 0, f"encode_verify: {n_wrong} codes differ from the exact path")
+    return {"n_mismatch": n_codes, "n_mismatch_flags": n_flags, "flagged": int(flags.sum()),
+            "n_mismatch_exact": n_wrong, "max_abs_err": 0.0}
+
+
+def compare_stats_verify(codebooks, x):
+    """Verify kernel against plain version, against itself and against the
+    exact path.  Two launches give the same bits; codes and flags as for the
+    encode; the kernel's counts are those of its codes; the wrapper's counts
+    equal the exact path's in every cell and its sums are within rtol 1e-5
+    plus atol 1e-4 * max|sums| (f32 sums taken in another order)."""
+    n = x.shape[0]
+    k = codebooks.shape[1]
+    sums, counts, codes, flags = pq_assign_stats_verify_flags(codebooks, x)
+    again = pq_assign_stats_verify_flags(codebooks, x)
+    _, _, want_codes, want_flags = ops.pq_assign_stats_verify_reference(codebooks, x)
+    got_sums, got_counts = ops.pq_assign_stats_verified(codebooks, x)
+    oracle = primitives.quantize_batch(codebooks, x, dtype=torch.int32)
+    want_sums, want_counts = stats_from_codes(oracle, x, k)
+    torch.cuda.synchronize()
+    require(all(bool(torch.equal(a, b)) for a, b in zip((sums, counts, codes, flags), again)),
+            "stats_verify: two launches on the same inputs differ")
+    differ = (codes != want_codes).any(dim=1)
+    n_codes, n_flags = int((codes != want_codes).sum()), int((flags != want_flags).sum())
+    require(not bool((differ & (flags == 0)).any()), "stats_verify: a code differs on an unflagged row")
+    require(n_flags <= max(2, n // 1000), f"stats_verify: {n_flags} of {n} flags differ")
+    require(bool(torch.equal(stats_from_codes(codes, x, k)[1], counts)),
+            "stats_verify: the kernel's counts are not those of its codes")
+    require(bool(torch.equal(got_counts, want_counts)), "stats_verify: counts differ from the exact path's")
+    err = (got_sums - want_sums).abs()
+    tol = 1e-5 * want_sums.abs() + 1e-4 * float(want_sums.abs().max())
+    n_bad = int((err > tol).sum())
+    require(n_bad == 0, f"stats_verify: {n_bad} sums beyond tolerance")
+    return {"n_mismatch": n_codes, "n_mismatch_flags": n_flags, "flagged": int(flags.sum()),
+            "rows_moved": int((codes != oracle).any(dim=1).sum()),
+            "max_abs_err": float(err.max()), "bit_equal_launches": True}
+
+
+def compare_packed_decode(codebooks, codes, packed, splits):
+    """Packed kernel bit-equal to its plain version (unpack, then gather) and
+    to the unpacked kernel on the unpacked codes."""
+    got = ops.pq_decode(codebooks, packed, splits=splits, packed=True)
+    want = ops.pq_decode_reference(codebooks, packed, splits=splits, packed=True)
+    unpacked = ops.pq_decode(codebooks, codes, splits=splits)
+    torch.cuda.synchronize()
+    n_mismatch = int((got != want).sum()) + int((got != unpacked).sum())
+    require(n_mismatch == 0, f"packed decode splits={splits}: {n_mismatch} elements differ")
+    return {"n_mismatch": n_mismatch, "max_abs_err": float((got - want).abs().max())}
+
+
+def compare_packed_adc(tables, codes, packed, splits):
+    """Packed kernel bit-equal to its plain version and to the unpacked
+    kernel on the unpacked codes (all add the m entries in the order j)."""
+    got = ops.adc_scores_kernel(tables, packed, splits=splits, packed=True)
+    want = ops.adc_scores_reference(tables, packed, splits=splits, packed=True)
+    unpacked = ops.adc_scores_kernel(tables, codes, splits=splits)
+    torch.cuda.synchronize()
+    n_mismatch = int((got != want).sum()) + int((got != unpacked).sum())
+    require(n_mismatch == 0, f"packed adc splits={splits}: {n_mismatch} scores differ")
+    return {"n_mismatch": n_mismatch, "max_abs_err": float((got - want).abs().max())}
+
+
+def compare_packed(codebooks, x, queries, shape):
+    """The four packed kernels at one width; rows for the kernels line."""
+    pq4 = Pq(codebooks=codebooks)
+    codes = pq4.quantize_batch(x, method="kernel-f32")
+    packed = ops.pack_u4_codes(codes)
+    tables = adc_tables(pq4, queries)
+    return [
+        {"kernel": name, "shape": shape, **res} for name, res in (
+            ("decode_u4_splits1", compare_packed_decode(codebooks, codes, packed, 1)),
+            ("decode_u4_splits3", compare_packed_decode(codebooks, codes, packed, 3)),
+            ("decode_int8_u4", compare_packed_decode(codebooks, codes, packed, "int8")),
+            ("adc_u4_splits2", compare_packed_adc(tables, codes, packed, 2)),
+            ("adc_int8_u4", compare_packed_adc(tables, codes, packed, "int8")),
+        )
+    ]
+
+
 def phase_kernels(pq, corpus, gen):
     """Each kernel against its plain version at n = 65,536 and one ragged n,
     at the flagship width and, for ADC / decode / encode / stats, at d=768,
-    m=24."""
+    m=24 (k=256; k=16 for the packed kernels at both widths)."""
     dev = corpus.device
     rows = []
     for n in (N_KERNELS, N_RAGGED):
@@ -216,8 +324,12 @@ def phase_kernels(pq, corpus, gen):
             ("adc_int8", compare_adc(tables, codes, "int8")),
             ("stats_f32", compare_stats(pq.codebooks, x, torch.float32)),
             ("stats_bf16", compare_stats(pq.codebooks, x, torch.bfloat16)),
+            ("encode_verify", compare_encode_verify(pq.codebooks, x)),
+            ("stats_verify", compare_stats_verify(pq.codebooks, x)),
         ):
             rows.append({"kernel": name, "shape": f"n={n} d={D} m={M} k={K}", **res})
+        rows += compare_packed(pq.codebooks[:, :K4].contiguous(), x, corpus[:16],
+                               f"n={n} d={D} m={M} k={K4}")
 
     m2, k2, ds2 = 24, 256, 32
     cb2 = torch.randn((m2, k2, ds2), generator=gen, device=dev)
@@ -230,6 +342,10 @@ def phase_kernels(pq, corpus, gen):
     rows.append({"kernel": "decode_splits3", "shape": shape2, **compare_decode(cb2, codes2, 3)})
     rows.append({"kernel": "stats_f32", "shape": shape2, **compare_stats(cb2, x2, torch.float32)})
     rows.append({"kernel": "stats_bf16", "shape": shape2, **compare_stats(cb2, x2, torch.bfloat16)})
+    rows.append({"kernel": "encode_verify", "shape": shape2, **compare_encode_verify(cb2, x2)})
+    rows.append({"kernel": "stats_verify", "shape": shape2, **compare_stats_verify(cb2, x2)})
+    rows += compare_packed(cb2[:, :K4].contiguous(), x2, x2[:16],
+                           f"n={N_KERNELS} d={m2 * ds2} m={m2} k={K4}")
     for nq in (16, 128):
         tables2 = adc_tables(pq2, x2[:nq])
         for splits in (2, "int8"):
@@ -254,6 +370,18 @@ def timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Milliseconds a call on the host clock, each call followed by a
+    synchronisation, mean of ``reps`` after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def phase_serve(pq, corpus):
@@ -365,6 +493,22 @@ class LossLog(logging.Handler):
             self.losses.append(float(record.args[1]))
 
 
+def logged_losses(train):
+    """Runs ``train()`` with the trainers' logger at INFO and returns its
+    result and the per-iteration losses it logged."""
+    log = LossLog()
+    logger = logging.getLogger("reductive_tpu")
+    level = logger.level
+    logger.addHandler(log)
+    logger.setLevel(logging.INFO)
+    try:
+        out = train()
+    finally:
+        logger.removeHandler(log)
+        logger.setLevel(level)
+    return out, log.losses
+
+
 def reconstruction_mse(pq, corpus):
     codes = pq.quantize_batch(corpus, method="kernel-f32")
     return float((pq.reconstruct_batch(codes, method="kernel") - corpus).pow(2).mean())
@@ -410,12 +554,7 @@ def phase_train(corpus):
 
     # The loss of every iteration (read from the trainer's log, which makes it
     # wait for the card), a checkpoint, and a resume from the reloaded file.
-    log = LossLog()
-    logger = logging.getLogger("reductive_tpu")
-    level = logger.level
-    logger.addHandler(log)
-    logger.setLevel(logging.INFO)
-    try:
+    def checkpoint_and_resume():
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "pq.npz")
             saved = train_pq_chunked(gen, corpus, M, BITS, n_it, checkpoint_every=2,
@@ -423,16 +562,15 @@ def phase_train(corpus):
             loaded = io.load(path)
             require(bool(torch.equal(loaded.codebooks, saved.codebooks)),
                     "train: the checkpoint does not hold the trained codebooks")
-            resumed = train_pq_chunked(gen, corpus, M, BITS, 1, initial_model=loaded)
-    finally:
-        logger.removeHandler(log)
-        logger.setLevel(level)
+            return train_pq_chunked(gen, corpus, M, BITS, 1, initial_model=loaded)
+
+    resumed, losses = logged_losses(checkpoint_and_resume)
     expected["stats_f32"] += n_it + 1
-    require(len(log.losses) == n_it + 1, f"train: {len(log.losses)} losses logged")
-    require(all(b <= a * (1 + 1e-6) for a, b in zip(log.losses, log.losses[1:])),
-            f"train: the f32 loss rose: {log.losses}")
+    require(len(losses) == n_it + 1, f"train: {len(losses)} losses logged")
+    require(all(b <= a * (1 + 1e-6) for a, b in zip(losses, losses[1:])),
+            f"train: the f32 loss rose: {losses}")
     require(bool(torch.isfinite(resumed.codebooks).all()), "train: resumed codebooks not finite")
-    out["pq_chunked_f32"]["losses_then_resumed"] = log.losses
+    out["pq_chunked_f32"]["losses_then_resumed"] = losses
 
     # Chunked OPQ, 2 alternations: per chunk one stats, one encode, one decode.
     n_alt, chunk = 2, 32768
@@ -482,13 +620,206 @@ def phase_train(corpus):
 
     emit("train", n=n, d=D, m=M, k=K, **out, launches=launches,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return launches, out
+
+
+# -- the exact path --------------------------------------------------------------
+
+
+def adversarial_corpus(codebooks, n, gen):
+    """Codebooks whose last centroid repeats the first, and ``n`` rows made on
+    the card in five blocks: exactly on the repeated centroid (an exact tie),
+    on the midpoint of a centroid pair (a tie up to rounding), zero, Gaussian
+    scaled by 1e-6, Gaussian scaled by 1e6."""
+    m, k, ds = codebooks.shape
+    cb = codebooks.clone()
+    cb[:, k - 1] = cb[:, 0]
+    fifth = n // 5
+    x = torch.randn((n, m, ds), generator=gen, device=cb.device)
+    sub = torch.arange(m, device=cb.device)[None, :]
+    x[:fifth] = cb[:, 0][None]
+    pick = torch.randint(0, k, (fifth, m), generator=gen, device=cb.device)
+    x[fifth:2 * fifth] = 0.5 * (cb[sub, pick] + cb[sub, (pick + 1) % k])
+    x[2 * fifth:3 * fifth] = 0.0
+    x[3 * fifth:4 * fifth] *= 1e-6
+    x[4 * fifth:] *= 1e6
+    return cb, x.reshape(n, m * ds)
+
+
+def exact_checks(name, codebooks, x, cap_frac=1 / 16):
+    """``pq_encode_verified`` against the exact path on every code, and
+    ``pq_assign_stats_verified`` against the exact path's counts in every
+    cell (sums: rtol 1e-5 plus atol 1e-4 * max|sums|); the flag rates and
+    what the kernel alone would have got wrong."""
+    n = x.shape[0]
+    k = codebooks.shape[1]
+    oracle = primitives.quantize_batch(codebooks, x, dtype=torch.int32)
+    got = ops.pq_encode_verified(codebooks, x, dtype=torch.int32, cap_frac=cap_frac)
+    n_wrong = int((got != oracle).sum())
+    require(n_wrong == 0, f"exact: {name}: {n_wrong} of {got.numel()} codes differ from the exact path")
+    del got
+    want_sums, want_counts = stats_from_codes(oracle, x, k)
+    sums, counts = ops.pq_assign_stats_verified(codebooks, x, cap_frac=cap_frac)
+    cells_off = int((counts != want_counts).sum())
+    require(cells_off == 0, f"exact: {name}: counts differ from the exact path's in {cells_off} cells")
+    err = (sums - want_sums).abs()
+    tol = 1e-5 * want_sums.abs() + 1e-4 * float(want_sums.abs().max())
+    require(not bool((err > tol).any()), f"exact: {name}: sums beyond tolerance")
+    codes, flags = pq_encode_verify_flags(codebooks, x, dtype=torch.int32)
+    _, wide = pq_encode_verify_flags(codebooks, x, dtype=torch.int32, rho=0.0,
+                                     escale=verify_scale(codebooks, 2.0 ** -14))
+    wrong_rows = (codes != oracle).any(dim=1)
+    require(not bool((wrong_rows & (flags == 0)).any()),
+            f"exact: {name}: the kernel's code differs from the exact path's on an unflagged row")
+    return {
+        "rows": n, "codes_compared": oracle.numel(), "code_mismatches": n_wrong,
+        "count_cells_off": cells_off, "max_abs_err_sums": float(err.max()),
+        "cap_frac": cap_frac, "flag_rate": float(flags.float().mean()),
+        "flag_rate_at_2^-14": float(wide.float().mean()),
+        "rows_the_kernel_alone_got_wrong": int(wrong_rows.sum()),
+    }
+
+
+def phase_exact(pq, corpus, train_out):
+    """The verified modes at full width: encode and statistics against the
+    exact f32 einsum path on the whole corpus and on an adversarial one, then
+    the chunked PQ and OPQ trainers with ``compute_dtype="verified"``."""
+    n = corpus.shape[0]
+    dev = corpus.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = {"gaussian": exact_checks("gaussian", pq.codebooks, corpus)}
+    cb_adv, x_adv = adversarial_corpus(pq.codebooks, N_PREFIX, gen)
+    # Most of these rows are flagged: cap_frac=1.0 keeps the gather-and-move
+    # route, cap_frac=1e-9 takes the everything-by-the-exact-path route.
+    out["adversarial"] = exact_checks("adversarial", cb_adv, x_adv, 1.0)
+    out["adversarial_cap_1e-9"] = exact_checks("adversarial cap_frac=1e-9", cb_adv, x_adv, 1e-9)
+    del cb_adv, x_adv
+
+    n_it = 4
+    state = gen.get_state()
+    trained, seconds = timed(
+        lambda: train_pq_chunked(gen, corpus, M, BITS, n_it, compute_dtype="verified"))
+    gen.set_state(state)
+    init_codebooks_random(corpus, gen, K, DS)
+    initial = Pq(codebooks=init_codebooks_random(corpus, gen, K, DS))
+    _, losses = logged_losses(
+        lambda: train_pq_chunked(gen, corpus, M, BITS, n_it, compute_dtype="verified"))
+    require(len(losses) == n_it and all(b <= a * (1 + 1e-6) for a, b in zip(losses, losses[1:])),
+            f"exact: the verified loss rose: {losses}")
+    out["pq_chunked_verified"] = {
+        **require_trained("pq_chunked_verified", trained, initial, corpus),
+        "seconds_per_iteration": seconds / n_it, "rows_per_s": n_it * n / seconds,
+        "seconds_per_iteration_f32": train_out["pq_chunked_f32"]["seconds_per_iteration"],
+        "losses": losses,
+    }
+
+    state = gen.get_state()
+    opq, seconds = timed(
+        lambda: train_opq_chunked(gen, corpus, M, BITS, 1, compute_dtype="verified"))
+    gen.set_state(state)
+    projection0 = create_projection_matrix(corpus, M)
+    init_codebooks_random(corpus, gen, K, DS, projection0)
+    initial = Pq(codebooks=init_codebooks_random(corpus, gen, K, DS, projection0),
+                 projection=projection0)
+    ortho_err = float((opq.projection.T @ opq.projection - torch.eye(D, device=dev)).abs().max())
+    require(ortho_err <= 1e-4, f"exact: OPQ projection is {ortho_err} off orthonormal")
+    out["opq_chunked_verified"] = {
+        **require_trained("opq_chunked_verified", opq, initial, corpus),
+        "seconds_per_iteration": seconds, "rows_per_s": n / seconds,
+        "seconds_per_iteration_f32": train_out["opq_chunked_f32"]["seconds_per_iteration"],
+        "orthonormal_err": ortho_err,
+    }
+    launches = ops.launch_counts()
+    require(launches.get("stats_verify", 0) > 0 and launches.get("encode_verify", 0) > 0,
+            f"exact: the verified kernels were not launched: {launches}")
+
+    # What one chunk of the OPQ loop pays for the exact mode: the wrappers wait
+    # for the card (``nonzero``) and run a dozen small tensor operations on the
+    # flagged rows, where the f32 calls only launch.  Host clock, synchronised.
+    part = corpus[:32768]
+    out["opq_chunk_32768_host_ms"] = {
+        "stats_verified": host_ms(lambda: ops.pq_assign_stats_verified(pq.codebooks, part)),
+        "stats_verify_kernel_alone": host_ms(lambda: pq_assign_stats_verify_flags(pq.codebooks, part)),
+        "stats_f32": host_ms(lambda: ops.pq_assign_stats(pq.codebooks, part)),
+        "encode_verified": host_ms(lambda: ops.pq_encode_verified(pq.codebooks, part, dtype=torch.int32)),
+        "encode_verify_kernel_alone": host_ms(
+            lambda: pq_encode_verify_flags(pq.codebooks, part, dtype=torch.int32)),
+        "encode_f32": host_ms(
+            lambda: ops.pq_encode(pq.codebooks, part, dtype=torch.int32, compute_dtype=torch.float32)),
+        "flagged_rows": int(pq_encode_verify_flags(pq.codebooks, part)[1].sum()),
+    }
+    emit("exact", n=n, d=D, m=M, k=K, **out, launches=launches,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
     return launches
 
 
-def kernel_table(pq, corpus, codes, launches):
+# -- the packed path --------------------------------------------------------------
+
+
+def phase_packed(corpus, gen):
+    """4-bit codes at d=128, m=16, k=16, ds=8: encode with the kernel, pack two
+    codes a byte, decode and search the packed corpus, and hold every result
+    against the unpacked one: bit-equal reconstructions, equal indices and
+    scores."""
+    n = corpus.shape[0]
+    pq4 = Pq(codebooks=torch.randn((M, K4, DS), generator=gen, device=corpus.device))
+    q16, q128 = corpus[:16], corpus[1000:1128]
+    ops.reset_launch_counts()
+    codes, t_enc = timed(lambda: pq4.quantize_batch(corpus, method="kernel"))
+    packed, t_pack = timed(lambda: ops.pack_u4_codes(codes))
+    require(packed.shape == (n, M // 2) and packed.dtype == torch.uint8, "packed: shape/dtype")
+    require(bool(torch.equal(ops.unpack_u4_codes(packed), codes)), "packed: unpack(pack) differs")
+
+    times = {}
+    for splits, name in ((3, "decode"), (1, "decode_fast"), ("int8", "decode_int8")):
+        rec_u, t_u = timed(lambda: ops.pq_decode(pq4.codebooks, codes, splits=splits))
+        rec_p, t_p = timed(lambda: ops.pq_decode(pq4.codebooks, packed, splits=splits, packed=True))
+        require(bool(torch.equal(rec_p, rec_u)), f"packed: {name} is not bit-equal to the unpacked decode")
+        times[f"{name}_rows_per_s"] = {"packed": n / t_p, "unpacked": n / t_u}
+        if splits == 3:
+            mse = float((rec_p - corpus).pow(2).mean())
+            require(mse == mse and mse < 2.0, f"packed: reconstruction error {mse}")
+        del rec_u, rec_p
+
+    searches = {}
+    peak = {}
+    for label, q, kwargs in (
+        ("16q", q16, {}), ("16q_streamed", q16, {"stream_chunk": 1 << 20}), ("128q", q128, {}),
+        ("16q_int8", q16, {"splits": "int8"}), ("128q_int8", q128, {"splits": "int8"}),
+        ("16q_refine", q16, {"refine_with": corpus}),
+    ):
+        torch.cuda.reset_peak_memory_stats()
+        (du, iu), t_u = timed(lambda: search(pq4, q, codes, TOP_K, method="kernel", **kwargs))
+        peak_u = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (dp, ip), t_p = timed(lambda: search(pq4, q, packed, TOP_K, packed=True, **kwargs))
+        peak_p = torch.cuda.max_memory_allocated()
+        require(bool(torch.equal(ip, iu)) and bool(torch.equal(dp, du)),
+                f"packed: search {label} differs from the unpacked search")
+        require(dp.shape == (q.shape[0], TOP_K) and bool(torch.isfinite(dp).all())
+                and bool(((ip >= 0) & (ip < n)).all()), f"packed: search {label} result")
+        searches[label] = {"packed_s": t_p, "unpacked_s": t_u,
+                           "packed_pairs_per_s": q.shape[0] * n / t_p,
+                           "unpacked_pairs_per_s": q.shape[0] * n / t_u}
+        peak[label] = {"packed": peak_p, "unpacked": peak_u}
+    launches = ops.launch_counts()
+    for name in PACKED_KERNELS:
+        require(launches.get(name, 0) > 0, f"packed: kernel {name} was never launched")
+    emit("packed", n=n, d=D, m=M, k=K4, bytes_per_row={"packed": M // 2, "unpacked": M},
+         encode_rows_per_s=n / t_enc, pack_rows_per_s=n / t_pack, mse=mse, **times,
+         search=searches, peak_memory_bytes=peak, launches=launches)
+    return pq4, codes, packed, launches
+
+
+def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
     """Each kernel at the shape the main paths give it (n = 4,000,000 rows;
-    ADC with 16 queries, the dense search): time, plain version's time, one
-    library call's time, and the bound."""
+    ADC with 16 queries, the dense search; k=16 for the packed kernels): time,
+    plain version's time, one library call's time, and the bound.  For the
+    verified kernels ``ms`` is the whole wrapper (kernel, ``nonzero``, exact
+    re-encode of the flagged rows) and ``kernel_ms`` the kernel alone; their
+    library call is the exact path itself."""
     cb = pq.codebooks
     n = corpus.shape[0]
     nq = 16
@@ -516,6 +847,17 @@ def kernel_table(pq, corpus, codes, launches):
         cells = (library_encode() + torch.arange(M, device=corpus.device)[None, :] * K).reshape(-1)
         sums = torch.zeros((M * K, DS), device=corpus.device)
         return sums.index_add_(0, cells, corpus.reshape(-1, DS))
+
+    def library_exact_stats():
+        return stats_from_codes(primitives.quantize_batch(cb, corpus, dtype=torch.int32), corpus, K)
+
+    cb4 = pq4.codebooks
+    tables4 = adc_tables(pq4, corpus[:nq])
+    cb4_bytes = 4 * M * K4 * DS
+    dec4_bytes = n * M // 2 + cb4_bytes + 4 * n * D
+    adc4_bytes = 4 * nq * M * K4 + n * M // 2 + 4 * nq * n
+    idx4_flat = codes4.to(torch.int64) + torch.arange(M, device=codes.device)[None, :] * K4
+    tables4_t = tables4.reshape(nq, M * K4).T.contiguous()
 
     f32, bf16 = torch.float32, torch.bfloat16
     stats_bytes = 4 * n * D + cb_bytes + 4 * M * K * (DS + 1)
@@ -548,11 +890,39 @@ def kernel_table(pq, corpus, codes, launches):
         ("stats_bf16", lambda: ops.pq_assign_stats(cb, corpus, compute_dtype=bf16),
          lambda: ops.pq_assign_stats_reference(cb, corpus, compute_dtype=bf16), None,
          lambda: compare_stats(cb, corpus, bf16), bound(stats_bytes, enc_ops, "bf16")),
+        ("encode_verify", lambda: ops.pq_encode_verified(cb, corpus),
+         lambda: ops.pq_encode_verify_reference(cb, corpus),
+         lambda: primitives.quantize_batch(cb, corpus),
+         lambda: compare_encode_verify(cb, corpus), bound(enc_bytes + 4 * n, enc_ops, "f32"),
+         lambda: pq_encode_verify_flags(cb, corpus)),
+        ("stats_verify", lambda: ops.pq_assign_stats_verified(cb, corpus),
+         lambda: ops.pq_assign_stats_verify_reference(cb, corpus), library_exact_stats,
+         lambda: compare_stats_verify(cb, corpus),
+         bound(stats_bytes + 4 * n + 4 * n * M, enc_ops, "f32"),
+         lambda: pq_assign_stats_verify_flags(cb, corpus)),
+        ("decode_u4", lambda: ops.pq_decode(cb4, packed4, splits=3, packed=True),
+         lambda: ops.pq_decode_reference(cb4, packed4, splits=3, packed=True),
+         lambda: torch.nn.functional.embedding(idx4_flat, cb4.reshape(M * K4, DS)),
+         lambda: compare_packed_decode(cb4, codes4, packed4, 3), bound(dec4_bytes, 0, "f32")),
+        ("decode_int8_u4", lambda: ops.pq_decode(cb4, packed4, splits="int8", packed=True),
+         lambda: ops.pq_decode_reference(cb4, packed4, splits="int8", packed=True), None,
+         lambda: compare_packed_decode(cb4, codes4, packed4, "int8"),
+         bound(dec4_bytes, n * D, "f32")),
+        ("adc_u4", lambda: ops.adc_scores_kernel(tables4, packed4, splits=2, packed=True),
+         lambda: ops.adc_scores_reference(tables4, packed4, splits=2, packed=True),
+         lambda: torch.nn.functional.embedding_bag(idx4_flat, tables4_t, mode="sum"),
+         lambda: compare_packed_adc(tables4, codes4, packed4, 2),
+         bound(adc4_bytes, nq * n * M, "f32")),
+        ("adc_int8_u4", lambda: ops.adc_scores_kernel(tables4, packed4, splits="int8", packed=True),
+         lambda: ops.adc_scores_reference(tables4, packed4, splits="int8", packed=True), None,
+         lambda: compare_packed_adc(tables4, codes4, packed4, "int8"),
+         bound(adc4_bytes, nq * n * M, "int8")),
     ]
     rows = []
-    for name, kernel, plain, library, compare, (bound_ms, bound_by) in specs:
+    for name, kernel, plain, library, compare, (bound_ms, bound_by), *alone in specs:
         res = compare()
         source, replaces = KERNELS[name]
+        k_here = K4 if name.endswith("_u4") else K
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": res["max_abs_err"],
@@ -560,7 +930,9 @@ def kernel_table(pq, corpus, codes, launches):
             "ms": time_ms(kernel), "plain_ms": time_ms(plain, 3),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None if library is None else time_ms(library, 3),
-            "shape": f"n={n} d={D} m={M} k={K}" + (f" nq={nq}" if name.startswith("adc") else ""),
+            "shape": f"n={n} d={D} m={M} k={k_here}" + (f" nq={nq}" if name.startswith("adc") else ""),
+            **({"kernel_ms": time_ms(alone[0])} if alone else {}),
+            **{key: res[key] for key in ("n_mismatch_flags", "flagged", "rows_moved") if key in res},
         })
         torch.cuda.empty_cache()
     return rows
@@ -590,12 +962,19 @@ def main() -> int:
 
     phase_kernels(pq, corpus, gen)
     codes, serve_launches = phase_serve(pq, corpus)
-    train_launches = phase_train(corpus)
+    train_launches, train_out = phase_train(corpus)
     for name in ("stats_f32", "stats_bf16", "encode_f32", "decode"):
         require(train_launches.get(name, 0) > 0, f"train: kernel {name} was never launched")
-    # Launches of each kernel on the two main paths together.
-    launches = collections.Counter(serve_launches) + collections.Counter(train_launches)
-    rows = kernel_table(pq, corpus, codes, launches)
+    exact_launches = phase_exact(pq, corpus, train_out)
+    pq4, codes4, packed4, packed_launches = phase_packed(corpus, gen)
+    # Launches of each kernel on the main paths together; every count was set
+    # to 0 just before its path was driven and read just after.
+    launches = collections.Counter()
+    for counts in (serve_launches, train_launches, exact_launches, packed_launches):
+        launches.update(counts)
+    for name in KERNELS:
+        require(launches[name] > 0, f"kernel {name} was launched on no path")
+    rows = kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -29,6 +29,21 @@
 //   rising order and keeps the first maximum; the four threads that share a
 //   row then take the larger value and, on a tie, the lower index.
 
+//
+// * verified (encode_f32_kernel with VERIFY; replaces the TPU kernel
+//   reductive_tpu/ops/assign.py::_encode_verify_kernel): the f32 kernel, where
+//   each thread also carries the best distance over all OTHER indices (a
+//   duplicate of the best counts, so an exact tie has margin 0) and the squared
+//   norm of its subvector.  A (row, subquantizer) is flagged when
+//       second - best <= 2 * escale[j] * |x_j| + rho * |best|,
+//   and a row's flag is the OR over its subquantizers, joined across the m
+//   blocks that share the row by an integer atomicOr on a zeroed array (the
+//   same bits on every launch).  The wrapper chooses escale and rho so that
+//   every unflagged row provably has the exact path's code (see
+//   ops/assign.py); it re-encodes the flagged rows with the exact path.  Two
+//   more operations per score (a max and a min) beside the compare and the
+//   selects; the bound is the f32 kernel's plus 4*n bytes of flags.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,11 +53,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kCentroidTile = 256;
 
-template <int DS, int R, typename OutT>
+template <int DS, int R, typename OutT, bool VERIFY>
 __global__ void __launch_bounds__(kThreads)
 encode_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
-              const float* __restrict__ csqn, OutT* __restrict__ codes,
-              long long n, int m, int k) {
+                  const float* __restrict__ csqn, OutT* __restrict__ codes,
+                  const float* __restrict__ escale, float rho, int* __restrict__ flags,
+                  long long n, int m, int k) {
   __shared__ __align__(16) float s_c[kCentroidTile * DS];
   __shared__ float s_n[kCentroidTile];
 
@@ -54,11 +70,13 @@ encode_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
 
   float xr[R][DS];
   float best[R];
+  float second[R];  // VERIFY: the least distance over all indices but best_idx
   int best_idx[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const long long row = row_base + (long long)r * kThreads;
     best[r] = __int_as_float(0x7f800000);  // +inf
+    second[r] = __int_as_float(0x7f800000);
     best_idx[r] = 0;
     if (row < n) {
       const float4* p = reinterpret_cast<const float4*>(x + row * d + (long long)j * DS);
@@ -101,6 +119,8 @@ encode_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
 #pragma unroll
         for (int t = 0; t < DS; ++t) s = fmaf(xr[r][t], cv[t], s);
         const float dist = nn - s;  // cb2 holds 2c: s is the doubled cross term
+        // The loser of (dist, best) is a candidate for second place.
+        if constexpr (VERIFY) second[r] = fminf(second[r], fmaxf(dist, best[r]));
         if (dist < best[r]) {
           best[r] = dist;
           best_idx[r] = k0 + c;
@@ -112,7 +132,17 @@ encode_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const long long row = row_base + (long long)r * kThreads;
-    if (row < n) codes[row * m + j] = (OutT)best_idx[r];
+    if (row < n) {
+      codes[row * m + j] = (OutT)best_idx[r];
+      if constexpr (VERIFY) {
+        float xn2 = 0.0f;
+#pragma unroll
+        for (int t = 0; t < DS; ++t) xn2 = fmaf(xr[r][t], xr[r][t], xn2);
+        const float margin = second[r] - best[r];  // +inf with k = 1; NaN flags
+        const float limit = 2.0f * escale[j] * sqrtf(xn2) + rho * fabsf(best[r]);
+        if (!(margin > limit)) atomicOr(flags + row, 1);
+      }
+    }
   }
 }
 
@@ -235,6 +265,22 @@ encode_bf16_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
 }
 
 template <int DS, int R>
+cudaError_t launch_verify(const float* x, const float* cb2, const float* csqn, void* codes,
+                          const float* escale, float rho, int* flags, long long n, int m, int k,
+                          int out_u8, cudaStream_t stream) {
+  const long long rows_per_block = (long long)kThreads * R;
+  const long long blocks = (n + rows_per_block - 1) / rows_per_block * m;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (out_u8)
+    encode_f32_kernel<DS, R, uint8_t, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        x, cb2, csqn, (uint8_t*)codes, escale, rho, flags, n, m, k);
+  else
+    encode_f32_kernel<DS, R, int32_t, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        x, cb2, csqn, (int32_t*)codes, escale, rho, flags, n, m, k);
+  return cudaGetLastError();
+}
+
+template <int DS, int R>
 cudaError_t launch(const float* x, const float* cb2, const float* csqn, void* codes,
                    long long n, int m, int k, int bf16, int out_u8, cudaStream_t stream) {
   const long long rows_per_block = bf16 ? kRowsPerBlock : (long long)kThreads * R;
@@ -249,9 +295,11 @@ cudaError_t launch(const float* x, const float* cb2, const float* csqn, void* co
       encode_bf16_kernel<DS, int32_t><<<grid, block, 0, stream>>>(x, cb2, csqn, (int32_t*)codes, n, m, k);
   } else {
     if (out_u8)
-      encode_f32_kernel<DS, R, uint8_t><<<grid, block, 0, stream>>>(x, cb2, csqn, (uint8_t*)codes, n, m, k);
+      encode_f32_kernel<DS, R, uint8_t, false><<<grid, block, 0, stream>>>(
+          x, cb2, csqn, (uint8_t*)codes, nullptr, 0.0f, nullptr, n, m, k);
     else
-      encode_f32_kernel<DS, R, int32_t><<<grid, block, 0, stream>>>(x, cb2, csqn, (int32_t*)codes, n, m, k);
+      encode_f32_kernel<DS, R, int32_t, false><<<grid, block, 0, stream>>>(
+          x, cb2, csqn, (int32_t*)codes, nullptr, 0.0f, nullptr, n, m, k);
   }
   return cudaGetLastError();
 }
@@ -275,6 +323,30 @@ extern "C" int rt_encode(const void* x, const void* cb2, const void* csqn, void*
     case 8: return (int)launch<8, 4>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
     case 16: return (int)launch<16, 2>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
     case 32: return (int)launch<32, 1>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
+    default: return -1;
+  }
+}
+
+// As rt_encode in f32 mode, with the verification flags: escale (m,) f32 and
+// rho set the margin below which a (row, subquantizer) is flagged (see the
+// head of this file); flags (n,) int32, zeroed by the caller, receives 1 for a
+// row with any flagged subquantizer.
+extern "C" int rt_encode_verify(const void* x, const void* cb2, const void* csqn, void* codes,
+                                const void* escale, float rho, void* flags, long long n, int m,
+                                int k, int ds, int out_u8, void* stream) {
+  if (n <= 0) return 0;
+  if (m <= 0 || k <= 0) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xf = (const float*)x;
+  const float* cf = (const float*)cb2;
+  const float* nf = (const float*)csqn;
+  const float* ef = (const float*)escale;
+  int* fl = (int*)flags;
+  switch (ds) {
+    case 4: return (int)launch_verify<4, 4>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
+    case 8: return (int)launch_verify<8, 4>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
+    case 16: return (int)launch_verify<16, 2>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
+    case 32: return (int)launch_verify<32, 1>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
     default: return -1;
   }
 }

@@ -33,6 +33,16 @@
 // In bf16 mode the sums are of the bf16-rounded x (accumulated in f32), as in
 // the TPU kernel, where one rounded copy of x feeds both products.
 //
+// Verified mode (stats_f32_kernel with VERIFY; replaces the TPU kernel
+// reductive_tpu/ops/stats.py::_stats_verify_kernel): the f32 mode, whose
+// assignment also carries the best distance over all other indices and flags a
+// (row, subquantizer) whose top-2 margin is within the bound the wrapper sets,
+// exactly as csrc/encode.cu does; it writes the chosen codes (n, m) int32 and
+// the rows' flags (integer atomicOr on a zeroed array) beside the statistics,
+// so that the wrapper can re-encode the flagged rows with the exact path and
+// move a changed row between cells.  The accumulation, the slots and the
+// reduction are the f32 mode's: two launches still give the same bits.
+//
 // What bounds it on an H100: f32 mode, the 2*n*m*k*ds operations of the
 // assignment on the fp32 pipes; bf16 mode, the bytes of x.  The accumulation
 // adds, per tile and thread, one pass over the tile's codes in shared memory
@@ -121,11 +131,12 @@ __device__ __forceinline__ void write_slot(float* __restrict__ slot, int k,
 
 // ---- f32 mode ---------------------------------------------------------------
 
-template <int DS, int R>
+template <int DS, int R, bool VERIFY>
 __global__ void __launch_bounds__(kThreads)
 stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
                  const float* __restrict__ csqn, float* __restrict__ partial,
-                 long long n, int m, int k, int P) {
+                 const float* __restrict__ escale, float rho, int* __restrict__ codes_out,
+                 int* __restrict__ flags, long long n, int m, int k, int P) {
   constexpr int kTile = kThreads * R;
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_x = reinterpret_cast<float*>(smem);  // [kTile][DS]
@@ -155,12 +166,14 @@ stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
     const long long row_base = tile * kTile + threadIdx.x;
     float xr[R][DS];
     float best[R];
+    float second[R];  // VERIFY: the least distance over all indices but best_idx
     int best_idx[R];
     __syncthreads();  // the previous tile's scan has ended: s_x and s_code are free
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const long long row = row_base + (long long)r * kThreads;
       best[r] = __int_as_float(0x7f800000);  // +inf
+      second[r] = __int_as_float(0x7f800000);
       best_idx[r] = 0;
       float4* sx = reinterpret_cast<float4*>(s_x + (r * kThreads + threadIdx.x) * DS);
       const float4* q = reinterpret_cast<const float4*>(x + row * d + (long long)j * DS);
@@ -201,6 +214,8 @@ stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
 #pragma unroll
           for (int t = 0; t < DS; ++t) s = fmaf(xr[r][t], cv[t], s);
           const float dist = nn - s;  // cb2 holds 2c: s is the doubled cross term
+          // The loser of (dist, best) is a candidate for second place.
+          if constexpr (VERIFY) second[r] = fminf(second[r], fmaxf(dist, best[r]));
           if (dist < best[r]) {
             best[r] = dist;
             best_idx[r] = k0 + c;
@@ -213,6 +228,17 @@ stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
     for (int r = 0; r < R; ++r) {
       const long long row = row_base + (long long)r * kThreads;
       s_code[r * kThreads + threadIdx.x] = row < n ? best_idx[r] : -1;
+      if constexpr (VERIFY) {
+        if (row < n) {
+          codes_out[row * m + j] = best_idx[r];
+          float xn2 = 0.0f;
+#pragma unroll
+          for (int t = 0; t < DS; ++t) xn2 = fmaf(xr[r][t], xr[r][t], xn2);
+          const float margin = second[r] - best[r];  // +inf with k = 1; NaN flags
+          const float limit = 2.0f * escale[j] * sqrtf(xn2) + rho * fabsf(best[r]);
+          if (!(margin > limit)) atomicOr(flags + row, 1);
+        }
+      }
     }
     __syncthreads();
     accumulate_tile<DS>(s_x, s_code, kTile, k, one, slot, acc, cnt);
@@ -385,16 +411,18 @@ stats_reduce_kernel(const float* __restrict__ partial, float* __restrict__ sums,
   }
 }
 
+// mode: 0 f32, 1 bf16, 2 verified (f32 with escale, rho, codes_out and flags).
 template <int DS, int R>
 cudaError_t launch(const float* x, const float* cb2, const float* csqn, float* partial,
-                   float* sums, float* counts, long long n, int m, int k, int bf16, int P,
+                   float* sums, float* counts, const float* escale, float rho, int* codes_out,
+                   int* flags, long long n, int m, int k, int mode, int P,
                    cudaStream_t stream) {
   const long long blocks = (long long)P * m;
   const long long cells = (long long)m * k;
   const long long reduce_blocks = (cells * (DS + 1) + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL || reduce_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaError_t err;
-  if (bf16) {
+  if (mode == 1) {
     constexpr int DSP = (DS + 7) / 8 * 8;
     const int bytes = 4 * (kRowsPerBlock * DS + kCentroidTile + kRowsPerBlock) +
                       2 * kCentroidTile * DSP;
@@ -406,17 +434,40 @@ cudaError_t launch(const float* x, const float* cb2, const float* csqn, float* p
   } else {
     constexpr int kTile = kThreads * R;
     const int bytes = 4 * (kTile * DS + kCentroidTile * DS + kCentroidTile + kTile);
-    err = cudaFuncSetAttribute(stats_f32_kernel<DS, R>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    auto kern = mode == 2 ? stats_f32_kernel<DS, R, true> : stats_f32_kernel<DS, R, false>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    stats_f32_kernel<DS, R><<<(unsigned)blocks, kThreads, bytes, stream>>>(x, cb2, csqn, partial,
-                                                                           n, m, k, P);
+    kern<<<(unsigned)blocks, kThreads, bytes, stream>>>(x, cb2, csqn, partial, escale, rho,
+                                                        codes_out, flags, n, m, k, P);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   stats_reduce_kernel<<<(unsigned)reduce_blocks, kThreads, 0, stream>>>(partial, sums, counts, cells,
                                                                       DS, P);
   return cudaGetLastError();
+}
+
+int assign_stats(const void* x, const void* cb2, const void* csqn, void* partial, void* sums,
+                 void* counts, const void* escale, float rho, void* codes, void* flags,
+                 long long n, int m, int k, int ds, int mode, int P, void* stream) {
+  if (n <= 0 || m <= 0 || k <= 0 || P <= 0) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xf = (const float*)x;
+  const float* cf = (const float*)cb2;
+  const float* nf = (const float*)csqn;
+  const float* ef = (const float*)escale;
+  float* pf = (float*)partial;
+  float* sf = (float*)sums;
+  float* tf = (float*)counts;
+  int* co = (int*)codes;
+  int* fl = (int*)flags;
+  switch (ds) {
+    case 4: return (int)launch<4, 4>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
+    case 8: return (int)launch<8, 4>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
+    case 16: return (int)launch<16, 2>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
+    case 32: return (int)launch<32, 1>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -428,19 +479,20 @@ cudaError_t launch(const float* x, const float* cb2, const float* csqn, float* p
 extern "C" int rt_assign_stats(const void* x, const void* cb2, const void* csqn, void* partial,
                                void* sums, void* counts, long long n, int m, int k, int ds,
                                int bf16, int P, void* stream) {
-  if (n <= 0 || m <= 0 || k <= 0 || P <= 0) return -1;
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* xf = (const float*)x;
-  const float* cf = (const float*)cb2;
-  const float* nf = (const float*)csqn;
-  float* pf = (float*)partial;
-  float* sf = (float*)sums;
-  float* tf = (float*)counts;
-  switch (ds) {
-    case 4: return (int)launch<4, 4>(xf, cf, nf, pf, sf, tf, n, m, k, bf16, P, s);
-    case 8: return (int)launch<8, 4>(xf, cf, nf, pf, sf, tf, n, m, k, bf16, P, s);
-    case 16: return (int)launch<16, 2>(xf, cf, nf, pf, sf, tf, n, m, k, bf16, P, s);
-    case 32: return (int)launch<32, 1>(xf, cf, nf, pf, sf, tf, n, m, k, bf16, P, s);
-    default: return -1;
-  }
+  return assign_stats(x, cb2, csqn, partial, sums, counts, nullptr, 0.0f, nullptr, nullptr, n, m,
+                      k, ds, bf16 ? 1 : 0, P, stream);
+}
+
+// As rt_assign_stats in f32 mode, with the verification outputs: escale (m,)
+// f32 and rho set the margin below which a (row, subquantizer) is flagged (see
+// csrc/encode.cu); codes (n, m) int32 receives the chosen codes; flags (n,)
+// int32, zeroed by the caller, receives 1 for a row with any flagged
+// subquantizer.
+extern "C" int rt_assign_stats_verify(const void* x, const void* cb2, const void* csqn,
+                                      void* partial, void* sums, void* counts,
+                                      const void* escale, float rho, void* codes, void* flags,
+                                      long long n, int m, int k, int ds, int P, void* stream) {
+  if (escale == nullptr || codes == nullptr || flags == nullptr) return -1;
+  return assign_stats(x, cb2, csqn, partial, sums, counts, escale, rho, codes, flags, n, m, k, ds,
+                      2, P, stream);
 }

@@ -333,6 +333,8 @@ def kmeans_with_centroids_chunked(
     view of the fused assign+statistics machinery of
     :mod:`reductive_tpu_torch.pq.train`.  Same semantics as
     :func:`kmeans_with_centroids` with :class:`NIterations`.
+    ``compute_dtype`` is ``torch.float32``, ``torch.bfloat16`` or
+    ``"verified"`` (cell memberships equal to the exact path's).
 
     ``use_kernel=None`` means the CUDA kernel when ``x`` lies on a GPU and
     the plain tensor route on the CPU.  The kernel takes ``d`` in 4, 8, 16,

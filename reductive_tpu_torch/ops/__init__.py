@@ -8,19 +8,32 @@ PyTorch version.
   f32 and int8 tables.
 * :mod:`~reductive_tpu_torch.ops.stats`: fused assign + per-centroid sums
   and counts, the Lloyd's iteration of the trainers.
+* :mod:`~reductive_tpu_torch.ops.packing`: two u4 codes a byte.
+
+``pq_encode_verified`` and ``pq_assign_stats_verified`` are the exact modes:
+results equal to the f32 einsum path on every code and cell.
 
 The kernels are compiled at first use (:mod:`~reductive_tpu_torch.ops._build`).
 """
 
 from ._build import build_all, launch_counts, reset_launch_counts
 from .adc import adc_scores_kernel, adc_scores_reference, max_query_batch
-from .assign import assign_nearest, pq_encode, pq_encode_reference
+from .assign import (
+    assign_nearest, pq_encode, pq_encode_reference, pq_encode_verified,
+    pq_encode_verify_reference,
+)
 from .decode import pq_decode, pq_decode_reference, split_bf16
-from .stats import pq_assign_stats, pq_assign_stats_reference
+from .packing import pack_u4_codes, unpack_u4_codes
+from .stats import (
+    pq_assign_stats, pq_assign_stats_reference, pq_assign_stats_verified,
+    pq_assign_stats_verify_reference,
+)
 
 __all__ = [
     "pq_encode",
     "pq_encode_reference",
+    "pq_encode_verified",
+    "pq_encode_verify_reference",
     "assign_nearest",
     "pq_decode",
     "pq_decode_reference",
@@ -30,6 +43,10 @@ __all__ = [
     "max_query_batch",
     "pq_assign_stats",
     "pq_assign_stats_reference",
+    "pq_assign_stats_verified",
+    "pq_assign_stats_verify_reference",
+    "pack_u4_codes",
+    "unpack_u4_codes",
     "build_all",
     "launch_counts",
     "reset_launch_counts",

@@ -12,6 +12,12 @@ over ``j`` is taken once, in the order ``j = 0..m-1``.  The difference is f32
 association, a few ulps of the score.  ``splits="int8"`` is the 8-bit table
 mode: one scale per query, per-table minima folded into an additive offset,
 int32 sum, ``score = float(sum) * scale[q] + offset[q]``.
+
+``packed=True`` takes packed-u4 codes (``(n, m/2)`` bytes from
+:func:`reductive_tpu_torch.ops.packing.pack_u4_codes`; ``k <= 16``, even
+``m``): the kernel takes both nibbles of each byte, low then high, so the
+sum keeps its order and the scores are bit-equal to the unpacked kernel's on
+the unpacked codes, at half the code bytes read and held.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ import torch
 from torch import Tensor
 
 from . import _build
-from .decode import _PACKED_MSG, effective_codebook
+from .decode import effective_codebook
+from .packing import check_packed, unpack_u4_codes
 
 __all__ = [
     "adc_scores_kernel", "adc_scores_reference", "quantize_tables_int8",
@@ -76,12 +83,12 @@ def quantize_tables_int8(tables: Tensor) -> tuple[Tensor, Tensor, Tensor]:
 
 
 def _check(tables: Tensor, codes: Tensor, packed: bool) -> None:
-    if packed:
-        raise NotImplementedError(_PACKED_MSG)
     if tables.ndim != 3:
         raise ValueError(f"tables must be (nq, m, k), got {tuple(tables.shape)}")
-    m = tables.shape[1]
-    if codes.ndim != 2 or codes.shape[1] != m:
+    _, m, k = tables.shape
+    if packed:
+        check_packed(m, k, codes)
+    elif codes.ndim != 2 or codes.shape[1] != m:
         raise ValueError(f"codes have shape {tuple(codes.shape)}, expected (n, {m})")
     if codes.dtype.is_floating_point or codes.dtype == torch.bool:
         raise TypeError(f"codes must be of an integer dtype, got {codes.dtype}")
@@ -102,8 +109,11 @@ def adc_scores_reference(
     tables: Tensor, codes: Tensor, *, splits: int | str = 2, packed: bool = False
 ) -> Tensor:
     """Plain PyTorch version of :func:`adc_scores_kernel`: the same
-    arithmetic, in the same order, in tensor operations."""
+    arithmetic, in the same order, in tensor operations.  Packed codes are
+    unpacked first."""
     _check(tables, codes, packed)
+    if packed:
+        codes = unpack_u4_codes(codes)
     tables = tables.to(torch.float32)
     if splits == "int8":
         t8, scale, offset = quantize_tables_int8(tables)
@@ -118,7 +128,8 @@ def adc_scores_kernel(
     """ADC scores for every (query, database vector) pair.
 
     ``tables`` is ``(nq, m, k)`` from :func:`reductive_tpu_torch.search.adc_tables`,
-    ``codes`` is ``(n, m)``; returns ``(nq, n)`` f32.  ``splits=3`` carries
+    ``codes`` is ``(n, m)``, or ``(n, m/2)`` packed-u4 bytes with
+    ``packed=True``; returns ``(nq, n)`` f32.  ``splits=3`` carries
     no table error, ``splits=2`` (default) about 2^-18 relative,
     ``splits=1`` about 2^-9, ``splits="int8"`` is the 8-bit table mode.
     CUDA tensors go through the kernel, which takes any ``nq`` up to
@@ -127,7 +138,7 @@ def adc_scores_kernel(
     """
     _check(tables, codes, packed)
     if not codes.is_cuda:
-        return adc_scores_reference(tables, codes, splits=splits)
+        return adc_scores_reference(tables, codes, splits=splits, packed=packed)
 
     nq, m, k = tables.shape
     n = codes.shape[0]
@@ -144,8 +155,9 @@ def adc_scores_kernel(
         raise ValueError("tables hold no query")
     tables = tables.to(torch.float32)
     if codes.dtype != torch.uint8:
-        codes = codes.to(torch.int32)
+        codes = codes.to(torch.uint8 if packed else torch.int32)
     codes = codes.contiguous()
+    suffix = "_u4" if packed else ""
     out = torch.empty((nq, n), dtype=torch.float32, device=codes.device)
     props = torch.cuda.get_device_properties(codes.device)
     row_blocks = max(1, min(-(-n // 1024), props.multi_processor_count))
@@ -154,15 +166,16 @@ def adc_scores_kernel(
         if splits == "int8":
             t8, scale, offset = quantize_tables_int8(tables)
             _build.launch(
-                "rt_adc_int8", "adc_int8",
+                "rt_adc_int8", "adc_int8" + suffix,
                 t8.data_ptr(), scale.data_ptr(), offset.data_ptr(), codes.data_ptr(),
-                codes.element_size(), out.data_ptr(), n, nq, m, k, qt, row_blocks, stream,
+                codes.element_size(), int(packed), out.data_ptr(), n, nq, m, k, qt, row_blocks, stream,
             )
         else:
             table = effective_codebook(tables, splits)
             _build.launch(
-                "rt_adc", "adc",
-                table.data_ptr(), codes.data_ptr(), codes.element_size(), out.data_ptr(),
+                "rt_adc", "adc" + suffix,
+                table.data_ptr(), codes.data_ptr(), codes.element_size(), int(packed),
+                out.data_ptr(),
                 n, nq, m, k, qt, row_blocks, stream,
             )
     return out

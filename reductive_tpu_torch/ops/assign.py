@@ -20,6 +20,49 @@ The minimum is the true ``(distance, index)`` minimum; the JAX kernel's
 packed sortable key, which coarsens ties, is not part of the contract.  The
 kernel and the plain version agree except where f32 summation order flips a
 near-tie.
+
+:func:`pq_encode_verified` removes that exception: its result **equals**
+:func:`reductive_tpu_torch.pq.primitives.quantize_batch` on every code.
+Counterpart of ``reductive_tpu.ops.assign.pq_encode_verified`` (TPU kernel
+``_encode_verify_kernel``).  The f32 kernel also reports, per row, whether
+any subquantizer's top-2 margin is small enough for rounding to have changed
+the argmin; those rows are encoded again by the exact path.
+
+The bound behind the flags
+--------------------------
+
+Fix a row's subvector ``x`` (``ds`` long) and a subquantizer with doubled
+centroids ``w_c = 2c`` and squared norms ``n_c`` (the same f32 numbers on
+both routes).  Both the kernel and the exact path compute
+``d_c = fl(n_c - s_c)`` where ``s_c`` is *some* f32 evaluation of the
+``ds``-term product ``w_c . x`` (the kernel: a chain of FMAs; the exact path:
+whatever order the matrix product takes), followed by one rounded
+subtraction.  With ``u = 2^-24``:
+
+* any order of summation, fused or not, gives
+  ``|s_c - w_c.x| <= g |w_c| |x|`` with ``g = ds u / (1 - ds u)``, so the two
+  routes' ``s_c`` differ by at most ``2B``, ``B = g max_c|w_c| |x|``;
+* the subtraction rounds each route's ``n_c - s_c`` by a relative ``u``.
+  That error scales with ``|d_c|`` (so with ``|c|^2``), not with ``|x|``: for
+  a tiny ``x`` it is far larger than ``B``, and it can turn distinct
+  distances into a tie that the first-index rule then resolves otherwise.
+
+Let ``a`` be the kernel's choice and ``D_c = dK_c - dK_a`` the kernel's gap to
+another index ``c`` (``D_c >=`` the kernel's margin).  Writing the exact
+path's distances ``dO`` through the kernel's:
+``dO_c - dO_a >= D_c (1 - 2^-23) - 4B (1 + u) - 2^-22 |dK_a| (1 + 2^-22)``
+(use ``|dK_c| <= |dK_a| + D_c``).  So whenever the kernel's margin exceeds
+``4B + 2^-22 |dK_a|`` by a hair, the exact path has ``dO_c > dO_a`` strictly
+for every other ``c`` and picks ``a`` too, ties included.  The kernel flags
+with twice that: ``margin <= 2 e_j |x_j| + rho |best|`` where
+``e_j = 4 ds 2^-24 max_c|2c_jc|`` and ``rho = 2^-21``; the factor two covers
+the f32 evaluation of ``|x_j|``, ``max|2c|`` and the limit itself.  ``x = 0``
+gives ``B = 0`` and both routes the same bits; an exact tie has margin 0 and
+is always flagged.  Underflow to subnormals is not covered.
+
+The JAX package's scale ``2^-14`` covers its three-pass bfloat16 split and its
+packed sortable key, which this port has neither of; ``ds = 8`` here gives
+``2^-19``.
 """
 
 from __future__ import annotations
@@ -27,13 +70,20 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from ..pq.primitives import check_code_dtype, nearest_centroids
+from ..pq.primitives import check_code_dtype, nearest_centroids, quantize_batch
 from . import _build
 
-__all__ = ["pq_encode", "pq_encode_reference", "assign_nearest"]
+__all__ = [
+    "pq_encode", "pq_encode_reference", "assign_nearest",
+    "pq_encode_verified", "pq_encode_verify_reference", "pq_encode_verify_flags",
+    "verify_scale", "VERIFY_RHO", "flagged_rows",
+]
 
 _KERNEL_DS = (4, 8, 16, 32)
 _KERNEL_MAX_K = 65536
+# Share of |best| in the flag limit: four roundings of the final subtraction
+# at 2^-24 relative each, twice over (see the module docstring).
+VERIFY_RHO = 2.0 ** -21
 
 
 def _prepare(codebooks: Tensor, x: Tensor, dtype, compute_dtype):
@@ -127,3 +177,127 @@ def assign_nearest(
     """Nearest-centroid assignment (the k-means assign step): PQ encode with
     a single subquantizer.  Returns ``(n,)`` int32."""
     return pq_encode(centroids[None, :, :], x, dtype=torch.int32, compute_dtype=compute_dtype)[:, 0]
+
+
+def verify_scale(codebooks: Tensor, scale: float | None = None) -> Tensor:
+    """``e_j = scale * max_c |2 c_jc|`` as ``(m,)`` f32: the flag limit's
+    share of ``|x_j|``.  ``scale=None`` is the sound choice for this port's
+    arithmetic, ``4 * ds * 2^-24`` (see the module docstring)."""
+    ds = codebooks.shape[2]
+    if scale is None:
+        scale = 4.0 * ds * 2.0 ** -24
+    cn = torch.sqrt(torch.einsum("mkd,mkd->mk", codebooks, codebooks))
+    return (scale * 2.0 * cn.amax(dim=1)).to(torch.float32).contiguous()
+
+
+def _verify_flags(dist: Tensor, xs: Tensor, escale: Tensor, rho: float):
+    """Codes ``(n, m)`` int64 and per-(row, subquantizer) flags from a
+    distance tensor ``(n, m, k)``: the first minimum, the least distance over
+    all other indices, and the margin test of the kernel."""
+    idx = torch.argmin(dist, dim=2)  # the first minimum
+    best = torch.gather(dist, 2, idx[:, :, None])[:, :, 0]
+    others = dist.scatter(2, idx[:, :, None], float("inf"))
+    margin = others.amin(dim=2) - best
+    xn = torch.sqrt(torch.sum(xs * xs, dim=2))
+    limit = 2.0 * escale[None, :] * xn + rho * best.abs()
+    return idx, ~(margin > limit)
+
+
+def pq_encode_verify_reference(
+    codebooks: Tensor, x: Tensor, *, dtype: torch.dtype = torch.uint8,
+    escale: Tensor | None = None, rho: float = VERIFY_RHO,
+) -> tuple[Tensor, Tensor]:
+    """Plain PyTorch version of the verify kernel: ``(codes (n, m) of dtype,
+    flags (n,) int32)``.  The f32 distances of :func:`pq_encode_reference`,
+    their first minimum, the least distance over all *other* indices (a
+    duplicate of the best counts) and the margin test.  ``escale`` defaults to
+    :func:`verify_scale`."""
+    cb2, c_sqn = _prepare(codebooks, x, dtype, torch.float32)
+    m, k, ds = codebooks.shape
+    if escale is None:
+        escale = verify_scale(codebooks)
+    n = x.shape[0]
+    codes = torch.empty((n, m), dtype=dtype, device=x.device)
+    flags = torch.empty((n,), dtype=torch.int32, device=x.device)
+    step = max(1, (1 << 24) // (m * k))
+    for i in range(0, n, step):
+        xs = x[i:i + step].reshape(-1, m, ds)
+        dist = c_sqn[None] - torch.einsum("nmd,mkd->nmk", xs, cb2)
+        idx, flagged = _verify_flags(dist, xs, escale, rho)
+        codes[i:i + step] = idx.to(dtype)
+        flags[i:i + step] = flagged.any(dim=1).to(torch.int32)
+    return codes, flags
+
+
+def flagged_rows(flags: Tensor, cap_frac: float) -> Tensor | None:
+    """Indices of the flagged rows (``torch.nonzero``: the host waits for the
+    device here), or ``None`` when more than ``cap_frac`` of the rows are
+    flagged and everything is to be computed by the exact path."""
+    idx = torch.nonzero(flags)[:, 0]
+    if idx.shape[0] > cap_frac * flags.shape[0]:
+        return None
+    return idx
+
+
+def pq_encode_verify_flags(
+    codebooks: Tensor, x: Tensor, *, dtype: torch.dtype = torch.uint8,
+    escale: Tensor | None = None, rho: float = VERIFY_RHO,
+) -> tuple[Tensor, Tensor]:
+    """The first stage of :func:`pq_encode_verified`: ``(codes, flags)`` from
+    the verify kernel (CUDA tensors; ``ds`` in 4, 8, 16, 32 and
+    ``k <= 65536``, anything else raises) or from
+    :func:`pq_encode_verify_reference` (CPU tensors)."""
+    if not x.is_cuda:
+        return pq_encode_verify_reference(codebooks, x, dtype=dtype, escale=escale, rho=rho)
+    cb2, c_sqn = _prepare(codebooks, x, dtype, torch.float32)
+    m, k, ds = codebooks.shape
+    if ds not in _KERNEL_DS or k > _KERNEL_MAX_K:
+        raise ValueError(
+            f"the encode kernel takes ds in {_KERNEL_DS} and k <= {_KERNEL_MAX_K}; "
+            f"got m={m}, k={k}, ds={ds} (use reductive_tpu_torch.pq.primitives.quantize_batch)"
+        )
+    n = x.shape[0]
+    x = x.contiguous()
+    escale = (verify_scale(codebooks) if escale is None else escale).contiguous()
+    direct = dtype in (torch.uint8, torch.int32)
+    raw = torch.empty((n, m), dtype=dtype if direct else torch.int32, device=x.device)
+    flags = torch.zeros((n,), dtype=torch.int32, device=x.device)  # the kernel ORs into it
+    with torch.cuda.device(x.device):
+        _build.launch(
+            "rt_encode_verify", "encode_verify",
+            x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), raw.data_ptr(),
+            escale.data_ptr(), float(rho), flags.data_ptr(),
+            n, m, k, ds, int(raw.dtype == torch.uint8),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    return (raw if direct else raw.to(dtype)), flags
+
+
+def pq_encode_verified(
+    codebooks: Tensor, x: Tensor, *, dtype: torch.dtype = torch.uint8,
+    cap_frac: float = 1 / 16,
+) -> Tensor:
+    """Encode ``(n, d)`` vectors to ``(n, m)`` codes that equal
+    :func:`~reductive_tpu_torch.pq.primitives.quantize_batch` on every entry,
+    first-index tie-breaks included, at near the f32 kernel's speed.
+
+    The verify kernel encodes and flags every row where rounding could have
+    changed an argmin (a sound bound, see the module docstring); the flagged
+    rows are gathered, encoded again by the exact path (which walks them in
+    chunks: 16,384 rows at m=16, k=256) and written back by index.  Finding
+    them is a ``torch.nonzero``: the host waits for the device once per call.
+    Above ``cap_frac`` of the rows
+    flagged (data full of near-ties) everything is encoded by the exact path
+    instead of gathered, so the result is right at any flag rate.
+
+    CUDA tensors go through the kernel (``ds`` in 4, 8, 16, 32 and
+    ``k <= 65536``; anything else raises); CPU tensors through
+    :func:`pq_encode_verify_reference`.
+    """
+    codes, flags = pq_encode_verify_flags(codebooks, x, dtype=dtype)
+    idx = flagged_rows(flags, cap_frac)
+    if idx is None:
+        return quantize_batch(codebooks, x, dtype=dtype)
+    if idx.shape[0]:
+        codes[idx] = quantize_batch(codebooks, x[idx], dtype=dtype)
+    return codes

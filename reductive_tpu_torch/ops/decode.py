@@ -13,6 +13,12 @@ prepares ``C_s`` once and the kernel gathers from it: bit-equal to the
 matrix-product form for every ``splits``.  ``splits=3`` reproduces the f32
 codebook bit for bit, ``splits=1`` is the codebook rounded to bfloat16, and
 ``"int8"`` is the weight-only int8 mode (symmetric per-column quantizer).
+
+``packed=True`` takes packed-u4 codes (``(n, m/2)`` bytes from
+:func:`reductive_tpu_torch.ops.packing.pack_u4_codes`; ``k <= 16``, even
+``m``).  The kernels read the bytes and take the nibbles apart themselves,
+against the same tables in their natural order, so the result is bit-equal
+to the unpacked decode of the unpacked codes.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from torch import Tensor
 
 from . import _build
+from .packing import check_packed, unpack_u4_codes
 
 __all__ = [
     "pq_decode", "pq_decode_reference", "split_bf16", "effective_codebook",
@@ -29,11 +36,6 @@ __all__ = [
 ]
 
 _RECIP_127 = float(np.float32(1.0) / np.float32(127.0))
-
-_PACKED_MSG = (
-    "packed=True (u4 codes) is not ported yet: see ROADMAP.md, "
-    "'Packed u4' under 'Modules to port'"
-)
 
 
 def split_bf16(W: Tensor, splits: int) -> Tensor:
@@ -78,10 +80,10 @@ def quantize_codebook_int8(codebooks: Tensor) -> tuple[Tensor, Tensor]:
 
 
 def _check(codebooks: Tensor, codes: Tensor, packed: bool) -> None:
+    m, k, _ = codebooks.shape
     if packed:
-        raise NotImplementedError(_PACKED_MSG)
-    m = codebooks.shape[0]
-    if codes.ndim != 2 or codes.shape[1] != m:
+        check_packed(m, k, codes)
+    elif codes.ndim != 2 or codes.shape[1] != m:
         raise ValueError(
             f"Quantization length does not match number of subquantizers: "
             f"{tuple(codes.shape)} vs m={m}"
@@ -102,8 +104,11 @@ def pq_decode_reference(
     codebooks: Tensor, codes: Tensor, *, splits: int | str = 3, packed: bool = False
 ) -> Tensor:
     """Plain PyTorch version of :func:`pq_decode`: the same arithmetic in
-    tensor operations, on whatever device the tensors lie."""
+    tensor operations, on whatever device the tensors lie.  Packed codes are
+    unpacked first."""
     _check(codebooks, codes, packed)
+    if packed:
+        codes = unpack_u4_codes(codes)
     m, _, ds = codebooks.shape
     n = codes.shape[0]
     if splits == "int8":
@@ -118,7 +123,8 @@ def pq_decode(
     codebooks: Tensor, codes: Tensor, *, splits: int | str = 3, packed: bool = False,
     out: Tensor | None = None,
 ) -> Tensor:
-    """Decode ``(n, m)`` codes to ``(n, d)`` reconstructions.
+    """Decode ``(n, m)`` codes (``(n, m/2)`` packed-u4 bytes with
+    ``packed=True``) to ``(n, d)`` reconstructions.
 
     ``splits=3`` (default) is bit-exact against the f32 gather; ``splits=1``
     rounds the codebook to bfloat16; ``splits=2`` lies between;
@@ -138,7 +144,7 @@ def pq_decode(
             f"got {tuple(out.shape)} of {out.dtype} on {out.device}"
         )
     if not codes.is_cuda:
-        res = pq_decode_reference(codebooks, codes, splits=splits)
+        res = pq_decode_reference(codebooks, codes, splits=splits, packed=packed)
         return res if out is None else out.copy_(res)
 
     if codebooks.dtype != torch.float32 or ds % 4 != 0:
@@ -147,8 +153,9 @@ def pq_decode(
             f"{codebooks.dtype}, ds={ds} (use reductive_tpu_torch.pq.primitives.reconstruct_batch)"
         )
     if codes.dtype != torch.uint8:
-        codes = codes.to(torch.int32)
+        codes = codes.to(torch.uint8 if packed else torch.int32)
     codes = codes.contiguous()
+    suffix = "_u4" if packed else ""
     raw = out if out is not None and out.is_contiguous() else torch.empty(
         (n, m * ds), dtype=torch.float32, device=codes.device
     )
@@ -157,15 +164,15 @@ def pq_decode(
         if splits == "int8":
             w8, scale = quantize_codebook_int8(codebooks)
             _build.launch(
-                "rt_decode_int8", "decode_int8",
-                codes.data_ptr(), codes.element_size(), w8.data_ptr(), scale.data_ptr(),
+                "rt_decode_int8", "decode_int8" + suffix,
+                codes.data_ptr(), codes.element_size(), int(packed), w8.data_ptr(), scale.data_ptr(),
                 raw.data_ptr(), n, m, k, ds, stream,
             )
         else:
             table = effective_codebook(codebooks, splits)
             _build.launch(
-                "rt_decode", "decode",
-                codes.data_ptr(), codes.element_size(), table.data_ptr(),
+                "rt_decode", "decode" + suffix,
+                codes.data_ptr(), codes.element_size(), int(packed), table.data_ptr(),
                 raw.data_ptr(), n, m, k, ds, stream,
             )
     if out is None or raw is out:

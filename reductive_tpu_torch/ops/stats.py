@@ -18,6 +18,16 @@ The kernel uses no float atomics: every sum is taken in an order fixed by
 the shapes, so two launches on the same inputs give the same bits.  The
 kernel and the plain version agree on the counts except where f32 summation
 order flips a near-tie, and on the sums up to f32 summation order.
+
+:func:`pq_assign_stats_verified` removes that exception: its cell
+memberships are those of
+:func:`reductive_tpu_torch.pq.primitives.quantize_batch` (counts equal to the
+exact path's, sums equal up to f32 accumulation order).  Counterpart of
+``reductive_tpu.ops.stats.pq_assign_stats_verified`` (TPU kernel
+``_stats_verify_kernel``): the f32 kernel also writes its codes and the row
+flags of :mod:`reductive_tpu_torch.ops.assign` (same bound); flagged rows
+are encoded again by the exact path, and a row whose code changed is moved
+from its old cell to its new one.
 """
 
 from __future__ import annotations
@@ -25,11 +35,18 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from ..pq.primitives import nearest_centroids
+from ..pq.primitives import nearest_centroids, quantize_batch
 from . import _build
-from .assign import _KERNEL_DS, _KERNEL_MAX_K, _prepare
+from .assign import (
+    _KERNEL_DS, _KERNEL_MAX_K, VERIFY_RHO, _prepare, flagged_rows, pq_encode_verify_reference,
+    verify_scale,
+)
 
-__all__ = ["pq_assign_stats", "pq_assign_stats_reference"]
+__all__ = [
+    "pq_assign_stats", "pq_assign_stats_reference",
+    "pq_assign_stats_verified", "pq_assign_stats_verify_reference", "pq_assign_stats_verify_flags",
+    "stats_from_codes", "move_between_cells", "exact_stats_chunked",
+]
 
 # Rows the plain version takes at a time.
 _REFERENCE_CHUNK = 1 << 16
@@ -71,6 +88,56 @@ def _blocks_per_subquantizer(n: int, m: int, k: int, ds: int) -> int:
     return max(1, min(tiles, by_fill, by_scratch))
 
 
+def _check_kernel_shape(m: int, k: int, ds: int) -> None:
+    if ds not in _KERNEL_DS or k > _KERNEL_MAX_K:
+        raise ValueError(
+            f"the assign+statistics kernel takes ds in {_KERNEL_DS} and k <= {_KERNEL_MAX_K}; "
+            f"got m={m}, k={k}, ds={ds} (pass use_kernel=False to the trainer for the plain "
+            f"tensor route)"
+        )
+
+
+def _launch_stats(codebooks: Tensor, x: Tensor, compute_dtype, verify=None):
+    """One launch of the kernel on CUDA tensors.  ``verify`` is ``None`` or
+    ``(escale, rho)``; with it the result also holds the codes ``(n, m)``
+    int32 and the row flags ``(n,)`` int32."""
+    cb2, c_sqn = _prepare(codebooks, x, torch.int32, compute_dtype)
+    n = x.shape[0]
+    m, k, ds = codebooks.shape
+    _check_kernel_shape(m, k, ds)
+    dev = x.device
+    sums = torch.empty((m, k, ds), dtype=torch.float32, device=dev)
+    counts = torch.empty((m, k), dtype=torch.float32, device=dev)
+    codes = flags = None
+    if verify is not None:
+        codes = torch.empty((n, m), dtype=torch.int32, device=dev)
+        flags = torch.zeros((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return sums.zero_(), counts.zero_(), codes, flags
+    x = x.contiguous()
+    blocks = _blocks_per_subquantizer(n, m, k, ds)
+    partial = torch.empty((blocks, m, k, ds + 1), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if verify is None:
+            bf16 = compute_dtype == torch.bfloat16
+            _build.launch(
+                "rt_assign_stats", "stats_bf16" if bf16 else "stats_f32",
+                x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), partial.data_ptr(),
+                sums.data_ptr(), counts.data_ptr(), n, m, k, ds, int(bf16), blocks, stream,
+            )
+        else:
+            escale, rho = verify
+            escale = escale.contiguous()
+            _build.launch(
+                "rt_assign_stats_verify", "stats_verify",
+                x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), partial.data_ptr(),
+                sums.data_ptr(), counts.data_ptr(), escale.data_ptr(), float(rho),
+                codes.data_ptr(), flags.data_ptr(), n, m, k, ds, blocks, stream,
+            )
+    return sums, counts, codes, flags
+
+
 def pq_assign_stats(
     codebooks: Tensor, x: Tensor, *, compute_dtype: torch.dtype = torch.float32
 ) -> tuple[Tensor, Tensor]:
@@ -85,29 +152,120 @@ def pq_assign_stats(
     """
     if not x.is_cuda:
         return pq_assign_stats_reference(codebooks, x, compute_dtype=compute_dtype)
+    sums, counts, _, _ = _launch_stats(codebooks, x, compute_dtype)
+    return sums, counts
 
-    cb2, c_sqn = _prepare(codebooks, x, torch.int32, compute_dtype)
-    n = x.shape[0]
+
+# -- the verified mode -----------------------------------------------------------
+
+
+def stats_from_codes(codes: Tensor, x: Tensor, k: int) -> tuple[Tensor, Tensor]:
+    """Sums ``(m, k, ds)`` and counts ``(m, k)`` (float32) of the rows of
+    ``x`` ``(n, m*ds)`` f32 in the cells their ``codes`` ``(n, m)`` name:
+    ``index_add_`` and ``bincount``."""
+    n, m = codes.shape
+    ds = x.shape[1] // m
+    cells = (codes.to(torch.int64) + torch.arange(m, device=x.device)[None, :] * k).reshape(-1)
+    sums = torch.zeros((m * k, ds), dtype=torch.float32, device=x.device)
+    sums.index_add_(0, cells, x.reshape(-1, ds))
+    counts = torch.bincount(cells, minlength=m * k).to(torch.float32)
+    return sums.reshape(m, k, ds), counts.reshape(m, k)
+
+
+def exact_stats_chunked(codebooks: Tensor, x: Tensor, chunk: int = 16384) -> tuple[Tensor, Tensor]:
+    """Statistics under the exact path's assignment, in ``chunk``-row slices:
+    what :func:`pq_assign_stats_verified` computes when too many rows are
+    flagged.  Right at any flag rate."""
     m, k, ds = codebooks.shape
-    if ds not in _KERNEL_DS or k > _KERNEL_MAX_K:
-        raise ValueError(
-            f"the assign+statistics kernel takes ds in {_KERNEL_DS} and k <= {_KERNEL_MAX_K}; "
-            f"got m={m}, k={k}, ds={ds} (pass use_kernel=False to the trainer for the plain "
-            f"tensor route)"
-        )
-    sums = torch.empty((m, k, ds), dtype=torch.float32, device=x.device)
-    counts = torch.empty((m, k), dtype=torch.float32, device=x.device)
-    if n == 0:
-        return sums.zero_(), counts.zero_()
-    x = x.contiguous()
-    bf16 = compute_dtype == torch.bfloat16
-    blocks = _blocks_per_subquantizer(n, m, k, ds)
-    partial = torch.empty((blocks, m, k, ds + 1), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _build.launch(
-            "rt_assign_stats", "stats_bf16" if bf16 else "stats_f32",
-            x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), partial.data_ptr(),
-            sums.data_ptr(), counts.data_ptr(), n, m, k, ds, int(bf16), blocks,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    sums = torch.zeros((m, k, ds), dtype=torch.float32, device=x.device)
+    counts = torch.zeros((m, k), dtype=torch.float32, device=x.device)
+    for i in range(0, x.shape[0], chunk):
+        xc = x[i:i + chunk]
+        s2, c2 = stats_from_codes(quantize_batch(codebooks, xc, dtype=torch.int32), xc, k)
+        sums += s2
+        counts += c2
+    return sums, counts
+
+
+def move_between_cells(
+    sums: Tensor, counts: Tensor, x: Tensor, old: Tensor, new: Tensor
+) -> tuple[Tensor, Tensor]:
+    """Move rows from the cells ``old`` names to the cells ``new`` names, in
+    place: for every (row, j) with ``new != old`` the subvector ``x_j`` leaves
+    ``sums[j, old]`` and enters ``sums[j, new]``, and the counts follow.
+    ``x`` is ``(f, m*ds)`` f32, ``old`` and ``new`` ``(f, m)``.  Entries that
+    did not change add zeros, so no second wait for the device is needed to
+    find them."""
+    m, k, ds = sums.shape
+    changed = new != old  # (f, m)
+    cell0 = torch.arange(m, device=x.device)[None, :] * k
+    xs = torch.where(changed[:, :, None], x.reshape(-1, m, ds), torch.zeros((), device=x.device))
+    xs = xs.reshape(-1, ds)
+    ones = changed.to(torch.float32).reshape(-1)
+    flat_sums, flat_counts = sums.view(m * k, ds), counts.view(m * k)
+    for cells, sign in ((new, 1.0), (old, -1.0)):
+        cells = (cells.to(torch.int64) + cell0).reshape(-1)
+        flat_sums.index_add_(0, cells, xs, alpha=sign)
+        flat_counts.index_add_(0, cells, ones, alpha=sign)
+    return sums, counts
+
+
+def pq_assign_stats_verify_reference(
+    codebooks: Tensor, x: Tensor, *, escale: Tensor | None = None, rho: float = VERIFY_RHO,
+) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of the verify kernel: ``(sums, counts, codes
+    (n, m) int32, flags (n,) int32)``, the codes and flags of
+    :func:`~reductive_tpu_torch.ops.assign.pq_encode_verify_reference` and the
+    statistics of those codes."""
+    codes, flags = pq_encode_verify_reference(
+        codebooks, x, dtype=torch.int32, escale=escale, rho=rho
+    )
+    sums, counts = stats_from_codes(codes, x, codebooks.shape[1])
+    return sums, counts, codes, flags
+
+
+def pq_assign_stats_verify_flags(
+    codebooks: Tensor, x: Tensor, *, escale: Tensor | None = None, rho: float = VERIFY_RHO,
+) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The first stage of :func:`pq_assign_stats_verified`: ``(sums, counts,
+    codes, flags)`` from the verify kernel (CUDA tensors) or from
+    :func:`pq_assign_stats_verify_reference` (CPU tensors)."""
+    if not x.is_cuda:
+        return pq_assign_stats_verify_reference(codebooks, x, escale=escale, rho=rho)
+    if escale is None:
+        escale = verify_scale(codebooks)
+    return _launch_stats(codebooks, x, torch.float32, verify=(escale, rho))
+
+
+def pq_assign_stats_verified(
+    codebooks: Tensor, x: Tensor, *, cap_frac: float = 1 / 16
+) -> tuple[Tensor, Tensor]:
+    """Statistics whose cell memberships equal the exact path's
+    (:func:`~reductive_tpu_torch.pq.primitives.quantize_batch`, first-index
+    tie-breaks included): the counts are the exact path's, the sums equal
+    its sums up to f32 accumulation order.
+
+    The verify kernel computes the statistics, its codes and the flags of
+    every row where rounding could have changed an argmin.  The flagged rows
+    (``torch.nonzero``: the host waits for the device once per call) are
+    encoded again by the exact path, and each (row, j) whose code changed is
+    moved: ``+x_j`` and ``+1`` into its new cell, ``-x_j`` and ``-1`` into
+    its old one, by ``index_add_``.  Above ``cap_frac`` of the rows flagged,
+    the whole pass is :func:`exact_stats_chunked` instead.  ``x`` of another
+    dtype is cast to f32 first.  Composes with the chunked trainers through
+    ``compute_dtype="verified"``.
+
+    CUDA tensors go through the kernel (``ds`` in 4, 8, 16, 32 and
+    ``k <= 65536``; anything else raises a ``ValueError``); CPU tensors
+    through :func:`pq_assign_stats_verify_reference`.
+    """
+    x = x.to(torch.float32)
+    sums, counts, codes, flags = pq_assign_stats_verify_flags(codebooks, x)
+    idx = flagged_rows(flags, cap_frac)
+    if idx is None:
+        return exact_stats_chunked(codebooks, x)
+    if idx.shape[0]:
+        xf = x[idx]
+        new = quantize_batch(codebooks, xf, dtype=torch.int32)
+        move_between_cells(sums, counts, xf, codes[idx], new)
     return sums, counts

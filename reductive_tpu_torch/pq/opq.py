@@ -38,6 +38,7 @@ from .train import (
     centroids_from_stats,
     explained_from_stats,
     init_codebooks_random,
+    is_verified,
     train_pq_chunked,
     train_pq_subspace,
 )
@@ -212,13 +213,17 @@ def _opq_iteration_chunked(
        bfloat16 part in bf16 mode);
     3. ``R = U V^T`` from ``svd(M)``.
 
-    The rotation and ``M`` are float32 products in both modes.  Returns the
+    The rotation and ``M`` are float32 products in every mode.
+    ``compute_dtype="verified"`` is an exact mode: the statistics and the
+    codes of step 2 are those of the exact f32 path (the verified kernels),
+    the decode is bit-exact.  Returns the
     new projection, the new codebooks and the explained sum of squares
     (``sse = sum |x|^2 - explained``).
     """
     m, k, ds = codebooks.shape
     d = x.shape[1]
-    exact = compute_dtype == torch.float32
+    verified = is_verified(compute_dtype)
+    exact = verified or compute_dtype == torch.float32
 
     sums, counts = assign_stats_streamed(
         x, codebooks, chunk=chunk, use_kernel=use_kernel,
@@ -227,7 +232,7 @@ def _opq_iteration_chunked(
     new_codebooks = centroids_from_stats(sums, counts, x.dtype)
 
     if use_kernel:
-        from ..ops.assign import pq_encode
+        from ..ops.assign import pq_encode, pq_encode_verified
         from ..ops.decode import pq_decode
 
     cross = torch.zeros((d, d), dtype=torch.float32, device=x.device)
@@ -235,7 +240,12 @@ def _opq_iteration_chunked(
         xc = x[i:i + chunk]
         rxc = torch.matmul(xc, projection)
         if use_kernel:
-            codes = pq_encode(new_codebooks, rxc, dtype=torch.int32, compute_dtype=compute_dtype)
+            if verified:
+                codes = pq_encode_verified(new_codebooks, rxc, dtype=torch.int32)
+            else:
+                codes = pq_encode(
+                    new_codebooks, rxc, dtype=torch.int32, compute_dtype=compute_dtype
+                )
             rec = pq_decode(new_codebooks, codes, splits=3 if exact else 1)
         else:
             codes = primitives.quantize_batch(new_codebooks, rxc, dtype=torch.int32)
@@ -269,7 +279,9 @@ def train_opq_chunked(
     decode) when the instances lie on a GPU and the plain tensor route on
     the CPU.  On a GPU a shape the kernels do not take raises a
     ``ValueError``; pass ``use_kernel=False`` for it.
-    ``compute_dtype="verified"`` raises ``NotImplementedError``.
+    ``compute_dtype="verified"`` takes the verified statistics and encode
+    (cell memberships and codes equal to the exact f32 path's); each of them
+    waits for the device once per chunk.
 
     With ``checkpoint_every=e`` and ``checkpoint_path``, the
     ``(projection, codebooks)`` state is written atomically as an

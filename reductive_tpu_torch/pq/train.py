@@ -50,20 +50,23 @@ __all__ = [
     "losses_from_stats",
     "explained_from_stats",
     "init_codebooks_random",
+    "is_verified",
 ]
 
-_VERIFIED_MSG = (
-    'compute_dtype="verified" (exact cell memberships by a verify pass) is not ported '
-    "yet: see ROADMAP.md, queue 1, item 5"
-)
+
+def is_verified(compute_dtype) -> bool:
+    """Whether ``compute_dtype`` names the verified mode (the string
+    ``"verified"``: cell memberships equal to the exact path's)."""
+    return isinstance(compute_dtype, str) and compute_dtype == "verified"
 
 
 def _check_compute_dtype(compute_dtype) -> None:
-    if isinstance(compute_dtype, str) and compute_dtype == "verified":
-        raise NotImplementedError(_VERIFIED_MSG)
+    if is_verified(compute_dtype):
+        return
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(
-            f"compute_dtype must be torch.float32 or torch.bfloat16, got {compute_dtype}"
+            "compute_dtype must be torch.float32, torch.bfloat16 or \"verified\", "
+            f"got {compute_dtype}"
         )
 
 
@@ -193,18 +196,15 @@ def _chunk_stats(codebooks: Tensor, xc: Tensor, compute_dtype) -> tuple[Tensor, 
     """Per-centroid instance sums ``(m, k, ds)`` and counts ``(m, k)`` for
     one ``(c, d)`` chunk, in plain tensor code (the ``use_kernel=False``
     route): codes from the exact f32 path, then ``index_add_`` of the
-    subvectors (rounded to bfloat16 first in bf16 mode; accumulation and
-    counts are f32 either way)."""
-    m, k, ds = codebooks.shape
-    codes = primitives.quantize_batch(codebooks, xc, dtype=torch.int32).to(torch.int64)
-    cells = (codes + torch.arange(m, device=xc.device)[None, :] * k).reshape(-1)
+    subvectors (rounded to bfloat16 first in bf16 mode; unrounded in the f32
+    and verified modes; accumulation and counts are f32 either way)."""
+    from ..ops.stats import stats_from_codes
+
+    codes = primitives.quantize_batch(codebooks, xc, dtype=torch.int32)
     xs = xc.to(torch.float32)
     if compute_dtype == torch.bfloat16:
         xs = xs.to(torch.bfloat16).to(torch.float32)
-    sums = torch.zeros((m * k, ds), dtype=torch.float32, device=xc.device)
-    sums.index_add_(0, cells, xs.reshape(-1, ds))
-    counts = torch.bincount(cells, minlength=m * k).to(torch.float32)
-    return sums.reshape(m, k, ds), counts.reshape(m, k)
+    return stats_from_codes(codes, xs, codebooks.shape[1])
 
 
 def centroids_from_stats(sums: Tensor, counts: Tensor, dtype: torch.dtype) -> Tensor:
@@ -245,7 +245,9 @@ def assign_stats_streamed(
     nearest-centroid assignment, never materializing anything O(n * k).
 
     With ``use_kernel`` and no projection this is one call of
-    :func:`reductive_tpu_torch.ops.pq_assign_stats` over all of ``x``.  With
+    :func:`reductive_tpu_torch.ops.pq_assign_stats` over all of ``x``
+    (of :func:`reductive_tpu_torch.ops.pq_assign_stats_verified` with
+    ``compute_dtype="verified"``).  With
     a ``projection``, ``chunk``-row slices are rotated on the fly and go
     through the kernel one by one, so the rotated corpus is never
     materialized.  Without ``use_kernel`` the slices go through
@@ -253,10 +255,15 @@ def assign_stats_streamed(
     falls back."""
     _check_compute_dtype(compute_dtype)
     if use_kernel:
-        from ..ops.stats import pq_assign_stats
+        from ..ops.stats import pq_assign_stats, pq_assign_stats_verified
+
+        def kernel_stats(xc: Tensor) -> tuple[Tensor, Tensor]:
+            if is_verified(compute_dtype):
+                return pq_assign_stats_verified(codebooks, xc)
+            return pq_assign_stats(codebooks, xc, compute_dtype=compute_dtype)
 
         if projection is None:
-            return pq_assign_stats(codebooks, x, compute_dtype=compute_dtype)
+            return kernel_stats(x)
 
     m, k, ds = codebooks.shape
     sums = torch.zeros((m, k, ds), dtype=torch.float32, device=x.device)
@@ -266,7 +273,7 @@ def assign_stats_streamed(
         if projection is not None:
             xc = torch.matmul(xc, projection)
         if use_kernel:
-            s2, c2 = pq_assign_stats(codebooks, xc, compute_dtype=compute_dtype)
+            s2, c2 = kernel_stats(xc)
         else:
             s2, c2 = _chunk_stats(codebooks, xc, compute_dtype)
         sums += s2
@@ -296,7 +303,8 @@ def lloyd_iteration_chunked(
     version) or the plain tensor route.  ``compute_dtype``:
     ``torch.float32`` reproduces the in-memory iteration to float tolerance;
     ``torch.bfloat16`` assigns with bfloat16-rounded inputs and sums the
-    rounded instances (counts stay exact).
+    rounded instances (counts stay exact); ``"verified"`` has the exact
+    path's cell memberships.
     """
     n = x.shape[0]
     ds = codebooks.shape[2]
@@ -355,7 +363,9 @@ def train_pq_chunked(
     ``use_kernel=None`` means the CUDA kernel when the instances lie on a
     GPU and the plain tensor route on the CPU.  On a GPU a shape the kernel
     does not take raises a ``ValueError``; pass ``use_kernel=False`` for it.
-    ``compute_dtype="verified"`` raises ``NotImplementedError``.
+    ``compute_dtype="verified"`` runs every iteration through
+    :func:`reductive_tpu_torch.ops.pq_assign_stats_verified`: the cells each
+    row joins are those of the exact f32 path, whatever the kernel's rounding.
 
     With ``checkpoint_every=e`` and ``checkpoint_path``, the current
     attempt's state is written atomically as an

@@ -22,7 +22,6 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
-from .ops.decode import _PACKED_MSG
 from .pq import primitives
 from .pq.model import Pq
 
@@ -240,11 +239,16 @@ def search(
 
     ``method="auto"`` (default) scores through the fused ADC kernel
     (:func:`reductive_tpu_torch.ops.adc.adc_scores_kernel`) when ``codes`` is
-    a CUDA tensor of ``uint8``, and through the plain scorer
+    a CUDA tensor of ``uint8`` or packed-u4 codes, and through the plain scorer
     (:func:`adc_scores`) otherwise.  Force ``method="einsum"`` for rankings
     that do not depend on the device; ``splits`` sets the kernel's table
     precision (1, 2, 3 or ``"int8"``).
     ``method="decode"`` scores by decode + one dense product.
+
+    ``packed=True`` searches a packed-u4 corpus (``(n, m/2)`` bytes from
+    :func:`reductive_tpu_torch.ops.packing.pack_u4_codes`; ``k <= 16`` and
+    ``method="kernel"``): half the code memory, twice the corpus on a card.
+    On CPU tensors ``method="kernel"`` is the kernel's plain version.
 
     ``refine_with`` (an ``(n, d)`` tensor of the original vectors) enables
     the two-stage refine: ADC retrieves ``top_k * refine_factor``
@@ -259,10 +263,10 @@ def search(
         raise ValueError("top_k must be >= 1")
     if top_k > codes.shape[0]:
         raise ValueError(f"top_k={top_k} exceeds corpus size {codes.shape[0]}")
-    if packed:
-        raise NotImplementedError(_PACKED_MSG)
     if method == "auto":
-        method = "kernel" if codes.is_cuda and codes.dtype == torch.uint8 else "einsum"
+        method = (
+            "kernel" if codes.is_cuda and (packed or codes.dtype == torch.uint8) else "einsum"
+        )
     if method not in ("einsum", "kernel", "decode"):
         raise ValueError(f"unknown search method {method!r}")
     _check_metric(metric)
@@ -278,9 +282,14 @@ def search(
         r = min(top_k * refine_factor, codes.shape[0])
         _, cand_idx = search(
             pq, queries, codes, r, chunk_size=chunk_size, method=method,
-            splits=splits, stream_chunk=stream_chunk, metric=metric,
+            splits=splits, stream_chunk=stream_chunk, packed=packed, metric=metric,
         )
         return _refine(queries, refine_with, cand_idx, top_k, metric)
+    if packed and method != "kernel":
+        raise ValueError(
+            'packed-u4 codes require method="kernel" (the einsum scorer '
+            "consumes unpacked codes — see reductive_tpu.ops.unpack_u4_codes)"
+        )
 
     stream_chunk = _resolve_stream_chunk(
         queries.shape[0], codes.shape[0], stream_chunk, method, pq.reconstructed_len,

@@ -10,13 +10,19 @@ centroid tile, k that is no power of two, every ds the encode kernel takes,
 int32 codes, a number of subquantizers that is no multiple of four, tables
 so large that fewer than eight queries share a block, and for the
 assign+statistics kernel a single row, ragged row counts and more centroids
-than one thread per centroid.
+than one thread per centroid; for the verified kernels the same shapes plus
+duplicated centroids, rows on a centroid pair's midpoint, zero rows and rows
+scaled far up and down; for the packed-u4 kernels m = 2, m no multiple of 8
+and k below 16.
 """
 
 import pytest
 import torch
 
 from reductive_tpu_torch import ops
+from reductive_tpu_torch.ops.assign import pq_encode_verify_flags
+from reductive_tpu_torch.ops.stats import pq_assign_stats_verify_flags
+from reductive_tpu_torch.pq import primitives
 
 pytestmark = pytest.mark.cuda
 
@@ -130,6 +136,147 @@ def test_stats_kernel_feeds_the_trainers(dev):
         train_pq_chunked(gen, x[:, :24], 2, 6, 2)  # ds = 12: not a width the kernel takes
 
 
+VERIFY_SHAPES = [
+    (1, 3, 7, 4), (1000, 3, 7, 4), (4097, 16, 256, 8), (777, 2, 1000, 16), (513, 5, 300, 32),
+    (70001, 1, 257, 8), (3000, 4, 1, 8),
+]
+
+
+def _adversarial(cb, x):
+    """Rows that sit on ties and at the ends of the range: on a centroid that
+    appears twice, on the midpoint of a centroid pair, zero, and scaled by
+    1e-6 and 1e6.  Returns the codebooks (centroid 0 duplicated as the last
+    one where k > 1) and the rows."""
+    m, k, ds = cb.shape
+    cb = cb.clone()
+    if k > 1:
+        cb[:, k - 1] = cb[:, 0]
+    n = x.shape[0]
+    x = x.clone().reshape(n, m, ds)
+    fifth = max(1, n // 5)
+    sub = torch.arange(m, device=x.device)[None, :]
+    x[:fifth] = cb[:, 0][None]
+    mid = x[fifth:2 * fifth]
+    pick = torch.randint(0, k, (mid.shape[0], m), device=x.device)
+    x[fifth:2 * fifth] = 0.5 * (cb[sub, pick] + cb[sub, (pick + 1) % k])
+    x[2 * fifth:2 * fifth + fifth // 2] = 0.0
+    x[3 * fifth:4 * fifth] *= 1e-6
+    x[4 * fifth:] *= 1e6
+    return cb, x.reshape(n, m * ds).contiguous()
+
+
+@pytest.mark.parametrize("adversarial", [False, True])
+@pytest.mark.parametrize("n,m,k,ds", VERIFY_SHAPES)
+def test_encode_verify_kernel(dev, n, m, k, ds, adversarial):
+    cb, x = _data(dev, n, m, k, ds)
+    if adversarial:
+        cb, x = _adversarial(cb, x)
+    oracle = primitives.quantize_batch(cb, x, dtype=torch.int32)
+    codes, flags = pq_encode_verify_flags(cb, x, dtype=torch.int32)
+    want_codes, want_flags = ops.pq_encode_verify_reference(cb, x, dtype=torch.int32)
+    # The contract of the flags: an unflagged row has the exact path's codes.
+    clean = flags == 0
+    assert torch.equal(codes[clean], oracle[clean])
+    assert torch.equal(want_codes[want_flags == 0], oracle[want_flags == 0])
+    # A flag may differ from the plain version's where the margin sits on the limit.
+    assert int((flags != want_flags).sum()) <= max(2, n // 100)
+    if adversarial and k > 1:
+        assert int(flags[:max(1, n // 5)].min()) == 1  # rows on a duplicated centroid's twin
+    for dtype in (torch.int32, torch.int16) + ((torch.uint8,) if k <= 256 else ()):
+        got = ops.pq_encode_verified(cb, x, dtype=dtype)
+        assert got.dtype == dtype and torch.equal(got.to(torch.int32), oracle)
+    assert torch.equal(ops.pq_encode_verified(cb, x, dtype=torch.int32, cap_frac=1e-9), oracle)
+
+
+@pytest.mark.parametrize("adversarial", [False, True])
+@pytest.mark.parametrize("n,m,k,ds", VERIFY_SHAPES + [(300000, 2, 16, 32)])
+def test_stats_verify_kernel(dev, n, m, k, ds, adversarial):
+    cb, x = _data(dev, n, m, k, ds)
+    if adversarial:
+        cb, x = _adversarial(cb, x)
+    sums, counts, codes, flags = pq_assign_stats_verify_flags(cb, x)
+    again = pq_assign_stats_verify_flags(cb, x)
+    # No float atomics in the kernel: two launches give the same bits.
+    assert all(torch.equal(a, b) for a, b in zip((sums, counts, codes, flags), again))
+    enc_codes, enc_flags = pq_encode_verify_flags(cb, x, dtype=torch.int32)
+    assert torch.equal(codes, enc_codes) and torch.equal(flags, enc_flags)
+    by_code = torch.stack([torch.bincount(codes[:, jq].long(), minlength=k) for jq in range(m)])
+    assert torch.equal(by_code.to(torch.float32), counts)
+
+    oracle = primitives.quantize_batch(cb, x, dtype=torch.int32)
+    want_sums, want_counts = ops.stats.stats_from_codes(oracle, x, k)
+    for cap_frac in (1 / 16, 1e-9):
+        got_sums, got_counts = ops.pq_assign_stats_verified(cb, x, cap_frac=cap_frac)
+        assert torch.equal(got_counts, want_counts)
+        # f32 sums of the same rows in another order (and, for a moved row, a
+        # subtraction of what was added).
+        tol = 1e-5 * want_sums.abs() + 1e-4 * float(want_sums.abs().max())
+        assert bool(((got_sums - want_sums).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, "int8"])
+@pytest.mark.parametrize("n,m,k,ds", [(1000, 2, 16, 4), (4097, 16, 16, 8), (513, 6, 7, 32),
+                                      (999, 24, 16, 32)])
+def test_packed_decode_kernel(dev, n, m, k, ds, splits):
+    cb, _ = _data(dev, n, m, k, ds)
+    codes = torch.randint(0, k, (n, m), device=dev, dtype=torch.uint8)
+    packed = ops.pack_u4_codes(codes)
+    got = ops.pq_decode(cb, packed, splits=splits, packed=True)
+    assert torch.equal(got, ops.pq_decode(cb, codes, splits=splits))
+    assert torch.equal(got, ops.pq_decode_reference(cb, packed, splits=splits, packed=True))
+    assert torch.equal(ops.pq_decode(cb, packed.to(torch.int32), splits=splits, packed=True), got)
+    out = torch.empty_like(got)
+    assert ops.pq_decode(cb, packed, splits=splits, packed=True, out=out) is out
+    assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, "int8"])
+@pytest.mark.parametrize("n,m,k,nq", [(1000, 2, 16, 5), (4097, 16, 16, 16), (999, 6, 7, 9),
+                                      (2000, 24, 16, 130), (777, 10, 16, 3)])
+def test_packed_adc_kernel(dev, n, m, k, nq, splits):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tables = torch.randn((nq, m, k), generator=gen, device=dev) * 10
+    codes = torch.randint(0, k, (n, m), device=dev, dtype=torch.uint8)
+    packed = ops.pack_u4_codes(codes)
+    got = ops.adc_scores_kernel(tables, packed, splits=splits, packed=True)
+    assert torch.equal(got, ops.adc_scores_kernel(tables, codes, splits=splits))
+    assert torch.equal(got, ops.adc_scores_reference(tables, packed, splits=splits, packed=True))
+    # A view that starts off a 4-byte boundary takes the scalar route.
+    assert torch.equal(
+        ops.adc_scores_kernel(tables, packed[1:], splits=splits, packed=True), got[:, 1:])
+
+
+def test_verified_and_packed_feed_the_entry_points(dev):
+    from reductive_tpu_torch import Pq, train_opq_chunked, train_pq_chunked
+    from reductive_tpu_torch.search import search
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((20000, 32), generator=gen, device=dev)
+    ops.reset_launch_counts()
+    state = gen.get_state()
+    a = train_pq_chunked(gen, x, 4, 4, 5, compute_dtype="verified")
+    assert ops.launch_counts() == {"stats_verify": 5}
+    gen.set_state(state)
+    plain = train_pq_chunked(gen, x, 4, 4, 5, use_kernel=False)
+    assert float((a.codebooks - plain.codebooks).abs().max()) < 1e-4
+    ops.reset_launch_counts()
+    train_opq_chunked(gen, x, 4, 4, 2, chunk=8192, compute_dtype="verified")
+    assert ops.launch_counts() == {"stats_verify": 6, "encode_verify": 6, "decode": 6}
+
+    pq = Pq(codebooks=a.codebooks)
+    codes = pq.quantize_batch(x, method="kernel-f32")
+    packed = ops.pack_u4_codes(codes)
+    ops.reset_launch_counts()
+    for kwargs in ({}, {"stream_chunk": 4096}, {"splits": "int8"}, {"refine_with": x}):
+        d1, i1 = search(pq, x[:9], packed, 5, packed=True, **kwargs)
+        d0, i0 = search(pq, x[:9], codes, 5, method="kernel", **kwargs)
+        assert torch.equal(d1, d0) and torch.equal(i1, i0)
+    counts = ops.launch_counts()
+    assert counts["adc_u4"] == counts["adc"] == 7 and counts["adc_int8_u4"] == 1
+    with pytest.raises(ValueError, match='require method="kernel"'):
+        search(pq, x[:9], packed, 5, packed=True, method="einsum")
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     cb, x = _data(dev, 10, 2, 4, 5)
     with pytest.raises(ValueError, match="encode kernel takes"):
@@ -138,6 +285,10 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         ops.pq_decode(cb, torch.zeros((10, 2), dtype=torch.uint8, device=dev))
     with pytest.raises(ValueError, match="use_kernel=False"):
         ops.pq_assign_stats(cb, x)
+    with pytest.raises(ValueError, match="encode kernel takes"):
+        ops.pq_encode_verified(cb, x)
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        ops.pq_assign_stats_verified(cb, x)
     with pytest.raises(ValueError, match="no shared-memory tiling"):
         ops.adc_scores_kernel(torch.zeros((1, 1, 70000), device=dev),
                               torch.zeros((4, 1), dtype=torch.int32, device=dev))

@@ -166,6 +166,22 @@ def test_kmeans_with_centroids_chunked_matches_in_memory_and_jax(use_kernel):
     np.testing.assert_allclose(float(got_l), float(ref_l), rtol=1e-4)
 
 
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_kmeans_with_centroids_chunked_verified_matches_jax(use_kernel):
+    # The verified mode has the exact path's cell memberships: on the CPU it is
+    # the f32 result, here and in the JAX package (whose kernels are off).
+    x = _uniform(14, 500, 8)
+    init = x[:7].copy()
+    got_c, got_l = tk.kmeans_with_centroids_chunked(
+        t(x), t(init), 5, chunk=128, use_kernel=use_kernel, compute_dtype="verified")
+    f32_c, _ = tk.kmeans_with_centroids_chunked(t(x), t(init), 5, chunk=128, use_kernel=False)
+    want_c, want_l = jk.kmeans_with_centroids_chunked(
+        j(x), j(init), 5, chunk=128, use_kernel=False, compute_dtype="verified")
+    np.testing.assert_allclose(got_c.numpy(), f32_c.numpy(), atol=1e-6)
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), atol=1e-5)
+    np.testing.assert_allclose(float(got_l), float(want_l), rtol=1e-4)
+
+
 # -- draws: distributions and seeded gates --------------------------------------------
 
 
@@ -290,8 +306,8 @@ def test_kmeans_validation_texts_match_jax():
         assert str(terr.value) == str(jerr.value)
     with pytest.raises(TypeError, match="Unsupported stop condition"):
         tk.kmeans_with_centroids(t(x), torch.zeros((2, 2)), "soon")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        tk.kmeans_with_centroids_chunked(t(x), torch.zeros((2, 2)), 1, compute_dtype="verified")
+    with pytest.raises(ValueError, match='torch.float32, torch.bfloat16 or "verified"'):
+        tk.kmeans_with_centroids_chunked(t(x), torch.zeros((2, 2)), 1, compute_dtype="exact")
 
 
 def test_generator_must_be_a_generator_on_the_datas_device():

@@ -233,10 +233,72 @@ def test_opq_argument_errors_match_jax(tmp_path):
 
 
 def test_verified_is_not_ported_and_says_so():
+    """``compute_dtype="verified"`` is ported (the name dates from when it
+    raised): both chunked OPQ trainers take it, on both routes, and train to
+    what the f32 mode trains to from the same draw."""
     x = t(_uniform(9, 64, 8))
     for trainer in (trt.train_opq_chunked, trt.train_gaussian_opq_chunked):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 5"):
-            trainer(_gen(0), x, 2, 3, 2, compute_dtype="verified")
+        want = trainer(_gen(0), x, 2, 3, 2, use_kernel=False)
+        for use_kernel in (False, True):
+            got = trainer(_gen(0), x, 2, 3, 2, compute_dtype="verified", use_kernel=use_kernel)
+            np.testing.assert_allclose(got.codebooks.numpy(), want.codebooks.numpy(), atol=1e-5)
+            np.testing.assert_allclose(got.projection.numpy(), want.projection.numpy(), atol=1e-4)
+    with pytest.raises(ValueError, match='or "verified", got exact'):
+        trt.train_opq_chunked(_gen(0), x, 2, 3, 2, compute_dtype="exact")
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_opq_iteration_chunked_verified_matches_jax(use_kernel):
+    # The JAX package runs the verified mode on the CPU with its kernels off;
+    # use_kernel=True here is the verified wrappers over their plain versions.
+    x, proj, cb = _opq_inputs(12, 500, 2, 8, 4)
+    got_r, got_cb, got_e = topq._opq_iteration_chunked(
+        t(x), t(proj), t(cb), chunk=128, use_kernel=use_kernel, compute_dtype="verified")
+    want_r, want_cb, want_e = jopq._opq_iteration_chunked(
+        j(x), j(proj), j(cb), chunk=128, use_kernel=False, compute_dtype="verified")
+    np.testing.assert_allclose(got_cb.numpy(), np.asarray(want_cb), atol=1e-5)
+    np.testing.assert_allclose(got_r.numpy(), np.asarray(want_r), atol=1e-4)
+    np.testing.assert_allclose(float(got_e), float(want_e), rtol=1e-4)
+    # An exact mode: the f32 step's result.
+    f32_r, f32_cb, _ = topq._opq_iteration_chunked(
+        t(x), t(proj), t(cb), chunk=128, use_kernel=False, compute_dtype=torch.float32)
+    np.testing.assert_allclose(got_cb.numpy(), f32_cb.numpy(), atol=1e-6)
+    np.testing.assert_allclose(got_r.numpy(), f32_r.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_train_opq_chunked_verified_matches_jax(use_kernel):
+    x, proj, cb = _opq_inputs(13, 500, 2, 8, 4)
+    got = trt.train_opq_chunked(
+        None, t(x), 2, 3, 2, chunk=200, initial_model=trt.Pq(codebooks=t(cb), projection=t(proj)),
+        compute_dtype="verified", use_kernel=use_kernel)
+    want = jrt.train_opq_chunked(
+        jax.random.PRNGKey(0), j(x), 2, 3, 2, chunk=200, use_kernel=False,
+        initial_model=jrt.Pq(codebooks=j(cb), projection=j(proj)), compute_dtype="verified")
+    # Two alternations: the second starts from rotations 1e-6 apart.
+    np.testing.assert_allclose(got.codebooks.numpy(), np.asarray(want.codebooks), atol=1e-4)
+    np.testing.assert_allclose(got.projection.numpy(), np.asarray(want.projection), atol=1e-3)
+
+
+def test_verified_opq_step_encodes_with_the_verified_encode(monkeypatch):
+    from reductive_tpu_torch.ops import assign as tassign
+
+    calls = []
+    real = tassign.pq_encode_verified
+
+    def spy(codebooks, x, **kwargs):
+        calls.append(tuple(x.shape))
+        return real(codebooks, x, **kwargs)
+
+    monkeypatch.setattr(tassign, "pq_encode_verified", spy)
+    x, proj, cb = _opq_inputs(14, 300, 2, 8, 4)
+    topq._opq_iteration_chunked(
+        t(x), t(proj), t(cb), chunk=128, use_kernel=True, compute_dtype="verified")
+    assert calls == [(128, 8), (128, 8), (44, 8)]
+    calls.clear()
+    topq._opq_iteration_chunked(
+        t(x), t(proj), t(cb), chunk=128, use_kernel=True, compute_dtype=torch.float32)
+    assert calls == []
 
 
 def test_opq_traits():

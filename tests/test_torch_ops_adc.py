@@ -12,7 +12,9 @@ from reductive_tpu.ops.adc import adc_scores_kernel as j_adc_scores_kernel
 from reductive_tpu.pq.model import Pq as JPq
 from reductive_tpu.search import adc_tables as j_adc_tables
 from reductive_tpu_torch import Pq
-from reductive_tpu_torch.ops import adc_scores_kernel, adc_scores_reference, max_query_batch
+from reductive_tpu_torch.ops import (
+    adc_scores_kernel, adc_scores_reference, max_query_batch, pack_u4_codes,
+)
 from reductive_tpu_torch.ops.adc import quantize_tables_int8, query_tile
 from reductive_tpu_torch.search import adc_tables
 
@@ -81,6 +83,39 @@ def test_adc_scores_int8_matches_jax(n, m, k, ds, nq, metric):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
+# (n, m, k, ds, nq) with k <= 16 and even m: the JAX tests' shape, m = 2, and
+# m no multiple of 8 with ragged k.
+PACKED_SHAPES = [(500, 8, 16, 4, 5), (301, 2, 16, 8, 3), (257, 6, 7, 4, 4)]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, "int8"])
+@pytest.mark.parametrize("n,m,k,ds,nq", PACKED_SHAPES)
+def test_adc_scores_packed_matches_jax_and_the_unpacked_scores(n, m, k, ds, nq, splits):
+    codes, jt, _ = _setup(n, m, k, ds, nq, "l2")
+    tables = t(np.asarray(jt))
+    packed = pack_u4_codes(t(codes))
+    got = adc_scores_kernel(tables, packed, splits=splits, packed=True)
+    # Bit-equal to the port's unpacked scores (the same sum in the same order).
+    np.testing.assert_array_equal(
+        got.numpy(), adc_scores_kernel(tables, t(codes), splits=splits).numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), adc_scores_reference(tables, packed, splits=splits, packed=True).numpy())
+    want = np.asarray(j_adc_scores_kernel(jt, j(packed.numpy()), splits=splits, packed=True,
+                                          interpret=True))
+    # The tolerance of the unpacked comparison: summation order differs.
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32, np.int64])
+def test_adc_packed_code_dtypes(dtype):
+    codes, jt, _ = _setup(100, 4, 16, 8, 3, "l2")
+    tables = t(np.asarray(jt))
+    packed = pack_u4_codes(t(codes))
+    want = adc_scores_kernel(tables, packed, splits=3, packed=True)
+    got = adc_scores_kernel(tables, t(packed.numpy().astype(dtype)), splits=3, packed=True)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
 @pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.int32, np.int64])
 def test_adc_code_dtypes(dtype):
     codes, jt, _ = _setup(200, 4, 16, 8, 3, "l2")
@@ -109,8 +144,22 @@ def test_adc_errors():
     with pytest.raises(ValueError) as terr:
         adc_scores_kernel(tables, t(codes[:, :3]))
     assert str(terr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        adc_scores_kernel(tables, t(codes), packed=True)
+    # Packed codes: the JAX package's checks and messages.
+    bad_packed = [
+        (jt, codes),                                              # (n, m), not (n, m/2)
+        (jt[:, :3], codes[:, :1]),                                # odd m
+        (jnp.concatenate([jt, jt], axis=2), codes[:, :2]),        # k = 32
+    ]
+    for jtab, codes_p in bad_packed:
+        with pytest.raises(ValueError) as jerr:
+            j_adc_scores_kernel(jtab, j(codes_p), packed=True, interpret=True)
+        for fn in (adc_scores_kernel, adc_scores_reference):
+            with pytest.raises(ValueError) as terr:
+                fn(t(np.asarray(jtab)), t(codes_p), packed=True)
+            assert str(terr.value) == str(jerr.value)
+    np.testing.assert_array_equal(
+        adc_scores_kernel(tables, pack_u4_codes(t(codes)), packed=True).numpy(),
+        adc_scores_kernel(tables, t(codes)).numpy())
     with pytest.raises(ValueError, match="splits"):
         adc_scores_kernel(tables, t(codes), splits=5)
     with pytest.raises(TypeError):

@@ -13,7 +13,9 @@ import jax.numpy as jnp
 from reductive_tpu.ops.decode import pq_decode as j_pq_decode
 from reductive_tpu.ops.decode import split_bf16 as j_split_bf16
 from reductive_tpu.pq import primitives as jprim
-from reductive_tpu_torch.ops import pq_decode, pq_decode_reference, split_bf16
+from reductive_tpu_torch.ops import (
+    pack_u4_codes, pq_decode, pq_decode_reference, split_bf16, unpack_u4_codes,
+)
 from reductive_tpu_torch.ops.decode import effective_codebook, quantize_codebook_int8
 from reductive_tpu_torch.pq import primitives as tprim
 
@@ -71,6 +73,42 @@ def test_pq_decode_int8_matches_jax(n, m, k, ds):
     np.testing.assert_array_equal(got, by_hand)
 
 
+# (n, m, k, ds) with k <= 16 and even m: m = 2, m no multiple of 8, ragged k.
+PACKED_SHAPES = [(500, 8, 16, 4), (301, 2, 16, 8), (257, 6, 7, 4)]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, "int8"])
+@pytest.mark.parametrize("n,m,k,ds", PACKED_SHAPES)
+def test_pq_decode_packed_matches_jax_and_the_unpacked_decode(n, m, k, ds, splits):
+    cb, _ = make_pq_data(52, n, m, k, ds)
+    codes = _codes(n, m, k)
+    packed = pack_u4_codes(t(codes))
+    got = pq_decode(t(cb), packed, splits=splits, packed=True)
+    # Bit-equal to the port's unpacked decode and to the plain version.
+    np.testing.assert_array_equal(got.numpy(), pq_decode(t(cb), t(codes), splits=splits).numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), pq_decode_reference(t(cb), packed, splits=splits, packed=True).numpy())
+    np.testing.assert_array_equal(unpack_u4_codes(packed).numpy(), codes)
+    want = np.asarray(j_pq_decode(j(cb), j(packed.numpy()), splits=splits, packed=True,
+                                  interpret=True))
+    if splits == "int8":  # within 1 ulp, as the unpacked int8 decode
+        assert np.all(np.abs(got.numpy() - want) <= np.spacing(np.abs(want).astype(np.float32)))
+    else:  # every element is one nonzero product: bit-equal
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_pq_decode_packed_code_dtypes_and_out():
+    cb, _ = make_pq_data(54, 40, 4, 16, 8)
+    packed = pack_u4_codes(t(_codes(40, 4, 16)))
+    want = pq_decode(t(cb), packed, packed=True)
+    for dtype in (torch.int16, torch.int32, torch.int64):
+        np.testing.assert_array_equal(
+            pq_decode(t(cb), packed.to(dtype), packed=True).numpy(), want.numpy())
+    out = torch.zeros((40, 32))
+    assert pq_decode(t(cb), packed, packed=True, out=out) is out
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+
+
 @pytest.mark.parametrize("splits", [1, 2, 3])
 def test_split_bf16_equals_jax(splits):
     W = np.random.default_rng(55).standard_normal((33, 20), dtype=np.float32) * 100
@@ -103,8 +141,22 @@ def test_pq_decode_errors():
         pq_decode(t(cb), t(codes))
     assert str(terr.value) == str(jerr.value)
     good = _codes(8, 4, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pq_decode(t(cb), t(good), packed=True)
+    # Packed codes: the JAX package's checks and messages.
+    bad_packed = [
+        (cb, good),                                   # (n, m) where (n, m/2) is expected
+        (cb[:3], _codes(8, 1, 16)),                   # odd m
+        (np.repeat(cb, 2, axis=1), _codes(8, 2, 16)),  # k = 32
+    ]
+    for cbs, codes_p in bad_packed:
+        with pytest.raises(ValueError) as jerr:
+            j_pq_decode(j(cbs), j(codes_p), packed=True, interpret=True)
+        for fn in (pq_decode, pq_decode_reference):
+            with pytest.raises(ValueError) as terr:
+                fn(t(cbs), t(codes_p), packed=True)
+            assert str(terr.value) == str(jerr.value)
+    np.testing.assert_array_equal(
+        pq_decode(t(cb), pack_u4_codes(t(good)), packed=True).numpy(),
+        pq_decode(t(cb), t(good)).numpy())
     with pytest.raises(ValueError, match="splits"):
         pq_decode(t(cb), t(good), splits=4)
     with pytest.raises(TypeError):

@@ -15,6 +15,7 @@ from reductive_tpu.search import adc_scores_decode as j_adc_scores_decode
 from reductive_tpu.search import adc_tables as j_adc_tables
 from reductive_tpu.search import search as j_search
 from reductive_tpu_torch import Pq
+from reductive_tpu_torch.ops import pack_u4_codes
 from reductive_tpu_torch.search import (
     _resolve_stream_chunk, adc_scores, adc_scores_decode, adc_tables, search,
 )
@@ -175,13 +176,138 @@ def test_search_errors_match_jax():
         assert _message(torch_call) == _message(jax_call)
 
 
+@pytest.mark.parametrize("splits", [2, 3, "int8"])
+@pytest.mark.parametrize("stream_chunk", [None, 256, 7])
+def test_search_packed_equals_the_unpacked_search(stream_chunk, splits):
+    # The shape of the JAX package's packed search test.
+    _, tpq, _, q, codes = _setup(n=1200, m=8, k=16, ds=4, nq=4, seed=73)
+    packed = pack_u4_codes(t(codes))
+    assert tuple(packed.shape) == (1200, 4)
+    want = search(tpq, t(q), t(codes), 7, method="kernel", splits=splits, stream_chunk=stream_chunk)
+    got = search(tpq, t(q), packed, 7, method="kernel", splits=splits, stream_chunk=stream_chunk,
+                 packed=True)
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+
+
+def test_search_packed_matches_jax():
+    import unittest.mock as mock
+
+    from reductive_tpu.ops import pack_u4_codes as j_pack_u4_codes
+    from reductive_tpu.ops.adc import adc_scores_kernel as j_adc_scores_kernel
+    from reductive_tpu.search import _search_jit, _search_streamed_jit
+
+    jpq, tpq, _, q, codes = _setup(n=1200, m=8, k=16, ds=4, nq=4, seed=74)
+    jpacked = j_pack_u4_codes(j(codes))
+    # The JAX package's kernels in interpreter mode, as its own test runs them.
+    try:
+        with mock.patch(
+            "reductive_tpu.ops.adc.adc_scores_kernel",
+            lambda tb, c, splits, packed=False: j_adc_scores_kernel(
+                tb, c, splits=splits, packed=packed, interpret=True),
+        ):
+            want = j_search(jpq, j(q), jpacked, top_k=8, method="kernel", packed=True, splits=3)
+            want_st = j_search(jpq, j(q), jpacked, top_k=8, method="kernel", packed=True,
+                               splits=3, stream_chunk=256)
+    finally:
+        _search_jit.clear_cache()
+        _search_streamed_jit.clear_cache()
+    packed = t(np.asarray(jpacked))
+    got = search(tpq, t(q), packed, 7, method="kernel", packed=True, splits=3)
+    assert_same_neighbours(got, want, top_k=7)
+    got = search(tpq, t(q), packed, 7, method="kernel", packed=True, splits=3, stream_chunk=256)
+    assert_same_neighbours(got, want_st, top_k=7)
+
+
+def test_slice_train_verified_encode_pack_search_matches_jax():
+    """The exact-and-compact path end to end in both packages: the chunked
+    trainer in the verified mode from the same initial codebooks (k = 16), the
+    verified encode, the packing, and the packed search.  Codebooks to 1e-5
+    (f32 statistics summed in another order); with the port's codebooks handed
+    to both sides, codes and packed bytes equal; distances to rtol 1e-4, and
+    the same neighbours wherever neighbouring scores are further apart."""
+    import unittest.mock as mock
+
+    import jax
+
+    import reductive_tpu as jrt
+    import reductive_tpu_torch as trt
+    from reductive_tpu.ops import pack_u4_codes as j_pack_u4_codes
+    from reductive_tpu.ops import pq_encode_verified as j_pq_encode_verified
+    from reductive_tpu.ops.adc import adc_scores_kernel as j_adc_scores_kernel
+    from reductive_tpu.search import _search_jit, _search_streamed_jit
+    from reductive_tpu_torch.ops import pq_encode_verified
+
+    n, m, bits, ds, nq = 1500, 4, 4, 4, 5
+    x = np.random.default_rng(76).random((n + nq, m * ds), dtype=np.float32)
+    x, q = x[:n], x[n:]
+    init = np.stack([x[20 * jq:20 * jq + 2 ** bits, jq * ds:(jq + 1) * ds] for jq in range(m)])
+    tpq = trt.train_pq_chunked(None, t(x), m, bits, 4, chunk=512, compute_dtype="verified",
+                               use_kernel=True, initial_model=trt.Pq(codebooks=t(init)))
+    jpq = jrt.train_pq_chunked(jax.random.PRNGKey(0), j(x), m, bits, 4, chunk=512,
+                               compute_dtype="verified", use_kernel=False,
+                               initial_model=jrt.Pq(codebooks=j(init)))
+    np.testing.assert_allclose(tpq.codebooks.numpy(), np.asarray(jpq.codebooks), atol=1e-5)
+
+    # From here on the same codebooks on both sides, so that codes can be equal.
+    jpq = JPq(codebooks=j(tpq.codebooks.numpy()))
+    codes = pq_encode_verified(tpq.codebooks, t(x))
+    jcodes = j_pq_encode_verified(jpq.codebooks, j(x), block_n=256, interpret=True)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+    packed = pack_u4_codes(codes)
+    jpacked = j_pack_u4_codes(jcodes)
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jpacked))
+    assert tuple(packed.shape) == (n, m // 2)
+
+    try:
+        with mock.patch(
+            "reductive_tpu.ops.adc.adc_scores_kernel",
+            lambda tb, c, splits, packed=False: j_adc_scores_kernel(
+                tb, c, splits=splits, packed=packed, interpret=True),
+        ):
+            want = j_search(jpq, j(q), jpacked, top_k=9, method="kernel", packed=True, splits=3)
+    finally:
+        _search_jit.clear_cache()
+        _search_streamed_jit.clear_cache()
+    got = search(tpq, t(q), packed, 8, method="kernel", packed=True, splits=3)
+    wd, wi = np.asarray(want[0]), np.asarray(want[1])
+    np.testing.assert_allclose(got[0].numpy(), wd[:, :8], rtol=1e-4, atol=1e-6)
+    clear = np.diff(wd, axis=1) > 4e-4 * wd[:, 1:]
+    prefix = np.cumprod(clear, axis=1).astype(bool)  # ranks before the first unclear gap
+    assert prefix.mean() > 0.5
+    np.testing.assert_array_equal(got[1].numpy()[prefix[:, :8]], wi[:, :8][prefix[:, :8]])
+
+
+def test_search_packed_rules_match_jax():
+    jpq, tpq, x, q, codes = _setup(n=200, m=8, k=16, ds=4, nq=4, seed=75)
+    packed = pack_u4_codes(t(codes))
+    for method in ("einsum", "decode"):
+        assert _message(lambda: search(tpq, t(q), packed, 3, packed=True, method=method)) == \
+            _message(lambda: j_search(jpq, j(q), j(packed.numpy()), 3, packed=True, method=method))
+    # On CPU tensors "auto" is the einsum scorer, which does not take packed codes.
+    assert 'require method="kernel"' in _message(lambda: search(tpq, t(q), packed, 3, packed=True))
+    # refine_with an array: candidates from the packed search, exact re-scoring.
+    got = search(tpq, t(q), packed, 5, packed=True, method="kernel", refine_with=t(x),
+                 refine_factor=8)
+    want = search(tpq, t(q), t(codes), 5, method="kernel", refine_with=t(x), refine_factor=8)
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    with pytest.raises(ValueError, match="packed codes have shape"):
+        search(tpq, t(q), t(codes), 3, packed=True, method="kernel")
+
+
 def test_search_waiting_parameters_raise():
     _, tpq, x, q, codes = _setup(n=40)
 
     class Reader:
         n = 40
 
-    msg = _message(lambda: search(tpq, t(q), t(codes), 3, packed=True), NotImplementedError)
-    assert "ROADMAP" in msg and "Packed u4" in msg
+    # Packed codes are served (the name dates from when they waited too); the
+    # einsum scorer still refuses them, in the JAX package's words.
+    packed = pack_u4_codes(t(codes))
+    d, i = search(tpq, t(q), packed, 3, packed=True, method="kernel")
+    d0, i0 = search(tpq, t(q), t(codes), 3, method="kernel")
+    np.testing.assert_array_equal(i.numpy(), i0.numpy())
+    np.testing.assert_array_equal(d.numpy(), d0.numpy())
     msg = _message(lambda: search(tpq, t(q), t(codes), 3, refine_with=Reader()), NotImplementedError)
     assert "ROADMAP" in msg and "reader" in msg

@@ -264,17 +264,91 @@ def test_hyperparameter_errors_match_jax(trainer, args, error):
 
 
 def test_verified_is_not_ported_and_says_so():
+    """``compute_dtype="verified"`` is ported (the name dates from when it
+    raised): every entry that once refused it takes it, on both routes, and
+    gives the f32 route's statistics; what is no mode still raises."""
     x = t(_uniform(13, 64, 8))
-    for call in (
-        lambda: trt.train_pq_chunked(_gen(0), x, 2, 3, 2, compute_dtype="verified"),
-        lambda: ttrain.lloyd_iteration_chunked(x, torch.zeros((2, 8, 4)), torch.zeros(2),
-                                               compute_dtype="verified"),
-        lambda: ttrain.assign_stats_streamed(x, torch.zeros((2, 8, 4)), compute_dtype="verified"),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 5"):
-            call()
+    cb = t(make_pq_data(14, 1, 2, 8, 4)[0])
+    sumsq = ttrain._streamed_sumsq(x, 2, chunk=64)
+    for use_kernel in (False, True):
+        a = trt.train_pq_chunked(_gen(0), x, 2, 3, 2, compute_dtype="verified", use_kernel=use_kernel)
+        b = trt.train_pq_chunked(_gen(0), x, 2, 3, 2, use_kernel=False)
+        np.testing.assert_allclose(a.codebooks.numpy(), b.codebooks.numpy(), atol=1e-6)
+        new, loss = ttrain.lloyd_iteration_chunked(
+            x, cb, sumsq, compute_dtype="verified", use_kernel=use_kernel)
+        want_new, want_loss = ttrain.lloyd_iteration_chunked(x, cb, sumsq, use_kernel=False)
+        np.testing.assert_allclose(new.numpy(), want_new.numpy(), atol=1e-6)
+        np.testing.assert_allclose(loss.numpy(), want_loss.numpy(), rtol=1e-5)
+        sums, counts = ttrain.assign_stats_streamed(
+            x, cb, compute_dtype="verified", use_kernel=use_kernel)
+        want_sums, want_counts = ttrain.assign_stats_streamed(x, cb, use_kernel=False)
+        np.testing.assert_array_equal(counts.numpy(), want_counts.numpy())
+        np.testing.assert_allclose(sums.numpy(), want_sums.numpy(), rtol=1e-5, atol=1e-5)
+    assert ttrain.is_verified("verified") and not ttrain.is_verified(torch.float32)
     with pytest.raises(ValueError, match="compute_dtype must be"):
         trt.train_pq_chunked(_gen(0), x, 2, 3, 2, compute_dtype=torch.float16)
+    with pytest.raises(ValueError, match='or "verified", got exact'):
+        trt.train_pq_chunked(_gen(0), x, 2, 3, 2, compute_dtype="exact")
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("with_projection", [False, True])
+def test_train_pq_chunked_verified_matches_jax(with_projection, use_kernel):
+    # The slice as a whole: the same initial codebooks through both packages'
+    # chunked trainer in the verified mode.  The JAX package runs it on the CPU
+    # with its kernels off (the exact einsum statistics); use_kernel=True here
+    # is the verify kernel's plain version plus the wrapper's correction.
+    n, m, bits, ds = 600, 4, 3, 4
+    x = _uniform(15, n, m * ds)
+    proj = orthonormal(16, m * ds) if with_projection else None
+    rows = x @ proj if with_projection else x
+    init = np.stack([rows[10 * jq:10 * jq + 2 ** bits, jq * ds:(jq + 1) * ds] for jq in range(m)])
+    got = trt.train_pq_chunked(
+        None, t(x), m, bits, 5, chunk=256, projection=None if proj is None else t(proj),
+        initial_model=trt.Pq(codebooks=t(init)), compute_dtype="verified", use_kernel=use_kernel)
+    want = jrt.train_pq_chunked(
+        jax.random.PRNGKey(0), j(x), m, bits, 5, chunk=256, use_kernel=False,
+        projection=None if proj is None else j(proj), initial_model=jrt.Pq(codebooks=j(init)),
+        compute_dtype="verified")
+    np.testing.assert_allclose(got.codebooks.numpy(), np.asarray(want.codebooks), atol=1e-5)
+
+
+def test_verified_kernel_route_calls_the_verified_statistics(monkeypatch):
+    from reductive_tpu_torch.ops import stats as tstats
+
+    calls = []
+    real = tstats.pq_assign_stats_verified
+
+    def spy(codebooks, x, **kwargs):
+        calls.append(tuple(x.shape))
+        return real(codebooks, x, **kwargs)
+
+    def not_this(*args, **kwargs):
+        raise AssertionError("the unverified kernel route was taken")
+
+    monkeypatch.setattr(tstats, "pq_assign_stats_verified", spy)
+    monkeypatch.setattr(tstats, "pq_assign_stats", not_this)
+    x = t(_uniform(17, 300, 8))
+    trt.train_pq_chunked(_gen(0), x, 2, 3, 3, chunk=128, compute_dtype="verified", use_kernel=True)
+    assert calls == [(300, 8)] * 3  # no projection: one call over all rows per iteration
+    calls.clear()
+    cb = t(make_pq_data(18, 1, 2, 8, 4)[0])
+    ttrain.assign_stats_streamed(x, cb, chunk=128, use_kernel=True, compute_dtype="verified",
+                                 projection=t(orthonormal(19, 8)))
+    assert calls == [(128, 8), (128, 8), (44, 8)]
+
+
+def test_verified_checkpoint_and_resume(tmp_path):
+    x = t(_uniform(20, 400, 8))
+    path = tmp_path / "pq.npz"
+    saved = trt.train_pq_chunked(_gen(1), x, 2, 3, 4, chunk=128, compute_dtype="verified",
+                                 checkpoint_every=2, checkpoint_path=str(path))
+    loaded = trt.io.load(path, device="cpu")
+    np.testing.assert_array_equal(loaded.codebooks.numpy(), saved.codebooks.numpy())
+    resumed = trt.train_pq_chunked(None, x, 2, 3, 1, chunk=128, compute_dtype="verified",
+                                   initial_model=loaded)
+    one_more = trt.train_pq_chunked(None, x, 2, 3, 1, chunk=128, initial_model=loaded)
+    np.testing.assert_allclose(resumed.codebooks.numpy(), one_more.codebooks.numpy(), atol=1e-6)
 
 
 # -- from a draw: the slice as a whole -------------------------------------------
