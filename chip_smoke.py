@@ -19,7 +19,10 @@ of a good run is
 Times are CUDA-event medians after a warm-up.  ``bound_ms`` is the least time
 the card could take: the larger of bytes moved (each input read once, each
 output written once) over the memory rate and operations over the peak rate
-for their type, from NVIDIA's H100 SXM data sheet.
+for their type, from NVIDIA's H100 SXM data sheet.  For ``stats_f32`` and
+``stats_verify`` it is the least over the routes that meet their contract:
+three passes of the product in TF32 on the tensor cores (``bound_route``);
+the fp32 pipes' figure stands beside it as ``bound_ms_fp32_pipes``.
 """
 
 from __future__ import annotations
@@ -58,7 +61,11 @@ TOP_K = 10
 
 # H100 SXM peaks (dense): bytes/s of HBM, operations/s by type.
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+PEAK_OPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
+# What the parent commit's kernels took at the flagship shape (PERF.md, the run
+# before the fused Lloyd's kernels were redesigned; same card model at 700 W).
+PARENT_MS = {"stats_f32": 13.04, "stats_bf16": 9.46, "stats_verify": 17.37,
+             "stats_verify_kernel": 16.86}
 
 KERNELS = {
     "encode_f32": ("reductive_tpu_torch/csrc/encode.cu", "reductive_tpu/ops/assign.py:138"),
@@ -209,6 +216,27 @@ def compare_stats(codebooks, x, compute_dtype):
             "bit_equal_launches": True}
 
 
+def stress_inputs(gen, dev):
+    """Inputs that stress the statistics kernels' accumulation, as ``(name,
+    codebooks, x)``: a corpus whose rows all fall in one cell per subquantizer
+    (one thread adds a whole tile), codebooks with cells no row reaches, one
+    centroid, more centroids than one staged tile (k = 260, 1024), and row
+    counts of 1 and either side of a power of two."""
+    def data(n, m, k, ds):
+        return (torch.randn((m, k, ds), generator=gen, device=dev),
+                torch.randn((n, m * ds), generator=gen, device=dev))
+
+    cb, x = data(20_000, M, K, DS)
+    yield "skewed", cb, (cb[:, K // 2].reshape(1, D) + 1e-3 * x).contiguous()
+    far = cb.clone()
+    far[:, K // 2:] += 1e3
+    yield "unreached", far, x
+    for k in (1, 260, 1024):
+        yield f"k={k}", *data(20_000, 4, k, DS)
+    for n in (1, 1023, 1025):
+        yield f"n={n}", *data(n, M, K, DS)
+
+
 def compare_encode_verify(codebooks, x):
     """Verify kernel against plain version and against the exact path.  A
     flag may differ from the plain version's where a margin sits on the
@@ -307,7 +335,8 @@ def compare_packed(codebooks, x, queries, shape):
 def phase_kernels(pq, corpus, gen):
     """Each kernel against its plain version at n = 65,536 and one ragged n,
     at the flagship width and, for ADC / decode / encode / stats, at d=768,
-    m=24 (k=256; k=16 for the packed kernels at both widths)."""
+    m=24 (k=256; k=16 for the packed kernels at both widths); the statistics
+    kernels also on the inputs of ``stress_inputs``."""
     dev = corpus.device
     rows = []
     for n in (N_KERNELS, N_RAGGED):
@@ -330,6 +359,16 @@ def phase_kernels(pq, corpus, gen):
             rows.append({"kernel": name, "shape": f"n={n} d={D} m={M} k={K}", **res})
         rows += compare_packed(pq.codebooks[:, :K4].contiguous(), x, corpus[:16],
                                f"n={n} d={D} m={M} k={K4}")
+
+    for name, cb_s, x_s in stress_inputs(gen, dev):
+        shape = f"{name}: n={x_s.shape[0]} m={cb_s.shape[0]} k={cb_s.shape[1]} ds={cb_s.shape[2]}"
+        rows.append({"kernel": "stats_f32", "shape": shape, **compare_stats(cb_s, x_s, torch.float32)})
+        rows.append({"kernel": "stats_bf16", "shape": shape, **compare_stats(cb_s, x_s, torch.bfloat16)})
+        rows.append({"kernel": "stats_verify", "shape": shape, **compare_stats_verify(cb_s, x_s)})
+        if name == "skewed":
+            counts = ops.pq_assign_stats(cb_s, x_s)[1]
+            require(int((counts > 0).sum()) == M and float(counts[:, K // 2].min()) == x_s.shape[0],
+                    "stats: the skewed rows did not all fall in one cell")
 
     m2, k2, ds2 = 24, 256, 32
     cb2 = torch.randn((m2, k2, ds2), generator=gen, device=dev)
@@ -671,12 +710,22 @@ def exact_checks(name, codebooks, x, cap_frac=1 / 16):
     wrong_rows = (codes != oracle).any(dim=1)
     require(not bool((wrong_rows & (flags == 0)).any()),
             f"exact: {name}: the kernel's code differs from the exact path's on an unflagged row")
+    del codes
+    # The statistics kernel takes its products on the tensor cores (3xTF32) and
+    # flags with the wider limit derived for that: held to the same contract.
+    _, _, s_codes, s_flags = pq_assign_stats_verify_flags(codebooks, x)
+    s_wrong = (s_codes != oracle).any(dim=1)
+    require(not bool((s_wrong & (s_flags == 0)).any()),
+            f"exact: {name}: the statistics kernel's code differs from the exact path's on an "
+            f"unflagged row")
     return {
         "rows": n, "codes_compared": oracle.numel(), "code_mismatches": n_wrong,
         "count_cells_off": cells_off, "max_abs_err_sums": float(err.max()),
         "cap_frac": cap_frac, "flag_rate": float(flags.float().mean()),
         "flag_rate_at_2^-14": float(wide.float().mean()),
         "rows_the_kernel_alone_got_wrong": int(wrong_rows.sum()),
+        "stats_flag_rate": float(s_flags.float().mean()),
+        "rows_the_stats_kernel_alone_got_wrong": int(s_wrong.sum()),
     }
 
 
@@ -752,7 +801,7 @@ def phase_exact(pq, corpus, train_out):
     }
     emit("exact", n=n, d=D, m=M, k=K, **out, launches=launches,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
-    return launches
+    return launches, out
 
 
 # -- the packed path --------------------------------------------------------------
@@ -864,6 +913,10 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
     enc_bytes = 4 * n * D + cb_bytes + n * M
     enc_ops = 2 * n * M * K * DS
     adc_bytes = 4 * nq * M * K + n * M + 4 * nq * n
+    # stats_f32 and stats_verify: the least over the routes that meet the
+    # contract is three TF32 passes of the product on the tensor cores.
+    split = {"bound_route": "3xTF32 on the tensor cores",
+             "bound_ms_fp32_pipes": enc_ops / PEAK_OPS["f32"] * 1e3}
     specs = [
         ("encode_f32", lambda: ops.pq_encode(cb, corpus, compute_dtype=f32),
          lambda: ops.pq_encode_reference(cb, corpus, compute_dtype=f32), library_encode,
@@ -886,7 +939,7 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
          lambda: compare_adc(tables, codes, "int8"), bound(adc_bytes, nq * n * M, "int8")),
         ("stats_f32", lambda: ops.pq_assign_stats(cb, corpus, compute_dtype=f32),
          lambda: ops.pq_assign_stats_reference(cb, corpus, compute_dtype=f32), library_stats,
-         lambda: compare_stats(cb, corpus, f32), bound(stats_bytes, enc_ops, "f32")),
+         lambda: compare_stats(cb, corpus, f32), bound(stats_bytes, 3 * enc_ops, "tf32")),
         ("stats_bf16", lambda: ops.pq_assign_stats(cb, corpus, compute_dtype=bf16),
          lambda: ops.pq_assign_stats_reference(cb, corpus, compute_dtype=bf16), None,
          lambda: compare_stats(cb, corpus, bf16), bound(stats_bytes, enc_ops, "bf16")),
@@ -898,7 +951,7 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
         ("stats_verify", lambda: ops.pq_assign_stats_verified(cb, corpus),
          lambda: ops.pq_assign_stats_verify_reference(cb, corpus), library_exact_stats,
          lambda: compare_stats_verify(cb, corpus),
-         bound(stats_bytes + 4 * n + 4 * n * M, enc_ops, "f32"),
+         bound(stats_bytes + 4 * n + 4 * n * M, 3 * enc_ops, "tf32"),
          lambda: pq_assign_stats_verify_flags(cb, corpus)),
         ("decode_u4", lambda: ops.pq_decode(cb4, packed4, splits=3, packed=True),
          lambda: ops.pq_decode_reference(cb4, packed4, splits=3, packed=True),
@@ -932,6 +985,7 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
             "library_ms": None if library is None else time_ms(library, 3),
             "shape": f"n={n} d={D} m={M} k={k_here}" + (f" nq={nq}" if name.startswith("adc") else ""),
             **({"kernel_ms": time_ms(alone[0])} if alone else {}),
+            **(split if name in ("stats_f32", "stats_verify") else {}),
             **{key: res[key] for key in ("n_mismatch_flags", "flagged", "rows_moved") if key in res},
         })
         torch.cuda.empty_cache()
@@ -965,7 +1019,7 @@ def main() -> int:
     train_launches, train_out = phase_train(corpus)
     for name in ("stats_f32", "stats_bf16", "encode_f32", "decode"):
         require(train_launches.get(name, 0) > 0, f"train: kernel {name} was never launched")
-    exact_launches = phase_exact(pq, corpus, train_out)
+    exact_launches, exact_out = phase_exact(pq, corpus, train_out)
     pq4, codes4, packed4, packed_launches = phase_packed(corpus, gen)
     # Launches of each kernel on the main paths together; every count was set
     # to 0 just before its path was driven and read just after.
@@ -977,6 +1031,15 @@ def main() -> int:
     rows = kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4)
     torch.cuda.synchronize()
 
+    by_name = {row["name"]: row for row in rows}
+    emit("stats_redesign", shape=by_name["stats_f32"]["shape"], parent_ms=PARENT_MS,
+         ms={"stats_f32": by_name["stats_f32"]["ms"], "stats_bf16": by_name["stats_bf16"]["ms"],
+             "stats_verify": by_name["stats_verify"]["ms"],
+             "stats_verify_kernel": by_name["stats_verify"]["kernel_ms"]},
+         stats_verify_flag_rate={name: exact_out[name]["stats_flag_rate"]
+                                 for name in ("gaussian", "adversarial")},
+         encode_verify_flag_rate={name: exact_out[name]["flag_rate"]
+                                  for name in ("gaussian", "adversarial")})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

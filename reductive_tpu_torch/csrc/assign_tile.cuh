@@ -1,0 +1,302 @@
+// Nearest-centroid assignment of a tile of rows on the tensor cores, as
+// device functions a kernel includes.
+//
+//   a[i] = argmin_c (|c|^2 - 2c.x_i), first index on ties
+//
+// The cross term is a 3xTF32 split product: x = x_hi + x_lo and 2c = w_hi +
+// w_lo, each part a TF32 value (cvt.rna, 11 significant bits), and
+//   s = x_lo.w_hi + x_hi.w_lo + x_hi.w_hi
+// in that order, the two small products first, in fp32 accumulators that start
+// at zero.  The distance is then n_c - s in one rounded fp32 subtraction, as on
+// the fp32-pipe route.  Error of s against the real 2c.x (derived in
+// ops/assign.py): (3.25 + 5 ceil(ds/8)) 2^-22 |2c| |x|.
+//
+// The products are wgmma.mma_async.m64n64k8.tf32: a warpgroup (four warps)
+// takes 64 rows against 64 staged centroids at a depth of 8, which is one
+// ds = 8 subvector (ds = 4 is padded with zeros, ds = 16 / 32 take 2 / 4 depth
+// steps).  A, the split rows, comes from registers; B, both parts of the
+// staged 2c, from shared memory in the layout the instruction reads without a
+// swizzle: 8 x 16-byte core matrices, [8 centroids][4 dims], 128 bytes on to
+// the other half of the depth and 256 bytes on to the next 8 centroids.
+// Measured first with mma.sync.m16n8k8 (twelve instructions per 64 x 8 scores
+// of a warp, fragments of 2c read from shared memory by the threads): the
+// same time as one unpipelined wgmma per 128 centroids; the pipeline below is
+// what wgmma adds.
+//
+// What remains per score is the subtraction and the selection (compare,
+// min/max and select run on the half-rate ALU pipe of this card), and that is
+// what sets the time, not the products.  So the selection is cut:
+//   * a thread sees, per row, the columns 2t, 2t+1 of every 8-column group in
+//     rising order.  Per pair it takes m = min(d0, d1) and updates (best,
+//     group, d0 of the winning pair) only when m < best: 5 ALU operations a
+//     pair where the (value, index) loop needs 6.  The column is read back at
+//     the end: d0 == best picks 2t, else 2t+1, on the very values the minimum
+//     was taken from, so the first index wins exactly;
+//   * VERIFY also keeps the least distance over all other indices: the pair's
+//     larger value and the loser of (m, best) are the two candidates;
+//   * the four lanes of a row settle (value, index) by two shuffles, smaller
+//     index on equal values.
+// Overlap: the staged tile is taken in quarters of 64 centroids with two
+// accumulator sets of 32 registers; the three wgmma of quarter q + 1 are in
+// flight while quarter q is selected.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace assign_tile {
+
+constexpr int kCentroidTile = 256;  // centroids staged in shared memory at a time
+constexpr int kQuarter = 64;        // centroids one wgmma takes
+constexpr int kSubtile = 64;        // rows one wgmma takes
+
+// x = hi + lo + r with hi, lo TF32 values and |r| <= 2^-22 |x|.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  const float rest = v - __uint_as_float(hi);  // exact
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// d (+)= a . b^T: a, 64 x 8 in the warpgroup's registers; b, 64 x 8 in shared
+// memory behind desc_b; d, 64 x 64 in the warpgroup's registers, overwritten
+// unless `accumulate`.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32,%33,%34,%35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most PENDING committed groups are in flight.
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+// Keeps the compiler from reading the accumulators before the wait for the
+// asynchronous product.
+__device__ __forceinline__ void pin(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int DS>
+struct Shape {
+  static constexpr int KS = (DS + 7) / 8;  // depth steps of 8; ds = 4 is padded with zeros
+  static constexpr int DSP = KS * 8;
+  // One part (hi or lo) of the staged centroid tile: [KS][32 groups of 8
+  // centroids][2 halves of the depth][8 centroids][4 dims].
+  static constexpr int kStepFloats = kCentroidTile * 8;
+  static constexpr int kPartFloats = KS * kStepFloats;
+  // Both parts, then |c|^2.
+  static constexpr int kBytes = 4 * (2 * kPartFloats + kCentroidTile);
+};
+
+// Shared-memory descriptor of 64 centroids of one part and depth step, no
+// swizzle: 128 bytes to the core matrix of the depth's other half, 256 bytes
+// to that of the next 8 centroids.
+__device__ __forceinline__ uint64_t b_descriptor(const uint32_t* part_step, int quarter) {
+  const uint32_t addr =
+      (uint32_t)__cvta_generic_to_shared(part_step) + (uint32_t)quarter * (kQuarter / 8) * 256u;
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)(128u >> 4) << 16) |
+         ((uint64_t)(256u >> 4) << 32);
+}
+
+// Stage the centroids k0 .. k0 + kt - 1 of one subquantizer (cbj: (k, DS) f32
+// holding 2c; nj: (k,) f32 holding |c|^2): split 2c into s_w (hi part, then lo
+// part) in the layout above.  Columns from kt up to the next multiple of 128
+// get zeros and |c|^2 = +inf: they never win.  The caller synchronises around
+// it; the fence makes the writes visible to the tensor cores' reads.
+template <int DS, int THREADS>
+__device__ __forceinline__ void stage_centroids(uint32_t* s_w, float* s_n,
+                                                const float* __restrict__ cbj,
+                                                const float* __restrict__ nj, int k0, int kt) {
+  constexpr int DSP = Shape<DS>::DSP;
+  const int padded = (kt + kQuarter - 1) / kQuarter * kQuarter;
+  for (int e = threadIdx.x; e < padded * DSP; e += THREADS) {
+    const int c = e / DSP;
+    const int tt = e - c * DSP;
+    const float v = (c < kt && tt < DS) ? cbj[(long long)(k0 + c) * DS + tt] : 0.0f;
+    uint32_t hi, lo;
+    split_tf32(v, hi, lo);
+    const int at = (tt >> 3) * Shape<DS>::kStepFloats + (c >> 3) * 64 + ((tt >> 2) & 1) * 32 +
+                   (c & 7) * 4 + (tt & 3);
+    s_w[at] = hi;
+    s_w[Shape<DS>::kPartFloats + at] = lo;
+  }
+  for (int e = threadIdx.x; e < padded; e += THREADS)
+    s_n[e] = e < kt ? nj[k0 + e] : __int_as_float(0x7f800000);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The running selection of a thread's two rows of a 64-row subtile: rows
+// 16 w + g and 16 w + g + 8 (w the warp within its warpgroup, g = lane / 4).
+template <bool VERIFY>
+struct Pick {
+  float best[2];    // least distance so far
+  float keep[2];    // d0 of the pair that holds it
+  int base[2];      // first column of the 8-column group that holds it
+  float second[2];  // VERIFY: least distance over all other indices
+
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      best[h] = keep[h] = second[h] = __int_as_float(0x7f800000);  // +inf
+      base[h] = 0;
+    }
+  }
+
+  // Scores d0, d1 of the columns col0 + 2t, col0 + 2t + 1 for row h.
+  __device__ __forceinline__ void take(int h, float d0, float d1, int col0) {
+    const float lo = fminf(d0, d1);
+    if constexpr (VERIFY) {
+      // The pair's larger value lost to its smaller; the loser of (lo, best)
+      // is the other candidate for second place.
+      second[h] = fminf(fminf(second[h], fmaxf(d0, d1)), fmaxf(lo, best[h]));
+    }
+    if (lo < best[h]) {
+      best[h] = lo;
+      keep[h] = d0;
+      base[h] = col0;
+    }
+  }
+
+  // Settle row h over its four lanes.  On return every lane of the row holds
+  // the chosen index, its distance and (VERIFY) the least distance over all
+  // other indices.
+  __device__ __forceinline__ void finish(int h, int& idx, float& dist, float& runner_up) const {
+    const int t = threadIdx.x & 3;
+    float v = best[h];
+    float s = second[h];
+    int i = base[h] + 2 * t + (keep[h] == v ? 0 : 1);
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+      if constexpr (VERIFY) {
+        const float os = __shfl_xor_sync(0xffffffffu, s, off);
+        s = fminf(fminf(s, os), fmaxf(v, ov));  // equal bests: margin 0
+      }
+      if (ov < v || (ov == v && oi < i)) {
+        v = ov;
+        i = oi;
+      }
+    }
+    idx = i;
+    dist = v;
+    runner_up = s;
+  }
+};
+
+// The thread's part of a 64-row subtile as split A fragments.  xs: the
+// subtile's first row in shared memory, rows [DS] apart.
+template <int DS>
+__device__ __forceinline__ void load_rows(const float* xs, uint32_t (&ah)[Shape<DS>::KS][4],
+                                          uint32_t (&al)[Shape<DS>::KS][4]) {
+  const int lane = threadIdx.x & 31;
+  const int row0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < Shape<DS>::KS; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // fragment register i: row + 8 (i % 2), column t + 4 (i / 2)
+      const int col = ks * 8 + t + 4 * (i >> 1);
+      const float v = col < DS ? xs[(row0 + 8 * (i & 1)) * DS + col] : 0.0f;
+      split_tf32(v, ah[ks][i], al[ks][i]);
+    }
+  }
+}
+
+// Start the three products of one quarter of the staged centroid tile into d
+// and commit them as one group.
+template <int DS>
+__device__ __forceinline__ void start_products(float (&d)[32], const uint32_t* s_w, int quarter,
+                                               const uint32_t (&ah)[Shape<DS>::KS][4],
+                                               const uint32_t (&al)[Shape<DS>::KS][4]) {
+  constexpr int KS = Shape<DS>::KS;
+  constexpr int kStep = Shape<DS>::kStepFloats;
+  const uint32_t* s_hi = s_w;
+  const uint32_t* s_lo = s_w + Shape<DS>::kPartFloats;
+  wgmma_fence();  // the selection has read d; the split rows were just written
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_m64n64k8_tf32(d, al[ks], b_descriptor(s_hi + ks * kStep, quarter), ks > 0);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_m64n64k8_tf32(d, ah[ks], b_descriptor(s_lo + ks * kStep, quarter), 1);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_m64n64k8_tf32(d, ah[ks], b_descriptor(s_hi + ks * kStep, quarter), 1);
+  wgmma_commit();
+}
+
+// Scan NQ quarters of the staged centroid tile (the last one holding
+// `last_cols` columns) for one subtile.  The products of quarter q + 1 run
+// while quarter q is selected; NQ is static so that the pipeline has no branch
+// around a product.
+template <int DS, bool VERIFY, int NQ>
+__device__ __forceinline__ void scan_quarters(const uint32_t* s_w, const float* s_n, int k0,
+                                              int last_cols,
+                                              const uint32_t (&ah)[Shape<DS>::KS][4],
+                                              const uint32_t (&al)[Shape<DS>::KS][4],
+                                              Pick<VERIFY>& pick) {
+  const int t = threadIdx.x & 3;
+  float d[2][32];
+  start_products<DS>(d[0], s_w, 0, ah, al);
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    if (q + 1 < NQ) {
+      start_products<DS>(d[(q + 1) & 1], s_w, q + 1, ah, al);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    pin(d[q & 1]);
+#pragma unroll
+    for (int i = 0; i < kQuarter / 8; ++i) {
+      if (q + 1 < NQ || 8 * i < last_cols) {  // the same for every thread
+        const float2 nn = *reinterpret_cast<const float2*>(s_n + q * kQuarter + 8 * i + 2 * t);
+        const int col0 = k0 + q * kQuarter + 8 * i;
+        pick.take(0, nn.x - d[q & 1][4 * i + 0], nn.y - d[q & 1][4 * i + 1], col0);
+        pick.take(1, nn.x - d[q & 1][4 * i + 2], nn.y - d[q & 1][4 * i + 3], col0);
+      }
+    }
+  }
+}
+
+// Scan the staged centroid tile (kt columns, global columns k0 ..) for one
+// subtile.  All four warps of the warpgroup call it together.
+template <int DS, bool VERIFY>
+__device__ __forceinline__ void scan(const uint32_t* s_w, const float* s_n, int k0, int kt,
+                                     const uint32_t (&ah)[Shape<DS>::KS][4],
+                                     const uint32_t (&al)[Shape<DS>::KS][4], Pick<VERIFY>& pick) {
+  const int quarters = (kt + kQuarter - 1) / kQuarter;  // the same for every thread
+  const int last_cols = kt - (quarters - 1) * kQuarter;
+  switch (quarters) {
+    case 1: scan_quarters<DS, VERIFY, 1>(s_w, s_n, k0, last_cols, ah, al, pick); break;
+    case 2: scan_quarters<DS, VERIFY, 2>(s_w, s_n, k0, last_cols, ah, al, pick); break;
+    case 3: scan_quarters<DS, VERIFY, 3>(s_w, s_n, k0, last_cols, ah, al, pick); break;
+    default: scan_quarters<DS, VERIFY, 4>(s_w, s_n, k0, last_cols, ah, al, pick); break;
+  }
+}
+
+}  // namespace assign_tile

@@ -14,21 +14,28 @@
 // Design.  P blocks per subquantizer (P is a launch argument, a function of
 // the shapes alone).  Block (p, j) walks the row tiles p, p + P, p + 2P, ...
 // in that order.  For each tile:
-//   1. assignment, exactly the loops of csrc/encode.cu (f32: register-tiled
-//      FMAs; bf16: mma.sync with the accumulator started at -|c|^2); the codes
-//      go to shared memory, -1 for rows past n, and so do the tile's
-//      subvectors as they are loaded (already rounded in bf16 mode);
-//   2. accumulation without atomics: thread tid owns the centroids tid,
-//      tid + 256, ...; it scans the tile's codes in row order and adds the
-//      subvectors of its rows, read from shared memory, in registers.  (Read
-//      from global memory instead, these few scattered rows per thread cost
-//      as much as the whole assignment: they miss L1 inside a divergent
-//      branch.)
+//   1. the tile's subvectors go to shared memory (already rounded in bf16
+//      mode);
+//   2. assignment on the tensor cores.  f32 mode: the 3xTF32 split product
+//      (wgmma) and pairwise selection of csrc/assign_tile.cuh.  bf16 mode:
+//      mma.sync with the accumulator started at -|c|^2, as csrc/encode.cu.  The
+//      codes go to shared memory, -1 for rows past n;
+//   3. accumulation without atomics, with work proportional to the rows.  Up
+//      to 256 centroids: a counting sort of the tile's row slots by code
+//      (per-warp histograms from __match_any_sync, a prefix over warps and
+//      cells, a uint16 permutation), after which thread c walks its own
+//      segment in row order and adds the subvectors, read from shared memory,
+//      into registers that live on over the tiles.  More centroids: a bitonic
+//      sort of the unique keys (code << 10 | slot); the thread at the head of
+//      each run adds the run in row order and then adds the tile's sum into the
+//      cell of the block's slot, so only cells that occur in the tile are
+//      touched.  A tile whose rows all fall in one cell is one thread walking
+//      all of them.
 // The block's result goes to its own slot of a (P, m, k, ds + 1) partial
 // buffer (the last column holds the count, an integer); a second kernel adds
-// the P slots in slot order.  Every sum is therefore taken in one fixed order.
-// With k <= 256 a thread owns one centroid and keeps its sum in registers over
-// all tiles; with more it adds each tile's sum into its own cells of the slot.
+// the P slots in slot order.  Every sum is therefore taken in one fixed order:
+// per cell the tiles in the block's stride order, the rows of a tile in row
+// order, the slots in slot order.
 //
 // In bf16 mode the sums are of the bf16-rounded x (accumulated in f32), as in
 // the TPU kernel, where one rounded copy of x feeds both products.
@@ -36,76 +43,198 @@
 // Verified mode (stats_f32_kernel with VERIFY; replaces the TPU kernel
 // reductive_tpu/ops/stats.py::_stats_verify_kernel): the f32 mode, whose
 // assignment also carries the best distance over all other indices and flags a
-// (row, subquantizer) whose top-2 margin is within the bound the wrapper sets,
-// exactly as csrc/encode.cu does; it writes the chosen codes (n, m) int32 and
-// the rows' flags (integer atomicOr on a zeroed array) beside the statistics,
-// so that the wrapper can re-encode the flagged rows with the exact path and
-// move a changed row between cells.  The accumulation, the slots and the
-// reduction are the f32 mode's: two launches still give the same bits.
+// (row, subquantizer) whose top-2 margin is within the bound the wrapper sets
+// (ops/assign.py derives it for the split product).  It writes the chosen
+// codes as (m, n) int32, neighbouring threads on neighbouring rows so that
+// whole sectors go out, and the rows' flags (integer atomicOr on a zeroed
+// array) beside the statistics, so that the wrapper can re-encode the flagged
+// rows with the exact path and move a changed row between cells.  The
+// accumulation, the slots and the reduction are the f32 mode's: two launches
+// still give the same bits.
 //
-// What bounds it on an H100: f32 mode, the 2*n*m*k*ds operations of the
-// assignment on the fp32 pipes; bf16 mode, the bytes of x.  The accumulation
-// adds, per tile and thread, one pass over the tile's codes in shared memory
-// (broadcast reads, four codes a load).  Shared memory is dynamic: the tile's
-// subvectors and the staged centroids exceed 48 KB above ds = 8.
+// What bounds it on an H100: f32 mode, the selection's compares and selects
+// on the half-rate ALU pipe (the products, 3 x 2*n*m*k*ds operations in TF32,
+// and the bytes of x are both below it); bf16 mode, likewise its selection.
+// In f32 mode the next tile's subvectors are copied by cp.async into a second
+// buffer while this tile is assigned and accumulated; no TMA ring: a tile is
+// 16 KB and the staged centroids 16 to 64 KB.  Shared memory is dynamic: it
+// exceeds 48 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "assign_tile.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCentroidTile = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kCentroidTile = assign_tile::kCentroidTile;
+static_assert(kCentroidTile == kThreads, "one thread per staged centroid");
 
-// Adds to acc / cnt the subvectors of the tile's rows whose code is c, in row
-// order.  xs holds the tile's subvectors [slot][DS], codes its `slots` codes
-// (a multiple of 4), -1 where there is no row; both in shared memory.
+// ---- accumulation -------------------------------------------------------------
+
+// Shared scratch of the accumulation for a tile of TILE row slots.
+template <int TILE>
+struct Scratch {
+  static_assert(TILE >= 32 && TILE <= 1024 && (TILE & (TILE - 1)) == 0, "tile of 32 to 1024 slots");
+  static constexpr int kHist = kWarps * kCentroidTile;  // ints; also the TILE sort keys
+  static constexpr int kBytes = 4 * (kHist + kCentroidTile + kWarps) + 2 * TILE;
+  int* hist;             // [kWarps][kCentroidTile]
+  int* off;              // [kCentroidTile]
+  int* warp_total;       // [kWarps]
+  unsigned short* perm;  // [TILE]
+  __device__ explicit Scratch(unsigned char* base)
+      : hist(reinterpret_cast<int*>(base)), off(hist + kHist), warp_total(off + kCentroidTile),
+        perm(reinterpret_cast<unsigned short*>(warp_total + kWarps)) {}
+};
+
 template <int DS>
-__device__ __forceinline__ void scan_tile(const float* xs, const int* codes, int slots, int c,
-                                          float (&acc)[DS], unsigned int& cnt) {
-  for (int i = 0; i < slots; i += 4) {
-    const int4 cc = *reinterpret_cast<const int4*>(codes + i);
-    const int e[4] = {cc.x, cc.y, cc.z, cc.w};
+__device__ __forceinline__ void add_row(const float* xs, int slot, float (&acc)[DS]) {
+  const float4* p = reinterpret_cast<const float4*>(xs + slot * DS);
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      if (e[u] == c) {
-        const float4* p = reinterpret_cast<const float4*>(xs + (i + u) * DS);
-#pragma unroll
-        for (int t = 0; t < DS / 4; ++t) {
-          const float4 v = p[t];
-          acc[4 * t + 0] += v.x;
-          acc[4 * t + 1] += v.y;
-          acc[4 * t + 2] += v.z;
-          acc[4 * t + 3] += v.w;
-        }
-        ++cnt;
-      }
-    }
+  for (int t = 0; t < DS / 4; ++t) {
+    const float4 v = p[t];
+    acc[4 * t + 0] += v.x;
+    acc[4 * t + 1] += v.y;
+    acc[4 * t + 2] += v.z;
+    acc[4 * t + 3] += v.w;
   }
 }
 
-// Step 2 for one tile whose codes and subvectors lie in shared memory (the
-// caller has synchronised).  `one` (k <= kThreads): acc and cnt live on over
-// the tiles.
-template <int DS>
-__device__ __forceinline__ void accumulate_tile(const float* xs, const int* codes, int slots,
-                                                int k, bool one, float* __restrict__ slot,
-                                                float (&acc)[DS], unsigned int& cnt) {
-  for (int c = threadIdx.x; c < k; c += kThreads) {
-    if (!one) {
+// k <= 256: thread c adds the tile's rows of cell c to acc / cnt, in row order.
+// Counting sort: warp w ranks the slots [w * CPW * 32, (w + 1) * CPW * 32), 32 at
+// a time; a slot's rank among the tile's slots with its code is the count in
+// the warps before it, plus the count in its warp's earlier chunks, plus the
+// peers before it in its chunk.
+template <int DS, int TILE>
+__device__ __forceinline__ void accumulate_counting(const float* xs, const int* codes,
+                                                    Scratch<TILE> s, float (&acc)[DS],
+                                                    unsigned int& cnt) {
+  constexpr int NCH = TILE / 32;                          // chunks of 32 slots
+  constexpr int CPW = NCH >= kWarps ? NCH / kWarps : 1;   // chunks a warp ranks
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool ranks = warp * CPW < NCH;
+  int* my_hist = s.hist + warp * kCentroidTile;
+
+  for (int e = threadIdx.x; e < kWarps * kCentroidTile; e += kThreads) s.hist[e] = 0;
+  __syncthreads();
+
+  int rank[CPW];
+  if (ranks) {
 #pragma unroll
-      for (int t = 0; t < DS; ++t) acc[t] = 0.0f;
-      cnt = 0;
-    }
-    scan_tile<DS>(xs, codes, slots, c, acc, cnt);
-    if (!one && cnt != 0) {
-      float* cell = slot + (long long)c * (DS + 1);
-#pragma unroll
-      for (int t = 0; t < DS; ++t) cell[t] += acc[t];
-      cell[DS] = __uint_as_float(__float_as_uint(cell[DS]) + cnt);
+    for (int q = 0; q < CPW; ++q) {
+      const int c = codes[(warp * CPW + q) * 32 + lane];
+      const unsigned int peers = __match_any_sync(0xffffffffu, c);
+      const int before = __popc(peers & ((1u << lane) - 1u));
+      const int seen = c >= 0 ? my_hist[c] : 0;
+      rank[q] = seen + before;
+      __syncwarp();
+      if (c >= 0 && before == 0) my_hist[c] = seen + __popc(peers);
+      __syncwarp();
     }
   }
+  __syncthreads();
+
+  // Cell c = threadIdx.x: exclusive prefix over the warps, then over the cells.
+  const int c = threadIdx.x;
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int here = s.hist[w * kCentroidTile + c];
+    s.hist[w * kCentroidTile + c] = total;
+    total += here;
+  }
+  int incl = total;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) s.warp_total[warp] = incl;
+  __syncthreads();
+  int start = incl - total;
+  for (int w = 0; w < warp; ++w) start += s.warp_total[w];
+  s.off[c] = start;
+  __syncthreads();
+
+  if (ranks) {
+#pragma unroll
+    for (int q = 0; q < CPW; ++q) {
+      const int slot = (warp * CPW + q) * 32 + lane;
+      const int cc = codes[slot];
+      if (cc >= 0) s.perm[s.off[cc] + my_hist[cc] + rank[q]] = (unsigned short)slot;
+    }
+  }
+  __syncthreads();
+
+  for (int i = start; i < start + total; ++i) add_row<DS>(xs, s.perm[i], acc);
+  cnt += (unsigned int)total;
+}
+
+// k > 256: sort the unique keys code << 10 | slot (rows past n: all ones, at
+// the end); the head of each run adds it in row order and adds the tile's sum
+// into the cell of the block's slot.
+template <int DS, int TILE>
+__device__ __forceinline__ void accumulate_sorted(const float* xs, const int* codes,
+                                                  Scratch<TILE> s, float* __restrict__ slot) {
+  unsigned int* key = reinterpret_cast<unsigned int*>(s.hist);
+  for (int e = threadIdx.x; e < TILE; e += kThreads) {
+    const int c = codes[e];
+    key[e] = c >= 0 ? ((unsigned int)c << 10) | (unsigned int)e : 0xffffffffu;
+  }
+  __syncthreads();
+  for (int size = 2; size <= TILE; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int e = threadIdx.x; e < TILE / 2; e += kThreads) {
+        const int i = 2 * e - (e & (stride - 1));
+        const int j = i + stride;
+        const unsigned int a = key[i], b = key[j];
+        if ((a > b) == ((i & size) == 0)) {
+          key[i] = b;
+          key[j] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = threadIdx.x; i < TILE; i += kThreads) {
+    unsigned int kk = key[i];
+    if (kk == 0xffffffffu) continue;
+    const unsigned int c = kk >> 10;
+    if (i > 0 && (key[i - 1] >> 10) == c) continue;  // not the head of its run
+    float acc[DS];
+#pragma unroll
+    for (int t = 0; t < DS; ++t) acc[t] = 0.0f;
+    unsigned int cnt = 0;
+    int j = i;
+    do {
+      add_row<DS>(xs, (int)(kk & 1023u), acc);
+      ++cnt;
+      if (++j == TILE) break;
+      kk = key[j];
+    } while ((kk >> 10) == c);  // all ones >> 10 is no code
+    float* cell = slot + (long long)c * (DS + 1);
+#pragma unroll
+    for (int t = 0; t < DS; ++t) cell[t] += acc[t];
+    cell[DS] = __uint_as_float(__float_as_uint(cell[DS]) + cnt);
+  }
+}
+
+// Step 3 for one tile whose codes and subvectors lie in shared memory (the
+// caller has synchronised).  `one` (k <= kThreads): acc and cnt live on over
+// the tiles; else the tile's sums go into `slot`.
+template <int DS, int TILE>
+__device__ __forceinline__ void accumulate_tile(const float* xs, const int* codes,
+                                                Scratch<TILE> s, bool one,
+                                                float* __restrict__ slot, float (&acc)[DS],
+                                                unsigned int& cnt) {
+  if (one)
+    accumulate_counting<DS, TILE>(xs, codes, s, acc, cnt);
+  else
+    accumulate_sorted<DS, TILE>(xs, codes, s, slot);
 }
 
 // The block's own slot: zeroed at the start when the tiles add into it,
@@ -129,21 +258,44 @@ __device__ __forceinline__ void write_slot(float* __restrict__ slot, int k,
   }
 }
 
-// ---- f32 mode ---------------------------------------------------------------
+// ---- f32 mode: 3xTF32 on the tensor cores ---------------------------------------
 
-template <int DS, int R, bool VERIFY>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kGroups = kThreads / 128;  // warpgroups of a block
+
+// SUB 64-row subtiles a warpgroup assigns per tile, one after the other.
+template <int DS, int SUB>
+struct F32Shape {
+  static constexpr int kTile = kGroups * SUB * assign_tile::kSubtile;
+  static constexpr int kBytes =
+      assign_tile::Shape<DS>::kBytes + 4 * (2 * kTile * DS + 3 * kTile) + Scratch<kTile>::kBytes;
+  // The two accumulator sets take 64 registers and the split rows 8 per depth
+  // step: above ds = 8 a thread needs more than the 128 registers that two
+  // resident blocks leave it.
+  static constexpr int kMinBlocks = DS <= 8 ? 2 : 1;
+};
+
+template <int DS, int SUB, bool VERIFY>
+__global__ void __launch_bounds__(kThreads, F32Shape<DS, SUB>::kMinBlocks)
 stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
                  const float* __restrict__ csqn, float* __restrict__ partial,
                  const float* __restrict__ escale, float rho, int* __restrict__ codes_out,
                  int* __restrict__ flags, long long n, int m, int k, int P) {
-  constexpr int kTile = kThreads * R;
+  constexpr int kTile = F32Shape<DS, SUB>::kTile;
+  constexpr int KS = assign_tile::Shape<DS>::KS;
+  constexpr int V = DS / 4;  // 16-byte words of a subvector
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s_x = reinterpret_cast<float*>(smem);  // [kTile][DS]
-  float* s_c = s_x + kTile * DS;                // [kCentroidTile][DS]
-  float* s_n = s_c + kCentroidTile * DS;        // [kCentroidTile]
-  int* s_code = reinterpret_cast<int*>(s_n + kCentroidTile);  // [kTile]
+  uint32_t* s_w = reinterpret_cast<uint32_t*>(smem);               // split 2c, both parts
+  float* s_n = reinterpret_cast<float*>(s_w) + 2 * assign_tile::Shape<DS>::kPartFloats;  // |c|^2
+  float* s_x2 = s_n + kCentroidTile;                               // [2][kTile][DS]
+  int* s_code = reinterpret_cast<int*>(s_x2 + 2 * kTile * DS);     // [kTile]
+  float* s_best = reinterpret_cast<float*>(s_code + kTile);        // [kTile] chosen distance
+  float* s_second = s_best + kTile;                                // [kTile] VERIFY: runner-up
+  Scratch<kTile> scratch(reinterpret_cast<unsigned char*>(s_second + kTile));
 
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   // Neighbouring blocks take the m subquantizers of the same rows, so that the
   // sectors of a row they share meet in L2.
   const int j = blockIdx.x % m;
@@ -158,90 +310,99 @@ stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
   float acc[DS];
   unsigned int cnt = 0;
 #pragma unroll
-  for (int t = 0; t < DS; ++t) acc[t] = 0.0f;
+  for (int e = 0; e < DS; ++e) acc[e] = 0.0f;
   if (!one) zero_slot<DS>(slot, k);
+
+  // The tile's subvectors come by cp.async, 16 bytes a thread, into the buffer
+  // the previous tile does not use, while that tile is assigned and accumulated.
+  auto copy_tile = [&](long long tile, float* dst) {
+    for (int e = threadIdx.x; e < kTile * V; e += kThreads) {
+      const long long row = tile * kTile + e / V;
+      if (row < n) {
+        const float* src = x + row * d + (long long)j * DS + 4 * (e % V);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                         (uint32_t)__cvta_generic_to_shared(dst + 4 * e)),
+                     "l"(src)
+                     : "memory");
+      } else {
+        reinterpret_cast<float4*>(dst)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  };
+  int buffer = 0;
+  if (p < n_tiles) copy_tile(p, s_x2);
 
   int staged = -1;
   for (long long tile = p; tile < n_tiles; tile += P) {
-    const long long row_base = tile * kTile + threadIdx.x;
-    float xr[R][DS];
-    float best[R];
-    float second[R];  // VERIFY: the least distance over all indices but best_idx
-    int best_idx[R];
-    __syncthreads();  // the previous tile's scan has ended: s_x and s_code are free
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const long long row = row_base + (long long)r * kThreads;
-      best[r] = __int_as_float(0x7f800000);  // +inf
-      second[r] = __int_as_float(0x7f800000);
-      best_idx[r] = 0;
-      float4* sx = reinterpret_cast<float4*>(s_x + (r * kThreads + threadIdx.x) * DS);
-      const float4* q = reinterpret_cast<const float4*>(x + row * d + (long long)j * DS);
-#pragma unroll
-      for (int t = 0; t < DS / 4; ++t) {
-        const float4 v = row < n ? q[t] : make_float4(0.f, 0.f, 0.f, 0.f);
-        sx[t] = v;
-        xr[r][4 * t + 0] = v.x;
-        xr[r][4 * t + 1] = v.y;
-        xr[r][4 * t + 2] = v.z;
-        xr[r][4 * t + 3] = v.w;
-      }
-    }
+    const long long row0 = tile * kTile;
+    const float* s_x = s_x2 + buffer * (kTile * DS);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // this tile has landed; the previous tile's accumulation has ended
+    buffer ^= 1;
+    if (tile + P < n_tiles) copy_tile(tile + P, s_x2 + buffer * (kTile * DS));
 
     for (int k0 = 0; k0 < k; k0 += kCentroidTile) {
       const int kt = min(kCentroidTile, k - k0);
       if (staged != k0) {  // with k <= 256 the one centroid tile is staged once
         __syncthreads();
-        for (int e = threadIdx.x; e < kt * DS; e += kThreads) s_c[e] = cbj[(long long)k0 * DS + e];
-        for (int e = threadIdx.x; e < kt; e += kThreads) s_n[e] = nj[k0 + e];
+        assign_tile::stage_centroids<DS, kThreads>(s_w, s_n, cbj, nj, k0, kt);
         staged = k0;
         __syncthreads();
       }
-      for (int c = 0; c < kt; ++c) {
-        float cv[DS];
+#pragma unroll 1
+      for (int s = 0; s < SUB; ++s) {
+        uint32_t ah[KS][4], al[KS][4];
+        const int first = ((warp >> 2) * SUB + s) * assign_tile::kSubtile;
+        assign_tile::load_rows<DS>(s_x + first * DS, ah, al);
+        assign_tile::Pick<VERIFY> pick;
+        pick.reset();
+        assign_tile::scan<DS, VERIFY>(s_w, s_n, k0, kt, ah, al, pick);
 #pragma unroll
-        for (int t = 0; t < DS / 4; ++t) {
-          const float4 v = reinterpret_cast<const float4*>(s_c + c * DS)[t];
-          cv[4 * t + 0] = v.x;
-          cv[4 * t + 1] = v.y;
-          cv[4 * t + 2] = v.z;
-          cv[4 * t + 3] = v.w;
-        }
-        const float nn = s_n[c];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          float s = 0.0f;
-#pragma unroll
-          for (int t = 0; t < DS; ++t) s = fmaf(xr[r][t], cv[t], s);
-          const float dist = nn - s;  // cb2 holds 2c: s is the doubled cross term
-          // The loser of (dist, best) is a candidate for second place.
-          if constexpr (VERIFY) second[r] = fminf(second[r], fmaxf(dist, best[r]));
-          if (dist < best[r]) {
-            best[r] = dist;
-            best_idx[r] = k0 + c;
+        for (int h = 0; h < 2; ++h) {
+          int idx;
+          float best, second;
+          pick.finish(h, idx, best, second);
+          const int in_tile = first + 16 * (warp & 3) + g + 8 * h;
+          if (t == 0) {
+            // The row's result over the centroid tiles so far lives in shared
+            // memory; an earlier tile keeps a tie (its indices are smaller).
+            if (k0 > 0) {
+              const float old = s_best[in_tile];
+              if constexpr (VERIFY)
+                second = fminf(fminf(second, s_second[in_tile]), fmaxf(best, old));
+              if (!(best < old)) {
+                best = old;
+                idx = s_code[in_tile];
+              }
+            }
+            s_code[in_tile] = idx;
+            s_best[in_tile] = best;
+            if constexpr (VERIFY) s_second[in_tile] = second;
           }
         }
       }
     }
+    __syncthreads();
 
+    // Rows past n take no part in the statistics; the verified mode writes its
+    // codes, whole sectors at a time, and flags a row whose margin is small.
+    for (int e = threadIdx.x; e < kTile; e += kThreads) {
+      const long long row = row0 + e;
+      if (row >= n) {
+        s_code[e] = -1;
+      } else if constexpr (VERIFY) {
+        codes_out[(long long)j * n + row] = s_code[e];
+        float xn2 = 0.0f;
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const long long row = row_base + (long long)r * kThreads;
-      s_code[r * kThreads + threadIdx.x] = row < n ? best_idx[r] : -1;
-      if constexpr (VERIFY) {
-        if (row < n) {
-          codes_out[row * m + j] = best_idx[r];
-          float xn2 = 0.0f;
-#pragma unroll
-          for (int t = 0; t < DS; ++t) xn2 = fmaf(xr[r][t], xr[r][t], xn2);
-          const float margin = second[r] - best[r];  // +inf with k = 1; NaN flags
-          const float limit = 2.0f * escale[j] * sqrtf(xn2) + rho * fabsf(best[r]);
-          if (!(margin > limit)) atomicOr(flags + row, 1);
-        }
+        for (int c = 0; c < DS; ++c) xn2 = fmaf(s_x[e * DS + c], s_x[e * DS + c], xn2);
+        const float best = s_best[e];
+        const float margin = s_second[e] - best;  // +inf with k = 1; NaN flags
+        const float limit = 2.0f * escale[j] * sqrtf(xn2) + rho * fabsf(best);
+        if (!(margin > limit)) atomicOr(flags + row, 1);
       }
     }
     __syncthreads();
-    accumulate_tile<DS>(s_x, s_code, kTile, k, one, slot, acc, cnt);
+    accumulate_tile<DS, kTile>(s_x, s_code, scratch, one, slot, acc, cnt);
   }
   if (one) write_slot<DS>(slot, k, acc, cnt);
 }
@@ -249,8 +410,14 @@ stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
 // ---- bf16 mode on the tensor cores -----------------------------------------
 
 constexpr int kRowTiles = 4;  // 16-row tiles a warp holds
-constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerBlock = kWarps * kRowTiles * 16;
+
+template <int DS>
+struct Bf16Shape {
+  static constexpr int DSP = (DS + 7) / 8 * 8;
+  static constexpr int kBytes = 4 * (kRowsPerBlock * DS + kCentroidTile + kRowsPerBlock) +
+                                Scratch<kRowsPerBlock>::kBytes + 2 * kCentroidTile * DSP;
+};
 
 __device__ __forceinline__ void mma_m16n8k8_bf16(float (&c)[4], uint32_t a0, uint32_t a1,
                                                  uint32_t b0) {
@@ -273,7 +440,10 @@ stats_bf16_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
   float* s_x = reinterpret_cast<float*>(smem);                 // [kTile][DS], bf16-rounded values
   float* s_n = s_x + kTile * DS;                               // [kCentroidTile], -|c|^2
   int* s_code = reinterpret_cast<int*>(s_n + kCentroidTile);   // [kTile]
-  __nv_bfloat16* s_c = reinterpret_cast<__nv_bfloat16*>(s_code + kTile);  // [kCentroidTile][DSP]
+  unsigned char* s_scratch = reinterpret_cast<unsigned char*>(s_code + kTile);
+  Scratch<kTile> scratch(s_scratch);
+  __nv_bfloat16* s_c =
+      reinterpret_cast<__nv_bfloat16*>(s_scratch + Scratch<kTile>::kBytes);  // [kCentroidTile][DSP]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -302,7 +472,7 @@ stats_bf16_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
     uint32_t a[kRowTiles][KS][2];
     float best[kRowTiles][2];
     int best_idx[kRowTiles][2];
-    __syncthreads();  // the previous tile's scan has ended: s_x and s_code are free
+    __syncthreads();  // the previous tile's accumulation has ended: s_x and s_code are free
 #pragma unroll
     for (int rt = 0; rt < kRowTiles; ++rt) {
 #pragma unroll
@@ -384,7 +554,7 @@ stats_bf16_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
       }
     }
     __syncthreads();
-    accumulate_tile<DS>(s_x, s_code, kTile, k, one, slot, sum, cnt);
+    accumulate_tile<DS, kTile>(s_x, s_code, scratch, one, slot, sum, cnt);
   }
   if (one) write_slot<DS>(slot, k, sum, cnt);
 }
@@ -412,7 +582,7 @@ stats_reduce_kernel(const float* __restrict__ partial, float* __restrict__ sums,
 }
 
 // mode: 0 f32, 1 bf16, 2 verified (f32 with escale, rho, codes_out and flags).
-template <int DS, int R>
+template <int DS, int SUB>
 cudaError_t launch(const float* x, const float* cb2, const float* csqn, float* partial,
                    float* sums, float* counts, const float* escale, float rho, int* codes_out,
                    int* flags, long long n, int m, int k, int mode, int P,
@@ -423,18 +593,15 @@ cudaError_t launch(const float* x, const float* cb2, const float* csqn, float* p
   if (blocks > 0x7fffffffLL || reduce_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaError_t err;
   if (mode == 1) {
-    constexpr int DSP = (DS + 7) / 8 * 8;
-    const int bytes = 4 * (kRowsPerBlock * DS + kCentroidTile + kRowsPerBlock) +
-                      2 * kCentroidTile * DSP;
+    constexpr int bytes = Bf16Shape<DS>::kBytes;
     err = cudaFuncSetAttribute(stats_bf16_kernel<DS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
     if (err != cudaSuccess) return err;
     stats_bf16_kernel<DS><<<(unsigned)blocks, kThreads, bytes, stream>>>(x, cb2, csqn, partial, n,
                                                                          m, k, P);
   } else {
-    constexpr int kTile = kThreads * R;
-    const int bytes = 4 * (kTile * DS + kCentroidTile * DS + kCentroidTile + kTile);
-    auto kern = mode == 2 ? stats_f32_kernel<DS, R, true> : stats_f32_kernel<DS, R, false>;
+    constexpr int bytes = F32Shape<DS, SUB>::kBytes;
+    auto kern = mode == 2 ? stats_f32_kernel<DS, SUB, true> : stats_f32_kernel<DS, SUB, false>;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     kern<<<(unsigned)blocks, kThreads, bytes, stream>>>(x, cb2, csqn, partial, escale, rho,
@@ -461,6 +628,7 @@ int assign_stats(const void* x, const void* cb2, const void* csqn, void* partial
   float* tf = (float*)counts;
   int* co = (int*)codes;
   int* fl = (int*)flags;
+  // The second argument: 64-row subtiles a warpgroup assigns per tile in the f32 modes.
   switch (ds) {
     case 4: return (int)launch<4, 4>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
     case 8: return (int)launch<8, 4>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
@@ -485,9 +653,9 @@ extern "C" int rt_assign_stats(const void* x, const void* cb2, const void* csqn,
 
 // As rt_assign_stats in f32 mode, with the verification outputs: escale (m,)
 // f32 and rho set the margin below which a (row, subquantizer) is flagged (see
-// csrc/encode.cu); codes (n, m) int32 receives the chosen codes; flags (n,)
-// int32, zeroed by the caller, receives 1 for a row with any flagged
-// subquantizer.
+// ops/assign.py); codes (m, n) int32 receives the chosen codes, one row of it
+// per subquantizer; flags (n,) int32, zeroed by the caller, receives 1 for a
+// row with any flagged subquantizer.
 extern "C" int rt_assign_stats_verify(const void* x, const void* cb2, const void* csqn,
                                       void* partial, void* sums, void* counts,
                                       const void* escale, float rho, void* codes, void* flags,

@@ -4,7 +4,8 @@ Each source under ``reductive_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
 ``ctypes``.  The build happens at first use, from the sources in the
 package and nothing else, into ``reductive_tpu_torch/_build/``; a library's
-file name carries a hash of its source, so an edited source rebuilds.
+file name carries a hash of its source and of every header (``*.cuh``) beside
+it, so an edited source or header rebuilds.
 Nothing here runs when the package is imported: a machine without ``nvcc``
 or a GPU imports every module and only fails when a kernel is asked for.
 """
@@ -65,9 +66,16 @@ def _nvcc() -> str:
     )
 
 
-def _target(name: str) -> tuple[Path, Path]:
-    src = _CSRC / f"{name}.cu"
+def _target(name: str, csrc: Path | None = None) -> tuple[Path, Path]:
+    """The source of one library and the file it is built into.  The file's
+    name hashes the source, every ``*.cuh`` under ``csrc`` (a source may
+    include any of them) and the compiler's flags."""
+    csrc = _CSRC if csrc is None else csrc
+    src = csrc / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(_NVCC_FLAGS).encode())
     return src, _BUILD / f"lib{name}_{h.hexdigest()[:16]}.so"
 
@@ -80,7 +88,8 @@ def _start_build(name: str, verbose: bool):
         return name, lib, None, None
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-I", str(_CSRC), *(("-Xptxas", "-v") if verbose else ()),
+           "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return name, lib, tmp, proc
 

@@ -63,6 +63,40 @@ is always flagged.  Underflow to subnormals is not covered.
 The JAX package's scale ``2^-14`` covers its three-pass bfloat16 split and its
 packed sortable key, which this port has neither of; ``ds = 8`` here gives
 ``2^-19``.
+
+The bound for a split product on the tensor cores (route ``"tf32x3"``)
+-------------------------------------------------------------------------
+
+The assign+statistics kernel (``csrc/assign_tile.cuh``) evaluates ``s_c``
+otherwise: ``x = x_hi + x_lo + r_x`` and ``w = w_hi + w_lo + r_w``, each part
+rounded to TF32 (11 significant bits, nearest), so ``|x_lo| <= 2^-11 |x|`` and
+``|r_x| <= 2^-22 |x|`` per element, and likewise for ``w``.  It sums
+``x_lo.w_hi + x_hi.w_lo + x_hi.w_hi`` in that order in ``3 ceil(ds/8)``
+tensor-core instructions of depth 8, the accumulator starting at zero, and
+then takes ``d_c = fl(n_c - s_c)`` as before.  Against the real ``w.x``:
+
+* the split drops ``x_lo.w_lo``, ``r_x.w`` and ``x.r_w``: at most
+  ``3 * 2^-22 |w| |x|`` (second-order terms are below ``2^-32``);
+* every product of two TF32 values is exact in f32.  One instruction adds
+  eight of them and the accumulator.  The tensor core aligns its addends to
+  the largest exponent, keeps at least f32's 24 bits of each and truncates,
+  and truncates the sum once more: at most ``10 * 2^-23 M`` an instruction,
+  ``M`` the largest magnitude among addends and sum.  For the ``ceil(ds/8)``
+  instructions of ``x_hi.w_hi``, ``M <= (1 + 2^-9) |w| |x|``; for the small
+  products ``M <= 2^-10 |w| |x|``, which adds less than ``2^-30``.  Together
+  ``5 ceil(ds/8) * 2^-22 |w| |x|``, with ``0.25 * 2^-22`` set aside for all
+  the lower-order terms.
+
+So the kernel's ``s_c`` is within ``B_k = (3.25 + 5 ceil(ds/8)) 2^-22
+max_c|w_c| |x|`` of the truth and the exact path's within ``B``; the two
+routes differ by at most ``B_k + B`` where the first derivation has ``2B``,
+and the rest of that argument stands (the subtraction and ``rho`` are the
+same).  The flag limit's scale becomes ``2 (B_k + B) / |x|``:
+``e_j = 2 ((3.25 + 5 ceil(ds/8)) 2^-22 + ds 2^-24) max_c|2c_jc|``, which is
+``20.5 * 2^-22`` at ``ds = 8`` where the ``"fma"`` route has ``8 * 2^-22``.
+What the derivation assumes of the hardware (24 kept bits, truncation) is
+held to the exact path on the card: ``chip_smoke.py`` requires that no
+unflagged row of 4,000,000 differs.
 """
 
 from __future__ import annotations
@@ -179,13 +213,20 @@ def assign_nearest(
     return pq_encode(centroids[None, :, :], x, dtype=torch.int32, compute_dtype=compute_dtype)[:, 0]
 
 
-def verify_scale(codebooks: Tensor, scale: float | None = None) -> Tensor:
+def verify_scale(codebooks: Tensor, scale: float | None = None, *, route: str = "fma") -> Tensor:
     """``e_j = scale * max_c |2 c_jc|`` as ``(m,)`` f32: the flag limit's
-    share of ``|x_j|``.  ``scale=None`` is the sound choice for this port's
-    arithmetic, ``4 * ds * 2^-24`` (see the module docstring)."""
+    share of ``|x_j|``.  ``scale=None`` is the sound choice for the kernel's
+    arithmetic (see the module docstring): ``4 * ds * 2^-24`` for
+    ``route="fma"`` (a chain of f32 FMAs: the encode kernels),
+    ``2 * ((3.25 + 5 * ceil(ds / 8)) * 2^-22 + ds * 2^-24)`` for
+    ``route="tf32x3"`` (the split product on the tensor cores: the
+    assign+statistics kernel)."""
     ds = codebooks.shape[2]
+    if route not in ("fma", "tf32x3"):
+        raise ValueError(f'route must be "fma" or "tf32x3", got {route!r}')
     if scale is None:
-        scale = 4.0 * ds * 2.0 ** -24
+        scale = 4.0 * ds * 2.0 ** -24 if route == "fma" else \
+            2.0 * ((3.25 + 5.0 * -(-ds // 8)) * 2.0 ** -22 + ds * 2.0 ** -24)
     cn = torch.sqrt(torch.einsum("mkd,mkd->mk", codebooks, codebooks))
     return (scale * 2.0 * cn.amax(dim=1)).to(torch.float32).contiguous()
 

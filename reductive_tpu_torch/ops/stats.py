@@ -9,15 +9,18 @@ and their counts ``(m, k)``, both float32.  Counterpart of
 the kernel is ``csrc/stats.cu``.
 
 ``compute_dtype`` means what it means for the encode: ``torch.float32``
-assigns in real fp32 and sums the unrounded ``x``; ``torch.bfloat16``
+assigns at fp32 accuracy (the kernel: a 3xTF32 split product, each cross term
+within ``2^-19 |2c| |x|`` of the real one at ``ds = 8``; the plain version:
+fp32 tensor operations) and sums the unrounded ``x``; ``torch.bfloat16``
 assigns with ``x`` and ``2c`` rounded to bfloat16 and sums the **rounded**
 ``x`` in f32 (one rounded copy of ``x`` feeds both halves, as in the
 reference).  Counts are exact integers in both modes.
 
 The kernel uses no float atomics: every sum is taken in an order fixed by
 the shapes, so two launches on the same inputs give the same bits.  The
-kernel and the plain version agree on the counts except where f32 summation
-order flips a near-tie, and on the sums up to f32 summation order.
+kernel and the plain version agree on the counts except where rounding
+(summation order, the split) flips a near-tie, and on the sums up to f32
+summation order.
 
 :func:`pq_assign_stats_verified` removes that exception: its cell
 memberships are those of
@@ -25,9 +28,14 @@ memberships are those of
 exact path's, sums equal up to f32 accumulation order).  Counterpart of
 ``reductive_tpu.ops.stats.pq_assign_stats_verified`` (TPU kernel
 ``_stats_verify_kernel``): the f32 kernel also writes its codes and the row
-flags of :mod:`reductive_tpu_torch.ops.assign` (same bound); flagged rows
-are encoded again by the exact path, and a row whose code changed is moved
-from its old cell to its new one.
+flags of :mod:`reductive_tpu_torch.ops.assign`; flagged rows are encoded
+again by the exact path, and a row whose code changed is moved from its old
+cell to its new one.
+
+The f32 kernel takes its cross terms as a 3xTF32 split product on the tensor
+cores (``csrc/assign_tile.cuh``), so its flag limit is the wider one that
+:mod:`reductive_tpu_torch.ops.assign` derives for ``route="tf32x3"``
+(:data:`STATS_ROUTE`); the plain version flags with the same limit.
 """
 
 from __future__ import annotations
@@ -45,9 +53,12 @@ from .assign import (
 __all__ = [
     "pq_assign_stats", "pq_assign_stats_reference",
     "pq_assign_stats_verified", "pq_assign_stats_verify_reference", "pq_assign_stats_verify_flags",
-    "stats_from_codes", "move_between_cells", "exact_stats_chunked",
+    "STATS_ROUTE", "stats_from_codes", "move_between_cells", "exact_stats_chunked",
 ]
 
+# How the f32 kernel evaluates its products: names the flag limit of the
+# verified mode (see verify_scale).
+STATS_ROUTE = "tf32x3"
 # Rows the plain version takes at a time.
 _REFERENCE_CHUNK = 1 << 16
 # The kernel's grid is P blocks per subquantizer; P comes from the shapes
@@ -55,7 +66,7 @@ _REFERENCE_CHUNK = 1 << 16
 # the result's bits, is the same wherever the kernel runs.
 _TARGET_BLOCKS = 1056
 _MAX_PARTIAL_ELEMS = 1 << 26  # 256 MB of float32 scratch
-_MIN_ROWS_PER_TILE = 256  # the fewest rows a block assigns at a time (f32 mode, ds = 32)
+_MIN_ROWS_PER_TILE = 256  # no more blocks than 256-row tiles (the kernel's hold 128 to 512)
 
 
 def pq_assign_stats_reference(
@@ -100,7 +111,8 @@ def _check_kernel_shape(m: int, k: int, ds: int) -> None:
 def _launch_stats(codebooks: Tensor, x: Tensor, compute_dtype, verify=None):
     """One launch of the kernel on CUDA tensors.  ``verify`` is ``None`` or
     ``(escale, rho)``; with it the result also holds the codes ``(n, m)``
-    int32 and the row flags ``(n,)`` int32."""
+    int32 (a transposed view: the kernel writes them ``(m, n)``, whole
+    sectors at a time) and the row flags ``(n,)`` int32."""
     cb2, c_sqn = _prepare(codebooks, x, torch.int32, compute_dtype)
     n = x.shape[0]
     m, k, ds = codebooks.shape
@@ -110,7 +122,7 @@ def _launch_stats(codebooks: Tensor, x: Tensor, compute_dtype, verify=None):
     counts = torch.empty((m, k), dtype=torch.float32, device=dev)
     codes = flags = None
     if verify is not None:
-        codes = torch.empty((n, m), dtype=torch.int32, device=dev)
+        codes = torch.empty((m, n), dtype=torch.int32, device=dev).T
         flags = torch.zeros((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return sums.zero_(), counts.zero_(), codes, flags
@@ -216,7 +228,10 @@ def pq_assign_stats_verify_reference(
     """Plain PyTorch version of the verify kernel: ``(sums, counts, codes
     (n, m) int32, flags (n,) int32)``, the codes and flags of
     :func:`~reductive_tpu_torch.ops.assign.pq_encode_verify_reference` and the
-    statistics of those codes."""
+    statistics of those codes.  ``escale`` defaults to the kernel's,
+    ``verify_scale(codebooks, route=STATS_ROUTE)``."""
+    if escale is None:
+        escale = verify_scale(codebooks, route=STATS_ROUTE)
     codes, flags = pq_encode_verify_reference(
         codebooks, x, dtype=torch.int32, escale=escale, rho=rho
     )
@@ -233,7 +248,7 @@ def pq_assign_stats_verify_flags(
     if not x.is_cuda:
         return pq_assign_stats_verify_reference(codebooks, x, escale=escale, rho=rho)
     if escale is None:
-        escale = verify_scale(codebooks)
+        escale = verify_scale(codebooks, route=STATS_ROUTE)
     return _launch_stats(codebooks, x, torch.float32, verify=(escale, rho))
 
 
@@ -246,7 +261,9 @@ def pq_assign_stats_verified(
     its sums up to f32 accumulation order.
 
     The verify kernel computes the statistics, its codes and the flags of
-    every row where rounding could have changed an argmin.  The flagged rows
+    every row where rounding could have changed an argmin.  Only the flagged
+    rows' codes are read (a gather from the kernel's ``(m, n)`` layout;
+    nothing of size ``(n, m)`` is transposed).  The flagged rows
     (``torch.nonzero``: the host waits for the device once per call) are
     encoded again by the exact path, and each (row, j) whose code changed is
     moved: ``+x_j`` and ``+1`` into its new cell, ``-x_j`` and ``-1`` into

@@ -156,6 +156,34 @@ def test_verify_scale_is_the_docstrings_and_wider_scales_flag_more():
     assert rates[0] <= rates[1] < rates[2] and rates[0] < 0.01
 
 
+@pytest.mark.parametrize("ds", [4, 8, 16, 32])
+def test_verify_scale_of_the_split_product_is_the_docstrings_and_wider(ds):
+    cb, x = make_pq_data(38, 4000, 3, 16, ds)
+    cn = np.sqrt((cb.astype(np.float64) ** 2).sum(axis=2)).max(axis=1)
+    steps = -(-ds // 8)  # tensor-core instructions of depth 8 in x_hi.w_hi
+    formula = 2 * ((3.25 + 5 * steps) * 2.0 ** -22 + ds * 2.0 ** -24)
+    e = tassign.verify_scale(t(cb), route="tf32x3")
+    np.testing.assert_allclose(e.numpy(), formula * 2 * cn, rtol=1e-6)
+    assert e.dtype == torch.float32 and tuple(e.shape) == (3,)
+    fma = tassign.verify_scale(t(cb), route="fma")
+    np.testing.assert_array_equal(fma.numpy(), tassign.verify_scale(t(cb)).numpy())
+    assert bool((e > fma).all()) and bool((e < 8 * fma).all())
+    # An explicit scale wins over the route; an unknown route raises.
+    np.testing.assert_array_equal(
+        tassign.verify_scale(t(cb), 2.0 ** -14, route="tf32x3").numpy(),
+        tassign.verify_scale(t(cb), 2.0 ** -14).numpy())
+    with pytest.raises(ValueError, match="route"):
+        tassign.verify_scale(t(cb), route="wgmma")
+    # The statistics' plain version flags with the kernel's scale: more rows
+    # than the encode's, all of the encode's among them.
+    assert tstats.STATS_ROUTE == "tf32x3"
+    _, _, _, stats_flags = pq_assign_stats_verify_reference(t(cb), t(x))
+    _, enc_flags = pq_encode_verify_reference(t(cb), t(x))
+    _, same = pq_encode_verify_reference(t(cb), t(x), escale=e)
+    np.testing.assert_array_equal(stats_flags.numpy(), same.numpy())
+    assert bool((stats_flags >= enc_flags).all()) and float(stats_flags.float().mean()) < 0.03
+
+
 def test_flagged_rows_and_the_cap():
     flags = torch.tensor([0, 1, 0, 1, 1, 0, 0, 0], dtype=torch.int32)
     np.testing.assert_array_equal(tassign.flagged_rows(flags, 0.5).numpy(), [1, 3, 4])
@@ -183,16 +211,21 @@ def test_encode_wrapper_corrects_what_the_first_stage_got_wrong(monkeypatch):
 # -- the bound behind the flags ----------------------------------------------------
 
 
+@pytest.mark.parametrize("route", ["fma", "tf32x3"])
 @pytest.mark.parametrize("seed", range(6))
 @pytest.mark.parametrize("ds", [4, 8, 32])
-def test_every_row_whose_argmin_a_rounding_could_change_is_flagged(ds, seed):
+def test_every_row_whose_argmin_a_rounding_could_change_is_flagged(ds, seed, route):
     """Soundness of the flag limit against its own derivation: move every
-    distance by up to what two f32 evaluations may differ by (``2B`` from the
-    product's summation order, ``B = g max|2c| |x|``, ``g = ds u / (1 - ds u)``,
-    plus ``2^-23 |d|`` from the two rounded subtractions), in f64, and take the
-    argmin again.  Wherever it changes, the row must have been flagged.  The
-    rows sit near midpoints of centroid pairs at distances that straddle the
-    limit, beside zero rows, tiny rows and exact ties."""
+    distance by up to what the kernel's and the exact path's evaluations may
+    differ by (``B_k + B`` from the products, plus ``2^-23 |d|`` from the two
+    rounded subtractions), in f64, and take the argmin again.  ``B = g max|2c|
+    |x|``, ``g = ds u / (1 - ds u)``, is any f32 summation order; ``B_k`` is
+    ``B`` too for a chain of FMAs (``"fma"``) and ``(3.25 + 5 ceil(ds/8)) 2^-22
+    max|2c| |x|`` for the split product on the tensor cores (``"tf32x3"``).
+    Wherever the argmin changes, the row must have been flagged; with a
+    quarter of the scale some such row is not.  The rows sit near midpoints of
+    centroid pairs at distances that straddle the limit, beside zero rows,
+    tiny rows and exact ties."""
     rng = np.random.default_rng(100 * ds + seed)
     m, k, n = 3, 12, 4000
     cb = rng.standard_normal((m, k, ds)).astype(np.float32)
@@ -210,14 +243,16 @@ def test_every_row_whose_argmin_a_rounding_could_change_is_flagged(ds, seed):
     cb2, c_sqn = tassign._prepare(tcb, tx, torch.int32, torch.float32)
     xs = tx.reshape(n, m, ds)
     dist = c_sqn[None] - torch.einsum("nmd,mkd->nmk", xs, cb2)
-    codes, flagged = tassign._verify_flags(dist, xs, tassign.verify_scale(tcb), tassign.VERIFY_RHO)
+    escale = tassign.verify_scale(tcb, route=route)
+    codes, flagged = tassign._verify_flags(dist, xs, escale, tassign.VERIFY_RHO)
 
     u = 2.0 ** -24
     g = ds * u / (1 - ds * u)
+    g_kernel = g if route == "fma" else (3.25 + 5 * -(-ds // 8)) * 2.0 ** -22
     wmax = np.sqrt((cb2.double().numpy() ** 2).sum(axis=2)).max(axis=1)       # (m,)
     xn = np.sqrt((xs.double().numpy() ** 2).sum(axis=2))                     # (n, m)
     d64 = dist.double().numpy()
-    room = 2 * g * wmax[None, :, None] * xn[:, :, None] + 2.0 ** -23 * np.abs(d64)
+    room = (g_kernel + g) * wmax[None, :, None] * xn[:, :, None] + 2.0 ** -23 * np.abs(d64)
     changed_any = np.zeros((n, m), dtype=bool)
     for trial in range(4):
         # The worst case for a tie: the chosen one up, the others down; then random signs.
@@ -228,6 +263,10 @@ def test_every_row_whose_argmin_a_rounding_could_change_is_flagged(ds, seed):
         changed_any |= moved.argmin(axis=2) != codes.numpy()
     assert changed_any.any(), "the data reaches no near-tie: the property tests nothing"
     assert not (changed_any & ~flagged.numpy()).any()
+    # The limit has less than a factor of four to spare: at a quarter of the
+    # scale a row whose argmin can change goes unflagged.
+    _, too_few = tassign._verify_flags(dist, xs, escale / 4, tassign.VERIFY_RHO)
+    assert (changed_any & ~too_few.numpy()).any()
     # And the flags are not vacuous: far from its midpoint a row stays unflagged
     # (unless it chose the repeated centroid: an exact tie with its twin).
     far = (np.abs(offset).min(axis=2) > 1e-3) & (np.arange(n) >= 600)[:, None]

@@ -1,0 +1,216 @@
+"""Times of the assign+statistics kernels of ``reductive_tpu_torch`` on one GPU.
+
+    python3 tools/time_stats_kernels.py [--against DIR] [--n ROWS]
+
+Prints one JSON line per measurement (CUDA-event medians after a warm-up,
+milliseconds) and, first, the card's name and power limit:
+
+* ``stats_f32``, ``stats_bf16`` and ``stats_verify`` (kernel alone and whole
+  wrapper) at the flagship width d=128, m=16, k=256, ds=8 over ``--n`` rows
+  (4,000,000), and at the shapes ``chip_smoke.py``'s kernels phase compares;
+* a sweep over k and over ds, whose slope in k is the assignment (products and
+  selection) and whose intercept is loads, staging and accumulation;
+* builds of ``csrc/stats.cu`` with a part compiled out (made in a temporary
+  copy of ``csrc/``, never in the package): without the accumulation, with
+  the selection cut to its running minimum, with one of the split's three
+  products, with one block on an SM and with smaller tiles, at the flagship
+  shape: the differences are those parts' shares.
+
+With ``--against DIR`` (another checkout of the repository, for example the
+parent commit unpacked by ``git archive``) the timings of the first two groups
+are also taken there, in the order other, this, this, other (the sweep once
+each), each in a process of its own, so that two versions are compared on one
+card in one run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+FLAGSHIP = (16, 256, 8)
+# (n, m, k, ds): the flagship shape comes first and takes --n.
+COMPARED_SHAPES = [(None, *FLAGSHIP), (65_536, *FLAGSHIP), (50_001, *FLAGSHIP), (65_536, 24, 256, 32)]
+SWEEP_SHAPES = [(None, 16, k, 8) for k in (8, 64, 128, 1024)] + [
+    (None, 32, 256, 4), (None, 8, 256, 16), (None, 4, 256, 32)]
+
+
+def emit(**fields) -> None:
+    print(json.dumps(fields), flush=True)
+
+
+def time_ms(fn, reps: int = 5) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def make(n, m, k, ds):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cb = torch.randn((m, k, ds), generator=gen, device="cuda")
+    x = torch.randn((n, m * ds), generator=gen, device="cuda")
+    return cb, x
+
+
+def worker(label: str, n_rows: int, sweep: bool) -> None:
+    """Times this checkout's kernels (the package is imported from the
+    current directory)."""
+    sys.path.insert(0, str(Path.cwd()))
+    import torch
+    from reductive_tpu_torch import ops
+    from reductive_tpu_torch.ops.stats import pq_assign_stats_verify_flags
+
+    ops.build_all()
+    for n, m, k, ds in COMPARED_SHAPES + (SWEEP_SHAPES if sweep else []):
+        n = n_rows if n is None else n
+        cb, x = make(n, m, k, ds)
+        shape = f"n={n} d={m * ds} m={m} k={k} ds={ds}"
+        emit(checkout=label, shape=shape,
+             stats_f32=time_ms(lambda: ops.pq_assign_stats(cb, x, compute_dtype=torch.float32)),
+             stats_bf16=time_ms(lambda: ops.pq_assign_stats(cb, x, compute_dtype=torch.bfloat16)),
+             stats_verify_kernel=time_ms(lambda: pq_assign_stats_verify_flags(cb, x)),
+             stats_verified=time_ms(lambda: ops.pq_assign_stats_verified(cb, x)),
+             flag_rate=float(pq_assign_stats_verify_flags(cb, x)[3].float().mean()))
+        del cb, x
+        torch.cuda.empty_cache()
+
+
+# name -> [(file under csrc, text that must occur exactly once, its replacement)]
+ABLATIONS = {
+    "whole": [],
+    "no_accumulation": [
+        ("stats.cu", "    accumulate_tile<DS, kTile>(s_x, s_code, scratch, one, slot, acc, cnt);\n",
+         "    if (s_code[threadIdx.x % kTile] == 0x7fffffff) acc[0] += 1.0f;  // keeps the codes live\n"),
+        ("stats.cu", "    accumulate_tile<DS, kTile>(s_x, s_code, scratch, one, slot, sum, cnt);\n",
+         "    if (s_code[threadIdx.x % kTile] == 0x7fffffff) sum[0] += 1.0f;\n"),
+    ],
+    # f32 mode only: as many registers as the compiler likes, so one block on an SM.
+    "one_block_per_sm": [
+        ("stats.cu", "  static constexpr int kMinBlocks = DS <= 8 ? 2 : 1;",
+         "  static constexpr int kMinBlocks = 1;"),
+    ],
+    # f32 mode only: tiles of 256 rows in place of 512.
+    "two_subtiles_per_warpgroup": [
+        ("stats.cu", "    case 8: return (int)launch<8, 4>(", "    case 8: return (int)launch<8, 2>("),
+    ],
+    # f32 mode only: the running minimum stays, the compare and the three selects go.
+    "selection_is_min_only": [
+        ("assign_tile.cuh",
+         "    if (lo < best[h]) {\n      best[h] = lo;\n      keep[h] = d0;\n      base[h] = col0;\n    }\n",
+         "    best[h] = fminf(best[h], lo);\n"),
+    ],
+    # f32 mode only: x_hi.w_hi alone, without the two small products of the split.
+    "one_product_of_three": [
+        ("assign_tile.cuh",
+         "    wgmma_m64n64k8_tf32(d, al[ks], b_descriptor(s_hi + ks * kStep, quarter), ks > 0);\n"
+         "#pragma unroll\n"
+         "  for (int ks = 0; ks < KS; ++ks)\n"
+         "    wgmma_m64n64k8_tf32(d, ah[ks], b_descriptor(s_lo + ks * kStep, quarter), 1);\n"
+         "#pragma unroll\n"
+         "  for (int ks = 0; ks < KS; ++ks)\n"
+         "    wgmma_m64n64k8_tf32(d, ah[ks], b_descriptor(s_hi + ks * kStep, quarter), 1);\n",
+         "    wgmma_m64n64k8_tf32(d, ah[ks], b_descriptor(s_hi + ks * kStep, quarter), ks > 0);\n"),
+    ],
+}
+
+
+def ablated(n_rows: int) -> None:
+    """Builds of stats.cu with a part compiled out, timed through the C entry
+    at the flagship shape.  The results of such a build are wrong by design;
+    only its time is read."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from reductive_tpu_torch.ops import _build
+    from reductive_tpu_torch.ops.assign import _prepare
+    from reductive_tpu_torch.ops.stats import _blocks_per_subquantizer
+
+    m, k, ds = FLAGSHIP
+    cb, x = make(n_rows, m, k, ds)
+    cb2, c_sqn = _prepare(cb, x, torch.int32, torch.float32)
+    blocks = _blocks_per_subquantizer(n_rows, m, k, ds)
+    partial = torch.empty((blocks, m, k, ds + 1), device="cuda")
+    sums, counts = torch.empty((m, k, ds), device="cuda"), torch.empty((m, k), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    csrc = ROOT / "reductive_tpu_torch" / "csrc"
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, swaps in ABLATIONS.items():
+            work = Path(tmp) / name
+            work.mkdir()
+            for src in list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")):
+                text = src.read_text()
+                for file, old, new in swaps:
+                    if src.name == file:
+                        if text.count(old) != 1:
+                            raise SystemExit(f"{name}: the text to replace is not in {file} exactly once")
+                        text = text.replace(old, new)
+                (work / src.name).write_text(text)
+            lib_path = work / "libstats.so"
+            subprocess.run([_build._nvcc(), *_build._NVCC_FLAGS, "-I", str(work), "-o",
+                            str(lib_path), str(work / "stats.cu")], check=True)
+            lib = ctypes.CDLL(str(lib_path))
+            for mode, bf16 in (("stats_f32", 0), ("stats_bf16", 1)):
+                fn = lib.rt_assign_stats
+                fn.argtypes = list(_build._ENTRIES["rt_assign_stats"][1])
+                fn.restype = ctypes.c_int
+
+                def call():
+                    rc = fn(x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), partial.data_ptr(),
+                            sums.data_ptr(), counts.data_ptr(), n_rows, m, k, ds, bf16, blocks, stream)
+                    if rc != 0:
+                        raise SystemExit(f"{name}: rt_assign_stats returned {rc}")
+
+                emit(build=name, kernel=mode, shape=f"n={n_rows} d={m * ds} m={m} k={k} ds={ds}",
+                     ms=time_ms(call))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--against", type=Path, help="another checkout to time in turn with this one")
+    ap.add_argument("--n", type=int, default=4_000_000, help="rows at the flagship shape")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--sweep", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--ablated", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        worker(args.worker, args.n, args.sweep)
+        return 0
+    if args.ablated:
+        ablated(args.n)
+        return 0
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip(), flush=True)
+    me = [sys.executable, str(Path(__file__).resolve()), "--n", str(args.n)]
+    turns = [("this", ROOT, True)]
+    if args.against:
+        other = args.against.resolve()
+        turns = [("other", other, True), ("this", ROOT, True), ("this", ROOT, False),
+                 ("other", other, False)]
+    for label, cwd, sweep in turns:
+        subprocess.run([*me, "--worker", label, *(["--sweep"] if sweep else [])], cwd=cwd, check=True)
+    subprocess.run([*me, "--ablated"], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
