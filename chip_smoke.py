@@ -19,10 +19,13 @@ of a good run is
 Times are CUDA-event medians after a warm-up.  ``bound_ms`` is the least time
 the card could take: the larger of bytes moved (each input read once, each
 output written once) over the memory rate and operations over the peak rate
-for their type, from NVIDIA's H100 SXM data sheet.  For ``stats_f32`` and
-``stats_verify`` it is the least over the routes that meet their contract:
-three passes of the product in TF32 on the tensor cores (``bound_route``);
-the fp32 pipes' figure stands beside it as ``bound_ms_fp32_pipes``.
+for their type, from NVIDIA's H100 SXM data sheet.  For the f32 and verified
+encode and statistics kernels it is the least over the routes that meet
+their contract: three passes of the product in TF32 on the tensor cores
+(``bound_route``); the fp32 pipes' figure stands beside it as
+``bound_ms_fp32_pipes``.  The f32 encode and statistics kernels run one
+assignment routine: the kernels phase holds their codes, counts and flags
+equal bit for bit on the whole corpus (``shared_assignment``).
 """
 
 from __future__ import annotations
@@ -62,10 +65,13 @@ TOP_K = 10
 # H100 SXM peaks (dense): bytes/s of HBM, operations/s by type.
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
-# What the parent commit's kernels took at the flagship shape (PERF.md, the run
-# before the fused Lloyd's kernels were redesigned; same card model at 700 W).
-PARENT_MS = {"stats_f32": 13.04, "stats_bf16": 9.46, "stats_verify": 17.37,
-             "stats_verify_kernel": 16.86}
+# What the kernels took at the flagship shape before their redesign for this
+# card (PERF.md: the statistics kernels before the tensor-core assignment, the
+# f32 and verified encode before it took the same routine; NVIDIA H100 80GB
+# HBM3 at 700 W).
+BEFORE_MS = {"stats_f32": 13.04, "stats_bf16": 9.46, "stats_verify": 17.37,
+             "stats_verify_kernel": 16.86, "encode_f32": 8.70, "encode_verify": 12.72,
+             "encode_verify_kernel": 11.29}
 
 KERNELS = {
     "encode_f32": ("reductive_tpu_torch/csrc/encode.cu", "reductive_tpu/ops/assign.py:138"),
@@ -140,10 +146,11 @@ def chosen_dist(codebooks, x, codes):
 
 
 def compare_encode(codebooks, x, compute_dtype):
-    """Kernel against plain version.  Codes may differ only where f32
-    summation order flips a near-tie: at least 99.9% (f32) or 99% (bf16)
-    equal, and every differing code's centroid within 2^-13 (f32) or 2^-7
-    (bf16) relative of the other's distance."""
+    """Kernel against plain version.  Codes may differ only where rounding
+    (the f32 kernel's split product, f32 summation order) flips a near-tie:
+    at least 99.9% (f32) or 99% (bf16) equal, and every differing code's
+    centroid within 2^-13 (f32) or 2^-7 (bf16) relative of the other's
+    distance."""
     got = ops.pq_encode(codebooks, x, dtype=torch.int32, compute_dtype=compute_dtype)
     want = ops.pq_encode_reference(codebooks, x, dtype=torch.int32, compute_dtype=compute_dtype)
     torch.cuda.synchronize()
@@ -291,6 +298,37 @@ def compare_stats_verify(codebooks, x):
             "max_abs_err": float(err.max()), "bit_equal_launches": True}
 
 
+def compare_shared_assignment(codebooks, x):
+    """The f32 encode and the f32 statistics kernels run one assignment
+    routine: the encode's codes equal the verified statistics kernel's, its
+    per-cell counts equal the f32 statistics kernel's, and the two verify
+    kernels' codes and flags are equal, all bit for bit."""
+    m, k = codebooks.shape[:2]
+    codes = ops.pq_encode(codebooks, x, dtype=torch.int32, compute_dtype=torch.float32)
+    _, s_counts, s_codes, s_flags = pq_assign_stats_verify_flags(codebooks, x)
+    n_codes = int((codes != s_codes).sum())
+    require(n_codes == 0, f"shared assignment: {n_codes} encode_f32 codes differ from stats_verify's")
+    by_code = torch.stack([torch.bincount(codes[:, j].long(), minlength=k) for j in range(m)])
+    del codes
+    _, counts = ops.pq_assign_stats(codebooks, x, compute_dtype=torch.float32)
+    cells_f32 = int((by_code.to(torch.float32) != counts).sum())
+    cells_verify = int((by_code.to(torch.float32) != s_counts).sum())
+    require(cells_f32 == 0 and cells_verify == 0,
+            f"shared assignment: encode_f32's counts differ from stats_f32's in {cells_f32} cells "
+            f"and from stats_verify's in {cells_verify}")
+    e_codes, e_flags = pq_encode_verify_flags(codebooks, x, dtype=torch.int32)
+    n_vcodes = int((e_codes != s_codes).sum())
+    n_flags = int((e_flags != s_flags).sum())
+    require(n_vcodes == 0 and n_flags == 0,
+            f"shared assignment: encode_verify and stats_verify differ in {n_vcodes} codes "
+            f"and {n_flags} flags")
+    torch.cuda.synchronize()
+    return {"shape": f"n={x.shape[0]} d={x.shape[1]} m={m} k={k}", "codes_compared": s_codes.numel(),
+            "encode_f32_codes_off_stats_verify": n_codes, "count_cells_off_stats_f32": cells_f32,
+            "encode_verify_codes_off": n_vcodes, "encode_verify_flags_off": n_flags,
+            "flagged_rows": int(s_flags.sum())}
+
+
 def compare_packed_decode(codebooks, codes, packed, splits):
     """Packed kernel bit-equal to its plain version (unpack, then gather) and
     to the unpacked kernel on the unpacked codes."""
@@ -336,8 +374,10 @@ def phase_kernels(pq, corpus, gen):
     """Each kernel against its plain version at n = 65,536 and one ragged n,
     at the flagship width and, for ADC / decode / encode / stats, at d=768,
     m=24 (k=256; k=16 for the packed kernels at both widths); the statistics
-    kernels also on the inputs of ``stress_inputs``."""
+    kernels also on the inputs of ``stress_inputs``; the encode and the
+    statistics kernels' shared assignment on the whole corpus."""
     dev = corpus.device
+    shared = compare_shared_assignment(pq.codebooks, corpus)
     rows = []
     for n in (N_KERNELS, N_RAGGED):
         x = corpus[:n]
@@ -394,7 +434,7 @@ def phase_kernels(pq, corpus, gen):
             rows.append({"kernel": "adc_int8" if splits == "int8" else "adc_splits2",
                          "shape": f"{shape2} nq={nq}", **res,
                          "kernel_ms": ms, "plain_ms": plain_ms})
-    emit("kernels", compared=rows)
+    emit("kernels", compared=rows, shared_assignment=shared)
 
 
 # -- the serving path ----------------------------------------------------------
@@ -913,14 +953,16 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
     enc_bytes = 4 * n * D + cb_bytes + n * M
     enc_ops = 2 * n * M * K * DS
     adc_bytes = 4 * nq * M * K + n * M + 4 * nq * n
-    # stats_f32 and stats_verify: the least over the routes that meet the
-    # contract is three TF32 passes of the product on the tensor cores.
+    # The f32 and verified encode and statistics kernels: the least over the
+    # routes that meet the contract is three TF32 passes of the product on the
+    # tensor cores.
     split = {"bound_route": "3xTF32 on the tensor cores",
              "bound_ms_fp32_pipes": enc_ops / PEAK_OPS["f32"] * 1e3}
+    split_names = ("encode_f32", "encode_verify", "stats_f32", "stats_verify")
     specs = [
         ("encode_f32", lambda: ops.pq_encode(cb, corpus, compute_dtype=f32),
          lambda: ops.pq_encode_reference(cb, corpus, compute_dtype=f32), library_encode,
-         lambda: compare_encode(cb, corpus, f32), bound(enc_bytes, enc_ops, "f32")),
+         lambda: compare_encode(cb, corpus, f32), bound(enc_bytes, 3 * enc_ops, "tf32")),
         ("encode_bf16", lambda: ops.pq_encode(cb, corpus, compute_dtype=bf16),
          lambda: ops.pq_encode_reference(cb, corpus, compute_dtype=bf16), None,
          lambda: compare_encode(cb, corpus, bf16), bound(enc_bytes, enc_ops, "bf16")),
@@ -946,7 +988,7 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
         ("encode_verify", lambda: ops.pq_encode_verified(cb, corpus),
          lambda: ops.pq_encode_verify_reference(cb, corpus),
          lambda: primitives.quantize_batch(cb, corpus),
-         lambda: compare_encode_verify(cb, corpus), bound(enc_bytes + 4 * n, enc_ops, "f32"),
+         lambda: compare_encode_verify(cb, corpus), bound(enc_bytes + 4 * n, 3 * enc_ops, "tf32"),
          lambda: pq_encode_verify_flags(cb, corpus)),
         ("stats_verify", lambda: ops.pq_assign_stats_verified(cb, corpus),
          lambda: ops.pq_assign_stats_verify_reference(cb, corpus), library_exact_stats,
@@ -985,7 +1027,7 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
             "library_ms": None if library is None else time_ms(library, 3),
             "shape": f"n={n} d={D} m={M} k={k_here}" + (f" nq={nq}" if name.startswith("adc") else ""),
             **({"kernel_ms": time_ms(alone[0])} if alone else {}),
-            **(split if name in ("stats_f32", "stats_verify") else {}),
+            **(split if name in split_names else {}),
             **{key: res[key] for key in ("n_mismatch_flags", "flagged", "rows_moved") if key in res},
         })
         torch.cuda.empty_cache()
@@ -1032,10 +1074,9 @@ def main() -> int:
     torch.cuda.synchronize()
 
     by_name = {row["name"]: row for row in rows}
-    emit("stats_redesign", shape=by_name["stats_f32"]["shape"], parent_ms=PARENT_MS,
-         ms={"stats_f32": by_name["stats_f32"]["ms"], "stats_bf16": by_name["stats_bf16"]["ms"],
-             "stats_verify": by_name["stats_verify"]["ms"],
-             "stats_verify_kernel": by_name["stats_verify"]["kernel_ms"]},
+    ms = {name: by_name[name]["ms"] for name in BEFORE_MS if name in by_name}
+    ms.update({f"{name}_kernel": by_name[name]["kernel_ms"] for name in ("stats_verify", "encode_verify")})
+    emit("redesigned", shape=by_name["stats_f32"]["shape"], before_ms=BEFORE_MS, ms=ms,
          stats_verify_flag_rate={name: exact_out[name]["stats_flag_rate"]
                                  for name in ("gaussian", "adversarial")},
          encode_verify_flag_rate={name: exact_out[name]["flag_rate"]

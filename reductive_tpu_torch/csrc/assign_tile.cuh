@@ -39,6 +39,12 @@
 // Overlap: the staged tile is taken in quarters of 64 centroids with two
 // accumulator sets of 32 registers; the three wgmma of quarter q + 1 are in
 // flight while quarter q is selected.
+//
+// The kernels that include this header (csrc/encode.cu in f32 and verified
+// mode, csrc/stats.cu in f32 and verified mode) walk their row tiles with
+// copy_rows / wait_rows, assign each tile with assign_rows and flag a row with
+// flag_row, so a row gets the same (code, best, second) bits and the same flag
+// from every one of them.
 
 #pragma once
 
@@ -297,6 +303,122 @@ __device__ __forceinline__ void scan(const uint32_t* s_w, const float* s_n, int 
     case 3: scan_quarters<DS, VERIFY, 3>(s_w, s_n, k0, last_cols, ah, al, pick); break;
     default: scan_quarters<DS, VERIFY, 4>(s_w, s_n, k0, last_cols, ah, al, pick); break;
   }
+}
+
+// ---- a tile of rows -----------------------------------------------------------
+
+// Rows of a tile: THREADS / 128 warpgroups, SUB 64-row subtiles each, which a
+// warpgroup assigns one after the other.
+template <int SUB, int THREADS>
+constexpr int kTileRows = THREADS / 128 * SUB * kSubtile;
+
+// Per ds, for blocks of 256 threads: the subtiles a warpgroup takes per tile
+// (tiles of 512, 512, 256 and 128 rows), and the blocks an SM should hold.
+// The two accumulator sets take 64 registers and the split rows 8 per depth
+// step: above ds = 8 a thread needs more than the 128 registers that two
+// resident blocks leave it.
+template <int DS>
+constexpr int kSubtiles = DS <= 8 ? 4 : 32 / DS;
+template <int DS>
+constexpr int kMinBlocks = DS <= 8 ? 2 : 1;
+
+// Start the copy of subquantizer j's subvectors of the rows tile * ROWS ..
+// (x: (n, m * DS) f32) into dst ([ROWS][DS] in shared memory) by cp.async, 16
+// bytes a thread; rows past n get zeros.  wait_rows() waits for it.
+template <int DS, int ROWS, int THREADS>
+__device__ __forceinline__ void copy_rows(const float* __restrict__ x, long long n, int m, int j,
+                                          long long tile, float* dst) {
+  constexpr int V = DS / 4;  // 16-byte words of a subvector
+  const long long d = (long long)m * DS;
+  for (int e = threadIdx.x; e < ROWS * V; e += THREADS) {
+    const long long row = tile * ROWS + e / V;
+    if (row < n) {
+      const float* src = x + row * d + (long long)j * DS + 4 * (e % V);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       (uint32_t)__cvta_generic_to_shared(dst + 4 * e)),
+                   "l"(src)
+                   : "memory");
+    } else {
+      reinterpret_cast<float4*>(dst)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ void wait_rows() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Assign the rows of a tile whose subvectors lie in shared memory (s_x,
+// [kTileRows][DS]) to the k centroids of one subquantizer (cbj: (k, DS) f32
+// holding 2c; nj: (k,) f32 holding |c|^2).  Per row of the tile: the chosen
+// index (s_code), its distance (s_best) and, VERIFY, the least distance over
+// all other indices (s_second).  The centroids are staged 256 at a time into
+// s_w / s_n whenever `staged` (the first centroid held there; -1 for none)
+// differs, so with k <= 256 a block stages them once for all its row tiles.
+// The result over the centroid tiles so far lives in shared memory; an earlier
+// tile keeps a tie (its indices are smaller).  Every thread of the block calls
+// it; the caller synchronises before the results are read.
+template <int DS, int SUB, int THREADS, bool VERIFY>
+__device__ __forceinline__ void assign_rows(uint32_t* s_w, float* s_n, int& staged,
+                                            const float* __restrict__ cbj,
+                                            const float* __restrict__ nj, int k, const float* s_x,
+                                            int* s_code, float* s_best, float* s_second) {
+  constexpr int KS = Shape<DS>::KS;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  for (int k0 = 0; k0 < k; k0 += kCentroidTile) {
+    const int kt = min(kCentroidTile, k - k0);
+    if (staged != k0) {  // the same for every thread
+      __syncthreads();
+      stage_centroids<DS, THREADS>(s_w, s_n, cbj, nj, k0, kt);
+      staged = k0;
+      __syncthreads();
+    }
+#pragma unroll 1
+    for (int s = 0; s < SUB; ++s) {
+      uint32_t ah[KS][4], al[KS][4];
+      const int first = ((warp >> 2) * SUB + s) * kSubtile;
+      load_rows<DS>(s_x + first * DS, ah, al);
+      Pick<VERIFY> pick;
+      pick.reset();
+      scan<DS, VERIFY>(s_w, s_n, k0, kt, ah, al, pick);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int idx;
+        float best, second;
+        pick.finish(h, idx, best, second);
+        const int in_tile = first + 16 * (warp & 3) + g + 8 * h;
+        if (t == 0) {
+          if (k0 > 0) {
+            const float old = s_best[in_tile];
+            if constexpr (VERIFY) second = fminf(fminf(second, s_second[in_tile]), fmaxf(best, old));
+            if (!(best < old)) {
+              best = old;
+              idx = s_code[in_tile];
+            }
+          }
+          s_code[in_tile] = idx;
+          s_best[in_tile] = best;
+          if constexpr (VERIFY) s_second[in_tile] = second;
+        }
+      }
+    }
+  }
+}
+
+// VERIFY: OR 1 into *flag when the row's margin (second - best) is not above
+// 2 escale |x_j| + rho |best|, the limit ops/assign.py derives for this
+// product.  xs: the row's subvector in shared memory.  The margin is +inf with
+// k = 1; a NaN flags.
+template <int DS>
+__device__ __forceinline__ void flag_row(const float* xs, float best, float second, float escale,
+                                         float rho, int* flag) {
+  float xn2 = 0.0f;
+#pragma unroll
+  for (int c = 0; c < DS; ++c) xn2 = fmaf(xs[c], xs[c], xn2);
+  const float margin = second - best;
+  const float limit = 2.0f * escale * sqrtf(xn2) + rho * fabsf(best);
+  if (!(margin > limit)) atomicOr(flag, 1);
 }
 
 }  // namespace assign_tile

@@ -5,18 +5,28 @@
 // kernel packs all m codebooks into one block-diagonal matrix because its
 // matrix unit contracts 128 deep; here each subquantizer is its own ds-deep
 // product with no zero blocks, and the argmin is a true (distance, index)
-// minimum carried in registers (no packed sortable key).
+// minimum (no packed sortable key).
 //
 // Two kernels, one for each mode:
 //
-// * f32 (encode_f32_kernel): real fp32 FMAs.  What bounds it on an H100: the
-//   2*n*m*k*ds operations on the fp32 pipes (the bytes, x read once and codes
-//   written once, take about a sixth of that time at m=16, k=256, ds=8).
-//   Design: one block takes a tile of rows and one subquantizer, stages 256
-//   centroids (holding 2c) and their |c|^2 in shared memory at a time, and
-//   each thread keeps R rows' subvectors in registers so that every shared
-//   memory read (a broadcast: all threads read the same centroid) feeds R*ds
-//   FMAs.  A strict `<` over c = 0..k-1 gives the first index on ties.
+// * f32 (encode_f32_kernel): the assignment of csrc/assign_tile.cuh, the one
+//   the f32 assign+statistics kernel (csrc/stats.cu) runs: a 3xTF32 split
+//   product on the tensor cores (wgmma, pipelined over quarters of 64
+//   centroids) and a pairwise selection.  Both kernels walk their row tiles
+//   with the same copy_rows / assign_rows / flag_row, so a row's code, and in
+//   verified mode its flag, are the same bits in both.  What bounds it on an
+//   H100: the three TF32 passes of the 2*n*m*k*ds operations (the bytes, x
+//   read once and codes written once, take about a tenth of the fp32 pipes'
+//   time at m=16, k=256, ds=8); what it waits for in practice is the
+//   selection after each product, on the half-rate ALU pipe.  Design: P
+//   blocks per subquantizer, four waves of what the card holds at once (P
+//   from the card's occupancy: no sum depends on the grid); block (p, j)
+//   walks the row tiles p, p + P, ..., the next tile's subvectors coming by
+//   cp.async into a second buffer while this one is assigned; with k <= 256
+//   the centroids are split and staged once per block.  The m blocks of a
+//   row tile are neighbours in the grid, so the sectors of the rows and of
+//   their codes (row-major (n, m): a block writes its column, m codes apart)
+//   meet in L2: writing the codes costs 0.06 ms of 5.2 at the flagship shape.
 //
 // * bf16 (encode_bf16_kernel): x and 2c rounded to bfloat16, products and
 //   sums in f32, on the tensor cores (mma.sync.m16n8k8).  What bounds it: the
@@ -28,119 +38,87 @@
 //   compare and two selects per score.  Each thread sees its columns in
 //   rising order and keeps the first maximum; the four threads that share a
 //   row then take the larger value and, on a tie, the lower index.
-
 //
 // * verified (encode_f32_kernel with VERIFY; replaces the TPU kernel
-//   reductive_tpu/ops/assign.py::_encode_verify_kernel): the f32 kernel, where
-//   each thread also carries the best distance over all OTHER indices (a
-//   duplicate of the best counts, so an exact tie has margin 0) and the squared
-//   norm of its subvector.  A (row, subquantizer) is flagged when
+//   reductive_tpu/ops/assign.py::_encode_verify_kernel): the f32 kernel, whose
+//   selection also carries the best distance over all OTHER indices (a
+//   duplicate of the best counts, so an exact tie has margin 0).  A (row,
+//   subquantizer) is flagged when
 //       second - best <= 2 * escale[j] * |x_j| + rho * |best|,
 //   and a row's flag is the OR over its subquantizers, joined across the m
 //   blocks that share the row by an integer atomicOr on a zeroed array (the
 //   same bits on every launch).  The wrapper chooses escale and rho so that
 //   every unflagged row provably has the exact path's code (see
-//   ops/assign.py); it re-encodes the flagged rows with the exact path.  Two
-//   more operations per score (a max and a min) beside the compare and the
-//   selects; the bound is the f32 kernel's plus 4*n bytes of flags.
+//   ops/assign.py, route "tf32x3"); it re-encodes the flagged rows with the
+//   exact path.  The bound is the f32 kernel's plus 4*n bytes of flags.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "assign_tile.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCentroidTile = 256;
+constexpr int kCentroidTile = assign_tile::kCentroidTile;
+constexpr int kWaves = 4;
 
-template <int DS, int R, typename OutT, bool VERIFY>
-__global__ void __launch_bounds__(kThreads)
+// ---- f32 and verified modes: 3xTF32 on the tensor cores ------------------------
+
+template <int DS, int SUB>
+struct F32Shape {
+  static constexpr int kTile = assign_tile::kTileRows<SUB, kThreads>;
+  // The staged centroids, two buffers of the tile's subvectors, and per row
+  // the code, the best and (VERIFY) the second distance.
+  static constexpr int kBytes = assign_tile::Shape<DS>::kBytes + 4 * (2 * kTile * DS + 3 * kTile);
+};
+
+template <int DS, int SUB, typename OutT, bool VERIFY>
+__global__ void __launch_bounds__(kThreads, assign_tile::kMinBlocks<DS>)
 encode_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
                   const float* __restrict__ csqn, OutT* __restrict__ codes,
                   const float* __restrict__ escale, float rho, int* __restrict__ flags,
-                  long long n, int m, int k) {
-  __shared__ __align__(16) float s_c[kCentroidTile * DS];
-  __shared__ float s_n[kCentroidTile];
+                  long long n, int m, int k, int P) {
+  constexpr int kTile = F32Shape<DS, SUB>::kTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* s_w = reinterpret_cast<uint32_t*>(smem);               // split 2c, both parts
+  float* s_n = reinterpret_cast<float*>(s_w) + 2 * assign_tile::Shape<DS>::kPartFloats;  // |c|^2
+  float* s_x2 = s_n + kCentroidTile;                               // [2][kTile][DS]
+  int* s_code = reinterpret_cast<int*>(s_x2 + 2 * kTile * DS);     // [kTile]
+  float* s_best = reinterpret_cast<float*>(s_code + kTile);        // [kTile] chosen distance
+  float* s_second = s_best + kTile;                                // [kTile] VERIFY: runner-up
 
-  // Neighbouring blocks take the m subquantizers of the same rows, so that the
-  // sectors of a row they share, and of its codes, meet in L2.
   const int j = blockIdx.x % m;
-  const long long d = (long long)m * DS;
-  const long long row_base = (long long)(blockIdx.x / m) * (kThreads * R) + threadIdx.x;
-
-  float xr[R][DS];
-  float best[R];
-  float second[R];  // VERIFY: the least distance over all indices but best_idx
-  int best_idx[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const long long row = row_base + (long long)r * kThreads;
-    best[r] = __int_as_float(0x7f800000);  // +inf
-    second[r] = __int_as_float(0x7f800000);
-    best_idx[r] = 0;
-    if (row < n) {
-      const float4* p = reinterpret_cast<const float4*>(x + row * d + (long long)j * DS);
-#pragma unroll
-      for (int t = 0; t < DS / 4; ++t) {
-        float4 v = p[t];
-        xr[r][4 * t + 0] = v.x;
-        xr[r][4 * t + 1] = v.y;
-        xr[r][4 * t + 2] = v.z;
-        xr[r][4 * t + 3] = v.w;
-      }
-    } else {
-#pragma unroll
-      for (int t = 0; t < DS; ++t) xr[r][t] = 0.0f;
-    }
-  }
-
+  const int p = blockIdx.x / m;
+  const long long n_tiles = (n + kTile - 1) / kTile;
   const float* cbj = cb2 + (long long)j * k * DS;
   const float* nj = csqn + (long long)j * k;
-  for (int k0 = 0; k0 < k; k0 += kCentroidTile) {
-    const int kt = min(kCentroidTile, k - k0);
-    __syncthreads();
-    for (int e = threadIdx.x; e < kt * DS; e += kThreads) s_c[e] = cbj[(long long)k0 * DS + e];
-    for (int e = threadIdx.x; e < kt; e += kThreads) s_n[e] = nj[k0 + e];
-    __syncthreads();
-    for (int c = 0; c < kt; ++c) {
-      float cv[DS];
-#pragma unroll
-      for (int t = 0; t < DS / 4; ++t) {
-        float4 v = reinterpret_cast<const float4*>(s_c + c * DS)[t];
-        cv[4 * t + 0] = v.x;
-        cv[4 * t + 1] = v.y;
-        cv[4 * t + 2] = v.z;
-        cv[4 * t + 3] = v.w;
-      }
-      const float nn = s_n[c];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float s = 0.0f;
-#pragma unroll
-        for (int t = 0; t < DS; ++t) s = fmaf(xr[r][t], cv[t], s);
-        const float dist = nn - s;  // cb2 holds 2c: s is the doubled cross term
-        // The loser of (dist, best) is a candidate for second place.
-        if constexpr (VERIFY) second[r] = fminf(second[r], fmaxf(dist, best[r]));
-        if (dist < best[r]) {
-          best[r] = dist;
-          best_idx[r] = k0 + c;
-        }
-      }
-    }
-  }
 
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const long long row = row_base + (long long)r * kThreads;
-    if (row < n) {
-      codes[row * m + j] = (OutT)best_idx[r];
-      if constexpr (VERIFY) {
-        float xn2 = 0.0f;
-#pragma unroll
-        for (int t = 0; t < DS; ++t) xn2 = fmaf(xr[r][t], xr[r][t], xn2);
-        const float margin = second[r] - best[r];  // +inf with k = 1; NaN flags
-        const float limit = 2.0f * escale[j] * sqrtf(xn2) + rho * fabsf(best[r]);
-        if (!(margin > limit)) atomicOr(flags + row, 1);
+  int buffer = 0;
+  if (p < n_tiles) assign_tile::copy_rows<DS, kTile, kThreads>(x, n, m, j, p, s_x2);
+
+  int staged = -1;
+  for (long long tile = p; tile < n_tiles; tile += P) {
+    const long long row0 = tile * kTile;
+    const float* s_x = s_x2 + buffer * (kTile * DS);
+    assign_tile::wait_rows();
+    __syncthreads();  // this tile has landed; the previous tile's codes are out
+    buffer ^= 1;
+    if (tile + P < n_tiles)
+      assign_tile::copy_rows<DS, kTile, kThreads>(x, n, m, j, tile + P, s_x2 + buffer * (kTile * DS));
+
+    assign_tile::assign_rows<DS, SUB, kThreads, VERIFY>(s_w, s_n, staged, cbj, nj, k, s_x, s_code,
+                                                        s_best, s_second);
+    __syncthreads();
+
+    for (int e = threadIdx.x; e < kTile; e += kThreads) {
+      const long long row = row0 + e;
+      if (row < n) {
+        codes[row * m + j] = (OutT)s_code[e];
+        if constexpr (VERIFY)
+          assign_tile::flag_row<DS>(s_x + e * DS, s_best[e], s_second[e], escale[j], rho,
+                                    flags + row);
       }
     }
   }
@@ -180,7 +158,7 @@ encode_bf16_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;  // row of the fragment (and g + 8)
   const int t = lane & 3;   // column pair 2t, 2t + 1
-  const int j = blockIdx.x % m;  // as in the f32 kernel
+  const int j = blockIdx.x % m;  // the m blocks of a row tile meet in L2
   const long long d = (long long)m * DS;
   const long long row0 = (long long)(blockIdx.x / m) * kRowsPerBlock + warp * (kRowTiles * 16);
 
@@ -264,44 +242,68 @@ encode_bf16_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
   }
 }
 
-template <int DS, int R>
-cudaError_t launch_verify(const float* x, const float* cb2, const float* csqn, void* codes,
-                          const float* escale, float rho, int* flags, long long n, int m, int k,
-                          int out_u8, cudaStream_t stream) {
-  const long long rows_per_block = (long long)kThreads * R;
-  const long long blocks = (n + rows_per_block - 1) / rows_per_block * m;
+template <int DS, int SUB, typename OutT, bool VERIFY>
+cudaError_t launch_f32_kernel(const float* x, const float* cb2, const float* csqn, OutT* codes,
+                              const float* escale, float rho, int* flags, long long n, int m,
+                              int k, cudaStream_t stream) {
+  constexpr int kTile = F32Shape<DS, SUB>::kTile;
+  constexpr int bytes = F32Shape<DS, SUB>::kBytes;
+  auto kern = encode_f32_kernel<DS, SUB, OutT, VERIFY>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  // Four waves of the blocks the card holds at once, rounded down to a whole
+  // number of blocks per subquantizer: a block that ends early takes the next
+  // one, where with a single wave the SMs holding two blocks would set the
+  // time (4.90 against 5.24 ms at n = 4,000,000, m=16, k=256, ds=8 on an H100).
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, bytes)) !=
+      cudaSuccess)
+    return err;
+  const long long n_tiles = (n + kTile - 1) / kTile;
+  long long P = (long long)kWaves * sms * per_sm / m;
+  P = P < 1 ? 1 : (P > n_tiles ? n_tiles : P);
+  const long long blocks = P * m;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (out_u8)
-    encode_f32_kernel<DS, R, uint8_t, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        x, cb2, csqn, (uint8_t*)codes, escale, rho, flags, n, m, k);
-  else
-    encode_f32_kernel<DS, R, int32_t, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        x, cb2, csqn, (int32_t*)codes, escale, rho, flags, n, m, k);
+  kern<<<(unsigned)blocks, kThreads, bytes, stream>>>(x, cb2, csqn, codes, escale, rho, flags, n, m,
+                                                     k, (int)P);
   return cudaGetLastError();
 }
 
-template <int DS, int R>
-cudaError_t launch(const float* x, const float* cb2, const float* csqn, void* codes,
-                   long long n, int m, int k, int bf16, int out_u8, cudaStream_t stream) {
-  const long long rows_per_block = bf16 ? kRowsPerBlock : (long long)kThreads * R;
-  const long long blocks = (n + rows_per_block - 1) / rows_per_block * m;
+template <int DS, bool VERIFY>
+cudaError_t launch_f32(const float* x, const float* cb2, const float* csqn, void* codes,
+                       const float* escale, float rho, int* flags, long long n, int m, int k,
+                       int out_u8, cudaStream_t stream) {
+  constexpr int SUB = assign_tile::kSubtiles<DS>;
+  if (out_u8)
+    return launch_f32_kernel<DS, SUB, uint8_t, VERIFY>(x, cb2, csqn, (uint8_t*)codes, escale, rho,
+                                                       flags, n, m, k, stream);
+  return launch_f32_kernel<DS, SUB, int32_t, VERIFY>(x, cb2, csqn, (int32_t*)codes, escale, rho,
+                                                     flags, n, m, k, stream);
+}
+
+template <int DS>
+cudaError_t launch_bf16(const float* x, const float* cb2, const float* csqn, void* codes,
+                        long long n, int m, int k, int out_u8, cudaStream_t stream) {
+  const long long blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock * m;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  dim3 grid((unsigned)blocks);
-  dim3 block(kThreads);
-  if (bf16) {
-    if (out_u8)
-      encode_bf16_kernel<DS, uint8_t><<<grid, block, 0, stream>>>(x, cb2, csqn, (uint8_t*)codes, n, m, k);
-    else
-      encode_bf16_kernel<DS, int32_t><<<grid, block, 0, stream>>>(x, cb2, csqn, (int32_t*)codes, n, m, k);
-  } else {
-    if (out_u8)
-      encode_f32_kernel<DS, R, uint8_t, false><<<grid, block, 0, stream>>>(
-          x, cb2, csqn, (uint8_t*)codes, nullptr, 0.0f, nullptr, n, m, k);
-    else
-      encode_f32_kernel<DS, R, int32_t, false><<<grid, block, 0, stream>>>(
-          x, cb2, csqn, (int32_t*)codes, nullptr, 0.0f, nullptr, n, m, k);
-  }
+  if (out_u8)
+    encode_bf16_kernel<DS, uint8_t><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        x, cb2, csqn, (uint8_t*)codes, n, m, k);
+  else
+    encode_bf16_kernel<DS, int32_t><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        x, cb2, csqn, (int32_t*)codes, n, m, k);
   return cudaGetLastError();
+}
+
+template <int DS>
+cudaError_t launch(const float* x, const float* cb2, const float* csqn, void* codes, long long n,
+                   int m, int k, int bf16, int out_u8, cudaStream_t stream) {
+  if (bf16) return launch_bf16<DS>(x, cb2, csqn, codes, n, m, k, out_u8, stream);
+  return launch_f32<DS, false>(x, cb2, csqn, codes, nullptr, 0.0f, nullptr, n, m, k, out_u8,
+                               stream);
 }
 
 }  // namespace
@@ -319,10 +321,10 @@ extern "C" int rt_encode(const void* x, const void* cb2, const void* csqn, void*
   const float* cf = (const float*)cb2;
   const float* nf = (const float*)csqn;
   switch (ds) {
-    case 4: return (int)launch<4, 4>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
-    case 8: return (int)launch<8, 4>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
-    case 16: return (int)launch<16, 2>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
-    case 32: return (int)launch<32, 1>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
+    case 4: return (int)launch<4>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
+    case 8: return (int)launch<8>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
+    case 16: return (int)launch<16>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
+    case 32: return (int)launch<32>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
     default: return -1;
   }
 }
@@ -343,10 +345,10 @@ extern "C" int rt_encode_verify(const void* x, const void* cb2, const void* csqn
   const float* ef = (const float*)escale;
   int* fl = (int*)flags;
   switch (ds) {
-    case 4: return (int)launch_verify<4, 4>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
-    case 8: return (int)launch_verify<8, 4>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
-    case 16: return (int)launch_verify<16, 2>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
-    case 32: return (int)launch_verify<32, 1>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
+    case 4: return (int)launch_f32<4, true>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
+    case 8: return (int)launch_f32<8, true>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
+    case 16: return (int)launch_f32<16, true>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
+    case 32: return (int)launch_f32<32, true>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
     default: return -1;
   }
 }

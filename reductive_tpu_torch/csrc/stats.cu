@@ -17,7 +17,9 @@
 //   1. the tile's subvectors go to shared memory (already rounded in bf16
 //      mode);
 //   2. assignment on the tensor cores.  f32 mode: the 3xTF32 split product
-//      (wgmma) and pairwise selection of csrc/assign_tile.cuh.  bf16 mode:
+//      (wgmma) and pairwise selection of csrc/assign_tile.cuh, whose row-tile
+//      loop (copy_rows, assign_rows, flag_row) the f32 encode runs too, so
+//      both give a row the same code and flag.  bf16 mode:
 //      mma.sync with the accumulator started at -|c|^2, as csrc/encode.cu.  The
 //      codes go to shared memory, -1 for rows past n;
 //   3. accumulation without atomics, with work proportional to the rows.  Up
@@ -260,29 +262,21 @@ __device__ __forceinline__ void write_slot(float* __restrict__ slot, int k,
 
 // ---- f32 mode: 3xTF32 on the tensor cores ---------------------------------------
 
-constexpr int kGroups = kThreads / 128;  // warpgroups of a block
-
 // SUB 64-row subtiles a warpgroup assigns per tile, one after the other.
 template <int DS, int SUB>
 struct F32Shape {
-  static constexpr int kTile = kGroups * SUB * assign_tile::kSubtile;
+  static constexpr int kTile = assign_tile::kTileRows<SUB, kThreads>;
   static constexpr int kBytes =
       assign_tile::Shape<DS>::kBytes + 4 * (2 * kTile * DS + 3 * kTile) + Scratch<kTile>::kBytes;
-  // The two accumulator sets take 64 registers and the split rows 8 per depth
-  // step: above ds = 8 a thread needs more than the 128 registers that two
-  // resident blocks leave it.
-  static constexpr int kMinBlocks = DS <= 8 ? 2 : 1;
 };
 
 template <int DS, int SUB, bool VERIFY>
-__global__ void __launch_bounds__(kThreads, F32Shape<DS, SUB>::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, assign_tile::kMinBlocks<DS>)
 stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
                  const float* __restrict__ csqn, float* __restrict__ partial,
                  const float* __restrict__ escale, float rho, int* __restrict__ codes_out,
                  int* __restrict__ flags, long long n, int m, int k, int P) {
   constexpr int kTile = F32Shape<DS, SUB>::kTile;
-  constexpr int KS = assign_tile::Shape<DS>::KS;
-  constexpr int V = DS / 4;  // 16-byte words of a subvector
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* s_w = reinterpret_cast<uint32_t*>(smem);               // split 2c, both parts
   float* s_n = reinterpret_cast<float*>(s_w) + 2 * assign_tile::Shape<DS>::kPartFloats;  // |c|^2
@@ -292,15 +286,10 @@ stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
   float* s_second = s_best + kTile;                                // [kTile] VERIFY: runner-up
   Scratch<kTile> scratch(reinterpret_cast<unsigned char*>(s_second + kTile));
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
   // Neighbouring blocks take the m subquantizers of the same rows, so that the
   // sectors of a row they share meet in L2.
   const int j = blockIdx.x % m;
   const int p = blockIdx.x / m;
-  const long long d = (long long)m * DS;
   const long long n_tiles = (n + kTile - 1) / kTile;
   const bool one = k <= kThreads;
   float* slot = partial + ((long long)p * m + j) * (long long)k * (DS + 1);
@@ -313,75 +302,23 @@ stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
   for (int e = 0; e < DS; ++e) acc[e] = 0.0f;
   if (!one) zero_slot<DS>(slot, k);
 
-  // The tile's subvectors come by cp.async, 16 bytes a thread, into the buffer
-  // the previous tile does not use, while that tile is assigned and accumulated.
-  auto copy_tile = [&](long long tile, float* dst) {
-    for (int e = threadIdx.x; e < kTile * V; e += kThreads) {
-      const long long row = tile * kTile + e / V;
-      if (row < n) {
-        const float* src = x + row * d + (long long)j * DS + 4 * (e % V);
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                         (uint32_t)__cvta_generic_to_shared(dst + 4 * e)),
-                     "l"(src)
-                     : "memory");
-      } else {
-        reinterpret_cast<float4*>(dst)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-  };
+  // The tile's subvectors come by cp.async into the buffer the previous tile
+  // does not use, while that tile is assigned and accumulated.
   int buffer = 0;
-  if (p < n_tiles) copy_tile(p, s_x2);
+  if (p < n_tiles) assign_tile::copy_rows<DS, kTile, kThreads>(x, n, m, j, p, s_x2);
 
   int staged = -1;
   for (long long tile = p; tile < n_tiles; tile += P) {
     const long long row0 = tile * kTile;
     const float* s_x = s_x2 + buffer * (kTile * DS);
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    assign_tile::wait_rows();
     __syncthreads();  // this tile has landed; the previous tile's accumulation has ended
     buffer ^= 1;
-    if (tile + P < n_tiles) copy_tile(tile + P, s_x2 + buffer * (kTile * DS));
+    if (tile + P < n_tiles)
+      assign_tile::copy_rows<DS, kTile, kThreads>(x, n, m, j, tile + P, s_x2 + buffer * (kTile * DS));
 
-    for (int k0 = 0; k0 < k; k0 += kCentroidTile) {
-      const int kt = min(kCentroidTile, k - k0);
-      if (staged != k0) {  // with k <= 256 the one centroid tile is staged once
-        __syncthreads();
-        assign_tile::stage_centroids<DS, kThreads>(s_w, s_n, cbj, nj, k0, kt);
-        staged = k0;
-        __syncthreads();
-      }
-#pragma unroll 1
-      for (int s = 0; s < SUB; ++s) {
-        uint32_t ah[KS][4], al[KS][4];
-        const int first = ((warp >> 2) * SUB + s) * assign_tile::kSubtile;
-        assign_tile::load_rows<DS>(s_x + first * DS, ah, al);
-        assign_tile::Pick<VERIFY> pick;
-        pick.reset();
-        assign_tile::scan<DS, VERIFY>(s_w, s_n, k0, kt, ah, al, pick);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          int idx;
-          float best, second;
-          pick.finish(h, idx, best, second);
-          const int in_tile = first + 16 * (warp & 3) + g + 8 * h;
-          if (t == 0) {
-            // The row's result over the centroid tiles so far lives in shared
-            // memory; an earlier tile keeps a tie (its indices are smaller).
-            if (k0 > 0) {
-              const float old = s_best[in_tile];
-              if constexpr (VERIFY)
-                second = fminf(fminf(second, s_second[in_tile]), fmaxf(best, old));
-              if (!(best < old)) {
-                best = old;
-                idx = s_code[in_tile];
-              }
-            }
-            s_code[in_tile] = idx;
-            s_best[in_tile] = best;
-            if constexpr (VERIFY) s_second[in_tile] = second;
-          }
-        }
-      }
-    }
+    assign_tile::assign_rows<DS, SUB, kThreads, VERIFY>(s_w, s_n, staged, cbj, nj, k, s_x, s_code,
+                                                        s_best, s_second);
     __syncthreads();
 
     // Rows past n take no part in the statistics; the verified mode writes its
@@ -392,13 +329,8 @@ stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
         s_code[e] = -1;
       } else if constexpr (VERIFY) {
         codes_out[(long long)j * n + row] = s_code[e];
-        float xn2 = 0.0f;
-#pragma unroll
-        for (int c = 0; c < DS; ++c) xn2 = fmaf(s_x[e * DS + c], s_x[e * DS + c], xn2);
-        const float best = s_best[e];
-        const float margin = s_second[e] - best;  // +inf with k = 1; NaN flags
-        const float limit = 2.0f * escale[j] * sqrtf(xn2) + rho * fabsf(best);
-        if (!(margin > limit)) atomicOr(flags + row, 1);
+        assign_tile::flag_row<DS>(s_x + e * DS, s_best[e], s_second[e], escale[j], rho,
+                                  flags + row);
       }
     }
     __syncthreads();
@@ -582,7 +514,7 @@ stats_reduce_kernel(const float* __restrict__ partial, float* __restrict__ sums,
 }
 
 // mode: 0 f32, 1 bf16, 2 verified (f32 with escale, rho, codes_out and flags).
-template <int DS, int SUB>
+template <int DS>
 cudaError_t launch(const float* x, const float* cb2, const float* csqn, float* partial,
                    float* sums, float* counts, const float* escale, float rho, int* codes_out,
                    int* flags, long long n, int m, int k, int mode, int P,
@@ -600,6 +532,7 @@ cudaError_t launch(const float* x, const float* cb2, const float* csqn, float* p
     stats_bf16_kernel<DS><<<(unsigned)blocks, kThreads, bytes, stream>>>(x, cb2, csqn, partial, n,
                                                                          m, k, P);
   } else {
+    constexpr int SUB = assign_tile::kSubtiles<DS>;
     constexpr int bytes = F32Shape<DS, SUB>::kBytes;
     auto kern = mode == 2 ? stats_f32_kernel<DS, SUB, true> : stats_f32_kernel<DS, SUB, false>;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -628,12 +561,11 @@ int assign_stats(const void* x, const void* cb2, const void* csqn, void* partial
   float* tf = (float*)counts;
   int* co = (int*)codes;
   int* fl = (int*)flags;
-  // The second argument: 64-row subtiles a warpgroup assigns per tile in the f32 modes.
   switch (ds) {
-    case 4: return (int)launch<4, 4>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
-    case 8: return (int)launch<8, 4>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
-    case 16: return (int)launch<16, 2>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
-    case 32: return (int)launch<32, 1>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
+    case 4: return (int)launch<4>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
+    case 8: return (int)launch<8>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
+    case 16: return (int)launch<16>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
+    case 32: return (int)launch<32>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
     default: return -1;
   }
 }

@@ -6,10 +6,15 @@ kernel ``_encode_kernel``); the kernel is ``csrc/encode.cu``.
 
 Two modes, chosen by ``compute_dtype``:
 
-* ``torch.float32``: real fp32 multiply-adds, in the association the exact
-  path (:func:`reductive_tpu_torch.pq.primitives.quantize_batch`) uses.  The
-  JAX package's three-pass bf16 split stands in for fp32 that its matrix unit
-  lacks and is not carried over.
+* ``torch.float32``: fp32 accuracy from a split product on the tensor cores
+  (``csrc/assign_tile.cuh``, route :data:`F32_ROUTE`): ``x`` and ``2c`` each
+  split into two TF32 parts, three products summed in f32, then ``|c|^2``
+  subtracted in f32.  Each cross term is within ``(3.25 + 5 ceil(ds/8))
+  2^-22 |2c| |x|`` of the real one (derived below).  The f32 assign+statistics
+  kernel (:mod:`reductive_tpu_torch.ops.stats`) runs the same routine, so the
+  two give a row the same code bit for bit.  The JAX package's f32 mode is a
+  split product too, in three bf16 passes, "used identically by the encode
+  and assign+stats kernels"; the port keeps that property with TF32 parts.
 * ``torch.bfloat16`` (default): ``x`` and ``2c`` each rounded to bfloat16
   (nearest even), products and sums in f32, ``|c|^2`` in f32 from the
   unrounded codebook.  The kernel runs this mode on the tensor cores and
@@ -18,26 +23,29 @@ Two modes, chosen by ``compute_dtype``:
 
 The minimum is the true ``(distance, index)`` minimum; the JAX kernel's
 packed sortable key, which coarsens ties, is not part of the contract.  The
-kernel and the plain version agree except where f32 summation order flips a
-near-tie.
+kernel and the plain version (f32 tensor operations) agree except where
+rounding (the split, f32 summation order) flips a near-tie.
 
 :func:`pq_encode_verified` removes that exception: its result **equals**
 :func:`reductive_tpu_torch.pq.primitives.quantize_batch` on every code.
 Counterpart of ``reductive_tpu.ops.assign.pq_encode_verified`` (TPU kernel
 ``_encode_verify_kernel``).  The f32 kernel also reports, per row, whether
 any subquantizer's top-2 margin is small enough for rounding to have changed
-the argmin; those rows are encoded again by the exact path.
+the argmin; those rows are encoded again by the exact path.  Its flags are
+those of the statistics kernel's verified mode, bit for bit.
 
 The bound behind the flags
 --------------------------
 
-Fix a row's subvector ``x`` (``ds`` long) and a subquantizer with doubled
-centroids ``w_c = 2c`` and squared norms ``n_c`` (the same f32 numbers on
-both routes).  Both the kernel and the exact path compute
-``d_c = fl(n_c - s_c)`` where ``s_c`` is *some* f32 evaluation of the
-``ds``-term product ``w_c . x`` (the kernel: a chain of FMAs; the exact path:
-whatever order the matrix product takes), followed by one rounded
-subtraction.  With ``u = 2^-24``:
+First for two routes that both evaluate the product in f32 (route
+``"fma"``, a chain of f32 FMAs, which no kernel of the port uses any more; it
+is the first step of the derivation); the split product follows.  Fix a row's
+subvector ``x`` (``ds`` long) and a subquantizer with doubled centroids
+``w_c = 2c`` and squared norms ``n_c`` (the same f32 numbers on both routes).
+Both a kernel and the exact path compute ``d_c = fl(n_c - s_c)`` where
+``s_c`` is *some* f32 evaluation of the ``ds``-term product ``w_c . x`` (a
+chain of FMAs; the exact path: whatever order the matrix product takes),
+followed by one rounded subtraction.  With ``u = 2^-24``:
 
 * any order of summation, fused or not, gives
   ``|s_c - w_c.x| <= g |w_c| |x|`` with ``g = ds u / (1 - ds u)``, so the two
@@ -61,15 +69,17 @@ gives ``B = 0`` and both routes the same bits; an exact tie has margin 0 and
 is always flagged.  Underflow to subnormals is not covered.
 
 The JAX package's scale ``2^-14`` covers its three-pass bfloat16 split and its
-packed sortable key, which this port has neither of; ``ds = 8`` here gives
-``2^-19``.
+packed sortable key, which this port has neither of; ``ds = 8`` gives
+``2^-19`` on this route and ``20.5 * 2^-22`` (about ``2^-17.6``) on the split
+product below, the port's.
 
 The bound for a split product on the tensor cores (route ``"tf32x3"``)
 -------------------------------------------------------------------------
 
-The assign+statistics kernel (``csrc/assign_tile.cuh``) evaluates ``s_c``
-otherwise: ``x = x_hi + x_lo + r_x`` and ``w = w_hi + w_lo + r_w``, each part
-rounded to TF32 (11 significant bits, nearest), so ``|x_lo| <= 2^-11 |x|`` and
+The f32 encode and assign+statistics kernels (``csrc/assign_tile.cuh``)
+evaluate ``s_c`` otherwise: ``x = x_hi + x_lo + r_x`` and
+``w = w_hi + w_lo + r_w``, each part rounded to TF32 (11 significant bits,
+nearest), so ``|x_lo| <= 2^-11 |x|`` and
 ``|r_x| <= 2^-22 |x|`` per element, and likewise for ``w``.  It sums
 ``x_lo.w_hi + x_hi.w_lo + x_hi.w_hi`` in that order in ``3 ceil(ds/8)``
 tensor-core instructions of depth 8, the accumulator starting at zero, and
@@ -96,7 +106,8 @@ same).  The flag limit's scale becomes ``2 (B_k + B) / |x|``:
 ``20.5 * 2^-22`` at ``ds = 8`` where the ``"fma"`` route has ``8 * 2^-22``.
 What the derivation assumes of the hardware (24 kept bits, truncation) is
 held to the exact path on the card: ``chip_smoke.py`` requires that no
-unflagged row of 4,000,000 differs.
+unflagged row of 4,000,000 differs.  The flag limit of both verify kernels,
+and of their plain versions by default, is this one.
 """
 
 from __future__ import annotations
@@ -110,7 +121,7 @@ from . import _build
 __all__ = [
     "pq_encode", "pq_encode_reference", "assign_nearest",
     "pq_encode_verified", "pq_encode_verify_reference", "pq_encode_verify_flags",
-    "verify_scale", "VERIFY_RHO", "flagged_rows",
+    "verify_scale", "VERIFY_RHO", "F32_ROUTE", "flagged_rows",
 ]
 
 _KERNEL_DS = (4, 8, 16, 32)
@@ -118,6 +129,9 @@ _KERNEL_MAX_K = 65536
 # Share of |best| in the flag limit: four roundings of the final subtraction
 # at 2^-24 relative each, twice over (see the module docstring).
 VERIFY_RHO = 2.0 ** -21
+# How the f32 kernels (encode and assign+statistics, one routine) evaluate the
+# cross term: names the flag limit of the verified modes (see verify_scale).
+F32_ROUTE = "tf32x3"
 
 
 def _prepare(codebooks: Tensor, x: Tensor, dtype, compute_dtype):
@@ -213,14 +227,16 @@ def assign_nearest(
     return pq_encode(centroids[None, :, :], x, dtype=torch.int32, compute_dtype=compute_dtype)[:, 0]
 
 
-def verify_scale(codebooks: Tensor, scale: float | None = None, *, route: str = "fma") -> Tensor:
+def verify_scale(
+    codebooks: Tensor, scale: float | None = None, *, route: str = F32_ROUTE
+) -> Tensor:
     """``e_j = scale * max_c |2 c_jc|`` as ``(m,)`` f32: the flag limit's
-    share of ``|x_j|``.  ``scale=None`` is the sound choice for the kernel's
-    arithmetic (see the module docstring): ``4 * ds * 2^-24`` for
-    ``route="fma"`` (a chain of f32 FMAs: the encode kernels),
+    share of ``|x_j|``.  ``scale=None`` is the sound choice for the route's
+    arithmetic (see the module docstring):
     ``2 * ((3.25 + 5 * ceil(ds / 8)) * 2^-22 + ds * 2^-24)`` for
-    ``route="tf32x3"`` (the split product on the tensor cores: the
-    assign+statistics kernel)."""
+    ``route="tf32x3"`` (the split product on the tensor cores: the f32
+    kernels, :data:`F32_ROUTE`), ``4 * ds * 2^-24`` for ``route="fma"`` (a
+    chain of f32 FMAs, the first step of the derivation)."""
     ds = codebooks.shape[2]
     if route not in ("fma", "tf32x3"):
         raise ValueError(f'route must be "fma" or "tf32x3", got {route!r}')
@@ -252,11 +268,11 @@ def pq_encode_verify_reference(
     flags (n,) int32)``.  The f32 distances of :func:`pq_encode_reference`,
     their first minimum, the least distance over all *other* indices (a
     duplicate of the best counts) and the margin test.  ``escale`` defaults to
-    :func:`verify_scale`."""
+    the kernel's, ``verify_scale(codebooks, route=F32_ROUTE)``."""
     cb2, c_sqn = _prepare(codebooks, x, dtype, torch.float32)
     m, k, ds = codebooks.shape
     if escale is None:
-        escale = verify_scale(codebooks)
+        escale = verify_scale(codebooks, route=F32_ROUTE)
     n = x.shape[0]
     codes = torch.empty((n, m), dtype=dtype, device=x.device)
     flags = torch.empty((n,), dtype=torch.int32, device=x.device)
@@ -287,7 +303,8 @@ def pq_encode_verify_flags(
     """The first stage of :func:`pq_encode_verified`: ``(codes, flags)`` from
     the verify kernel (CUDA tensors; ``ds`` in 4, 8, 16, 32 and
     ``k <= 65536``, anything else raises) or from
-    :func:`pq_encode_verify_reference` (CPU tensors)."""
+    :func:`pq_encode_verify_reference` (CPU tensors).  ``escale`` defaults to
+    ``verify_scale(codebooks, route=F32_ROUTE)``, the statistics kernel's."""
     if not x.is_cuda:
         return pq_encode_verify_reference(codebooks, x, dtype=dtype, escale=escale, rho=rho)
     cb2, c_sqn = _prepare(codebooks, x, dtype, torch.float32)
@@ -299,7 +316,9 @@ def pq_encode_verify_flags(
         )
     n = x.shape[0]
     x = x.contiguous()
-    escale = (verify_scale(codebooks) if escale is None else escale).contiguous()
+    if escale is None:
+        escale = verify_scale(codebooks, route=F32_ROUTE)
+    escale = escale.contiguous()
     direct = dtype in (torch.uint8, torch.int32)
     raw = torch.empty((n, m), dtype=dtype if direct else torch.int32, device=x.device)
     flags = torch.zeros((n,), dtype=torch.int32, device=x.device)  # the kernel ORs into it
@@ -323,7 +342,8 @@ def pq_encode_verified(
     first-index tie-breaks included, at near the f32 kernel's speed.
 
     The verify kernel encodes and flags every row where rounding could have
-    changed an argmin (a sound bound, see the module docstring); the flagged
+    changed an argmin (a sound bound for the split product, see the module
+    docstring; the same flags as the statistics kernel's); the flagged
     rows are gathered, encoded again by the exact path (which walks them in
     chunks: 16,384 rows at m=16, k=256) and written back by index.  Finding
     them is a ``torch.nonzero``: the host waits for the device once per call.

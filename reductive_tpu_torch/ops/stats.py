@@ -33,9 +33,11 @@ again by the exact path, and a row whose code changed is moved from its old
 cell to its new one.
 
 The f32 kernel takes its cross terms as a 3xTF32 split product on the tensor
-cores (``csrc/assign_tile.cuh``), so its flag limit is the wider one that
+cores (``csrc/assign_tile.cuh``), the routine the f32 encode runs too, so its
+codes are the encode's bit for bit and its flag limit is the one that
 :mod:`reductive_tpu_torch.ops.assign` derives for ``route="tf32x3"``
-(:data:`STATS_ROUTE`); the plain version flags with the same limit.
+(:data:`STATS_ROUTE`, the value of ``ops.assign.F32_ROUTE``); the plain
+version flags with the same limit.
 """
 
 from __future__ import annotations
@@ -46,8 +48,8 @@ from torch import Tensor
 from ..pq.primitives import nearest_centroids, quantize_batch
 from . import _build
 from .assign import (
-    _KERNEL_DS, _KERNEL_MAX_K, VERIFY_RHO, _prepare, flagged_rows, pq_encode_verify_reference,
-    verify_scale,
+    _KERNEL_DS, _KERNEL_MAX_K, F32_ROUTE, VERIFY_RHO, _prepare, flagged_rows,
+    pq_encode_verify_reference, verify_scale,
 )
 
 __all__ = [
@@ -57,8 +59,8 @@ __all__ = [
 ]
 
 # How the f32 kernel evaluates its products: names the flag limit of the
-# verified mode (see verify_scale).
-STATS_ROUTE = "tf32x3"
+# verified mode (see verify_scale).  One routine with the f32 encode.
+STATS_ROUTE = F32_ROUTE
 # Rows the plain version takes at a time.
 _REFERENCE_CHUNK = 1 << 16
 # The kernel's grid is P blocks per subquantizer; P comes from the shapes

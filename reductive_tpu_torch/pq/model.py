@@ -116,8 +116,10 @@ class Pq:
         ``method="kernel"`` is the fused encode
         (:func:`reductive_tpu_torch.ops.assign.pq_encode`) with bfloat16
         products, which flips a small share of near-tie codes;
-        ``method="kernel-f32"`` is the same kernel in real fp32.  ``out``
-        receives the codes where given.
+        ``method="kernel-f32"`` is the same kernel at fp32 accuracy (a 3xTF32
+        split product on the tensor cores, the assignment the f32 training
+        kernel makes too), which flips fewer still.  ``out`` receives the codes
+        where given.
         """
         if self.projection is not None:
             x = torch.matmul(x, self.projection)

@@ -70,8 +70,16 @@ def test_nvcc_is_given_the_include_path_of_the_sources(monkeypatch, tmp_path):
     assert "arch=compute_90a,code=sm_90a" in cmd
 
 
-def test_the_statistics_source_includes_the_assignment_header():
-    text = (_build._CSRC / "stats.cu").read_text()
+# Each source with what its earlier design had and the shared routine replaced:
+# the statistics kernel's scan over every code in every thread, the encode's
+# chain of FMAs over rows kept in registers.
+@pytest.mark.parametrize("name,gone", [("stats", "scan_tile"), ("encode", "xr[r]")],
+                         ids=["stats.cu", "encode.cu"])
+def test_the_statistics_source_includes_the_assignment_header(name, gone):
+    text = (_build._CSRC / f"{name}.cu").read_text()
     assert '#include "assign_tile.cuh"' in text
     assert (_build._CSRC / "assign_tile.cuh").exists()
-    assert "scan_tile" not in text  # the scan over every code in every thread is gone
+    # One routine assigns a row tile and flags its rows in both kernels.
+    for routine in ("copy_rows<", "assign_rows<", "flag_row<"):
+        assert f"assign_tile::{routine}" in text
+    assert gone not in text

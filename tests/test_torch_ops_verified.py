@@ -52,6 +52,25 @@ def _near_coincident(seed, n, m, k, ds):
     return cb, x.astype(np.float32)
 
 
+def _adversarial(seed, n, m, k, ds):
+    """Codebooks whose last centroid repeats the first, and rows in five
+    blocks: on the repeated centroid (an exact tie), on the midpoint of a
+    centroid pair (a tie up to rounding), zero, and Gaussian scaled by 1e-6
+    and by 1e6."""
+    cb, x = make_pq_data(seed, n, m, k, ds)
+    cb[:, k - 1] = cb[:, 0]
+    x = x.reshape(n, m, ds)
+    fifth = n // 5
+    pick = np.random.default_rng(seed + 1).integers(0, k, (fifth, m))
+    sub = np.arange(m)[None, :]
+    x[:fifth] = cb[:, 0][None]
+    x[fifth:2 * fifth] = 0.5 * (cb[sub, pick] + cb[sub, (pick + 1) % k])
+    x[2 * fifth:3 * fifth] = 0.0
+    x[3 * fifth:4 * fifth] *= 1e-6
+    x[4 * fifth:] *= 1e6
+    return cb, x.reshape(n, m * ds).astype(np.float32)
+
+
 def _half_integer_grid(seed, n, m, k, ds):
     """Codebooks and rows rounded to halves: many exact and near ties."""
     cb, x = make_pq_data(seed, n, m, k, ds)
@@ -78,6 +97,10 @@ ENCODE_CASES = {
     "gaussian": (make_pq_data, (3000, 4, 16, 4), 256, 1 / 16),
     "exact_ties": (_duplicated, (500, 2, 8, 4), 128, 1 / 16),
     "over_the_cap": (_near_coincident, (400, 2, 8, 4), 128, 1e-9),
+    # Most of these rows are flagged: cap_frac=1.0 gathers and re-encodes
+    # them, 1e-9 encodes everything by the exact path.
+    "adversarial": (_adversarial, (1000, 4, 16, 8), 256, 1.0),
+    "adversarial_over_the_cap": (_adversarial, (1000, 4, 16, 8), 256, 1e-9),
 }
 
 
@@ -144,7 +167,7 @@ def test_verify_reference_flags_a_row_when_any_subquantizer_is_close():
 
 def test_verify_scale_is_the_docstrings_and_wider_scales_flag_more():
     cb, x = make_pq_data(36, 4000, 4, 16, 8)
-    e = tassign.verify_scale(t(cb))
+    e = tassign.verify_scale(t(cb), route="fma")
     cn = np.sqrt((cb.astype(np.float64) ** 2).sum(axis=2)).max(axis=1)
     np.testing.assert_allclose(e.numpy(), 4 * 8 * 2.0 ** -24 * 2 * cn, rtol=1e-6)
     assert e.dtype == torch.float32 and tuple(e.shape) == (4,)
@@ -166,7 +189,7 @@ def test_verify_scale_of_the_split_product_is_the_docstrings_and_wider(ds):
     np.testing.assert_allclose(e.numpy(), formula * 2 * cn, rtol=1e-6)
     assert e.dtype == torch.float32 and tuple(e.shape) == (3,)
     fma = tassign.verify_scale(t(cb), route="fma")
-    np.testing.assert_array_equal(fma.numpy(), tassign.verify_scale(t(cb)).numpy())
+    np.testing.assert_array_equal(e.numpy(), tassign.verify_scale(t(cb)).numpy())  # the default
     assert bool((e > fma).all()) and bool((e < 8 * fma).all())
     # An explicit scale wins over the route; an unknown route raises.
     np.testing.assert_array_equal(
@@ -174,14 +197,34 @@ def test_verify_scale_of_the_split_product_is_the_docstrings_and_wider(ds):
         tassign.verify_scale(t(cb), 2.0 ** -14).numpy())
     with pytest.raises(ValueError, match="route"):
         tassign.verify_scale(t(cb), route="wgmma")
-    # The statistics' plain version flags with the kernel's scale: more rows
-    # than the encode's, all of the encode's among them.
-    assert tstats.STATS_ROUTE == "tf32x3"
+    # Both plain versions flag with the kernels' scale: more rows than the
+    # f32 chain of FMAs would need, all of those among them.
+    assert tstats.STATS_ROUTE == tassign.F32_ROUTE == "tf32x3"
     _, _, _, stats_flags = pq_assign_stats_verify_reference(t(cb), t(x))
     _, enc_flags = pq_encode_verify_reference(t(cb), t(x))
-    _, same = pq_encode_verify_reference(t(cb), t(x), escale=e)
-    np.testing.assert_array_equal(stats_flags.numpy(), same.numpy())
-    assert bool((stats_flags >= enc_flags).all()) and float(stats_flags.float().mean()) < 0.03
+    _, fma_flags = pq_encode_verify_reference(t(cb), t(x), escale=fma)
+    np.testing.assert_array_equal(stats_flags.numpy(), enc_flags.numpy())
+    assert bool((stats_flags >= fma_flags).all()) and float(stats_flags.float().mean()) < 0.03
+
+
+@pytest.mark.parametrize("make", [make_pq_data, _half_integer_grid, _duplicated, _adversarial],
+                         ids=["gaussian", "half_integer_grid", "exact_ties", "adversarial"])
+def test_the_encode_and_the_statistics_flag_alike_by_default(make):
+    # One assignment routine in both f32 kernels, so one limit for both plain
+    # versions: verify_scale(route="tf32x3"), the same rows flagged, the same codes.
+    cb, x = make(39, 2000, 4, 16, 8)
+    e = tassign.verify_scale(t(cb), route="tf32x3")
+    _, _, s_codes, s_flags = pq_assign_stats_verify_reference(t(cb), t(x))
+    e_codes, e_flags = pq_encode_verify_reference(t(cb), t(x), dtype=torch.int32)
+    np.testing.assert_array_equal(e_codes.numpy(), s_codes.numpy())
+    np.testing.assert_array_equal(e_flags.numpy(), s_flags.numpy())
+    for got in (pq_encode_verify_reference(t(cb), t(x), dtype=torch.int32, escale=e),
+                tassign.pq_encode_verify_flags(t(cb), t(x), dtype=torch.int32),
+                tstats.pq_assign_stats_verify_reference(t(cb), t(x), escale=e)[2:],
+                tstats.pq_assign_stats_verify_flags(t(cb), t(x))[2:]):
+        np.testing.assert_array_equal(got[0].numpy(), e_codes.numpy())
+        np.testing.assert_array_equal(got[1].numpy(), e_flags.numpy())
+    assert int(e_flags.sum()) > 0 or make is make_pq_data  # the ties are flagged
 
 
 def test_flagged_rows_and_the_cap():

@@ -1,4 +1,5 @@
-"""Times of the assign+statistics kernels of ``reductive_tpu_torch`` on one GPU.
+"""Times of the assign+statistics and f32 encode kernels of
+``reductive_tpu_torch`` on one GPU.
 
     python3 tools/time_stats_kernels.py [--against DIR] [--n ROWS]
 
@@ -6,15 +7,19 @@ Prints one JSON line per measurement (CUDA-event medians after a warm-up,
 milliseconds) and, first, the card's name and power limit:
 
 * ``stats_f32``, ``stats_bf16`` and ``stats_verify`` (kernel alone and whole
-  wrapper) at the flagship width d=128, m=16, k=256, ds=8 over ``--n`` rows
-  (4,000,000), and at the shapes ``chip_smoke.py``'s kernels phase compares;
+  wrapper), ``encode_f32`` (uint8 and int32 codes) and ``encode_verify``
+  (kernel alone and whole wrapper) at the flagship width d=128, m=16, k=256,
+  ds=8 over ``--n`` rows (4,000,000), and at the shapes ``chip_smoke.py``'s
+  kernels phase compares;
 * a sweep over k and over ds, whose slope in k is the assignment (products and
-  selection) and whose intercept is loads, staging and accumulation;
-* builds of ``csrc/stats.cu`` with a part compiled out (made in a temporary
-  copy of ``csrc/``, never in the package): without the accumulation, with
-  the selection cut to its running minimum, with one of the split's three
-  products, with one block on an SM and with smaller tiles, at the flagship
-  shape: the differences are those parts' shares.
+  selection) and whose intercept is loads, staging and, for the statistics,
+  accumulation;
+* builds of ``csrc/stats.cu`` and ``csrc/encode.cu`` with a part compiled out
+  (made in a temporary copy of ``csrc/``, never in the package): without the
+  accumulation, without the encode's code writes, with the selection cut to
+  its running minimum, with one of the split's three products, with one
+  block on an SM and with smaller tiles, at the flagship shape: the
+  differences are those parts' shares.
 
 With ``--against DIR`` (another checkout of the repository, for example the
 parent commit unpacked by ``git archive``) the timings of the first two groups
@@ -78,6 +83,7 @@ def worker(label: str, n_rows: int, sweep: bool) -> None:
     sys.path.insert(0, str(Path.cwd()))
     import torch
     from reductive_tpu_torch import ops
+    from reductive_tpu_torch.ops.assign import pq_encode_verify_flags
     from reductive_tpu_torch.ops.stats import pq_assign_stats_verify_flags
 
     ops.build_all()
@@ -85,12 +91,19 @@ def worker(label: str, n_rows: int, sweep: bool) -> None:
         n = n_rows if n is None else n
         cb, x = make(n, m, k, ds)
         shape = f"n={n} d={m * ds} m={m} k={k} ds={ds}"
+        f32, i32 = torch.float32, torch.int32
+        code = torch.uint8 if k <= 256 else i32
         emit(checkout=label, shape=shape,
-             stats_f32=time_ms(lambda: ops.pq_assign_stats(cb, x, compute_dtype=torch.float32)),
+             stats_f32=time_ms(lambda: ops.pq_assign_stats(cb, x, compute_dtype=f32)),
              stats_bf16=time_ms(lambda: ops.pq_assign_stats(cb, x, compute_dtype=torch.bfloat16)),
              stats_verify_kernel=time_ms(lambda: pq_assign_stats_verify_flags(cb, x)),
              stats_verified=time_ms(lambda: ops.pq_assign_stats_verified(cb, x)),
-             flag_rate=float(pq_assign_stats_verify_flags(cb, x)[3].float().mean()))
+             flag_rate=float(pq_assign_stats_verify_flags(cb, x)[3].float().mean()),
+             encode_f32=time_ms(lambda: ops.pq_encode(cb, x, dtype=code, compute_dtype=f32)),
+             encode_f32_int32=time_ms(lambda: ops.pq_encode(cb, x, dtype=i32, compute_dtype=f32)),
+             encode_verify_kernel=time_ms(lambda: pq_encode_verify_flags(cb, x, dtype=code)),
+             encode_verified=time_ms(lambda: ops.pq_encode_verified(cb, x, dtype=code)),
+             encode_flag_rate=float(pq_encode_verify_flags(cb, x, dtype=code)[1].float().mean()))
         del cb, x
         torch.cuda.empty_cache()
 
@@ -98,6 +111,11 @@ def worker(label: str, n_rows: int, sweep: bool) -> None:
 # name -> [(file under csrc, text that must occur exactly once, its replacement)]
 ABLATIONS = {
     "whole": [],
+    # The encode assigns and flags but writes no code.
+    "no_code_writes": [
+        ("encode.cu", "        codes[row * m + j] = (OutT)s_code[e];\n",
+         "        if (s_code[e] == 0x7fffffff) codes[row * m + j] = (OutT)0;  // keeps the codes live\n"),
+    ],
     "no_accumulation": [
         ("stats.cu", "    accumulate_tile<DS, kTile>(s_x, s_code, scratch, one, slot, acc, cnt);\n",
          "    if (s_code[threadIdx.x % kTile] == 0x7fffffff) acc[0] += 1.0f;  // keeps the codes live\n"),
@@ -106,12 +124,16 @@ ABLATIONS = {
     ],
     # f32 mode only: as many registers as the compiler likes, so one block on an SM.
     "one_block_per_sm": [
-        ("stats.cu", "  static constexpr int kMinBlocks = DS <= 8 ? 2 : 1;",
-         "  static constexpr int kMinBlocks = 1;"),
+        ("assign_tile.cuh", "constexpr int kMinBlocks = DS <= 8 ? 2 : 1;", "constexpr int kMinBlocks = 1;"),
+    ],
+    # The encode's grid: one wave of resident blocks in place of four.
+    "encode_one_wave": [
+        ("encode.cu", "constexpr int kWaves = 4;", "constexpr int kWaves = 1;"),
     ],
     # f32 mode only: tiles of 256 rows in place of 512.
     "two_subtiles_per_warpgroup": [
-        ("stats.cu", "    case 8: return (int)launch<8, 4>(", "    case 8: return (int)launch<8, 2>("),
+        ("assign_tile.cuh", "constexpr int kSubtiles = DS <= 8 ? 4 : 32 / DS;",
+         "constexpr int kSubtiles = DS < 8 ? 4 : (DS == 8 ? 2 : 32 / DS);"),
     ],
     # f32 mode only: the running minimum stays, the compare and the three selects go.
     "selection_is_min_only": [
@@ -135,9 +157,10 @@ ABLATIONS = {
 
 
 def ablated(n_rows: int) -> None:
-    """Builds of stats.cu with a part compiled out, timed through the C entry
-    at the flagship shape.  The results of such a build are wrong by design;
-    only its time is read."""
+    """Builds of stats.cu (and of encode.cu where the part is in it or in the
+    shared header) with a part compiled out, timed through the C entries at
+    the flagship shape.  The results of such a build are wrong by design; only
+    its time is read."""
     sys.path.insert(0, str(ROOT))
     import torch
     from reductive_tpu_torch.ops import _build
@@ -150,6 +173,7 @@ def ablated(n_rows: int) -> None:
     blocks = _blocks_per_subquantizer(n_rows, m, k, ds)
     partial = torch.empty((blocks, m, k, ds + 1), device="cuda")
     sums, counts = torch.empty((m, k, ds), device="cuda"), torch.empty((m, k), device="cuda")
+    codes = torch.empty((n_rows, m), dtype=torch.uint8, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     csrc = ROOT / "reductive_tpu_torch" / "csrc"
     with tempfile.TemporaryDirectory() as tmp:
@@ -164,20 +188,36 @@ def ablated(n_rows: int) -> None:
                             raise SystemExit(f"{name}: the text to replace is not in {file} exactly once")
                         text = text.replace(old, new)
                 (work / src.name).write_text(text)
-            lib_path = work / "libstats.so"
-            subprocess.run([_build._nvcc(), *_build._NVCC_FLAGS, "-I", str(work), "-o",
-                            str(lib_path), str(work / "stats.cu")], check=True)
-            lib = ctypes.CDLL(str(lib_path))
+            touched = {file for file, _, _ in swaps}
+            sources = ["stats"] + (["encode"] if not touched or touched & {"encode.cu", "assign_tile.cuh"}
+                                   else [])
+            procs = {src: subprocess.Popen([_build._nvcc(), *_build._NVCC_FLAGS, "-I", str(work), "-o",
+                                            str(work / f"lib{src}.so"), str(work / f"{src}.cu")])
+                     for src in sources}
+            for src, proc in procs.items():
+                if proc.wait() != 0:
+                    raise SystemExit(f"{name}: nvcc failed for {src}.cu")
+            calls = []
+            stats_fn = ctypes.CDLL(str(work / "libstats.so")).rt_assign_stats
+            stats_fn.argtypes = list(_build._ENTRIES["rt_assign_stats"][1])
             for mode, bf16 in (("stats_f32", 0), ("stats_bf16", 1)):
-                fn = lib.rt_assign_stats
-                fn.argtypes = list(_build._ENTRIES["rt_assign_stats"][1])
+                calls.append((mode, "rt_assign_stats", stats_fn,
+                              (x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), partial.data_ptr(),
+                               sums.data_ptr(), counts.data_ptr(), n_rows, m, k, ds, bf16, blocks,
+                               stream)))
+            if "encode" in sources:
+                encode_fn = ctypes.CDLL(str(work / "libencode.so")).rt_encode
+                encode_fn.argtypes = list(_build._ENTRIES["rt_encode"][1])
+                calls.append(("encode_f32", "rt_encode", encode_fn,
+                              (x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), codes.data_ptr(),
+                               n_rows, m, k, ds, 0, 1, stream)))
+            for mode, entry, fn, args in calls:
                 fn.restype = ctypes.c_int
 
                 def call():
-                    rc = fn(x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), partial.data_ptr(),
-                            sums.data_ptr(), counts.data_ptr(), n_rows, m, k, ds, bf16, blocks, stream)
+                    rc = fn(*args)
                     if rc != 0:
-                        raise SystemExit(f"{name}: rt_assign_stats returned {rc}")
+                        raise SystemExit(f"{name}: {entry} returned {rc}")
 
                 emit(build=name, kernel=mode, shape=f"n={n_rows} d={m * ds} m={m} k={k} ds={ds}",
                      ms=time_ms(call))
