@@ -9,7 +9,12 @@ drives the serving path (encode -> decode -> ADC search), the training path
 statistics and trainers against the f32 einsum path) and the packed path
 (4-bit codes, two a byte, through decode and search) at the flagship width
 d=128, m=16, ds=8 (k=256; k=16 for the packed path) over a corpus of
-4,000,000 rows, and checks what comes out.
+4,000,000 rows, and checks what comes out.  The wide phase drives every
+other subvector width: k-means at IVF's coarse shapes (d=128, k=4,096 over
+2^20 rows; d=768, k=16,384 over 2^19 rows; m = 1, ds = d) and a quantizer
+at the reference's quality-gate width (d=20, m=10, k=128, ds=2) over the
+corpus's first 20 columns, after a probe of the tensor cores' accumulation
+that the verify bound rests on.
 Every phase prints one JSON line.  The run fails (non-zero exit, no result
 line) without a CUDA device, when a kernel does not build, does not launch
 or disagrees, or when a path did not go through its kernels.  The last line
@@ -43,7 +48,10 @@ import time
 import torch
 
 from reductive_tpu_torch import Pq, io, kmeans, ops, train_opq_chunked, train_pq, train_pq_chunked
+from reductive_tpu_torch.ops.adc import quantize_tables_int8
 from reductive_tpu_torch.ops.assign import pq_encode_verify_flags, verify_scale
+from reductive_tpu_torch.ops.decode import quantize_codebook_int8
+from reductive_tpu_torch.ops.probe import probe_wgmma_tf32
 from reductive_tpu_torch.ops.stats import pq_assign_stats_verify_flags, stats_from_codes
 from reductive_tpu_torch.pq import primitives
 from reductive_tpu_torch.pq.opq import create_projection_matrix
@@ -88,9 +96,26 @@ KERNELS = {
     "decode_int8_u4": ("reductive_tpu_torch/csrc/decode.cu", "reductive_tpu/ops/decode.py:180"),
     "adc_u4": ("reductive_tpu_torch/csrc/adc.cu", "reductive_tpu/ops/adc.py:59"),
     "adc_int8_u4": ("reductive_tpu_torch/csrc/adc.cu", "reductive_tpu/ops/decode.py:180"),
+    "encode_f32_wide": ("reductive_tpu_torch/csrc/assign_wide.cuh", "reductive_tpu/ops/assign.py:138"),
+    "encode_bf16_wide": ("reductive_tpu_torch/csrc/assign_wide.cuh", "reductive_tpu/ops/assign.py:138"),
+    "encode_verify_wide": ("reductive_tpu_torch/csrc/assign_wide.cuh",
+                           "reductive_tpu/ops/assign.py:298"),
+    "stats_f32_wide": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:50"),
+    "stats_bf16_wide": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:50"),
+    "stats_verify_wide": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:272"),
+    "decode_scalar": ("reductive_tpu_torch/csrc/decode.cu", "reductive_tpu/ops/decode.py:166"),
+    "decode_int8_scalar": ("reductive_tpu_torch/csrc/decode.cu", "reductive_tpu/ops/decode.py:180"),
 }
 SERVE_KERNELS = ("encode_f32", "encode_bf16", "decode", "decode_int8", "adc", "adc_int8")
 PACKED_KERNELS = ("decode_u4", "decode_int8_u4", "adc_u4", "adc_int8_u4")
+WIDE_KERNELS = tuple(name for name in KERNELS if name.endswith(("_wide", "_scalar")))
+# The wide phase's shapes: IVF's coarse stage in benches/ivf10m.py (d=128,
+# 4,096 cells, over 2^20 rows) and benches/ivf100m.py (d=768, 16,384 cells,
+# its 2^19-row training sample); the reference's quality-gate width, d=20,
+# m=10, k=128 (ds=2), over the corpus's first 20 columns.
+IVF10M = (1 << 20, 128, 4096)
+IVF100M = (1 << 19, 768, 16384)
+GATE_M, GATE_BITS = 10, 7
 
 
 class SmokeFailure(RuntimeError):
@@ -145,12 +170,14 @@ def chosen_dist(codebooks, x, codes):
         .pow(2).sum(dim=2)
 
 
-def compare_encode(codebooks, x, compute_dtype):
+def compare_encode(codebooks, x, compute_dtype, scale_gap=False):
     """Kernel against plain version.  Codes may differ only where rounding
     (the f32 kernel's split product, f32 summation order) flips a near-tie:
     at least 99.9% (f32) or 99% (bf16) equal, and every differing code's
     centroid within 2^-13 (f32) or 2^-7 (bf16) relative of the other's
-    distance."""
+    distance; with ``scale_gap``, relative of ``|x_j| max|2c_j| + max|c_j|^2``,
+    the scale of the products' rounding (at ds = 2 a distance is far
+    smaller)."""
     got = ops.pq_encode(codebooks, x, dtype=torch.int32, compute_dtype=compute_dtype)
     want = ops.pq_encode_reference(codebooks, x, dtype=torch.int32, compute_dtype=compute_dtype)
     torch.cuda.synchronize()
@@ -159,7 +186,14 @@ def compare_encode(codebooks, x, compute_dtype):
     n_mismatch = int(differ.sum())
     dg, dw = chosen_dist(codebooks, x, got), chosen_dist(codebooks, x, want)
     max_abs = float((dg - dw).abs().max())
-    rel = float(((dg - dw).abs() / dw.clamp_min(1e-30))[differ].max()) if n_mismatch else 0.0
+    if scale_gap:
+        m, _, ds = codebooks.shape
+        cn = codebooks.double().pow(2).sum(dim=2).sqrt().amax(dim=1)
+        xn = x.reshape(-1, m, ds).double().pow(2).sum(dim=2).sqrt()
+        denom = 2 * xn * cn[None] + cn[None] ** 2
+    else:
+        denom = dw.clamp_min(1e-30)
+    rel = float(((dg - dw).abs() / denom)[differ].max()) if n_mismatch else 0.0
     f32 = compute_dtype == torch.float32
     require(n_mismatch <= got.numel() * (1e-3 if f32 else 1e-2),
             f"encode {compute_dtype}: {n_mismatch} of {got.numel()} codes differ")
@@ -728,8 +762,9 @@ def adversarial_corpus(codebooks, n, gen):
 def exact_checks(name, codebooks, x, cap_frac=1 / 16):
     """``pq_encode_verified`` against the exact path on every code, and
     ``pq_assign_stats_verified`` against the exact path's counts in every
-    cell (sums: rtol 1e-5 plus atol 1e-4 * max|sums|); the flag rates and
-    what the kernel alone would have got wrong."""
+    cell (sums: rtol 1e-5 plus atol 1e-4 * max|sums|) and against itself
+    (two calls, the same bits: the corrections add in a fixed order); the
+    flag rates and what the kernel alone would have got wrong."""
     n = x.shape[0]
     k = codebooks.shape[1]
     oracle = primitives.quantize_batch(codebooks, x, dtype=torch.int32)
@@ -739,6 +774,10 @@ def exact_checks(name, codebooks, x, cap_frac=1 / 16):
     del got
     want_sums, want_counts = stats_from_codes(oracle, x, k)
     sums, counts = ops.pq_assign_stats_verified(codebooks, x, cap_frac=cap_frac)
+    again = ops.pq_assign_stats_verified(codebooks, x, cap_frac=cap_frac)
+    require(bool(torch.equal(sums, again[0])) and bool(torch.equal(counts, again[1])),
+            f"exact: {name}: two calls of pq_assign_stats_verified differ")
+    del again
     cells_off = int((counts != want_counts).sum())
     require(cells_off == 0, f"exact: {name}: counts differ from the exact path's in {cells_off} cells")
     err = (sums - want_sums).abs()
@@ -761,6 +800,7 @@ def exact_checks(name, codebooks, x, cap_frac=1 / 16):
     return {
         "rows": n, "codes_compared": oracle.numel(), "code_mismatches": n_wrong,
         "count_cells_off": cells_off, "max_abs_err_sums": float(err.max()),
+        "stats_verified_bit_equal_calls": True,
         "cap_frac": cap_frac, "flag_rate": float(flags.float().mean()),
         "flag_rate_at_2^-14": float(wide.float().mean()),
         "rows_the_kernel_alone_got_wrong": int(wrong_rows.sum()),
@@ -902,6 +942,257 @@ def phase_packed(corpus, gen):
     return pq4, codes, packed, launches
 
 
+# -- the wide phase: every subvector width -------------------------------------------
+
+
+def library_assign(codebooks, x, compute_dtype=torch.float32):
+    """The yardstick of the encode kernels: per chunk of rows one PyTorch
+    product, ``baddbmm(|c|^2, x_j, (2c_j)^T, alpha=-1)`` (``addmm`` at m = 1;
+    f32 with TF32 off, or in bf16), then ``argmin``."""
+    m, k, ds = codebooks.shape
+    c_sqn = torch.einsum("mkd,mkd->mk", codebooks, codebooks)[:, None, :]
+    w = (codebooks + codebooks).transpose(1, 2)
+    if compute_dtype == torch.bfloat16:
+        c_sqn, w = c_sqn.to(torch.bfloat16), w.to(torch.bfloat16)
+    out = torch.empty((x.shape[0], m), dtype=torch.int64, device=x.device)
+    step = max(1, (1 << 26) // (m * k))
+    for i in range(0, x.shape[0], step):
+        xs = x[i:i + step].reshape(-1, m, ds).transpose(0, 1).to(w.dtype)
+        out[i:i + step] = torch.baddbmm(c_sqn, xs, w, alpha=-1).argmin(dim=2).T
+    return out
+
+
+def library_assign_stats(codebooks, x, compute_dtype=torch.float32):
+    """The yardstick of the statistics kernels: ``library_assign``, then
+    ``index_add_`` of the rows (float atomics) and ``bincount``."""
+    m, k, ds = codebooks.shape
+    cells = (library_assign(codebooks, x, compute_dtype)
+             + torch.arange(m, device=x.device)[None, :] * k).reshape(-1)
+    rows = x if compute_dtype == torch.float32 else x.to(torch.bfloat16).to(torch.float32)
+    sums = torch.zeros((m * k, ds), device=x.device).index_add_(0, cells, rows.reshape(-1, ds))
+    return sums, torch.bincount(cells, minlength=m * k)
+
+
+def library_decode_int8(codebooks, codes):
+    """``F.embedding`` over the int8 codebook dequantized once (outside the
+    call): the int8 decode's function up to the one rounded multiply."""
+    m, k, ds = codebooks.shape
+    w8, scale = quantize_codebook_int8(codebooks)
+    table = (w8.to(torch.float32) * scale.reshape(m, 1, ds)).reshape(m * k, ds)
+    idx = codes.to(torch.int64) + torch.arange(m, device=codes.device)[None, :] * k
+    return lambda: torch.nn.functional.embedding(idx, table)
+
+
+def exact_line(name, codebooks, x):
+    """``exact_checks`` with its rates under their own names."""
+    res = exact_checks(name, codebooks, x)
+    return {key: res[key] for key in ("rows", "codes_compared", "code_mismatches",
+                                      "count_cells_off", "flag_rate", "stats_flag_rate",
+                                      "rows_the_kernel_alone_got_wrong", "max_abs_err_sums")}
+
+
+def phase_wide(corpus, gen):
+    """Every subvector width on the card: the probe of the tensor cores'
+    accumulation; then, with every count at 0, k-means at IVF's two coarse
+    shapes and a ds = 2 quantizer through their entry points; then each wide
+    kernel against its plain version, encode against statistics, two
+    statistics launches bit-equal, the verified paths against the exact one,
+    and the times.  Returns the probe, the path's launches and the rows of
+    the kernels line."""
+    dev = corpus.device
+    f32, bf16 = torch.float32, torch.bfloat16
+    probe = probe_wgmma_tf32(dev)
+    require(probe["ok"], f"wide: the tensor cores do not accumulate as the verify bound assumes: {probe}")
+
+    n_a, d_a, k_a = IVF10M
+    n_b, d_b, k_b = IVF100M
+    xa = torch.randn((n_a, d_a), generator=gen, device=dev)
+    xb = torch.randn((n_b, d_b), generator=gen, device=dev)
+    x20 = corpus[:, :20].contiguous()
+    ca = xa[kmeans.random_distinct_indices(gen, n_a, k_a)]
+    cb0 = xb[kmeans.random_distinct_indices(gen, n_b, k_b)]
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses_a = []
+    for cd in (f32, f32, "verified"):  # one Lloyd's iteration a call, to read every loss
+        ca, loss = kmeans.kmeans_with_centroids_chunked(xa, ca, 1, compute_dtype=cd)
+        losses_a.append(float(loss))
+    torch.cuda.synchronize()
+    t_a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    start_b = ops.assign_nearest(cb0, xb, compute_dtype=f32)
+    cb1, loss_b = kmeans.kmeans_with_centroids_chunked(xb, cb0, 1)
+    near_bf16 = ops.assign_nearest(cb1, xb, compute_dtype=bf16)
+    near_f32 = ops.assign_nearest(cb1, xb, compute_dtype=f32)
+    verified_b = ops.pq_encode_verified(cb1[None], xb, dtype=torch.int32)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pq20 = train_pq_chunked(gen, x20, GATE_M, GATE_BITS, 1, compute_dtype=bf16)
+    codes20_bf16 = pq20.quantize_batch(x20, method="kernel")
+    codes20 = pq20.quantize_batch(x20, method="kernel-f32")
+    verified20 = ops.pq_encode_verified(pq20.codebooks, x20)
+    rec20 = pq20.reconstruct_batch(codes20, method="kernel")
+    rec20_int8 = pq20.reconstruct_batch(codes20, method="kernel-int8")
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    for name in WIDE_KERNELS:
+        require(launches.get(name, 0) > 0, f"wide: kernel {name} was never launched")
+
+    # What came out: finite centroids, falling losses, codes in range.
+    loss_b0 = float((xb - cb0[start_b.long()]).pow(2).mean())
+    require(all(b <= a * (1 + 1e-6) for a, b in zip(losses_a, losses_a[1:])),
+            f"wide: the d={d_a} k-means loss rose: {losses_a}")
+    require(float(loss_b) < loss_b0, f"wide: the d={d_b} loss {float(loss_b)} is not below {loss_b0}")
+    require(bool(torch.isfinite(ca).all()) and bool(torch.isfinite(cb1).all()), "wide: centroids")
+    for codes, k in ((near_bf16, k_b), (near_f32, k_b), (verified_b, k_b)):
+        require(int(codes.min()) >= 0 and int(codes.max()) < k, "wide: a code out of range")
+    mse20 = float((rec20 - x20).pow(2).mean())
+    mse20_int8 = float((rec20_int8 - x20).pow(2).mean())
+    require(mse20 < 0.1 and mse20_int8 < 0.1, f"wide: ds=2 reconstruction error {mse20} {mse20_int8}")
+    require(bool(torch.equal(rec20, primitives.reconstruct_batch(pq20.codebooks, codes20))),
+            "wide: the ds=2 decode is not bit-equal to the gather")
+    agree20 = float((codes20_bf16 == codes20).float().mean())
+    del rec20, rec20_int8, start_b
+
+    # Each kernel against its plain version, shape by shape; encode against
+    # statistics; the verified paths against the exact one.
+    shapes = {
+        "ivf10m": (ca[None].contiguous(), xa),
+        "ivf100m": (cb1[None].contiguous(), xb),
+        "gate_ds2": (pq20.codebooks, x20),
+    }
+    compared, exact, shared = [], {}, {}
+    for label, (cb, x) in shapes.items():
+        shape = f"n={x.shape[0]} d={x.shape[1]} m={cb.shape[0]} k={cb.shape[1]}"
+        for name, res in (
+            ("encode_f32_wide", compare_encode(cb, x, f32, scale_gap=True)),
+            ("encode_bf16_wide", compare_encode(cb, x, bf16, scale_gap=True)),
+            ("stats_f32_wide", compare_stats(cb, x, f32)),
+            ("encode_verify_wide", compare_encode_verify(cb, x)),
+            ("stats_verify_wide", compare_stats_verify(cb, x)),
+        ) + ((("stats_bf16_wide", compare_stats(cb, x, bf16)),
+              ("decode_scalar", compare_decode(cb, codes20, 3)),
+              ("decode_int8_scalar", compare_decode(cb, codes20, "int8"))) if label == "gate_ds2" else ()):
+            compared.append({"kernel": name, "shape": shape, **res})
+        shared[label] = compare_shared_assignment(cb, x)
+        exact[label] = exact_line(label, cb, x)
+        torch.cuda.empty_cache()
+
+    # Times at every shape; the kernels line takes each kernel at the largest
+    # shape its path gives it.
+    cb_a, _ = shapes["ivf10m"]
+    cb_b, _ = shapes["ivf100m"]
+    cb_c = pq20.codebooks
+
+    def row(name, cb, x, kernel, plain, library, nbytes, nops, op_type, alone=None):
+        bound_ms, bound_by = bound(nbytes, nops, op_type)
+        m, k, ds = cb.shape
+        out = {"name": name, "shape": f"n={x.shape[0]} d={x.shape[1]} m={m} k={k} ds={ds}",
+               "ms": time_ms(kernel, 3), "plain_ms": time_ms(plain, 1),
+               "library_ms": time_ms(library, 1), "bound_ms": bound_ms, "bound_by": bound_by}
+        if alone is not None:
+            out["kernel_ms"] = time_ms(alone, 3)
+        torch.cuda.empty_cache()
+        return out
+
+    def assign_rows(cb, x, with_bf16=True):
+        n, d = x.shape
+        m, k, ds = cb.shape
+        nbytes = 4 * n * d + 4 * m * k * ds + 4 * n * m
+        ops_ = 2 * n * m * k * ds
+        rows = [
+            row("encode_f32_wide", cb, x,
+                lambda: ops.pq_encode(cb, x, dtype=torch.int32, compute_dtype=f32),
+                lambda: ops.pq_encode_reference(cb, x, dtype=torch.int32, compute_dtype=f32),
+                lambda: library_assign(cb, x, f32), nbytes, 3 * ops_, "tf32"),
+            row("encode_verify_wide", cb, x,
+                lambda: ops.pq_encode_verified(cb, x, dtype=torch.int32),
+                lambda: ops.pq_encode_verify_reference(cb, x, dtype=torch.int32),
+                lambda: primitives.quantize_batch(cb, x, dtype=torch.int32),
+                nbytes + 4 * n, 3 * ops_, "tf32",
+                alone=lambda: pq_encode_verify_flags(cb, x, dtype=torch.int32)),
+        ]
+        if with_bf16:
+            rows.append(row("encode_bf16_wide", cb, x,
+                            lambda: ops.pq_encode(cb, x, dtype=torch.int32, compute_dtype=bf16),
+                            lambda: ops.pq_encode_reference(cb, x, dtype=torch.int32,
+                                                            compute_dtype=bf16),
+                            lambda: library_assign(cb, x, bf16), nbytes, ops_, "bf16"))
+        return rows
+
+    def stats_rows(cb, x, modes):
+        n, d = x.shape
+        m, k, ds = cb.shape
+        nbytes = 4 * n * d + 4 * m * k * ds + 4 * m * k * (ds + 1)
+        ops_ = 2 * n * m * k * ds
+        rows = []
+        for mode in modes:
+            if mode == "verify":
+                rows.append(row("stats_verify_wide", cb, x,
+                                lambda: ops.pq_assign_stats_verified(cb, x),
+                                lambda: ops.pq_assign_stats_verify_reference(cb, x),
+                                lambda: stats_from_codes(primitives.quantize_batch(
+                                    cb, x, dtype=torch.int32), x, k),
+                                nbytes + 4 * n + 4 * n * m, 3 * ops_, "tf32",
+                                alone=lambda: pq_assign_stats_verify_flags(cb, x)))
+            else:
+                cd = f32 if mode == "f32" else bf16
+                rows.append(row(f"stats_{mode}_wide", cb, x,
+                                lambda: ops.pq_assign_stats(cb, x, compute_dtype=cd),
+                                lambda: ops.pq_assign_stats_reference(cb, x, compute_dtype=cd),
+                                lambda: library_assign_stats(cb, x, cd), nbytes,
+                                3 * ops_ if mode == "f32" else ops_,
+                                "tf32" if mode == "f32" else "bf16"))
+        return rows
+
+    n_c, m_c = x20.shape[0], GATE_M
+    dec_bytes = n_c * m_c + 4 * m_c * 128 * 2 + 4 * n_c * 20
+    idx20 = codes20.to(torch.int64) + torch.arange(m_c, device=dev)[None, :] * 128
+    times = {
+        "ivf10m": stats_rows(cb_a, xa, ("f32", "verify")),
+        "ivf100m": assign_rows(cb_b, xb) + stats_rows(cb_b, xb, ("f32",)),
+        "gate_ds2": assign_rows(cb_c, x20) + stats_rows(cb_c, x20, ("bf16", "f32")) + [
+            row("decode_scalar", cb_c, x20, lambda: ops.pq_decode(cb_c, codes20, splits=3),
+                lambda: ops.pq_decode_reference(cb_c, codes20, splits=3),
+                lambda: torch.nn.functional.embedding(idx20, cb_c.reshape(-1, 2)),
+                dec_bytes, 0, "f32"),
+            row("decode_int8_scalar", cb_c, x20,
+                lambda: ops.pq_decode(cb_c, codes20, splits="int8"),
+                lambda: ops.pq_decode_reference(cb_c, codes20, splits="int8"),
+                library_decode_int8(cb_c, codes20), dec_bytes, n_c * 20, "f32"),
+        ],
+    }
+    largest = {"encode_f32_wide": "ivf100m", "encode_bf16_wide": "ivf100m",
+               "encode_verify_wide": "ivf100m", "stats_f32_wide": "ivf100m",
+               "stats_verify_wide": "ivf10m", "stats_bf16_wide": "gate_ds2",
+               "decode_scalar": "gate_ds2", "decode_int8_scalar": "gate_ds2"}
+    errors = collections.defaultdict(float)
+    for c in compared:
+        errors[c["kernel"]] = max(errors[c["kernel"]], c["max_abs_err"])
+    table = []
+    for name, label in largest.items():
+        found = next(r for r in times[label] if r["name"] == name)
+        source, replaces = KERNELS[name]
+        table.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                      "launches": launches[name], "max_abs_err": errors[name], **found})
+
+    n_blocks = {label: -(-x.shape[0] // 128) * cb.shape[0] for label, (cb, x) in shapes.items()}
+    emit("wide", probe=probe, seconds={"ivf10m_3_iterations": t_a, "ivf100m_path": t_b,
+                                       "gate_ds2_path": t_c},
+         ivf10m_losses=losses_a, ivf100m_loss={"initial": loss_b0, "after_1": float(loss_b)},
+         gate_ds2={"mse": mse20, "mse_int8": mse20_int8, "bf16_agrees_with_f32": agree20},
+         exact=exact, shared_assignment=shared, compared=compared, times=times,
+         assign_blocks={"blocks": n_blocks, "sms": torch.cuda.get_device_properties(dev).multi_processor_count},
+         launches=launches)
+    del xa, xb, x20
+    torch.cuda.empty_cache()
+    return probe, launches, table
+
+
 def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
     """Each kernel at the shape the main paths give it (n = 4,000,000 rows;
     ADC with 16 queries, the dense search; k=16 for the packed kernels): time,
@@ -916,14 +1207,6 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
     idx_flat = codes.to(torch.int64) + torch.arange(M, device=codes.device)[None, :] * K
     cb_bytes = 4 * M * K * DS
 
-    def library_encode():
-        c_sqn = torch.einsum("mkd,mkd->mk", cb, cb)
-        out = torch.empty((n, M), dtype=torch.int64, device=corpus.device)
-        for i in range(0, n, N_KERNELS):
-            xs = corpus[i:i + N_KERNELS].reshape(-1, M, DS)
-            out[i:i + N_KERNELS] = (c_sqn[None] - 2.0 * torch.einsum("nmd,mkd->nmk", xs, cb)).argmin(dim=2)
-        return out
-
     def library_decode():
         return torch.nn.functional.embedding(idx_flat, cb.reshape(M * K, DS))
 
@@ -932,13 +1215,17 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
     def library_adc():
         return torch.nn.functional.embedding_bag(idx_flat, tables_t, mode="sum")
 
-    def library_stats():
-        cells = (library_encode() + torch.arange(M, device=corpus.device)[None, :] * K).reshape(-1)
-        sums = torch.zeros((M * K, DS), device=corpus.device)
-        return sums.index_add_(0, cells, corpus.reshape(-1, DS))
-
     def library_exact_stats():
         return stats_from_codes(primitives.quantize_batch(cb, corpus, dtype=torch.int32), corpus, K)
+
+    def library_adc_int8(tab, idx):
+        """``F.embedding_bag`` over the int8 tables dequantized once (outside
+        the call), each entry carrying 1/m of the query's offset."""
+        nq_, m_, k_ = tab.shape
+        t8, scale, offset = quantize_tables_int8(tab)
+        deq = t8.to(torch.float32) * scale[:, None, None] + (offset / m_)[:, None, None]
+        deq_t = deq.reshape(nq_, m_ * k_).T.contiguous()
+        return lambda: torch.nn.functional.embedding_bag(idx, deq_t, mode="sum")
 
     cb4 = pq4.codebooks
     tables4 = adc_tables(pq4, corpus[:nq])
@@ -961,29 +1248,35 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
     split_names = ("encode_f32", "encode_verify", "stats_f32", "stats_verify")
     specs = [
         ("encode_f32", lambda: ops.pq_encode(cb, corpus, compute_dtype=f32),
-         lambda: ops.pq_encode_reference(cb, corpus, compute_dtype=f32), library_encode,
+         lambda: ops.pq_encode_reference(cb, corpus, compute_dtype=f32),
+         lambda: library_assign(cb, corpus, f32),
          lambda: compare_encode(cb, corpus, f32), bound(enc_bytes, 3 * enc_ops, "tf32")),
         ("encode_bf16", lambda: ops.pq_encode(cb, corpus, compute_dtype=bf16),
-         lambda: ops.pq_encode_reference(cb, corpus, compute_dtype=bf16), None,
+         lambda: ops.pq_encode_reference(cb, corpus, compute_dtype=bf16),
+         lambda: library_assign(cb, corpus, bf16),
          lambda: compare_encode(cb, corpus, bf16), bound(enc_bytes, enc_ops, "bf16")),
         ("decode", lambda: ops.pq_decode(cb, codes, splits=3),
          lambda: ops.pq_decode_reference(cb, codes, splits=3), library_decode,
          lambda: compare_decode(cb, codes, 3), bound(n * M + cb_bytes + 4 * n * D, 0, "f32")),
         ("decode_int8", lambda: ops.pq_decode(cb, codes, splits="int8"),
-         lambda: ops.pq_decode_reference(cb, codes, splits="int8"), None,
+         lambda: ops.pq_decode_reference(cb, codes, splits="int8"),
+         library_decode_int8(cb, codes),
          lambda: compare_decode(cb, codes, "int8"),
          bound(n * M + cb_bytes + 4 * n * D, n * D, "f32")),
         ("adc", lambda: ops.adc_scores_kernel(tables, codes, splits=2),
          lambda: ops.adc_scores_reference(tables, codes, splits=2), library_adc,
          lambda: compare_adc(tables, codes, 2), bound(adc_bytes, nq * n * M, "f32")),
         ("adc_int8", lambda: ops.adc_scores_kernel(tables, codes, splits="int8"),
-         lambda: ops.adc_scores_reference(tables, codes, splits="int8"), None,
+         lambda: ops.adc_scores_reference(tables, codes, splits="int8"),
+         library_adc_int8(tables, idx_flat),
          lambda: compare_adc(tables, codes, "int8"), bound(adc_bytes, nq * n * M, "int8")),
         ("stats_f32", lambda: ops.pq_assign_stats(cb, corpus, compute_dtype=f32),
-         lambda: ops.pq_assign_stats_reference(cb, corpus, compute_dtype=f32), library_stats,
+         lambda: ops.pq_assign_stats_reference(cb, corpus, compute_dtype=f32),
+         lambda: library_assign_stats(cb, corpus, f32),
          lambda: compare_stats(cb, corpus, f32), bound(stats_bytes, 3 * enc_ops, "tf32")),
         ("stats_bf16", lambda: ops.pq_assign_stats(cb, corpus, compute_dtype=bf16),
-         lambda: ops.pq_assign_stats_reference(cb, corpus, compute_dtype=bf16), None,
+         lambda: ops.pq_assign_stats_reference(cb, corpus, compute_dtype=bf16),
+         lambda: library_assign_stats(cb, corpus, bf16),
          lambda: compare_stats(cb, corpus, bf16), bound(stats_bytes, enc_ops, "bf16")),
         ("encode_verify", lambda: ops.pq_encode_verified(cb, corpus),
          lambda: ops.pq_encode_verify_reference(cb, corpus),
@@ -1000,7 +1293,8 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
          lambda: torch.nn.functional.embedding(idx4_flat, cb4.reshape(M * K4, DS)),
          lambda: compare_packed_decode(cb4, codes4, packed4, 3), bound(dec4_bytes, 0, "f32")),
         ("decode_int8_u4", lambda: ops.pq_decode(cb4, packed4, splits="int8", packed=True),
-         lambda: ops.pq_decode_reference(cb4, packed4, splits="int8", packed=True), None,
+         lambda: ops.pq_decode_reference(cb4, packed4, splits="int8", packed=True),
+         library_decode_int8(cb4, codes4),
          lambda: compare_packed_decode(cb4, codes4, packed4, "int8"),
          bound(dec4_bytes, n * D, "f32")),
         ("adc_u4", lambda: ops.adc_scores_kernel(tables4, packed4, splits=2, packed=True),
@@ -1009,7 +1303,8 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
          lambda: compare_packed_adc(tables4, codes4, packed4, 2),
          bound(adc4_bytes, nq * n * M, "f32")),
         ("adc_int8_u4", lambda: ops.adc_scores_kernel(tables4, packed4, splits="int8", packed=True),
-         lambda: ops.adc_scores_reference(tables4, packed4, splits="int8", packed=True), None,
+         lambda: ops.adc_scores_reference(tables4, packed4, splits="int8", packed=True),
+         library_adc_int8(tables4, idx4_flat),
          lambda: compare_packed_adc(tables4, codes4, packed4, "int8"),
          bound(adc4_bytes, nq * n * M, "int8")),
     ]
@@ -1063,14 +1358,18 @@ def main() -> int:
         require(train_launches.get(name, 0) > 0, f"train: kernel {name} was never launched")
     exact_launches, exact_out = phase_exact(pq, corpus, train_out)
     pq4, codes4, packed4, packed_launches = phase_packed(corpus, gen)
+    probe, wide_launches, wide_rows = phase_wide(corpus, gen)
     # Launches of each kernel on the main paths together; every count was set
     # to 0 just before its path was driven and read just after.
     launches = collections.Counter()
-    for counts in (serve_launches, train_launches, exact_launches, packed_launches):
+    for counts in (serve_launches, train_launches, exact_launches, packed_launches, wide_launches):
         launches.update(counts)
     for name in KERNELS:
         require(launches[name] > 0, f"kernel {name} was launched on no path")
     rows = kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4)
+    for row in wide_rows:
+        row["launches"] = launches[row["name"]]
+    rows += wide_rows
     torch.cuda.synchronize()
 
     by_name = {row["name"]: row for row in rows}
@@ -1081,6 +1380,7 @@ def main() -> int:
                                  for name in ("gaussian", "adversarial")},
          encode_verify_flag_rate={name: exact_out[name]["flag_rate"]
                                   for name in ("gaussian", "adversarial")})
+    require(sorted(row["name"] for row in rows) == sorted(KERNELS), "the kernels line lacks a kernel")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

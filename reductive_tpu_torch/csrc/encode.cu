@@ -7,7 +7,9 @@
 // product with no zero blocks, and the argmin is a true (distance, index)
 // minimum (no packed sortable key).
 //
-// Two kernels, one for each mode:
+// At ds in 4, 8, 16, 32, two kernels, one for each mode (below); at every
+// other ds (1, 2, 3, 12, 128, 768, ...) the wide route of assign_wide.cuh,
+// in f32, bf16 and verified mode, which csrc/stats.cu runs too.
 //
 // * f32 (encode_f32_kernel): the assignment of csrc/assign_tile.cuh, the one
 //   the f32 assign+statistics kernel (csrc/stats.cu) runs: a 3xTF32 split
@@ -57,6 +59,7 @@
 #include <stdint.h>
 
 #include "assign_tile.cuh"
+#include "assign_wide.cuh"
 
 namespace {
 
@@ -325,7 +328,9 @@ extern "C" int rt_encode(const void* x, const void* cb2, const void* csqn, void*
     case 8: return (int)launch<8>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
     case 16: return (int)launch<16>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
     case 32: return (int)launch<32>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
-    default: return -1;
+    default:  // every other ds: the wide route of assign_wide.cuh
+      return (int)assign_wide::launch(xf, cf, nf, {codes, m, 1, out_u8}, bf16 != 0, false,
+                                      nullptr, 0.0f, nullptr, n, m, k, ds, s);
   }
 }
 
@@ -349,6 +354,8 @@ extern "C" int rt_encode_verify(const void* x, const void* cb2, const void* csqn
     case 8: return (int)launch_f32<8, true>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
     case 16: return (int)launch_f32<16, true>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
     case 32: return (int)launch_f32<32, true>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
-    default: return -1;
+    default:
+      return (int)assign_wide::launch(xf, cf, nf, {codes, m, 1, out_u8}, false, true, ef, rho, fl,
+                                      n, m, k, ds, s);
   }
 }

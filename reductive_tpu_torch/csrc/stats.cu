@@ -67,6 +67,7 @@
 #include <stdint.h>
 
 #include "assign_tile.cuh"
+#include "assign_wide.cuh"
 
 namespace {
 
@@ -570,6 +571,257 @@ int assign_stats(const void* x, const void* cb2, const void* csqn, void* partial
   }
 }
 
+// ---- the wide route: statistics from the codes -----------------------------
+//
+// At every ds outside 4, 8, 16, 32 the assignment is assign_wide.cuh's (the
+// wide encode's, bit for bit), written as codes (m, n) int32.  The statistics
+// then come from the codes in an order fixed by the shapes and the codes
+// alone, with scratch that grows with n*m and not with the number of blocks:
+//   1. a stable LSD radix sort of the n*m cell ids j*k + code (8-bit digits;
+//      per sort tile an integer histogram, an exclusive scan over (digit,
+//      tile) in that order, a stable placement ranked by __match_any_sync),
+//      carrying the row index, so each cell's rows come out in row order;
+//   2. the cells' counts (integer atomics) and their exclusive scan, the
+//      start of each cell's segment;
+//   3. one block per cell adds its segment's subvectors: lanes across the
+//      columns (and across rows where ds < 32), each a strided walk of the
+//      rows in order, then the partials in a fixed order.
+// No float atomics: two launches give the same bits.  In bf16 mode the sums
+// are of the bf16-rounded x.
+
+constexpr int kSortTile = 8192;  // keys a block ranks, 256 at a time
+
+int radix_passes(long long cells) {
+  int bits = 0;
+  while ((1LL << bits) < cells) ++bits;
+  return bits <= 8 ? 1 : (bits + 7) / 8;
+}
+
+// Key and row of key slot g: codes (m, n) in the first pass, else the last
+// pass's output.
+__device__ __forceinline__ void key_at(const int* __restrict__ codes, const int* __restrict__ keys,
+                                       const int* __restrict__ rows, long long g, long long n, int k,
+                                       int& key, int& row) {
+  if (codes != nullptr) {
+    const long long jj = g / n;
+    key = (int)(jj * k) + codes[g];
+    row = (int)(g - jj * n);
+  } else {
+    key = keys[g];
+    row = rows[g];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+digit_hist_kernel(const int* __restrict__ codes, const int* __restrict__ keys, long long N,
+                  long long n, int k, int shift, int T, int* __restrict__ hist) {
+  __shared__ int h[256];
+  h[threadIdx.x] = 0;
+  __syncthreads();
+  const long long base = (long long)blockIdx.x * kSortTile;
+  for (int i = threadIdx.x; i < kSortTile; i += kThreads) {
+    const long long g = base + i;
+    if (g < N) {
+      int key, row;
+      key_at(codes, keys, keys, g, n, k, key, row);
+      atomicAdd(&h[(key >> shift) & 255], 1);  // integers: the count is the same in any order
+    }
+  }
+  __syncthreads();
+  hist[(long long)threadIdx.x * T + blockIdx.x] = h[threadIdx.x];  // digit-major
+}
+
+// Exclusive scan of v[0 .. len) in place, by one block of 1024 threads, 8
+// values a thread at a time.
+__global__ void __launch_bounds__(1024) exclusive_scan_kernel(int* __restrict__ v, long long len) {
+  constexpr int kItems = 8;
+  __shared__ int warp_sum[32];
+  __shared__ int carry;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) carry = 0;
+  __syncthreads();
+  for (long long base = 0; base < len; base += 1024 * kItems) {
+    const long long at = base + (long long)threadIdx.x * kItems;
+    int item[kItems];
+    int total = 0;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      item[i] = at + i < len ? v[at + i] : 0;
+      total += item[i];
+    }
+    int incl = total;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int w = warp_sum[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += u;
+      }
+      warp_sum[lane] = w;  // inclusive over the warps
+    }
+    __syncthreads();
+    int run = carry + (warp > 0 ? warp_sum[warp - 1] : 0) + incl - total;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      if (at + i < len) v[at + i] = run;
+      run += item[i];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) carry += warp_sum[31];
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+digit_scatter_kernel(const int* __restrict__ codes, const int* __restrict__ keys_in,
+                     const int* __restrict__ rows_in, long long N, long long n, int k, int shift,
+                     int T, const int* __restrict__ offsets, int* __restrict__ keys_out,
+                     int* __restrict__ rows_out) {
+  __shared__ int running[256];
+  __shared__ int warp_cnt[kWarps][256];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  running[threadIdx.x] = offsets[(long long)threadIdx.x * T + blockIdx.x];
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) warp_cnt[w][threadIdx.x] = 0;
+  __syncthreads();
+  const long long base = (long long)blockIdx.x * kSortTile;
+  for (int c0 = 0; c0 < kSortTile; c0 += kThreads) {
+    const long long g = base + c0 + threadIdx.x;
+    const bool valid = g < N;
+    int key = 0, row = 0;
+    if (valid) key_at(codes, keys_in, rows_in, g, n, k, key, row);
+    const int digit = valid ? (key >> shift) & 255 : 256;
+    const unsigned int peers = __match_any_sync(0xffffffffu, digit);
+    const int before = __popc(peers & ((1u << lane) - 1u));
+    if (valid && before == 0) warp_cnt[warp][digit] = __popc(peers);
+    __syncthreads();
+    if (valid) {
+      int pos = running[digit] + before;
+      for (int w = 0; w < warp; ++w) pos += warp_cnt[w][digit];
+      keys_out[pos] = key;
+      rows_out[pos] = row;
+    }
+    __syncthreads();
+    int add = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      add += warp_cnt[w][threadIdx.x];
+      warp_cnt[w][threadIdx.x] = 0;
+    }
+    running[threadIdx.x] += add;
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+cell_count_kernel(const int* __restrict__ codes, long long N, long long n, int k,
+                  int* __restrict__ count) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long g = (long long)blockIdx.x * kThreads + threadIdx.x; g < N; g += stride) {
+    const long long jj = g / n;
+    atomicAdd(count + jj * k + codes[g], 1);
+  }
+}
+
+// One block per cell: sums[cell, :] over the rows of its segment, in order.
+__global__ void __launch_bounds__(kThreads)
+segment_sums_kernel(const float* __restrict__ x, const int* __restrict__ rows,
+                    const int* __restrict__ start, float* __restrict__ sums,
+                    float* __restrict__ counts, int m, int k, int ds, int bf16) {
+  __shared__ float part[kThreads];
+  const long long cell = blockIdx.x;
+  const int j = (int)(cell / k);
+  const int s0 = start[cell], s1 = start[cell + 1];
+  if (threadIdx.x == 0) counts[cell] = (float)(s1 - s0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int cw = ds < 32 ? ds : 32;  // columns a warp takes at once
+  const int rpw = 32 / cw;           // rows a warp takes at once
+  const int groups = kWarps * rpw;   // rows the block takes at once
+  const bool active = lane < rpw * cw;
+  const int col = lane % cw;
+  const int rs = warp * rpw + lane / cw;
+  const long long d = (long long)m * ds;
+  const float* xj = x + (long long)j * ds;
+  for (int t0 = 0; t0 < ds; t0 += cw) {
+    if (active) {
+      float acc = 0.0f;
+      if (t0 + col < ds) {
+        for (int p = s0 + rs; p < s1; p += groups) {
+          float v = xj[(long long)rows[p] * d + t0 + col];
+          if (bf16) v = __bfloat162float(__float2bfloat16_rn(v));
+          acc += v;
+        }
+      }
+      part[rs * cw + col] = acc;
+    }
+    __syncthreads();
+    if (threadIdx.x < cw && t0 + threadIdx.x < ds) {
+      float total = 0.0f;
+      for (int r = 0; r < groups; ++r) total += part[r * cw + threadIdx.x];
+      sums[cell * ds + t0 + threadIdx.x] = total;
+    }
+    __syncthreads();
+  }
+}
+
+// int32 words of the scratch of rt_assign_stats_wide: two key and two row
+// buffers of n*m, the digit histogram, the cells' starts.
+long long wide_scratch_words(long long n, int m, int k) {
+  const long long N = n * m;
+  const long long T = (N + kSortTile - 1) / kSortTile;
+  return 4 * N + 256 * T + (long long)m * k + 1;
+}
+
+int assign_stats_wide(const float* x, const float* cb2, const float* csqn, int* codes,
+                      const float* escale, float rho, int* flags, int* scratch, float* sums,
+                      float* counts, long long n, int m, int k, int ds, int mode,
+                      cudaStream_t s) {
+  if (n <= 0 || m <= 0 || k <= 0 || ds <= 0) return -1;
+  const long long N = n * m, C = (long long)m * k;
+  if (N > 0x7fffffffLL || C > 0x7fffffffLL) return -1;
+  cudaError_t err = assign_wide::launch(x, cb2, csqn, {codes, 1, n, 0}, mode == 1, mode == 2,
+                                        escale, rho, flags, n, m, k, ds, s);
+  if (err != cudaSuccess) return (int)err;
+  const long long T = (N + kSortTile - 1) / kSortTile;
+  if (T > 0x7fffffffLL / 256) return -1;
+  int* keys[2] = {scratch, scratch + N};
+  int* rows[2] = {scratch + 2 * N, scratch + 3 * N};
+  int* hist = scratch + 4 * N;
+  int* start = hist + 256 * T;
+
+  if ((err = cudaMemsetAsync(start, 0, (C + 1) * sizeof(int), s)) != cudaSuccess) return (int)err;
+  const long long count_blocks = (N + kThreads - 1) / kThreads;
+  cell_count_kernel<<<(unsigned)(count_blocks < 65536 ? count_blocks : 65536), kThreads, 0, s>>>(
+      codes, N, n, k, start);
+  exclusive_scan_kernel<<<1, 1024, 0, s>>>(start, C + 1);
+
+  const int passes = radix_passes(C);
+  for (int p = 0; p < passes; ++p) {
+    const int* in_codes = p == 0 ? codes : nullptr;
+    const int* in_keys = p == 0 ? nullptr : keys[(p - 1) & 1];
+    const int* in_rows = p == 0 ? nullptr : rows[(p - 1) & 1];
+    digit_hist_kernel<<<(unsigned)T, kThreads, 0, s>>>(in_codes, in_keys, N, n, k, 8 * p, (int)T,
+                                                       hist);
+    exclusive_scan_kernel<<<1, 1024, 0, s>>>(hist, 256 * T);
+    digit_scatter_kernel<<<(unsigned)T, kThreads, 0, s>>>(in_codes, in_keys, in_rows, N, n, k,
+                                                          8 * p, (int)T, hist, keys[p & 1],
+                                                          rows[p & 1]);
+  }
+  segment_sums_kernel<<<(unsigned)C, kThreads, 0, s>>>(x, rows[(passes - 1) & 1], start, sums,
+                                                       counts, m, k, ds, mode == 1);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x (n, m*ds) f32, cb2 (m, k, ds) f32 holding 2c (already rounded to bf16
@@ -595,4 +847,26 @@ extern "C" int rt_assign_stats_verify(const void* x, const void* cb2, const void
   if (escale == nullptr || codes == nullptr || flags == nullptr) return -1;
   return assign_stats(x, cb2, csqn, partial, sums, counts, escale, rho, codes, flags, n, m, k, ds,
                       2, P, stream);
+}
+
+// Scratch of rt_assign_stats_wide, in int32 words.
+extern "C" long long rt_assign_stats_wide_scratch(long long n, int m, int k) {
+  return wide_scratch_words(n, m, k);
+}
+
+// The statistics at a ds the narrow kernels do not take (any ds >= 1): the
+// wide assignment into codes (m, n) int32, then the statistics from the codes
+// (see "the wide route" above).  mode: 0 f32, 1 bf16, 2 verified (escale (m,)
+// f32, rho, and flags (n,) int32 zeroed by the caller).  scratch: the int32
+// words rt_assign_stats_wide_scratch names; sums (m, k, ds), counts (m, k)
+// f32.  Returns cudaGetLastError() after the launches; -1 for a shape it does
+// not take.
+extern "C" int rt_assign_stats_wide(const void* x, const void* cb2, const void* csqn, void* codes,
+                                    const void* escale, float rho, void* flags, void* scratch,
+                                    void* sums, void* counts, long long n, int m, int k, int ds,
+                                    int mode, void* stream) {
+  if (mode == 2 && (escale == nullptr || flags == nullptr)) return -1;
+  return assign_stats_wide((const float*)x, (const float*)cb2, (const float*)csqn, (int*)codes,
+                           (const float*)escale, rho, (int*)flags, (int*)scratch, (float*)sums,
+                           (float*)counts, n, m, k, ds, mode, (cudaStream_t)stream);
 }

@@ -4,8 +4,9 @@ Counterpart of ``reductive_tpu.kmeans``:
 
 * **assign**: pairwise squared distances via the norm expansion (one matrix
   product) followed by an argmin; ties break to the first index.
-* **update**: per-centroid sums by ``index_add_`` and counts by
-  ``bincount``, then a count-guarded divide.  A cluster with no assigned
+* **update**: per-centroid sums by a one-hot product (an order of addition
+  fixed by the shapes, on the card too) and counts by ``bincount``, then a
+  count-guarded divide.  A cluster with no assigned
   instance becomes the **zero vector**.
 * **iterate**: Python loops.  The fixed-count loop never waits for the
   device; the convergence loop reads one loss per iteration.
@@ -29,7 +30,7 @@ import torch
 from torch import Tensor
 
 from ._device import check_generator, instances_on
-from .linalg import squared_euclidean_distance
+from .linalg import one_hot_sums, squared_euclidean_distance
 
 logger = logging.getLogger("reductive_tpu")
 
@@ -210,7 +211,7 @@ def update_centroids(x: Tensor, assignments: Tensor, k: int) -> Tensor:
     """Mean of the instances assigned to each centroid.  Clusters with no
     assigned instances become the **zero vector**."""
     idx = assignments.to(torch.int64)
-    sums = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device).index_add_(0, idx, x)
+    sums = one_hot_sums(idx[:, None], x[:, None, :], k)[0][0]
     counts = torch.bincount(idx, minlength=k).to(x.dtype)
     return _means(sums, counts, x.dtype)
 
@@ -240,10 +241,11 @@ def lloyd_iteration_batched(xs: Tensor, codebooks: Tensor) -> Tuple[Tensor, Tens
     c_sqn = torch.einsum("mkd,mkd->mk", codebooks, codebooks)
     dp = torch.bmm(xs, codebooks.transpose(1, 2))
     dists = x_sqn[:, :, None] + c_sqn[:, None, :] - (dp + dp)
-    cells = (torch.argmin(dists, dim=2) + torch.arange(m, device=xs.device)[:, None] * k).reshape(-1)
+    codes = torch.argmin(dists, dim=2)  # (m, n)
     del dists, dp
+    cells = (codes + torch.arange(m, device=xs.device)[:, None] * k).reshape(-1)
     flat = xs.reshape(m * n, ds)
-    sums = torch.zeros((m * k, ds), dtype=xs.dtype, device=xs.device).index_add_(0, cells, flat)
+    sums = one_hot_sums(codes.T, xs.transpose(0, 1), k)[0].reshape(m * k, ds)
     counts = torch.bincount(cells, minlength=m * k).to(xs.dtype)
     new = _means(sums, counts, xs.dtype)
     err = new[cells] - flat
@@ -336,9 +338,9 @@ def kmeans_with_centroids_chunked(
     ``compute_dtype`` is ``torch.float32``, ``torch.bfloat16`` or
     ``"verified"`` (cell memberships equal to the exact path's).
 
-    ``use_kernel=None`` means the CUDA kernel when ``x`` lies on a GPU and
-    the plain tensor route on the CPU.  The kernel takes ``d`` in 4, 8, 16,
-    32 only; for another ``d`` on a GPU pass ``use_kernel=False``.
+    ``use_kernel=None`` means the CUDA kernel when ``x`` lies on a GPU (at
+    any ``d``: ``d`` in 4, 8, 16, 32 takes the narrow kernel, every other
+    ``d`` the wide route) and the plain tensor route on the CPU.
     """
     from .pq.train import _check_compute_dtype, _streamed_sumsq, lloyd_iteration_chunked
 

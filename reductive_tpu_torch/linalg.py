@@ -19,7 +19,43 @@ __all__ = [
     "squared_euclidean_distance",
     "euclidean_distance",
     "covariance",
+    "one_hot_sums",
 ]
+
+# one_hot_sums takes rows in chunks that keep the one-hot block below this
+# many elements (256 MB of float32).
+_ONE_HOT_ELEMS = 1 << 26
+
+
+def one_hot_sums(
+    cells: Tensor, xs: Tensor, k: int, *, minus: Tensor | None = None,
+    weight: Tensor | None = None,
+) -> tuple[Tensor, Tensor]:
+    """Per-cell sums ``(m, k, ds)`` of the rows of ``xs`` ``(n, m, ds)`` in
+    the cells ``cells`` ``(n, m)`` names, and the per-cell sums ``(m, k)`` of
+    the one-hot weights, as the JAX package's one-hot product: per chunk of
+    rows, ``H^T @ xs`` for each ``j`` with ``H = one_hot(cells)`` (less
+    ``one_hot(minus)`` where given, times ``weight`` ``(n, m)`` where given),
+    chunk after chunk.  Every sum is taken in an order fixed by the shapes,
+    on the CPU as on the card, where ``index_add_`` adds with float atomics
+    in an order that changes from run to run.  ``H`` is written by a scatter
+    and, with ``minus``, a scatter-add that meets each entry once, so it too
+    is the same on every run."""
+    n, m, ds = xs.shape
+    dtype = xs.dtype
+    sums = torch.zeros((m, k, ds), dtype=dtype, device=xs.device)
+    counts = torch.zeros((m, k), dtype=dtype, device=xs.device)
+    step = max(1, _ONE_HOT_ELEMS // (m * k))
+    for i in range(0, n, step):
+        at = cells[i:i + step, :, None].to(torch.int64)
+        w = torch.ones(at.shape, dtype=dtype, device=xs.device) if weight is None \
+            else weight[i:i + step, :, None].to(dtype)
+        hot = torch.zeros((at.shape[0], m, k), dtype=dtype, device=xs.device).scatter_(2, at, w)
+        if minus is not None:
+            hot.scatter_add_(2, minus[i:i + step, :, None].to(torch.int64), -w)
+        sums += torch.einsum("nmk,nmd->mkd", hot, xs[i:i + step])
+        counts += hot.sum(dim=0)
+    return sums, counts
 
 
 def squared_euclidean_distance(u: Tensor, v: Tensor) -> Tensor:

@@ -20,13 +20,15 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "library", "launch", "launch_counts", "reset_launch_counts"]
+__all__ = [
+    "SOURCES", "build_all", "library", "launch", "query", "launch_counts", "reset_launch_counts",
+]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
-SOURCES = ("encode", "decode", "adc", "stats")
+SOURCES = ("encode", "decode", "adc", "stats", "probe")
 
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,8 +37,9 @@ _NVCC_FLAGS = (
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
-# C entry -> (source, argtypes).  Every pointer and the stream is c_void_p:
-# without argtypes ctypes would pass them as 32-bit ints.
+# C entry -> (source, argtypes[, restype]; c_int unless given).  Every pointer
+# and the stream is c_void_p: without argtypes ctypes would pass them as
+# 32-bit ints.
 _ENTRIES = {
     "rt_encode": ("encode", (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P)),
     "rt_encode_verify": ("encode", (_P, _P, _P, _P, _P, _F, _P, _L, _I, _I, _I, _I, _P)),
@@ -47,6 +50,10 @@ _ENTRIES = {
     "rt_assign_stats": ("stats", (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P)),
     "rt_assign_stats_verify": (
         "stats", (_P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _L, _I, _I, _I, _I, _P)),
+    "rt_assign_stats_wide": (
+        "stats", (_P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P)),
+    "rt_assign_stats_wide_scratch": ("stats", (_L, _I, _I), _L),
+    "rt_probe_wgmma_tf32": ("probe", (_P, _P, _P, _P, _I, _P)),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -132,27 +139,33 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
         except OSError as e:
             raise RuntimeError(f"cannot load {path}: {e}") from e
-        for entry, (source, argtypes) in _ENTRIES.items():
+        for entry, (source, argtypes, *restype) in _ENTRIES.items():
             if source == name:
                 fn = getattr(lib, entry)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+                fn.restype = restype[0] if restype else ctypes.c_int
         _libs[name] = lib
     return lib
 
 
-def launch(entry: str, counter: str, *args) -> None:
+def launch(entry: str, counter: str | None, *args) -> None:
     """Call one C entry (which launches its kernel on the stream it is given
     and returns ``cudaGetLastError()``), raise if that is not 0, and add one
-    to the kernel's launch count.  This is the only place a count grows."""
-    source, _ = _ENTRIES[entry]
-    rc = getattr(library(source), entry)(*args)
+    to the kernel's launch count (``counter=None``: a probe, not a kernel of
+    the port; nothing is counted).  This is the only place a count grows."""
+    rc = query(entry, *args)
     if rc != 0:
         raise RuntimeError(
             f"{entry} failed to launch: "
             + ("shape not taken by the kernel" if rc < 0 else f"CUDA error {rc}")
         )
-    _counts[counter] += 1
+    if counter is not None:
+        _counts[counter] += 1
+
+
+def query(entry: str, *args):
+    """Call one C entry and return what it returns."""
+    return getattr(library(_ENTRIES[entry][0]), entry)(*args)
 
 
 def launch_counts() -> dict[str, int]:

@@ -15,11 +15,17 @@ Two modes, chosen by ``compute_dtype``:
   two give a row the same code bit for bit.  The JAX package's f32 mode is a
   split product too, in three bf16 passes, "used identically by the encode
   and assign+stats kernels"; the port keeps that property with TF32 parts.
+  That is at ``ds`` in 4, 8, 16, 32; every other ``ds`` takes the wide route
+  (``csrc/assign_wide.cuh``, route :data:`WIDE_ROUTE`): the same split,
+  walked over the depth in chunks, each chunk's products from zero and the
+  chunks added in f32, shared by the encode and the statistics kernel in the
+  same way.
 * ``torch.bfloat16`` (default): ``x`` and ``2c`` each rounded to bfloat16
   (nearest even), products and sums in f32, ``|c|^2`` in f32 from the
-  unrounded codebook.  The kernel runs this mode on the tensor cores and
-  starts each sum at ``-|c|^2`` (it maximizes ``2c.x - |c|^2``), which is
-  the same number up to f32 rounding.
+  unrounded codebook.  The narrow kernel runs this mode on the tensor cores
+  and starts each sum at ``-|c|^2`` (it maximizes ``2c.x - |c|^2``), which is
+  the same number up to f32 rounding; the wide route sums the products from
+  zero and subtracts them from ``|c|^2``.
 
 The minimum is the true ``(distance, index)`` minimum; the JAX kernel's
 packed sortable key, which coarsens ties, is not part of the contract.  The
@@ -104,10 +110,46 @@ and the rest of that argument stands (the subtraction and ``rho`` are the
 same).  The flag limit's scale becomes ``2 (B_k + B) / |x|``:
 ``e_j = 2 ((3.25 + 5 ceil(ds/8)) 2^-22 + ds 2^-24) max_c|2c_jc|``, which is
 ``20.5 * 2^-22`` at ``ds = 8`` where the ``"fma"`` route has ``8 * 2^-22``.
-What the derivation assumes of the hardware (24 kept bits, truncation) is
-held to the exact path on the card: ``chip_smoke.py`` requires that no
-unflagged row of 4,000,000 differs.  The flag limit of both verify kernels,
-and of their plain versions by default, is this one.
+The ``0.25`` set aside covers the lower-order terms while ``ceil(ds/8) <= 12``
+(they grow by ``2^-6`` a depth step); the narrow kernels, the only ones on
+this route, take ``ds <= 32``.
+
+The bound for the wide route (route ``"tf32x3_wide"``)
+-----------------------------------------------------
+
+At every other ``ds`` the f32 kernels run ``csrc/assign_wide.cuh``, which
+walks the depth in ``chunks`` chunks of ``kc`` instructions (``kc =
+min(4, ceil(ds/8))``; the last chunk is padded with zeros, and its
+instructions are counted).  Each chunk's products start from zero in the
+order above (``x_lo.w_hi``, ``x_hi.w_lo``, then ``x_hi.w_hi``) and the chunk's
+sum is added to the running sum in one f32 addition.  With ``P_c =
+sum_{i in c} |x_i| |w_i|``, every addend and partial sum of chunk ``c`` is at
+most ``(1 + 2^-10) P_c``, and the small products' at most ``2^-10 (1 +
+2^-11) P_c``:
+
+* the dropped terms, as above: ``3 * 2^-22 |w| |x|`` and second-order terms;
+* chunk ``c``'s ``kc`` large-product instructions: ``5 (1 + 2^-10) kc * 2^-22
+  P_c``; its ``2 kc`` small-product ones: ``10 * 2^-10 (1 + 2^-11) kc * 2^-22
+  P_c``; together below ``(5 + 2^-6) kc * 2^-22 P_c``;
+* over the chunks, ``sum_c P_c <= |x| |w|`` (Cauchy-Schwarz), so the
+  instructions add ``(5 + 2^-6) kc * 2^-22 |w| |x|`` however deep the row;
+* ``chunks - 1`` additions rounded to nearest, each at most ``2^-24 (1 +
+  2^-8) |w| |x|``: below ``0.26 chunks * 2^-22 |w| |x|``.
+
+So ``B_w = (3.5 + (5 + 2^-6) kc + 0.26 chunks) 2^-22 max_c|w_c| |x|``, with
+``0.5`` set aside for the second-order terms, and the flag limit's scale is
+``2 (B_w + B) / |x|`` as before: ``e_j = 2 ((3.5 + (5 + 2^-6) kc + 0.26
+chunks) 2^-22 + ds 2^-24) max_c|2c_jc|``.  At ``ds = 768`` that is ``(29.8 +
+192) * 2^-22``: the exact path's own ``ds 2^-24`` now dominates.  (A single
+accumulator over the whole depth would meet magnitudes near ``|w| |x|`` in
+every one of its ``3 ceil(ds/8)`` instructions: ``15 ceil(ds/8) * 2^-22``.)
+Both verify kernels take the route of their ``ds`` (:func:`f32_route`), and
+so do the plain versions by default.
+
+What the derivations assume of the hardware (24 kept bits, truncation, at
+most ``10 * 2^-23 M`` an instruction) is measured on the card by
+:mod:`reductive_tpu_torch.ops.probe` (``chip_smoke.py`` fails without it),
+and held to the exact path there: no unflagged row may differ.
 """
 
 from __future__ import annotations
@@ -121,17 +163,45 @@ from . import _build
 __all__ = [
     "pq_encode", "pq_encode_reference", "assign_nearest",
     "pq_encode_verified", "pq_encode_verify_reference", "pq_encode_verify_flags",
-    "verify_scale", "VERIFY_RHO", "F32_ROUTE", "flagged_rows",
+    "verify_scale", "VERIFY_RHO", "F32_ROUTE", "WIDE_ROUTE", "f32_route", "wide_chunking",
+    "flagged_rows",
 ]
 
-_KERNEL_DS = (4, 8, 16, 32)
+# The widths of the narrow kernels (csrc/assign_tile.cuh); every other ds >= 1
+# takes the wide route (csrc/assign_wide.cuh).
+_NARROW_DS = (4, 8, 16, 32)
 _KERNEL_MAX_K = 65536
 # Share of |best| in the flag limit: four roundings of the final subtraction
 # at 2^-24 relative each, twice over (see the module docstring).
 VERIFY_RHO = 2.0 ** -21
-# How the f32 kernels (encode and assign+statistics, one routine) evaluate the
-# cross term: names the flag limit of the verified modes (see verify_scale).
+# How the f32 kernels (encode and assign+statistics, one routine at each ds)
+# evaluate the cross term: names the flag limit of the verified modes (see
+# verify_scale).  F32_ROUTE at the narrow widths, WIDE_ROUTE at every other.
 F32_ROUTE = "tf32x3"
+WIDE_ROUTE = "tf32x3_wide"
+_ROUTES = ("fma", F32_ROUTE, WIDE_ROUTE)
+
+
+def f32_route(ds: int) -> str:
+    """The route of the f32 kernels at subvector width ``ds``."""
+    return F32_ROUTE if ds in _NARROW_DS else WIDE_ROUTE
+
+
+def wide_chunking(ds: int) -> tuple[int, int]:
+    """``(kc, chunks)``: how ``csrc/assign_wide.cuh`` walks depth ``ds`` in f32
+    mode, ``chunks`` chunks of ``kc`` instructions of depth 8 (the last chunk
+    padded with zeros)."""
+    steps = -(-ds // 8)
+    kc = min(4, steps)
+    return kc, -(-steps // kc)
+
+
+def _check_k(m: int, k: int, ds: int, what: str,
+             hint: str = "use reductive_tpu_torch.pq.primitives.quantize_batch") -> None:
+    if k > _KERNEL_MAX_K:
+        raise ValueError(
+            f"the {what} kernel takes k <= {_KERNEL_MAX_K}; got m={m}, k={k}, ds={ds} ({hint})"
+        )
 
 
 def _prepare(codebooks: Tensor, x: Tensor, dtype, compute_dtype):
@@ -176,9 +246,10 @@ def pq_encode(
 ) -> Tensor:
     """Encode ``(n, d)`` vectors to ``(n, m)`` codes of ``dtype``.
 
-    CUDA tensors go through the kernel (``ds`` in 4, 8, 16, 32 and
-    ``k <= 65536``; anything else raises); CPU tensors through
-    :func:`pq_encode_reference`.  The kernel writes ``uint8`` or ``int32``
+    CUDA tensors go through the kernel (any ``ds``, ``k <= 65536``; a larger
+    ``k`` raises): the narrow kernels at ``ds`` in 4, 8, 16, 32, the wide
+    route (``csrc/assign_wide.cuh``) at every other ``ds``.  CPU tensors go
+    through :func:`pq_encode_reference`.  The kernel writes ``uint8`` or ``int32``
     codes; other integer dtypes are cast from ``int32`` at the end.  ``out``,
     an ``(n, m)`` tensor of ``dtype`` on the same device, receives the codes
     and is returned.
@@ -195,11 +266,7 @@ def pq_encode(
         codes = pq_encode_reference(codebooks, x, dtype=dtype, compute_dtype=compute_dtype)
         return codes if out is None else out.copy_(codes)
 
-    if ds not in _KERNEL_DS or k > _KERNEL_MAX_K:
-        raise ValueError(
-            f"the encode kernel takes ds in {_KERNEL_DS} and k <= {_KERNEL_MAX_K}; "
-            f"got m={m}, k={k}, ds={ds} (use reductive_tpu_torch.pq.primitives.quantize_batch)"
-        )
+    _check_k(m, k, ds, "encode")
     x = x.contiguous()
     direct = dtype in (torch.uint8, torch.int32)
     if direct and out is not None and out.is_contiguous():
@@ -207,9 +274,10 @@ def pq_encode(
     else:
         raw = torch.empty((n, m), dtype=dtype if direct else torch.int32, device=x.device)
     bf16 = compute_dtype == torch.bfloat16
+    counter = ("encode_bf16" if bf16 else "encode_f32") + ("" if ds in _NARROW_DS else "_wide")
     with torch.cuda.device(x.device):
         _build.launch(
-            "rt_encode", "encode_bf16" if bf16 else "encode_f32",
+            "rt_encode", counter,
             x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), raw.data_ptr(),
             n, m, k, ds, int(bf16), int(raw.dtype == torch.uint8),
             torch.cuda.current_stream().cuda_stream,
@@ -228,21 +296,34 @@ def assign_nearest(
 
 
 def verify_scale(
-    codebooks: Tensor, scale: float | None = None, *, route: str = F32_ROUTE
+    codebooks: Tensor, scale: float | None = None, *, route: str | None = None
 ) -> Tensor:
     """``e_j = scale * max_c |2 c_jc|`` as ``(m,)`` f32: the flag limit's
     share of ``|x_j|``.  ``scale=None`` is the sound choice for the route's
     arithmetic (see the module docstring):
     ``2 * ((3.25 + 5 * ceil(ds / 8)) * 2^-22 + ds * 2^-24)`` for
-    ``route="tf32x3"`` (the split product on the tensor cores: the f32
-    kernels, :data:`F32_ROUTE`), ``4 * ds * 2^-24`` for ``route="fma"`` (a
-    chain of f32 FMAs, the first step of the derivation)."""
+    ``route="tf32x3"`` (the narrow f32 kernels' split product,
+    :data:`F32_ROUTE`),
+    ``2 * ((3.5 + (5 + 2^-6) * kc + 0.26 * chunks) * 2^-22 + ds * 2^-24)``
+    with ``kc, chunks = wide_chunking(ds)`` for ``route="tf32x3_wide"`` (the
+    wide route's, :data:`WIDE_ROUTE`),
+    ``4 * ds * 2^-24`` for ``route="fma"`` (a chain of f32 FMAs, the first
+    step of the derivation).  ``route=None`` is the route the f32 kernels
+    take at this ``ds`` (:func:`f32_route`)."""
     ds = codebooks.shape[2]
-    if route not in ("fma", "tf32x3"):
-        raise ValueError(f'route must be "fma" or "tf32x3", got {route!r}')
+    if route is None:
+        route = f32_route(ds)
+    if route not in _ROUTES:
+        raise ValueError(f"route must be one of {_ROUTES}, got {route!r}")
     if scale is None:
-        scale = 4.0 * ds * 2.0 ** -24 if route == "fma" else \
-            2.0 * ((3.25 + 5.0 * -(-ds // 8)) * 2.0 ** -22 + ds * 2.0 ** -24)
+        if route == "fma":
+            scale = 4.0 * ds * 2.0 ** -24
+        elif route == F32_ROUTE:
+            scale = 2.0 * ((3.25 + 5.0 * -(-ds // 8)) * 2.0 ** -22 + ds * 2.0 ** -24)
+        else:
+            kc, chunks = wide_chunking(ds)
+            scale = 2.0 * ((3.5 + (5.0 + 2.0 ** -6) * kc + 0.26 * chunks) * 2.0 ** -22
+                           + ds * 2.0 ** -24)
     cn = torch.sqrt(torch.einsum("mkd,mkd->mk", codebooks, codebooks))
     return (scale * 2.0 * cn.amax(dim=1)).to(torch.float32).contiguous()
 
@@ -268,11 +349,12 @@ def pq_encode_verify_reference(
     flags (n,) int32)``.  The f32 distances of :func:`pq_encode_reference`,
     their first minimum, the least distance over all *other* indices (a
     duplicate of the best counts) and the margin test.  ``escale`` defaults to
-    the kernel's, ``verify_scale(codebooks, route=F32_ROUTE)``."""
+    the kernel's, ``verify_scale(codebooks)`` (the route of the kernels at
+    this ``ds``)."""
     cb2, c_sqn = _prepare(codebooks, x, dtype, torch.float32)
     m, k, ds = codebooks.shape
     if escale is None:
-        escale = verify_scale(codebooks, route=F32_ROUTE)
+        escale = verify_scale(codebooks)
     n = x.shape[0]
     codes = torch.empty((n, m), dtype=dtype, device=x.device)
     flags = torch.empty((n,), dtype=torch.int32, device=x.device)
@@ -301,30 +383,26 @@ def pq_encode_verify_flags(
     escale: Tensor | None = None, rho: float = VERIFY_RHO,
 ) -> tuple[Tensor, Tensor]:
     """The first stage of :func:`pq_encode_verified`: ``(codes, flags)`` from
-    the verify kernel (CUDA tensors; ``ds`` in 4, 8, 16, 32 and
-    ``k <= 65536``, anything else raises) or from
-    :func:`pq_encode_verify_reference` (CPU tensors).  ``escale`` defaults to
-    ``verify_scale(codebooks, route=F32_ROUTE)``, the statistics kernel's."""
+    the verify kernel (CUDA tensors; any ``ds``, ``k <= 65536``, a larger
+    ``k`` raises) or from :func:`pq_encode_verify_reference` (CPU tensors).
+    ``escale`` defaults to ``verify_scale(codebooks)``, the statistics
+    kernel's at this ``ds``."""
     if not x.is_cuda:
         return pq_encode_verify_reference(codebooks, x, dtype=dtype, escale=escale, rho=rho)
     cb2, c_sqn = _prepare(codebooks, x, dtype, torch.float32)
     m, k, ds = codebooks.shape
-    if ds not in _KERNEL_DS or k > _KERNEL_MAX_K:
-        raise ValueError(
-            f"the encode kernel takes ds in {_KERNEL_DS} and k <= {_KERNEL_MAX_K}; "
-            f"got m={m}, k={k}, ds={ds} (use reductive_tpu_torch.pq.primitives.quantize_batch)"
-        )
+    _check_k(m, k, ds, "encode")
     n = x.shape[0]
     x = x.contiguous()
     if escale is None:
-        escale = verify_scale(codebooks, route=F32_ROUTE)
+        escale = verify_scale(codebooks)
     escale = escale.contiguous()
     direct = dtype in (torch.uint8, torch.int32)
     raw = torch.empty((n, m), dtype=dtype if direct else torch.int32, device=x.device)
     flags = torch.zeros((n,), dtype=torch.int32, device=x.device)  # the kernel ORs into it
     with torch.cuda.device(x.device):
         _build.launch(
-            "rt_encode_verify", "encode_verify",
+            "rt_encode_verify", "encode_verify" + ("" if ds in _NARROW_DS else "_wide"),
             x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), raw.data_ptr(),
             escale.data_ptr(), float(rho), flags.data_ptr(),
             n, m, k, ds, int(raw.dtype == torch.uint8),
@@ -351,9 +429,8 @@ def pq_encode_verified(
     flagged (data full of near-ties) everything is encoded by the exact path
     instead of gathered, so the result is right at any flag rate.
 
-    CUDA tensors go through the kernel (``ds`` in 4, 8, 16, 32 and
-    ``k <= 65536``; anything else raises); CPU tensors through
-    :func:`pq_encode_verify_reference`.
+    CUDA tensors go through the kernel (any ``ds``, ``k <= 65536``; a larger
+    ``k`` raises); CPU tensors through :func:`pq_encode_verify_reference`.
     """
     codes, flags = pq_encode_verify_flags(codebooks, x, dtype=dtype)
     idx = flagged_rows(flags, cap_frac)

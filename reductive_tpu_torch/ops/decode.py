@@ -129,7 +129,8 @@ def pq_decode(
     ``splits=3`` (default) is bit-exact against the f32 gather; ``splits=1``
     rounds the codebook to bfloat16; ``splits=2`` lies between;
     ``splits="int8"`` is the weight-only int8 mode.  CUDA tensors go through
-    the kernel (f32 codebooks, ``ds`` a multiple of 4; anything else raises);
+    the kernel (f32 codebooks, any ``ds``: 16 bytes a thread where ``ds`` is
+    a multiple of 4, one value a thread otherwise; another dtype raises);
     CPU tensors through :func:`pq_decode_reference`.  ``out``, an ``(n, d)``
     f32 tensor on the same device, receives the result and is returned.
     """
@@ -147,15 +148,15 @@ def pq_decode(
         res = pq_decode_reference(codebooks, codes, splits=splits, packed=packed)
         return res if out is None else out.copy_(res)
 
-    if codebooks.dtype != torch.float32 or ds % 4 != 0:
+    if codebooks.dtype != torch.float32:
         raise ValueError(
-            f"the decode kernel takes float32 codebooks with ds a multiple of 4; got "
-            f"{codebooks.dtype}, ds={ds} (use reductive_tpu_torch.pq.primitives.reconstruct_batch)"
+            f"the decode kernel takes float32 codebooks; got {codebooks.dtype} "
+            f"(use reductive_tpu_torch.pq.primitives.reconstruct_batch)"
         )
     if codes.dtype != torch.uint8:
         codes = codes.to(torch.uint8 if packed else torch.int32)
     codes = codes.contiguous()
-    suffix = "_u4" if packed else ""
+    suffix = ("_u4" if packed else "") + ("" if ds % 4 == 0 else "_scalar")
     raw = out if out is not None and out.is_contiguous() else torch.empty(
         (n, m * ds), dtype=torch.float32, device=codes.device
     )

@@ -16,8 +16,16 @@ assigns with ``x`` and ``2c`` rounded to bfloat16 and sums the **rounded**
 ``x`` in f32 (one rounded copy of ``x`` feeds both halves, as in the
 reference).  Counts are exact integers in both modes.
 
-The kernel uses no float atomics: every sum is taken in an order fixed by
-the shapes, so two launches on the same inputs give the same bits.  The
+At ``ds`` in 4, 8, 16, 32 the kernel is the narrow one (``csrc/stats.cu``:
+a tile's rows accumulated as they are assigned); at every other ``ds`` the
+wide route: the assignment of ``csrc/assign_wide.cuh`` (the wide encode's,
+bit for bit) writes its codes, a stable radix sort orders the rows by cell
+and one block per cell adds its rows in row order.  Neither uses float
+atomics: every sum is taken in an order fixed by the shapes (and, on the
+wide route, the codes), so two launches on the same inputs give the same
+bits.  The plain version and the verified wrapper's corrections add by a
+one-hot product (:func:`reductive_tpu_torch.linalg.one_hot_sums`), in an
+order fixed by the shapes too.  The
 kernel and the plain version agree on the counts except where rounding
 (summation order, the split) flips a near-tie, and on the sums up to f32
 summation order.
@@ -33,11 +41,13 @@ again by the exact path, and a row whose code changed is moved from its old
 cell to its new one.
 
 The f32 kernel takes its cross terms as a 3xTF32 split product on the tensor
-cores (``csrc/assign_tile.cuh``), the routine the f32 encode runs too, so its
-codes are the encode's bit for bit and its flag limit is the one that
-:mod:`reductive_tpu_torch.ops.assign` derives for ``route="tf32x3"``
-(:data:`STATS_ROUTE`, the value of ``ops.assign.F32_ROUTE``); the plain
-version flags with the same limit.
+cores (``csrc/assign_tile.cuh``, or ``csrc/assign_wide.cuh`` on the wide
+route), the routine the f32 encode runs too at the same ``ds``, so its codes
+are the encode's bit for bit and its flag limit is the one that
+:mod:`reductive_tpu_torch.ops.assign` derives for the route
+(:data:`STATS_ROUTE`, ``"tf32x3"``, at the narrow widths; ``"tf32x3_wide"``
+at every other, ``ops.assign.f32_route``); the plain version flags with the
+same limit.
 """
 
 from __future__ import annotations
@@ -45,10 +55,11 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from ..linalg import one_hot_sums
 from ..pq.primitives import nearest_centroids, quantize_batch
 from . import _build
 from .assign import (
-    _KERNEL_DS, _KERNEL_MAX_K, F32_ROUTE, VERIFY_RHO, _prepare, flagged_rows,
+    _NARROW_DS, F32_ROUTE, VERIFY_RHO, _check_k, _prepare, flagged_rows,
     pq_encode_verify_reference, verify_scale,
 )
 
@@ -58,8 +69,8 @@ __all__ = [
     "STATS_ROUTE", "stats_from_codes", "move_between_cells", "exact_stats_chunked",
 ]
 
-# How the f32 kernel evaluates its products: names the flag limit of the
-# verified mode (see verify_scale).  One routine with the f32 encode.
+# How the narrow f32 kernel evaluates its products: names the flag limit of
+# the verified mode (see verify_scale).  One routine with the f32 encode.
 STATS_ROUTE = F32_ROUTE
 # Rows the plain version takes at a time.
 _REFERENCE_CHUNK = 1 << 16
@@ -75,23 +86,23 @@ def pq_assign_stats_reference(
     codebooks: Tensor, x: Tensor, *, compute_dtype: torch.dtype = torch.float32
 ) -> tuple[Tensor, Tensor]:
     """Plain PyTorch version of :func:`pq_assign_stats`: the encode's plain
-    version for the codes, then ``index_add_`` of ``x`` (of the
+    version for the codes, then a one-hot product of ``x`` (of the
     bfloat16-rounded ``x`` in bf16 mode) and a ``bincount``, in chunks of
     rows so that nothing of size ``(n, m, k)`` exists."""
     cb2, c_sqn = _prepare(codebooks, x, torch.int32, compute_dtype)
     m, k, ds = codebooks.shape
     cell0 = torch.arange(m, device=x.device)[None, :] * k
-    sums = torch.zeros((m * k, ds), dtype=torch.float32, device=x.device)
+    sums = torch.zeros((m, k, ds), dtype=torch.float32, device=x.device)
     counts = torch.zeros((m * k,), dtype=torch.int64, device=x.device)
     for i in range(0, x.shape[0], _REFERENCE_CHUNK):
         xc = x[i:i + _REFERENCE_CHUNK]
         if compute_dtype == torch.bfloat16:
             xc = xc.to(torch.bfloat16).to(torch.float32)
         xs = xc.reshape(xc.shape[0], m, ds)
-        cells = (nearest_centroids(cb2, c_sqn, xs) + cell0).reshape(-1)
-        sums.index_add_(0, cells, xs.reshape(-1, ds))
-        counts += torch.bincount(cells, minlength=m * k)
-    return sums.reshape(m, k, ds), counts.reshape(m, k).to(torch.float32)
+        codes = nearest_centroids(cb2, c_sqn, xs)
+        sums += one_hot_sums(codes, xs, k)[0]
+        counts += torch.bincount((codes + cell0).reshape(-1), minlength=m * k)
+    return sums, counts.reshape(m, k).to(torch.float32)
 
 
 def _blocks_per_subquantizer(n: int, m: int, k: int, ds: int) -> int:
@@ -99,15 +110,6 @@ def _blocks_per_subquantizer(n: int, m: int, k: int, ds: int) -> int:
     by_fill = -(-_TARGET_BLOCKS // m)
     by_scratch = _MAX_PARTIAL_ELEMS // (m * k * (ds + 1))
     return max(1, min(tiles, by_fill, by_scratch))
-
-
-def _check_kernel_shape(m: int, k: int, ds: int) -> None:
-    if ds not in _KERNEL_DS or k > _KERNEL_MAX_K:
-        raise ValueError(
-            f"the assign+statistics kernel takes ds in {_KERNEL_DS} and k <= {_KERNEL_MAX_K}; "
-            f"got m={m}, k={k}, ds={ds} (pass use_kernel=False to the trainer for the plain "
-            f"tensor route)"
-        )
 
 
 def _launch_stats(codebooks: Tensor, x: Tensor, compute_dtype, verify=None):
@@ -118,17 +120,23 @@ def _launch_stats(codebooks: Tensor, x: Tensor, compute_dtype, verify=None):
     cb2, c_sqn = _prepare(codebooks, x, torch.int32, compute_dtype)
     n = x.shape[0]
     m, k, ds = codebooks.shape
-    _check_kernel_shape(m, k, ds)
+    _check_k(m, k, ds, "assign+statistics",
+             "pass use_kernel=False to the trainer for the plain tensor route")
     dev = x.device
     sums = torch.empty((m, k, ds), dtype=torch.float32, device=dev)
     counts = torch.empty((m, k), dtype=torch.float32, device=dev)
     codes = flags = None
-    if verify is not None:
+    wide = ds not in _NARROW_DS
+    if verify is not None or wide:
         codes = torch.empty((m, n), dtype=torch.int32, device=dev).T
+    if verify is not None:
         flags = torch.zeros((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return sums.zero_(), counts.zero_(), codes, flags
     x = x.contiguous()
+    if wide:
+        _launch_wide(cb2, c_sqn, x, codes, sums, counts, compute_dtype, verify, flags)
+        return sums, counts, (codes if verify is not None else None), flags
     blocks = _blocks_per_subquantizer(n, m, k, ds)
     partial = torch.empty((blocks, m, k, ds + 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -152,6 +160,33 @@ def _launch_stats(codebooks: Tensor, x: Tensor, compute_dtype, verify=None):
     return sums, counts, codes, flags
 
 
+def _launch_wide(cb2, c_sqn, x, codes, sums, counts, compute_dtype, verify, flags) -> None:
+    """The wide route (any ``ds`` outside 4, 8, 16, 32): one C entry launches
+    the assignment of ``csrc/assign_wide.cuh``, the radix sort by cell and
+    the per-cell sums (``csrc/stats.cu``), into ``codes`` (an ``(n, m)``
+    view of an ``(m, n)`` tensor), ``sums`` and ``counts``."""
+    n, m = codes.shape
+    k, ds = cb2.shape[1], cb2.shape[2]
+    words = _build.query("rt_assign_stats_wide_scratch", n, m, k)
+    scratch = torch.empty((words,), dtype=torch.int32, device=x.device)
+    if verify is None:
+        mode, name = (1, "stats_bf16_wide") if compute_dtype == torch.bfloat16 else \
+            (0, "stats_f32_wide")
+        escale, rho = None, 0.0
+    else:
+        (escale, rho), mode, name = verify, 2, "stats_verify_wide"
+        escale = escale.contiguous()
+    with torch.cuda.device(x.device):
+        _build.launch(
+            "rt_assign_stats_wide", name,
+            x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), codes.data_ptr(),
+            None if escale is None else escale.data_ptr(), float(rho),
+            None if flags is None else flags.data_ptr(), scratch.data_ptr(),
+            sums.data_ptr(), counts.data_ptr(), n, m, k, ds, mode,
+            torch.cuda.current_stream().cuda_stream,
+        )
+
+
 def pq_assign_stats(
     codebooks: Tensor, x: Tensor, *, compute_dtype: torch.dtype = torch.float32
 ) -> tuple[Tensor, Tensor]:
@@ -159,10 +194,10 @@ def pq_assign_stats(
     the ``(n, d)`` rows of ``x`` under nearest-centroid assignment, in one
     pass over ``x``.
 
-    CUDA tensors go through the kernel (``ds`` in 4, 8, 16, 32 and
-    ``k <= 65536``; anything else raises a ``ValueError``: the trainers take
-    ``use_kernel=False`` for such shapes); CPU tensors through
-    :func:`pq_assign_stats_reference`.
+    CUDA tensors go through the kernel (any ``ds``, ``k <= 65536``; a larger
+    ``k`` raises a ``ValueError``: the trainers take ``use_kernel=False`` for
+    it), the narrow one at ``ds`` in 4, 8, 16, 32 and the wide route at every
+    other ``ds``; CPU tensors through :func:`pq_assign_stats_reference`.
     """
     if not x.is_cuda:
         return pq_assign_stats_reference(codebooks, x, compute_dtype=compute_dtype)
@@ -175,15 +210,15 @@ def pq_assign_stats(
 
 def stats_from_codes(codes: Tensor, x: Tensor, k: int) -> tuple[Tensor, Tensor]:
     """Sums ``(m, k, ds)`` and counts ``(m, k)`` (float32) of the rows of
-    ``x`` ``(n, m*ds)`` f32 in the cells their ``codes`` ``(n, m)`` name:
-    ``index_add_`` and ``bincount``."""
+    ``x`` ``(n, m*ds)`` f32 in the cells their ``codes`` ``(n, m)`` name: a
+    one-hot product (:func:`~reductive_tpu_torch.linalg.one_hot_sums`, the
+    same bits on every run) and ``bincount``."""
     n, m = codes.shape
     ds = x.shape[1] // m
     cells = (codes.to(torch.int64) + torch.arange(m, device=x.device)[None, :] * k).reshape(-1)
-    sums = torch.zeros((m * k, ds), dtype=torch.float32, device=x.device)
-    sums.index_add_(0, cells, x.reshape(-1, ds))
+    sums = one_hot_sums(codes, x.reshape(n, m, ds).to(torch.float32), k)[0]
     counts = torch.bincount(cells, minlength=m * k).to(torch.float32)
-    return sums.reshape(m, k, ds), counts.reshape(m, k)
+    return sums, counts.reshape(m, k)
 
 
 def exact_stats_chunked(codebooks: Tensor, x: Tensor, chunk: int = 16384) -> tuple[Tensor, Tensor]:
@@ -209,18 +244,15 @@ def move_between_cells(
     ``sums[j, old]`` and enters ``sums[j, new]``, and the counts follow.
     ``x`` is ``(f, m*ds)`` f32, ``old`` and ``new`` ``(f, m)``.  Entries that
     did not change add zeros, so no second wait for the device is needed to
-    find them."""
+    find them.  The moves are the JAX package's one-hot difference
+    (``one_hot(new) - one_hot(old)`` times the change, into an ``einsum``),
+    so the result has the same bits on every run."""
     m, k, ds = sums.shape
-    changed = new != old  # (f, m)
-    cell0 = torch.arange(m, device=x.device)[None, :] * k
-    xs = torch.where(changed[:, :, None], x.reshape(-1, m, ds), torch.zeros((), device=x.device))
-    xs = xs.reshape(-1, ds)
-    ones = changed.to(torch.float32).reshape(-1)
-    flat_sums, flat_counts = sums.view(m * k, ds), counts.view(m * k)
-    for cells, sign in ((new, 1.0), (old, -1.0)):
-        cells = (cells.to(torch.int64) + cell0).reshape(-1)
-        flat_sums.index_add_(0, cells, xs, alpha=sign)
-        flat_counts.index_add_(0, cells, ones, alpha=sign)
+    changed = (new != old).to(torch.float32)  # (f, m)
+    dsums, dcounts = one_hot_sums(new, x.reshape(-1, m, ds).to(torch.float32), k,
+                                  minus=old, weight=changed)
+    sums += dsums
+    counts += dcounts
     return sums, counts
 
 
@@ -231,9 +263,9 @@ def pq_assign_stats_verify_reference(
     (n, m) int32, flags (n,) int32)``, the codes and flags of
     :func:`~reductive_tpu_torch.ops.assign.pq_encode_verify_reference` and the
     statistics of those codes.  ``escale`` defaults to the kernel's,
-    ``verify_scale(codebooks, route=STATS_ROUTE)``."""
+    ``verify_scale(codebooks)`` (the route of the kernels at this ``ds``)."""
     if escale is None:
-        escale = verify_scale(codebooks, route=STATS_ROUTE)
+        escale = verify_scale(codebooks)
     codes, flags = pq_encode_verify_reference(
         codebooks, x, dtype=torch.int32, escale=escale, rho=rho
     )
@@ -250,7 +282,7 @@ def pq_assign_stats_verify_flags(
     if not x.is_cuda:
         return pq_assign_stats_verify_reference(codebooks, x, escale=escale, rho=rho)
     if escale is None:
-        escale = verify_scale(codebooks, route=STATS_ROUTE)
+        escale = verify_scale(codebooks)
     return _launch_stats(codebooks, x, torch.float32, verify=(escale, rho))
 
 
@@ -266,17 +298,19 @@ def pq_assign_stats_verified(
     every row where rounding could have changed an argmin.  Only the flagged
     rows' codes are read (a gather from the kernel's ``(m, n)`` layout;
     nothing of size ``(n, m)`` is transposed).  The flagged rows
-    (``torch.nonzero``: the host waits for the device once per call) are
-    encoded again by the exact path, and each (row, j) whose code changed is
-    moved: ``+x_j`` and ``+1`` into its new cell, ``-x_j`` and ``-1`` into
-    its old one, by ``index_add_``.  Above ``cap_frac`` of the rows flagged,
+    (``torch.nonzero``: the host waits for the device) are encoded again by
+    the exact path; the rows among them whose code changed (a second
+    ``nonzero``, so that the one-hot product below takes those rows only,
+    a few in a thousand of the flagged ones on Gaussian data) are moved: for
+    each (row, j) whose code changed ``+x_j`` and ``+1`` into its new cell,
+    ``-x_j`` and ``-1`` into its old one.  Above ``cap_frac`` of the rows flagged,
     the whole pass is :func:`exact_stats_chunked` instead.  ``x`` of another
     dtype is cast to f32 first.  Composes with the chunked trainers through
     ``compute_dtype="verified"``.
 
-    CUDA tensors go through the kernel (``ds`` in 4, 8, 16, 32 and
-    ``k <= 65536``; anything else raises a ``ValueError``); CPU tensors
-    through :func:`pq_assign_stats_verify_reference`.
+    CUDA tensors go through the kernel (any ``ds``, ``k <= 65536``; a larger
+    ``k`` raises a ``ValueError``); CPU tensors through
+    :func:`pq_assign_stats_verify_reference`.
     """
     x = x.to(torch.float32)
     sums, counts, codes, flags = pq_assign_stats_verify_flags(codebooks, x)
@@ -286,5 +320,8 @@ def pq_assign_stats_verified(
     if idx.shape[0]:
         xf = x[idx]
         new = quantize_batch(codebooks, xf, dtype=torch.int32)
-        move_between_cells(sums, counts, xf, codes[idx], new)
+        old = codes[idx]
+        moved = torch.nonzero((new != old).any(dim=1))[:, 0]
+        if moved.shape[0]:
+            move_between_cells(sums, counts, xf[moved], old[moved], new[moved])
     return sums, counts

@@ -276,8 +276,8 @@ def train_opq_chunked(
     taken in ``chunk``-row slices.
 
     ``use_kernel=None`` means the CUDA kernels (assign+statistics, encode,
-    decode) when the instances lie on a GPU and the plain tensor route on
-    the CPU.  On a GPU a shape the kernels do not take raises a
+    decode) when the instances lie on a GPU, at any ``ds``, and the plain
+    tensor route on the CPU.  On a GPU only ``k > 65536`` raises a
     ``ValueError``; pass ``use_kernel=False`` for it.
     ``compute_dtype="verified"`` takes the verified statistics and encode
     (cell memberships and codes equal to the exact f32 path's); each of them

@@ -195,9 +195,10 @@ def train_pq(
 def _chunk_stats(codebooks: Tensor, xc: Tensor, compute_dtype) -> tuple[Tensor, Tensor]:
     """Per-centroid instance sums ``(m, k, ds)`` and counts ``(m, k)`` for
     one ``(c, d)`` chunk, in plain tensor code (the ``use_kernel=False``
-    route): codes from the exact f32 path, then ``index_add_`` of the
+    route): codes from the exact f32 path, then a one-hot product of the
     subvectors (rounded to bfloat16 first in bf16 mode; unrounded in the f32
-    and verified modes; accumulation and counts are f32 either way)."""
+    and verified modes; accumulation and counts are f32 either way), the
+    same bits on every run."""
     from ..ops.stats import stats_from_codes
 
     codes = primitives.quantize_batch(codebooks, xc, dtype=torch.int32)
@@ -251,7 +252,7 @@ def assign_stats_streamed(
     a ``projection``, ``chunk``-row slices are rotated on the fly and go
     through the kernel one by one, so the rotated corpus is never
     materialized.  Without ``use_kernel`` the slices go through
-    :func:`_chunk_stats`.  A shape the kernel does not take raises; nothing
+    :func:`_chunk_stats`.  A ``k`` the kernel does not take raises; nothing
     falls back."""
     _check_compute_dtype(compute_dtype)
     if use_kernel:
@@ -361,8 +362,8 @@ def train_pq_chunked(
     keeping the earlier one.
 
     ``use_kernel=None`` means the CUDA kernel when the instances lie on a
-    GPU and the plain tensor route on the CPU.  On a GPU a shape the kernel
-    does not take raises a ``ValueError``; pass ``use_kernel=False`` for it.
+    GPU, at any ``ds``, and the plain tensor route on the CPU.  On a GPU only
+    ``k > 65536`` raises a ``ValueError``; pass ``use_kernel=False`` for it.
     ``compute_dtype="verified"`` runs every iteration through
     :func:`reductive_tpu_torch.ops.pq_assign_stats_verified`: the cells each
     row joins are those of the exact f32 path, whatever the kernel's rounding.

@@ -16,6 +16,13 @@ duplicated centroids, rows on a centroid pair's midpoint, zero rows and rows
 scaled far up and down; for the packed-u4 kernels m = 2, m no multiple of 8
 and k below 16.  The f32 encode and the f32 statistics kernels run one
 assignment routine: their codes, counts and flags are held equal bit for bit.
+The wide route (every ds outside 4, 8, 16, 32: 1, 2, 3, 12, 20, 48, 64, 128
+and 768 here, the last two at k = 4096 and 2000 with m = 1, k-means' shape)
+is held to the same: each kernel against its plain version, encode against
+statistics, two launches bit-equal; decode at any ds.  The verified
+statistics give the same bits twice on an adversarial corpus, narrow and
+wide, and so does the plain route on the card.  The probe of the tensor
+cores' accumulation must find what the verify bound assumes.
 """
 
 import pytest
@@ -62,7 +69,9 @@ def test_encode_kernel_equals_plain(dev, n, m, k, ds, compute_dtype):
 
 @pytest.mark.parametrize("splits", [1, 2, 3, "int8"])
 @pytest.mark.parametrize("code_dtype", [torch.uint8, torch.int32, torch.int64])
-@pytest.mark.parametrize("n,m,k,ds", [(1000, 3, 7, 4), (4097, 16, 256, 8), (513, 24, 256, 32)])
+@pytest.mark.parametrize("n,m,k,ds", [(1000, 3, 7, 4), (4097, 16, 256, 8), (513, 24, 256, 32),
+                                      (1000, 10, 128, 2), (513, 3, 7, 3), (257, 1, 16, 1),
+                                      (100, 2, 50, 5)])
 def test_decode_kernel_equals_plain(dev, n, m, k, ds, code_dtype, splits):
     cb, _ = _data(dev, n, m, k, ds)
     codes = torch.randint(0, k, (n, m), device=dev).to(code_dtype)
@@ -128,9 +137,7 @@ def test_stats_kernel_feeds_the_trainers(dev):
     b = train_pq_chunked(gen, x, 4, 6, 5)
     assert ops.launch_counts() == {"stats_f32": 10}
     assert torch.equal(a.codebooks, b.codebooks)  # training repeats bit for bit
-    # The plain route from the same first codebooks, on the CPU: on the card its
-    # index_add_ adds with float atomics, in an order that changes from run to
-    # run, and an ulp there can flip a later near-tie.
+    # The plain route from the same first codebooks, on the CPU.
     gen.set_state(state)
     first = init_codebooks_random(x, gen, 64, 8)
     plain = train_pq_chunked(None, x.cpu(), 4, 6, 5, initial_model=Pq(codebooks=first.cpu()))
@@ -140,8 +147,10 @@ def test_stats_kernel_feeds_the_trainers(dev):
     assert ops.launch_counts() == {"stats_f32": 6, "encode_f32": 6, "decode": 6}
     eye = torch.eye(32, device=dev)
     assert float((opq.projection.T @ opq.projection - eye).abs().max()) < 1e-4
-    with pytest.raises(ValueError, match="use_kernel=False"):
-        train_pq_chunked(gen, x[:, :24], 2, 6, 2)  # ds = 12: not a width the kernel takes
+    ops.reset_launch_counts()
+    wide = train_pq_chunked(gen, x[:, :24], 2, 6, 2)  # ds = 12: the wide route
+    assert ops.launch_counts() == {"stats_f32_wide": 2}
+    assert bool(torch.isfinite(wide.codebooks).all())
 
 
 def _skewed(dev, n, m, k, ds):
@@ -308,6 +317,8 @@ ENCODE_F32_SHAPES = (
     + [(300, 3, k, 8) for k in (1, 7, 300, 1000)] + [(100, 2, 65536, 8)]
     + [(n, 5, 37, 4) for n in (511, 513)] + [(n, 3, 300, 16) for n in (255, 257)]
     + [(n, 4, 256, 32) for n in (127, 129, 2000)]
+    # the wide route: rows around its 128-row tile, k around its 64-centroid tile
+    + [(n, 3, 50, 12) for n in (127, 129)] + [(300, 1, 65, 128), (200, 10, 128, 2)]
 )
 
 
@@ -349,7 +360,7 @@ def test_encode_f32_kernel_assigns_as_the_statistics_kernel(dev, n, m, k, ds, ve
 
 
 @pytest.mark.parametrize("n,k,ds", [(1, 7, 8), (1000, 256, 8), (777, 1000, 16), (3000, 300, 4),
-                                    (513, 64, 32)])
+                                    (513, 64, 32), (1000, 300, 128), (700, 2000, 768), (513, 64, 20)])
 def test_assign_nearest_is_the_one_subquantizer_encode(dev, n, k, ds):
     cb, x = _data(dev, n, 1, k, ds, seed=5)
     got = ops.assign_nearest(cb[0], x, compute_dtype=torch.float32)
@@ -363,7 +374,7 @@ def test_assign_nearest_is_the_one_subquantizer_encode(dev, n, k, ds):
 
 @pytest.mark.parametrize("splits", [1, 2, 3, "int8"])
 @pytest.mark.parametrize("n,m,k,ds", [(1000, 2, 16, 4), (4097, 16, 16, 8), (513, 6, 7, 32),
-                                      (999, 24, 16, 32)])
+                                      (999, 24, 16, 32), (1000, 10, 16, 2), (333, 4, 7, 3)])
 def test_packed_decode_kernel(dev, n, m, k, ds, splits):
     cb, _ = _data(dev, n, m, k, ds)
     codes = torch.randint(0, k, (n, m), device=dev, dtype=torch.uint8)
@@ -425,17 +436,172 @@ def test_verified_and_packed_feed_the_entry_points(dev):
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
-    cb, x = _data(dev, 10, 2, 4, 5)
+    # Every ds is taken; k above 65,536 and codebooks of another dtype are not.
+    cb, x = _data(dev, 10, 1, 70000, 5)
     with pytest.raises(ValueError, match="encode kernel takes"):
-        ops.pq_encode(cb, x)
-    with pytest.raises(ValueError, match="decode kernel takes"):
-        ops.pq_decode(cb, torch.zeros((10, 2), dtype=torch.uint8, device=dev))
+        ops.pq_encode(cb, x, dtype=torch.int32)
     with pytest.raises(ValueError, match="use_kernel=False"):
         ops.pq_assign_stats(cb, x)
     with pytest.raises(ValueError, match="encode kernel takes"):
-        ops.pq_encode_verified(cb, x)
+        ops.pq_encode_verified(cb, x, dtype=torch.int32)
     with pytest.raises(ValueError, match="use_kernel=False"):
         ops.pq_assign_stats_verified(cb, x)
+    with pytest.raises(ValueError, match="decode kernel takes"):
+        ops.pq_decode(cb[:, :4].double(), torch.zeros((10, 1), dtype=torch.uint8, device=dev))
     with pytest.raises(ValueError, match="no shared-memory tiling"):
         ops.adc_scores_kernel(torch.zeros((1, 1, 70000), device=dev),
                               torch.zeros((4, 1), dtype=torch.int32, device=dev))
+
+
+# -- the wide route ------------------------------------------------------------------
+
+# One shape per width: ragged n, k around the 64-centroid tile and above it,
+# m = 1 at the k-means widths.
+WIDE_SHAPES = [
+    (3000, 5, 37, 1), (4097, 10, 128, 2), (1000, 3, 300, 3), (2049, 8, 256, 12), (1025, 2, 65, 20),
+    (777, 16, 256, 48), (513, 1, 1000, 64), (3000, 1, 4096, 128), (700, 1, 2000, 768),
+]
+
+
+def _chosen_dist(cb, x, codes):
+    n = x.shape[0]
+    m, _, ds = cb.shape
+    xs = x.reshape(n, m, ds).double()
+    return (xs - primitives.reconstruct_batch(cb, codes).reshape(n, m, ds).double()).pow(2).sum(2)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,k,ds", WIDE_SHAPES)
+def test_wide_encode_kernel_equals_plain(dev, n, m, k, ds, compute_dtype):
+    cb, x = _data(dev, n, m, k, ds, seed=6)
+    f32 = compute_dtype == torch.float32
+    ops.reset_launch_counts()
+    got = ops.pq_encode(cb, x, dtype=torch.int32, compute_dtype=compute_dtype)
+    assert ops.launch_counts() == {("encode_f32" if f32 else "encode_bf16") + "_wide": 1}
+    assert got.dtype == torch.int32 and tuple(got.shape) == (n, m)
+    assert int(got.min()) >= 0 and int(got.max()) < k
+    want = ops.pq_encode_reference(cb, x, dtype=torch.int32, compute_dtype=compute_dtype)
+    differ = got != want
+    if f32:
+        # The statistics kernel's codes bit for bit; a code off the plain
+        # version's only on a row the verified mode flags.
+        _, _, s_codes, s_flags = pq_assign_stats_verify_flags(cb, x)
+        assert torch.equal(got, s_codes)
+        assert not bool((differ.any(dim=1) & (s_flags == 0)).any())
+    else:
+        assert int(differ.sum()) <= max(2, got.numel() // 100)
+    # Where the codes differ, a near-tie: within 2^-13 (f32) or 2^-7 (bf16) of
+    # |x_j| max|2c_j| + max|c_j|^2, the scale of the products' rounding (at
+    # ds = 1 or 2 a distance is far smaller than that).
+    dg, dw = _chosen_dist(cb, x, got), _chosen_dist(cb, x, want)
+    cn = cb.double().pow(2).sum(dim=2).sqrt().amax(dim=1)
+    xn = x.reshape(n, m, ds).double().pow(2).sum(dim=2).sqrt()
+    rel = 2.0 ** -13 if f32 else 2.0 ** -7
+    assert bool(((dg - dw).abs() <= rel * (2 * xn * cn[None] + cn[None] ** 2)).all())
+    if k <= 256:
+        u8 = ops.pq_encode(cb, x, compute_dtype=compute_dtype)
+        assert u8.dtype == torch.uint8 and torch.equal(u8.to(torch.int32), got)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,k,ds", WIDE_SHAPES)
+def test_wide_stats_kernel_equals_plain_and_itself(dev, n, m, k, ds, compute_dtype):
+    cb, x = _data(dev, n, m, k, ds, seed=7)
+    f32 = compute_dtype == torch.float32
+    ops.reset_launch_counts()
+    sums, counts = ops.pq_assign_stats(cb, x, compute_dtype=compute_dtype)
+    again = ops.pq_assign_stats(cb, x, compute_dtype=compute_dtype)
+    assert ops.launch_counts() == {("stats_f32" if f32 else "stats_bf16") + "_wide": 2}
+    # No float atomics: two launches give the same bits.
+    assert torch.equal(sums, again[0]) and torch.equal(counts, again[1])
+    assert float(counts.double().sum()) == n * m
+    # The cells are the encode's (one routine), and the sums those of its codes
+    # (of the bf16-rounded rows in bf16 mode), added in another order.
+    codes = ops.pq_encode(cb, x, dtype=torch.int32, compute_dtype=compute_dtype)
+    xr = x if f32 else x.to(torch.bfloat16).to(torch.float32)
+    code_sums, code_counts = ops.stats.stats_from_codes(codes, xr, k)
+    assert torch.equal(code_counts, counts)
+    tol = 1e-5 * code_sums.abs() + 1e-4 * float(code_sums.abs().max())
+    assert bool(((sums - code_sums).abs() <= tol).all())
+    # Against the plain version: near-ties may move a row (one in a thousand,
+    # f32; one in a hundred, bf16).
+    want_sums, want_counts = ops.pq_assign_stats_reference(cb, x, compute_dtype=compute_dtype)
+    moved = float((counts - want_counts).abs().sum()) / 2
+    assert moved <= max(1, n * m // (1000 if f32 else 100))
+
+
+@pytest.mark.parametrize("adversarial", [False, True])
+@pytest.mark.parametrize("n,m,k,ds", WIDE_SHAPES)
+def test_wide_verify_kernels(dev, n, m, k, ds, adversarial):
+    cb, x = _data(dev, n, m, k, ds, seed=8)
+    if adversarial:
+        cb, x = _adversarial(cb, x)
+    ops.reset_launch_counts()
+    sums, counts, codes, flags = pq_assign_stats_verify_flags(cb, x)
+    again = pq_assign_stats_verify_flags(cb, x)
+    assert all(torch.equal(a, b) for a, b in zip((sums, counts, codes, flags), again))
+    enc_codes, enc_flags = pq_encode_verify_flags(cb, x, dtype=torch.int32)
+    assert ops.launch_counts() == {"stats_verify_wide": 2, "encode_verify_wide": 1}
+    assert torch.equal(codes, enc_codes) and torch.equal(flags, enc_flags)
+    oracle = primitives.quantize_batch(cb, x, dtype=torch.int32)
+    assert not bool(((codes != oracle).any(dim=1) & (flags == 0)).any())
+    _, want_flags = ops.pq_encode_verify_reference(cb, x, dtype=torch.int32)
+    assert int((flags != want_flags).sum()) <= max(2, n // 100)
+    if adversarial and k > 1:
+        assert int(flags[:max(1, n // 5)].min()) == 1  # rows on a duplicated centroid's twin
+    assert torch.equal(ops.pq_encode_verified(cb, x, dtype=torch.int32), oracle)
+    want_sums, want_counts = ops.stats.stats_from_codes(oracle, x, k)
+    for cap_frac in (1 / 16, 1e-9):
+        got_sums, got_counts = ops.pq_assign_stats_verified(cb, x, cap_frac=cap_frac)
+        assert torch.equal(got_counts, want_counts)
+        tol = 1e-5 * want_sums.abs() + 1e-4 * float(want_sums.abs().max())
+        assert bool(((got_sums - want_sums).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("n,m,k,ds", [(50000, 16, 256, 8), (20000, 1, 1000, 128), (30000, 10, 128, 2)],
+                         ids=["narrow", "wide", "ds2"])
+def test_verified_statistics_and_the_plain_route_repeat_bit_for_bit(dev, n, m, k, ds):
+    # The adversarial rows of this file (chip_smoke.py's five blocks: exact ties,
+    # midpoints, zeros, tiny and huge rows): most are flagged and many move
+    # between cells, where the correction once added with float atomics.
+    cb, x = _adversarial(*_data(dev, n, m, k, ds, seed=9))
+    first = ops.pq_assign_stats_verified(cb, x, cap_frac=1.0)
+    second = ops.pq_assign_stats_verified(cb, x, cap_frac=1.0)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    for run in (lambda: ops.pq_assign_stats_reference(cb, x),
+                lambda: ops.stats.exact_stats_chunked(cb, x)):
+        a, b = run(), run()
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    from reductive_tpu_torch import kmeans
+    flat = x.reshape(-1, ds)[:20000]
+    assign = torch.arange(flat.shape[0], device=dev) % 97
+    assert torch.equal(kmeans.update_centroids(flat, assign, 97),
+                       kmeans.update_centroids(flat, assign, 97))
+
+
+@pytest.mark.parametrize("d,k", [(128, 512), (768, 300), (20, 128)])
+def test_kmeans_chunked_takes_the_kernel_at_full_width(dev, d, k):
+    from reductive_tpu_torch import kmeans
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((20000, d), generator=gen, device=dev)
+    init = x[:k].clone()
+    ops.reset_launch_counts()
+    c_f32, loss_f32 = kmeans.kmeans_with_centroids_chunked(x, init, 2)
+    c_ver, loss_ver = kmeans.kmeans_with_centroids_chunked(x, init, 2, compute_dtype="verified")
+    assert ops.launch_counts() == {"stats_f32_wide": 2, "stats_verify_wide": 2}
+    # The verified memberships are the exact path's: the plain route on the CPU.
+    c_cpu, loss_cpu = kmeans.kmeans_with_centroids_chunked(x.cpu(), init.cpu(), 2, use_kernel=False)
+    assert float((c_ver.cpu() - c_cpu).abs().max()) < 1e-4
+    assert abs(float(loss_ver) - float(loss_cpu)) <= 1e-5 * abs(float(loss_cpu))
+    assert abs(float(loss_f32) - float(loss_cpu)) <= 1e-3 * abs(float(loss_cpu))
+    codes = ops.assign_nearest(c_f32, x, compute_dtype=torch.float32)
+    assert codes.dtype == torch.int32 and int(codes.max()) < k
+
+
+def test_the_tensor_cores_accumulate_as_the_verify_bound_assumes(dev):
+    from reductive_tpu_torch.ops.probe import MODEL_ULPS, probe_wgmma_tf32
+    report = probe_wgmma_tf32(dev)
+    assert report["uniform_outputs"], report
+    assert report["kept_bits"] >= 24, report
+    assert report["mode"] == "truncate", report
+    assert report["max_err_ulps"] <= MODEL_ULPS, report

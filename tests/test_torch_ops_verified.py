@@ -254,21 +254,12 @@ def test_encode_wrapper_corrects_what_the_first_stage_got_wrong(monkeypatch):
 # -- the bound behind the flags ----------------------------------------------------
 
 
-@pytest.mark.parametrize("route", ["fma", "tf32x3"])
-@pytest.mark.parametrize("seed", range(6))
-@pytest.mark.parametrize("ds", [4, 8, 32])
-def test_every_row_whose_argmin_a_rounding_could_change_is_flagged(ds, seed, route):
-    """Soundness of the flag limit against its own derivation: move every
-    distance by up to what the kernel's and the exact path's evaluations may
-    differ by (``B_k + B`` from the products, plus ``2^-23 |d|`` from the two
-    rounded subtractions), in f64, and take the argmin again.  ``B = g max|2c|
-    |x|``, ``g = ds u / (1 - ds u)``, is any f32 summation order; ``B_k`` is
-    ``B`` too for a chain of FMAs (``"fma"``) and ``(3.25 + 5 ceil(ds/8)) 2^-22
-    max|2c| |x|`` for the split product on the tensor cores (``"tf32x3"``).
-    Wherever the argmin changes, the row must have been flagged; with a
-    quarter of the scale some such row is not.  The rows sit near midpoints of
-    centroid pairs at distances that straddle the limit, beside zero rows,
-    tiny rows and exact ties."""
+def _perturbed(ds, seed, route, g_kernel):
+    """The rows of the soundness tests and what perturbing their distances
+    within the two routes' difference does: ``(changed_any, flagged,
+    too_few, offset, codes)``, ``too_few`` the flags at a quarter of the
+    scale.  The rows sit near midpoints of centroid pairs at distances that
+    straddle the limit, beside zero rows, tiny rows and exact ties."""
     rng = np.random.default_rng(100 * ds + seed)
     m, k, n = 3, 12, 4000
     cb = rng.standard_normal((m, k, ds)).astype(np.float32)
@@ -291,7 +282,6 @@ def test_every_row_whose_argmin_a_rounding_could_change_is_flagged(ds, seed, rou
 
     u = 2.0 ** -24
     g = ds * u / (1 - ds * u)
-    g_kernel = g if route == "fma" else (3.25 + 5 * -(-ds // 8)) * 2.0 ** -22
     wmax = np.sqrt((cb2.double().numpy() ** 2).sum(axis=2)).max(axis=1)       # (m,)
     xn = np.sqrt((xs.double().numpy() ** 2).sum(axis=2))                     # (n, m)
     d64 = dist.double().numpy()
@@ -304,17 +294,60 @@ def test_every_row_whose_argmin_a_rounding_could_change_is_flagged(ds, seed, rou
             np.put_along_axis(sign, codes.numpy()[:, :, None], 1.0, axis=2)
         moved = d64 + sign * room * (1.0 if trial < 2 else rng.random(d64.shape))
         changed_any |= moved.argmin(axis=2) != codes.numpy()
+    _, too_few = tassign._verify_flags(dist, xs, escale / 4, tassign.VERIFY_RHO)
+    return changed_any, flagged.numpy(), too_few.numpy(), offset, codes.numpy()
+
+
+@pytest.mark.parametrize("route", ["fma", "tf32x3"])
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("ds", [4, 8, 32])
+def test_every_row_whose_argmin_a_rounding_could_change_is_flagged(ds, seed, route):
+    """Soundness of the flag limit against its own derivation: move every
+    distance by up to what the kernel's and the exact path's evaluations may
+    differ by (``B_k + B`` from the products, plus ``2^-23 |d|`` from the two
+    rounded subtractions), in f64, and take the argmin again.  ``B = g max|2c|
+    |x|``, ``g = ds u / (1 - ds u)``, is any f32 summation order; ``B_k`` is
+    ``B`` too for a chain of FMAs (``"fma"``) and ``(3.25 + 5 ceil(ds/8)) 2^-22
+    max|2c| |x|`` for the split product on the tensor cores (``"tf32x3"``).
+    Wherever the argmin changes, the row must have been flagged; with a
+    quarter of the scale some such row is not.  The rows sit near midpoints of
+    centroid pairs at distances that straddle the limit, beside zero rows,
+    tiny rows and exact ties."""
+    u = 2.0 ** -24
+    g = ds * u / (1 - ds * u)
+    g_kernel = g if route == "fma" else (3.25 + 5 * -(-ds // 8)) * 2.0 ** -22
+    changed_any, flagged, too_few, offset, codes = _perturbed(ds, seed, route, g_kernel)
+    n = flagged.shape[0]
     assert changed_any.any(), "the data reaches no near-tie: the property tests nothing"
-    assert not (changed_any & ~flagged.numpy()).any()
+    assert not (changed_any & ~flagged).any()
     # The limit has less than a factor of four to spare: at a quarter of the
     # scale a row whose argmin can change goes unflagged.
-    _, too_few = tassign._verify_flags(dist, xs, escale / 4, tassign.VERIFY_RHO)
-    assert (changed_any & ~too_few.numpy()).any()
+    assert (changed_any & ~too_few).any()
     # And the flags are not vacuous: far from its midpoint a row stays unflagged
     # (unless it chose the repeated centroid: an exact tie with its twin).
     far = (np.abs(offset).min(axis=2) > 1e-3) & (np.arange(n) >= 600)[:, None]
-    far &= codes.numpy() != 1
-    assert far.sum() > 100 and flagged.numpy()[far].mean() < 0.05
+    far &= codes != 1
+    assert far.sum() > 100 and flagged[far].mean() < 0.05
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("ds", [1, 2, 3, 12, 48, 128])
+def test_every_row_the_wide_route_could_change_is_flagged(ds, seed):
+    """The same soundness at the odd and wide widths, for the wide route's
+    evaluation (``"tf32x3_wide"``): ``B_w = (3.5 + (5 + 2^-6) kc + 0.26
+    chunks) 2^-22 max|2c| |x|`` for the kernel's chunks of ``kc``
+    instructions.  At ds = 128 the limit is wide enough that rows 1e-3 from a
+    midpoint are flagged too, so the flags are held not to be vacuous by the
+    rows no perturbation can change."""
+    kc, chunks = tassign.wide_chunking(ds)
+    g_kernel = (3.5 + (5 + 2.0 ** -6) * kc + 0.26 * chunks) * 2.0 ** -22
+    changed_any, flagged, too_few, _, _ = _perturbed(ds, seed, "tf32x3_wide", g_kernel)
+    assert changed_any.any(), "the data reaches no near-tie: the property tests nothing"
+    assert not (changed_any & ~flagged).any()
+    assert (changed_any & ~too_few).any()
+    stable = ~changed_any
+    stable[:600] = False  # zero rows, tiny rows and exact ties
+    assert stable.sum() > 100 and flagged[stable].mean() < 0.5
 
 
 # -- the statistics -----------------------------------------------------------------
