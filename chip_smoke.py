@@ -49,7 +49,7 @@ import torch
 
 from reductive_tpu_torch import Pq, io, kmeans, ops, train_opq_chunked, train_pq, train_pq_chunked
 from reductive_tpu_torch.ops.adc import quantize_tables_int8
-from reductive_tpu_torch.ops.assign import pq_encode_verify_flags, verify_scale
+from reductive_tpu_torch.ops.assign import pq_encode_verify_flags, verify_scale, wide_route
 from reductive_tpu_torch.ops.decode import quantize_codebook_int8
 from reductive_tpu_torch.ops.probe import probe_wgmma_tf32
 from reductive_tpu_torch.ops.stats import pq_assign_stats_verify_flags, stats_from_codes
@@ -96,9 +96,9 @@ KERNELS = {
     "decode_int8_u4": ("reductive_tpu_torch/csrc/decode.cu", "reductive_tpu/ops/decode.py:180"),
     "adc_u4": ("reductive_tpu_torch/csrc/adc.cu", "reductive_tpu/ops/adc.py:59"),
     "adc_int8_u4": ("reductive_tpu_torch/csrc/adc.cu", "reductive_tpu/ops/decode.py:180"),
-    "encode_f32_wide": ("reductive_tpu_torch/csrc/assign_wide.cuh", "reductive_tpu/ops/assign.py:138"),
-    "encode_bf16_wide": ("reductive_tpu_torch/csrc/assign_wide.cuh", "reductive_tpu/ops/assign.py:138"),
-    "encode_verify_wide": ("reductive_tpu_torch/csrc/assign_wide.cuh",
+    "encode_f32_wide": ("reductive_tpu_torch/csrc/assign_deep.cuh", "reductive_tpu/ops/assign.py:138"),
+    "encode_bf16_wide": ("reductive_tpu_torch/csrc/assign_deep.cuh", "reductive_tpu/ops/assign.py:138"),
+    "encode_verify_wide": ("reductive_tpu_torch/csrc/assign_deep.cuh",
                            "reductive_tpu/ops/assign.py:298"),
     "stats_f32_wide": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:50"),
     "stats_bf16_wide": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:50"),
@@ -1001,8 +1001,12 @@ def phase_wide(corpus, gen):
     the kernels line."""
     dev = corpus.device
     f32, bf16 = torch.float32, torch.bfloat16
-    probe = probe_wgmma_tf32(dev)
-    require(probe["ok"], f"wide: the tensor cores do not accumulate as the verify bound assumes: {probe}")
+    # The TF32 instructions of the narrow route and the shallow kernel (N = 64)
+    # and of the deep kernel (N = 128, A from registers, B swizzled).
+    probe = {f"m64n{n}k8": probe_wgmma_tf32(dev, n=n) for n in (64, 128)}
+    for name, report in probe.items():
+        require(report["ok"], f"wide: the tensor cores do not accumulate as the verify bound assumes "
+                              f"in {name}: {report}")
 
     n_a, d_a, k_a = IVF10M
     n_b, d_b, k_b = IVF100M
@@ -1181,11 +1185,13 @@ def phase_wide(corpus, gen):
                       "launches": launches[name], "max_abs_err": errors[name], **found})
 
     n_blocks = {label: -(-x.shape[0] // 128) * cb.shape[0] for label, (cb, x) in shapes.items()}
+    routes = {label: wide_route(cb.shape[2], x.data_ptr() % 16 == 0) for label, (cb, x) in shapes.items()}
     emit("wide", probe=probe, seconds={"ivf10m_3_iterations": t_a, "ivf100m_path": t_b,
                                        "gate_ds2_path": t_c},
          ivf10m_losses=losses_a, ivf100m_loss={"initial": loss_b0, "after_1": float(loss_b)},
          gate_ds2={"mse": mse20, "mse_int8": mse20_int8, "bf16_agrees_with_f32": agree20},
          exact=exact, shared_assignment=shared, compared=compared, times=times,
+         routes=routes,
          assign_blocks={"blocks": n_blocks, "sms": torch.cuda.get_device_properties(dev).multi_processor_count},
          launches=launches)
     del xa, xb, x20
@@ -1344,7 +1350,9 @@ def main() -> int:
     ptxas = ops.build_all(verbose=True)
     emit("build", seconds=time.perf_counter() - t0, sources=list(ptxas),
          spills=[ln.strip() for out in ptxas.values() for ln in out.splitlines()
-                 if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln])
+                 if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln],
+         wgmma_serialized=[ln.strip() for out in ptxas.values() for ln in out.splitlines()
+                           if "Performance Loss" in ln])
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)

@@ -100,9 +100,10 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 // Keeps the compiler from reading the accumulators before the wait for the
 // asynchronous product.
-__device__ __forceinline__ void pin(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 template <int DS>

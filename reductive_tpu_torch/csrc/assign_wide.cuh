@@ -1,14 +1,21 @@
-// Nearest-centroid assignment at any subvector width ("the wide route"), as a
-// kernel that csrc/encode.cu and csrc/stats.cu both instantiate from this one
-// header, so that a row gets the same code, and in verified mode the same
-// flag, from either.
+// Nearest-centroid assignment at any subvector width outside 4, 8, 16, 32
+// ("the wide route"), as kernels that csrc/encode.cu and csrc/stats.cu both
+// reach through launch() below, so that a row gets the same code, and in
+// verified mode the same flag, from either.
 //
 //   a[i] = argmin_c (|c|^2 - 2c.x_i), first index on ties
+//
+// Two kernels, chosen by launch()'s `deep` (ops/assign.py wide_route, a pure
+// function of ds and of x's alignment): at ds > 32 with ds a multiple of 4
+// and x on 16 bytes, the deep kernel of csrc/assign_deep.cuh (a TMA producer
+// warp, 128 or 256 centroids a step, the codebook converted once a call);
+// at every other ds the shallow kernel of this file, whose arithmetic the
+// deep one keeps.
 //
 // The narrow route (csrc/assign_tile.cuh) keeps a row tile's split
 // subvectors in registers and stages 256 centroids at their whole depth; at
 // ds = 128 that staging is 256 KB and at ds = 768 1.5 MB, past the 227 KB a
-// block may hold.  This route walks the depth in chunks, as a GEMM main loop
+// block may hold.  The shallow kernel walks the depth in chunks, as a GEMM main loop
 // does: a block of two warpgroups takes 128 rows of one subquantizer, and for
 // every tile of 64 centroids it stages the rows' and the centroids' next
 // chunk of depth (32 values, zeros past ds) into shared memory while the
@@ -44,8 +51,8 @@
 // caller zeroed: m blocks share a row).  |x_j| is taken by the four lanes of
 // the row in a fixed order.
 //
-// What bounds it on an H100: the products, 3 x 2 n k ds operations in TF32
-// (2 n k ds in bf16).  What the design pays beyond that: every block streams
+// What bounds the shallow kernel on an H100: the products, 3 x 2 n k ds
+// operations in TF32 (2 n k ds in bf16).  What the design pays beyond that: every block streams
 // its subquantizer's whole codebook through shared memory (n/128 passes over
 // k ds values, from L2), splits each value as it is staged, and waits for
 // each chunk's products before it overwrites the buffer they read.
@@ -56,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "assign_deep.cuh"
 #include "assign_tile.cuh"
 
 namespace assign_wide {
@@ -212,13 +220,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// Where a block writes code (row, j): codes[row * code_row + j * code_col],
-// uint8 when code_u8, else int32.
-struct CodesOut {
-  void* codes;
-  long long code_row, code_col;
-  int code_u8;
-};
+using assign_deep::CodesOut;
 
 // Grid: (n / 128) * m blocks, block b taking rows (b / m) * 128 .. and
 // subquantizer b % m (the m blocks of a row tile are neighbours, so the rows
@@ -492,19 +494,25 @@ cudaError_t launch_kc(const float* x, const float* cb2, const float* csqn, Codes
   return cudaGetLastError();
 }
 
-// The wide assignment of x (n, m*ds) f32 against cb2 (m, k, ds) f32 holding 2c
-// (rounded to bf16 values by the caller in bf16 mode) and csqn (m, k) |c|^2.
-// verify needs f32 mode, escale (m,) and a zeroed flags (n,).  Returns the
-// launch's error; cudaErrorInvalidValue for a shape it does not take.
-inline cudaError_t launch(const float* x, const float* cb2, const float* csqn, CodesOut out,
+// The wide assignment of x (n, m*ds) f32.  Shallow kernel (deep = false):
+// cb2 (m, k, ds) f32 holding 2c (rounded to bf16 values by the caller in
+// bf16 mode) and csqn (m, k) |c|^2.  Deep kernel: cb2 and csqn as
+// assign_deep::launch takes them (ops/assign.py deep_operands).  verify needs
+// f32 mode, escale (m,) and a zeroed flags (n,).  Returns the launch's error;
+// cudaErrorInvalidValue for a shape it does not take.
+inline cudaError_t launch(const float* x, const void* cb2, const float* csqn, CodesOut out,
                           bool bf16, bool verify, const float* escale, float rho, int* flags,
-                          long long n, int m, int k, int ds, cudaStream_t stream) {
+                          long long n, int m, int k, int ds, bool deep, cudaStream_t stream) {
+  if (deep)
+    return assign_deep::launch(x, cb2, csqn, out, bf16, verify, escale, rho, flags, n, m, k, ds,
+                               stream);
   if (n <= 0) return cudaSuccess;
   if (m <= 0 || k <= 0 || ds <= 0 || (bf16 && verify)) return cudaErrorInvalidValue;
   int kc, chunks;
   chunking(bf16, ds, kc, chunks);
 #define RT_WIDE(B, KC, V) \
-  return launch_kc<B, KC, V>(x, cb2, csqn, out, escale, rho, flags, n, m, k, ds, chunks, stream)
+  return launch_kc<B, KC, V>(x, static_cast<const float*>(cb2), csqn, out, escale, rho, flags, n, m, \
+                            k, ds, chunks, stream)
   if (bf16) {
     if (kc == 1) RT_WIDE(true, 1, false);
     RT_WIDE(true, 2, false);

@@ -8,8 +8,9 @@
 // minimum (no packed sortable key).
 //
 // At ds in 4, 8, 16, 32, two kernels, one for each mode (below); at every
-// other ds (1, 2, 3, 12, 128, 768, ...) the wide route of assign_wide.cuh,
-// in f32, bf16 and verified mode, which csrc/stats.cu runs too.
+// other ds (1, 2, 3, 12, 128, 768, ...) the wide route of assign_wide.cuh
+// (its deep kernel, csrc/assign_deep.cuh, at ds > 32), in f32, bf16 and
+// verified mode, which csrc/stats.cu runs too.
 //
 // * f32 (encode_f32_kernel): the assignment of csrc/assign_tile.cuh, the one
 //   the f32 assign+statistics kernel (csrc/stats.cu) runs: a 3xTF32 split
@@ -312,10 +313,12 @@ cudaError_t launch(const float* x, const float* cb2, const float* csqn, void* co
 }  // namespace
 
 // x (n, m*ds) f32, cb2 (m, k, ds) f32 holding 2c (already rounded to bf16
-// values in bf16 mode), csqn (m, k) f32, codes (n, m) uint8 or int32.
+// values in bf16 mode), csqn (m, k) f32, codes (n, m) uint8 or int32.  deep:
+// the wide route's deep kernel (ops/assign.py wide_route), with cb2 and csqn
+// as ops/assign.py deep_operands writes them.
 // Returns cudaGetLastError() after the launch; -1 for a shape it does not take.
 extern "C" int rt_encode(const void* x, const void* cb2, const void* csqn, void* codes,
-                         long long n, int m, int k, int ds, int bf16, int out_u8,
+                         long long n, int m, int k, int ds, int bf16, int out_u8, int deep,
                          void* stream) {
   if (n <= 0) return 0;
   if (m <= 0 || k <= 0) return -1;
@@ -329,18 +332,18 @@ extern "C" int rt_encode(const void* x, const void* cb2, const void* csqn, void*
     case 16: return (int)launch<16>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
     case 32: return (int)launch<32>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
     default:  // every other ds: the wide route of assign_wide.cuh
-      return (int)assign_wide::launch(xf, cf, nf, {codes, m, 1, out_u8}, bf16 != 0, false,
-                                      nullptr, 0.0f, nullptr, n, m, k, ds, s);
+      return (int)assign_wide::launch(xf, cb2, nf, {codes, m, 1, out_u8}, bf16 != 0, false,
+                                      nullptr, 0.0f, nullptr, n, m, k, ds, deep != 0, s);
   }
 }
 
 // As rt_encode in f32 mode, with the verification flags: escale (m,) f32 and
 // rho set the margin below which a (row, subquantizer) is flagged (see the
 // head of this file); flags (n,) int32, zeroed by the caller, receives 1 for a
-// row with any flagged subquantizer.
+// row with any flagged subquantizer.  deep as for rt_encode.
 extern "C" int rt_encode_verify(const void* x, const void* cb2, const void* csqn, void* codes,
                                 const void* escale, float rho, void* flags, long long n, int m,
-                                int k, int ds, int out_u8, void* stream) {
+                                int k, int ds, int out_u8, int deep, void* stream) {
   if (n <= 0) return 0;
   if (m <= 0 || k <= 0) return -1;
   cudaStream_t s = (cudaStream_t)stream;
@@ -355,7 +358,7 @@ extern "C" int rt_encode_verify(const void* x, const void* cb2, const void* csqn
     case 16: return (int)launch_f32<16, true>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
     case 32: return (int)launch_f32<32, true>(xf, cf, nf, codes, ef, rho, fl, n, m, k, out_u8, s);
     default:
-      return (int)assign_wide::launch(xf, cf, nf, {codes, m, 1, out_u8}, false, true, ef, rho, fl,
-                                      n, m, k, ds, s);
+      return (int)assign_wide::launch(xf, cb2, nf, {codes, m, 1, out_u8}, false, true, ef, rho, fl,
+                                      n, m, k, ds, deep != 0, s);
   }
 }

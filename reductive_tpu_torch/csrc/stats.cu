@@ -782,15 +782,15 @@ long long wide_scratch_words(long long n, int m, int k) {
   return 4 * N + 256 * T + (long long)m * k + 1;
 }
 
-int assign_stats_wide(const float* x, const float* cb2, const float* csqn, int* codes,
+int assign_stats_wide(const float* x, const void* cb2, const float* csqn, int* codes,
                       const float* escale, float rho, int* flags, int* scratch, float* sums,
-                      float* counts, long long n, int m, int k, int ds, int mode,
+                      float* counts, long long n, int m, int k, int ds, int mode, bool deep,
                       cudaStream_t s) {
   if (n <= 0 || m <= 0 || k <= 0 || ds <= 0) return -1;
   const long long N = n * m, C = (long long)m * k;
   if (N > 0x7fffffffLL || C > 0x7fffffffLL) return -1;
   cudaError_t err = assign_wide::launch(x, cb2, csqn, {codes, 1, n, 0}, mode == 1, mode == 2,
-                                        escale, rho, flags, n, m, k, ds, s);
+                                        escale, rho, flags, n, m, k, ds, deep, s);
   if (err != cudaSuccess) return (int)err;
   const long long T = (N + kSortTile - 1) / kSortTile;
   if (T > 0x7fffffffLL / 256) return -1;
@@ -859,14 +859,15 @@ extern "C" long long rt_assign_stats_wide_scratch(long long n, int m, int k) {
 // (see "the wide route" above).  mode: 0 f32, 1 bf16, 2 verified (escale (m,)
 // f32, rho, and flags (n,) int32 zeroed by the caller).  scratch: the int32
 // words rt_assign_stats_wide_scratch names; sums (m, k, ds), counts (m, k)
-// f32.  Returns cudaGetLastError() after the launches; -1 for a shape it does
-// not take.
+// f32.  deep: the deep kernel of the assignment, with cb2 and csqn as
+// ops/assign.py deep_operands writes them.  Returns cudaGetLastError() after
+// the launches; -1 for a shape it does not take.
 extern "C" int rt_assign_stats_wide(const void* x, const void* cb2, const void* csqn, void* codes,
                                     const void* escale, float rho, void* flags, void* scratch,
                                     void* sums, void* counts, long long n, int m, int k, int ds,
-                                    int mode, void* stream) {
+                                    int mode, int deep, void* stream) {
   if (mode == 2 && (escale == nullptr || flags == nullptr)) return -1;
-  return assign_stats_wide((const float*)x, (const float*)cb2, (const float*)csqn, (int*)codes,
+  return assign_stats_wide((const float*)x, cb2, (const float*)csqn, (int*)codes,
                            (const float*)escale, rho, (int*)flags, (int*)scratch, (float*)sums,
-                           (float*)counts, n, m, k, ds, mode, (cudaStream_t)stream);
+                           (float*)counts, n, m, k, ds, mode, deep != 0, (cudaStream_t)stream);
 }

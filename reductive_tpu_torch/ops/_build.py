@@ -41,8 +41,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # and the stream is c_void_p: without argtypes ctypes would pass them as
 # 32-bit ints.
 _ENTRIES = {
-    "rt_encode": ("encode", (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P)),
-    "rt_encode_verify": ("encode", (_P, _P, _P, _P, _P, _F, _P, _L, _I, _I, _I, _I, _P)),
+    "rt_encode": ("encode", (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P)),
+    "rt_encode_verify": ("encode", (_P, _P, _P, _P, _P, _F, _P, _L, _I, _I, _I, _I, _I, _P)),
     "rt_decode": ("decode", (_P, _I, _I, _P, _P, _L, _I, _I, _I, _P)),
     "rt_decode_int8": ("decode", (_P, _I, _I, _P, _P, _P, _L, _I, _I, _I, _P)),
     "rt_adc": ("adc", (_P, _P, _I, _I, _P, _L, _I, _I, _I, _I, _I, _P)),
@@ -51,9 +51,9 @@ _ENTRIES = {
     "rt_assign_stats_verify": (
         "stats", (_P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _L, _I, _I, _I, _I, _P)),
     "rt_assign_stats_wide": (
-        "stats", (_P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P)),
+        "stats", (_P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P)),
     "rt_assign_stats_wide_scratch": ("stats", (_L, _I, _I), _L),
-    "rt_probe_wgmma_tf32": ("probe", (_P, _P, _P, _P, _I, _P)),
+    "rt_probe_wgmma_tf32": ("probe", (_P, _P, _P, _P, _I, _I, _P)),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

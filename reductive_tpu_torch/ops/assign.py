@@ -19,7 +19,10 @@ Two modes, chosen by ``compute_dtype``:
   (``csrc/assign_wide.cuh``, route :data:`WIDE_ROUTE`): the same split,
   walked over the depth in chunks, each chunk's products from zero and the
   chunks added in f32, shared by the encode and the statistics kernel in the
-  same way.
+  same way.  Where the depth spans more than one 32-value chunk and TMA can
+  describe the rows (:func:`wide_route`), the wide route runs its deep
+  kernel (``csrc/assign_deep.cuh``), on a codebook converted once a call
+  (:func:`deep_operands`), with the same arithmetic.
 * ``torch.bfloat16`` (default): ``x`` and ``2c`` each rounded to bfloat16
   (nearest even), products and sums in f32, ``|c|^2`` in f32 from the
   unrounded codebook.  The narrow kernel runs this mode on the tensor cores
@@ -164,7 +167,7 @@ __all__ = [
     "pq_encode", "pq_encode_reference", "assign_nearest",
     "pq_encode_verified", "pq_encode_verify_reference", "pq_encode_verify_flags",
     "verify_scale", "VERIFY_RHO", "F32_ROUTE", "WIDE_ROUTE", "f32_route", "wide_chunking",
-    "flagged_rows",
+    "flagged_rows", "wide_route", "split_tf32", "deep_operands", "DEEP_STEP",
 ]
 
 # The widths of the narrow kernels (csrc/assign_tile.cuh); every other ds >= 1
@@ -194,6 +197,70 @@ def wide_chunking(ds: int) -> tuple[int, int]:
     steps = -(-ds // 8)
     kc = min(4, steps)
     return kc, -(-steps // kc)
+
+
+# The deep kernel's step by mode: (centroids, values of depth) it takes at a
+# time; its codebook is padded to these (csrc/assign_deep.cuh).
+DEEP_STEP = {torch.float32: (128, 32), torch.bfloat16: (256, 64)}
+
+
+def wide_route(ds: int, aligned: bool) -> str:
+    """The kernel of the wide route (``ds`` outside 4, 8, 16, 32) for width
+    ``ds``: ``"deep"`` (``csrc/assign_deep.cuh``) where the depth spans more
+    than one 32-value chunk and TMA can describe the rows (its global strides
+    are multiples of 16 bytes, so ``ds`` a multiple of 4, and ``aligned``:
+    ``x``'s first element on 16 bytes); ``"shallow"`` (the cp.async kernel of
+    ``csrc/assign_wide.cuh``, any ``ds`` and alignment) otherwise.  Both run
+    the same arithmetic (route :data:`WIDE_ROUTE`)."""
+    return "deep" if ds > 32 and ds % 4 == 0 and aligned else "shallow"
+
+
+def split_tf32(w: Tensor) -> tuple[Tensor, Tensor]:
+    """``(hi, lo)``: f32 tensors of TF32 values with ``w = hi + lo + r``.
+    ``hi`` is ``w`` rounded to TF32 to nearest, ties away from zero (the rule
+    of ``cvt.rna.tf32.f32``: the 13 low bits of the f32 pattern become zero),
+    ``lo`` the rest ``w - hi`` (exact in f32) rounded the same way: the bits
+    of ``assign_tile::split_tf32``, in tensor operations."""
+    def rna(v: Tensor) -> Tensor:
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(w.to(torch.float32))
+    return hi, rna(w - hi)
+
+
+def deep_operands(cb2: Tensor, c_sqn: Tensor, compute_dtype) -> tuple[Tensor, Tensor]:
+    """The deep kernel's codebook, converted once a call into the layout its
+    TMA loads: ``(w, norms)``.  bf16 mode: ``w`` ``(m, k, dsp)`` bfloat16
+    holding ``2c``; f32 mode: ``w`` ``(2, m, k, dsp)`` f32 holding the TF32
+    parts of ``2c`` (:func:`split_tf32`), hi then lo.  The depth is padded
+    with zeros to ``dsp``, a multiple of the step's depth (:data:`DEEP_STEP`);
+    ``norms`` ``(m, kp)`` holds ``|c|^2`` and ``+inf`` past ``k`` up to a
+    multiple of the step's centroids, so a padded centroid never wins.
+    ``cb2``, ``c_sqn``: :func:`_prepare`'s (``cb2`` already rounded to
+    bfloat16 values in bf16 mode, so the cast is exact)."""
+    m, k, ds = cb2.shape
+    cols, depth = DEEP_STEP[compute_dtype]
+    dsp = -(-ds // depth) * depth
+    if compute_dtype == torch.bfloat16:
+        w = torch.zeros((m, k, dsp), dtype=torch.bfloat16, device=cb2.device)
+        w[:, :, :ds] = cb2
+    else:
+        w = torch.zeros((2, m, k, dsp), dtype=torch.float32, device=cb2.device)
+        w[0, :, :, :ds], w[1, :, :, :ds] = split_tf32(cb2)
+    norms = torch.full((m, -(-k // cols) * cols), float("inf"), dtype=torch.float32,
+                       device=cb2.device)
+    norms[:, :k] = c_sqn
+    return w, norms
+
+
+def _wide_operands(cb2: Tensor, c_sqn: Tensor, x: Tensor, compute_dtype):
+    """``(cb2, c_sqn, deep)`` as the C entries take them for ``x``: the deep
+    kernel's converted operands where :func:`wide_route` picks it."""
+    ds = cb2.shape[2]
+    if ds in _NARROW_DS or wide_route(ds, x.data_ptr() % 16 == 0) != "deep":
+        return cb2, c_sqn, False
+    return (*deep_operands(cb2, c_sqn, compute_dtype), True)
 
 
 def _check_k(m: int, k: int, ds: int, what: str,
@@ -248,7 +315,8 @@ def pq_encode(
 
     CUDA tensors go through the kernel (any ``ds``, ``k <= 65536``; a larger
     ``k`` raises): the narrow kernels at ``ds`` in 4, 8, 16, 32, the wide
-    route (``csrc/assign_wide.cuh``) at every other ``ds``.  CPU tensors go
+    route (``csrc/assign_wide.cuh``, its deep kernel where
+    :func:`wide_route` says) at every other ``ds``.  CPU tensors go
     through :func:`pq_encode_reference`.  The kernel writes ``uint8`` or ``int32``
     codes; other integer dtypes are cast from ``int32`` at the end.  ``out``,
     an ``(n, m)`` tensor of ``dtype`` on the same device, receives the codes
@@ -275,11 +343,12 @@ def pq_encode(
         raw = torch.empty((n, m), dtype=dtype if direct else torch.int32, device=x.device)
     bf16 = compute_dtype == torch.bfloat16
     counter = ("encode_bf16" if bf16 else "encode_f32") + ("" if ds in _NARROW_DS else "_wide")
+    cb2, c_sqn, deep = _wide_operands(cb2, c_sqn, x, compute_dtype)
     with torch.cuda.device(x.device):
         _build.launch(
             "rt_encode", counter,
             x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), raw.data_ptr(),
-            n, m, k, ds, int(bf16), int(raw.dtype == torch.uint8),
+            n, m, k, ds, int(bf16), int(raw.dtype == torch.uint8), int(deep),
             torch.cuda.current_stream().cuda_stream,
         )
     if out is None:
@@ -400,12 +469,13 @@ def pq_encode_verify_flags(
     direct = dtype in (torch.uint8, torch.int32)
     raw = torch.empty((n, m), dtype=dtype if direct else torch.int32, device=x.device)
     flags = torch.zeros((n,), dtype=torch.int32, device=x.device)  # the kernel ORs into it
+    cb2, c_sqn, deep = _wide_operands(cb2, c_sqn, x, torch.float32)
     with torch.cuda.device(x.device):
         _build.launch(
             "rt_encode_verify", "encode_verify" + ("" if ds in _NARROW_DS else "_wide"),
             x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), raw.data_ptr(),
             escale.data_ptr(), float(rho), flags.data_ptr(),
-            n, m, k, ds, int(raw.dtype == torch.uint8),
+            n, m, k, ds, int(raw.dtype == torch.uint8), int(deep),
             torch.cuda.current_stream().cuda_stream,
         )
     return (raw if direct else raw.to(dtype)), flags

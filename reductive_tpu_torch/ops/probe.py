@@ -1,12 +1,16 @@
 """A probe of the tensor cores' accumulation, on which the verify bound rests.
 
 :mod:`reductive_tpu_torch.ops.assign` bounds the error of the 3xTF32 split
-product on the assumption that one ``wgmma.m64n64k8.f32.tf32.tf32``
-instruction aligns its nine addends (eight exact products of TF32 values and
+product on the assumption that one TF32 ``wgmma`` instruction of depth 8
+aligns its nine addends (eight exact products of TF32 values and
 the accumulator) to the largest exponent, keeps at least 24 bits of each and
 truncates: at most ``10 * 2^-23 * M`` an instruction, ``M`` the largest
 magnitude among the addends and the exact sum.  :func:`probe_wgmma_tf32`
-runs that instruction (``csrc/probe.cu``) on cases built to measure this:
+runs the instructions the routes issue (``csrc/probe.cu``):
+``wgmma.m64n64k8.f32.tf32.tf32`` (``n=64``: the narrow route and the wide
+route's shallow kernel) and ``wgmma.m64n128k8.f32.tf32.tf32`` with A from
+registers and B in the swizzled layout TMA writes (``n=128``: the deep
+kernel), on cases built to measure this:
 
 * **kept bits**: ``1 + 2^-e`` as accumulator plus product, product plus
   accumulator, and two products, for ``e = 1 .. 30``: the largest ``e`` kept
@@ -46,19 +50,19 @@ def _tf32(a: np.ndarray) -> np.ndarray:
     return bits.astype(np.uint32).view(np.float32)
 
 
-def probe_cases(seed: int = 0) -> tuple[np.ndarray, np.ndarray, np.ndarray, dict]:
-    """``(A (cases, 64, 8), B (cases, 64, 8), C (cases, 64, 64), index)`` as
-    f32 arrays of TF32 values; ``index`` names the cases by kind.  In the
-    structured cases every row of A and of B is the same, so every output
-    is the same sum."""
+def probe_cases(seed: int = 0, n: int = 64) -> tuple[np.ndarray, np.ndarray, np.ndarray, dict]:
+    """``(A (cases, 64, 8), B (cases, n, 8), C (cases, 64, n), index)`` as
+    f32 arrays of TF32 values, ``n`` the instruction's N (64 or 128);
+    ``index`` names the cases by kind.  In the structured cases every row of
+    A and of B is the same, so every output is the same sum."""
     A, B, C = [], [], []
     index = {"kept": [], "round": [], "random": []}
 
     def case(kind, a8, b8, c):
         index[kind].append(len(A))
         A.append(np.broadcast_to(np.asarray(a8, np.float32), (64, 8)))
-        B.append(np.broadcast_to(np.asarray(b8, np.float32), (64, 8)))
-        C.append(np.broadcast_to(np.asarray(c, np.float32), (64, 64)))
+        B.append(np.broadcast_to(np.asarray(b8, np.float32), (n, 8)))
+        C.append(np.broadcast_to(np.asarray(c, np.float32), (64, n)))
 
     one = [1.0] + [0.0] * 7
     for e in range(1, _E_MAX + 1):
@@ -76,8 +80,8 @@ def probe_cases(seed: int = 0) -> tuple[np.ndarray, np.ndarray, np.ndarray, dict
             return _tf32(rng.standard_normal(shape) * mag)
         index["random"].append(len(A))
         A.append(draw((64, 8)))
-        B.append(draw((64, 8)))
-        C.append(draw((64, 64)))
+        B.append(draw((n, 8)))
+        C.append(draw((64, n)))
     stack = lambda xs: np.ascontiguousarray(np.stack(xs), dtype=np.float32)  # noqa: E731
     return stack(A), stack(B), stack(C), index
 
@@ -112,14 +116,17 @@ def read_probe(A: np.ndarray, B: np.ndarray, C: np.ndarray, D: np.ndarray, index
             "uniform_outputs": uniform, "ok": bool(ok)}
 
 
-def probe_wgmma_tf32(device=None, seed: int = 0) -> dict:
-    """Run the probe on the card (``device``: a CUDA device, the current one
-    by default) and return :func:`read_probe`'s report."""
-    A, B, C, index = probe_cases(seed)
+def probe_wgmma_tf32(device=None, seed: int = 0, n: int = 64) -> dict:
+    """Run the probe of the instruction with N = ``n`` (64 or 128) on the card
+    (``device``: a CUDA device, the current one by default) and return
+    :func:`read_probe`'s report."""
+    if n not in (64, 128):
+        raise ValueError(f"n must be 64 or 128, got {n}")
+    A, B, C, index = probe_cases(seed, n)
     dev = torch.device("cuda") if device is None else torch.device(device)
     tA, tB, tC = (torch.from_numpy(v).to(dev) for v in (A, B, C))
     tD = torch.empty_like(tC)
     with torch.cuda.device(dev):
         _build.launch("rt_probe_wgmma_tf32", None, tA.data_ptr(), tB.data_ptr(), tC.data_ptr(),
-                      tD.data_ptr(), A.shape[0], torch.cuda.current_stream().cuda_stream)
+                      tD.data_ptr(), A.shape[0], n, torch.cuda.current_stream().cuda_stream)
     return read_probe(A, B, C, tD.cpu().numpy(), index)

@@ -59,7 +59,7 @@ from ..linalg import one_hot_sums
 from ..pq.primitives import nearest_centroids, quantize_batch
 from . import _build
 from .assign import (
-    _NARROW_DS, F32_ROUTE, VERIFY_RHO, _check_k, _prepare, flagged_rows,
+    _NARROW_DS, F32_ROUTE, VERIFY_RHO, _check_k, _prepare, _wide_operands, flagged_rows,
     pq_encode_verify_reference, verify_scale,
 )
 
@@ -162,7 +162,8 @@ def _launch_stats(codebooks: Tensor, x: Tensor, compute_dtype, verify=None):
 
 def _launch_wide(cb2, c_sqn, x, codes, sums, counts, compute_dtype, verify, flags) -> None:
     """The wide route (any ``ds`` outside 4, 8, 16, 32): one C entry launches
-    the assignment of ``csrc/assign_wide.cuh``, the radix sort by cell and
+    the assignment of ``csrc/assign_wide.cuh`` (its deep kernel where
+    ``ops.assign.wide_route`` says), the radix sort by cell and
     the per-cell sums (``csrc/stats.cu``), into ``codes`` (an ``(n, m)``
     view of an ``(m, n)`` tensor), ``sums`` and ``counts``."""
     n, m = codes.shape
@@ -176,13 +177,14 @@ def _launch_wide(cb2, c_sqn, x, codes, sums, counts, compute_dtype, verify, flag
     else:
         (escale, rho), mode, name = verify, 2, "stats_verify_wide"
         escale = escale.contiguous()
+    cb2, c_sqn, deep = _wide_operands(cb2, c_sqn, x, compute_dtype)
     with torch.cuda.device(x.device):
         _build.launch(
             "rt_assign_stats_wide", name,
             x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), codes.data_ptr(),
             None if escale is None else escale.data_ptr(), float(rho),
             None if flags is None else flags.data_ptr(), scratch.data_ptr(),
-            sums.data_ptr(), counts.data_ptr(), n, m, k, ds, mode,
+            sums.data_ptr(), counts.data_ptr(), n, m, k, ds, mode, int(deep),
             torch.cuda.current_stream().cuda_stream,
         )
 

@@ -203,7 +203,9 @@ def _refine(
 ) -> Tuple[Tensor, Tensor]:
     """Exact re-scoring of ADC candidates against the original vectors:
     gather the candidate rows, compute true squared distances (or negated
-    inner products), and keep the best ``top_k``.  O(nq * R * d)."""
+    inner products), and keep the best ``top_k``; among equal scores the
+    earlier candidate in the list first, as ``jax.lax.top_k`` keeps them in
+    the JAX package.  O(nq * R * d)."""
     cand = corpus[cand_idx.clamp(0, corpus.shape[0] - 1)].to(torch.float32)  # (nq, R, d)
     q = queries.to(torch.float32)
     if metric == "dot":
@@ -212,7 +214,8 @@ def _refine(
         diff = cand - q[:, None, :]
         d2 = torch.sum(diff * diff, dim=-1)
     d2 = torch.where(cand_idx >= 0, d2, torch.full_like(d2, float("inf")))
-    return _smallest(d2, cand_idx, top_k)
+    vals, pos = _smallest(d2, None, top_k)
+    return vals, torch.gather(cand_idx, 1, pos)
 
 
 def search(

@@ -16,10 +16,11 @@ duplicated centroids, rows on a centroid pair's midpoint, zero rows and rows
 scaled far up and down; for the packed-u4 kernels m = 2, m no multiple of 8
 and k below 16.  The f32 encode and the f32 statistics kernels run one
 assignment routine: their codes, counts and flags are held equal bit for bit.
-The wide route (every ds outside 4, 8, 16, 32: 1, 2, 3, 12, 20, 48, 64, 128
-and 768 here, the last two at k = 4096 and 2000 with m = 1, k-means' shape)
-is held to the same: each kernel against its plain version, encode against
-statistics, two launches bit-equal; decode at any ds.  The verified
+The wide route (every ds outside 4, 8, 16, 32: 1, 2, 3, 12, 20, 36, 40, 48,
+64, 68, 96, 100, 128 and 768 here, its deep kernel from ds = 36 on, the
+shallow one for an x TMA cannot describe) is held to the same: each kernel
+against its plain version, encode against statistics, two launches
+bit-equal, the deep kernel against the shallow one; decode at any ds.  The verified
 statistics give the same bits twice on an adversarial corpus, narrow and
 wide, and so does the plain route on the card.  The probe of the tensor
 cores' accumulation must find what the verify bound assumes.
@@ -319,6 +320,9 @@ ENCODE_F32_SHAPES = (
     + [(n, 4, 256, 32) for n in (127, 129, 2000)]
     # the wide route: rows around its 128-row tile, k around its 64-centroid tile
     + [(n, 3, 50, 12) for n in (127, 129)] + [(300, 1, 65, 128), (200, 10, 128, 2)]
+    # its deep kernel: rows around the 128-row tile, k around the 128-centroid
+    # tile of the f32 mode, depth past the last 32-value chunk
+    + [(n, 3, 50, 36) for n in (127, 129)] + [(300, 1, 129, 128), (200, 2, 255, 100)]
 )
 
 
@@ -456,10 +460,15 @@ def test_kernels_refuse_what_they_do_not_take(dev):
 # -- the wide route ------------------------------------------------------------------
 
 # One shape per width: ragged n, k around the 64-centroid tile and above it,
-# m = 1 at the k-means widths.
+# m = 1 at the k-means widths.  From ds = 36 on the deep kernel: k around its
+# 128- (f32) and 256-centroid (bf16) tiles and at 65,536, n around its
+# 128-row tile, and depths whose last chunk TMA fills with zeros past ds
+# with m > 1 (36, 40, 68, 100).
 WIDE_SHAPES = [
     (3000, 5, 37, 1), (4097, 10, 128, 2), (1000, 3, 300, 3), (2049, 8, 256, 12), (1025, 2, 65, 20),
     (777, 16, 256, 48), (513, 1, 1000, 64), (3000, 1, 4096, 128), (700, 1, 2000, 768),
+    (129, 3, 127, 36), (128, 2, 128, 40), (127, 4, 129, 100), (1000, 2, 255, 64),
+    (300, 1, 256, 128), (257, 3, 257, 68), (200, 1, 65536, 96),
 ]
 
 
@@ -558,6 +567,27 @@ def test_wide_verify_kernels(dev, n, m, k, ds, adversarial):
         assert bool(((got_sums - want_sums).abs() <= tol).all())
 
 
+@pytest.mark.parametrize("n,m,k,ds", [(300, 1, 300, 128), (1000, 3, 257, 36), (513, 2, 1000, 768)])
+def test_the_deep_kernel_assigns_as_the_shallow_one(dev, n, m, k, ds):
+    # x one float off 16 bytes: TMA cannot describe it, so the shallow kernel
+    # takes it (wide_route).  The two kernels run the same arithmetic, so
+    # their codes and flags are the same bits.
+    from reductive_tpu_torch.ops.assign import wide_route
+    cb, x = _data(dev, n, m, k, ds, seed=11)
+    off = torch.empty((n * m * ds + 1,), device=dev)[1:].view(n, m * ds)
+    off.copy_(x)
+    assert wide_route(ds, x.data_ptr() % 16 == 0) == "deep"
+    assert wide_route(ds, off.data_ptr() % 16 == 0) == "shallow"
+    for cd in (torch.float32, torch.bfloat16):
+        assert torch.equal(ops.pq_encode(cb, x, dtype=torch.int32, compute_dtype=cd),
+                           ops.pq_encode(cb, off, dtype=torch.int32, compute_dtype=cd))
+    deep, shallow = pq_encode_verify_flags(cb, x, dtype=torch.int32), \
+        pq_encode_verify_flags(cb, off, dtype=torch.int32)
+    assert torch.equal(deep[0], shallow[0]) and torch.equal(deep[1], shallow[1])
+    a, b = pq_assign_stats_verify_flags(cb, x), pq_assign_stats_verify_flags(cb, off)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
 @pytest.mark.parametrize("n,m,k,ds", [(50000, 16, 256, 8), (20000, 1, 1000, 128), (30000, 10, 128, 2)],
                          ids=["narrow", "wide", "ds2"])
 def test_verified_statistics_and_the_plain_route_repeat_bit_for_bit(dev, n, m, k, ds):
@@ -601,6 +631,16 @@ def test_kmeans_chunked_takes_the_kernel_at_full_width(dev, d, k):
 def test_the_tensor_cores_accumulate_as_the_verify_bound_assumes(dev):
     from reductive_tpu_torch.ops.probe import MODEL_ULPS, probe_wgmma_tf32
     report = probe_wgmma_tf32(dev)
+    assert report["uniform_outputs"], report
+    assert report["kept_bits"] >= 24, report
+    assert report["mode"] == "truncate", report
+    assert report["max_err_ulps"] <= MODEL_ULPS, report
+
+
+def test_the_deep_kernels_instruction_accumulates_as_the_verify_bound_assumes(dev):
+    # wgmma.m64n128k8.f32.tf32.tf32, A from registers, B swizzled as TMA writes it.
+    from reductive_tpu_torch.ops.probe import MODEL_ULPS, probe_wgmma_tf32
+    report = probe_wgmma_tf32(dev, n=128)
     assert report["uniform_outputs"], report
     assert report["kept_bits"] >= 24, report
     assert report["mode"] == "truncate", report

@@ -136,6 +136,34 @@ def test_search_ties_lower_index_first():
         np.testing.assert_array_equal(got[1].numpy(), [[0, 1, 2, 3]])
 
 
+def test_refine_keeps_candidate_order_among_equal_exact_scores():
+    # Rows 0 and 1 are v and -v: at exactly the same distance from a zero
+    # query, and the nearest rows of all.  Their codes put row 1 first in the
+    # ADC candidate list (its reconstruction has the smaller norm), against
+    # their id order; the re-scored ties keep the candidate order, as the JAX
+    # package's top_k does.
+    jpq, tpq, x, _, codes = _setup()
+    cb = np.asarray(jpq.codebooks)
+    norms = (cb.astype(np.float64) ** 2).sum(axis=2)
+    x, codes = x.copy(), codes.copy()
+    x[0] = 0.01 * x[5]
+    x[1] = -x[0]
+    codes[0] = norms.argmax(axis=1)
+    codes[1] = norms.argmin(axis=1)
+    q0 = np.zeros((1, x.shape[1]), np.float32)
+    for top_k in (1, 2, 3):
+        want = j_search(jpq, j(q0), j(codes), top_k, refine_with=j(x), refine_factor=x.shape[0],
+                        method="einsum")
+        got = search(tpq, t(q0), t(codes), top_k, refine_with=t(x), refine_factor=x.shape[0],
+                     method="einsum")
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        # f32 sums of d squares, in the two frameworks' orders (the tied pair's
+        # are equal bit for bit: the same squares).
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-5)
+        assert got[0][0, 0] == got[0][0, min(1, top_k - 1)]
+        np.testing.assert_array_equal(got[1][0, :2].numpy(), [1, 0][:top_k])
+
+
 def test_resolve_stream_chunk_equals_jax():
     for nq in (1, 16, 128, 1000, 5000):
         for n in (10, 1 << 16, 1 << 20, 4_000_000, 100_000_000):

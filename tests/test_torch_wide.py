@@ -284,3 +284,130 @@ def test_the_probe_tells_the_accumulators_apart(model, expect):
         assert report[key] == value, report
     if not model:
         assert 0 < report["max_err_ulps"] <= tprobe.MODEL_ULPS
+
+
+@pytest.mark.parametrize("model,expect", [
+    ({}, {"kept_bits": 24, "mode": "truncate", "ok": True}),
+    ({"rounding": True}, {"kept_bits": 24, "mode": "round", "ok": False}),
+    ({"bits": 22}, {"kept_bits": 22, "ok": False}),
+], ids=["truncate-24", "round-24", "truncate-22"])
+def test_the_probe_reads_the_deep_kernels_instruction(model, expect):
+    # N = 128: wgmma.m64n128k8, the deep kernel's; B (cases, 128, 8), C and D
+    # (cases, 64, 128).
+    A, B, C, index = tprobe.probe_cases(n=128)
+    assert A.shape == (len(A), 64, 8) and B.shape == (len(A), 128, 8)
+    assert C.shape == (len(A), 64, 128)
+    assert np.array_equal(tprobe._tf32(B), B)
+    report = tprobe.read_probe(A, B, C, _simulated_instruction(A, B, C, **model), index)
+    for key, value in expect.items():
+        assert report[key] == value, report
+    with pytest.raises(ValueError, match="64 or 128"):
+        tprobe.probe_wgmma_tf32("cpu", n=96)
+
+
+# -- the deep kernel's operands and its dispatch ---------------------------------------
+
+
+def _rna_tf32_oracle(v: np.ndarray) -> np.ndarray:
+    """Round to 11 significant bits, nearest, ties away from zero, in f64
+    arithmetic on the value (not on its bits)."""
+    v = v.astype(np.float64)
+    out = np.zeros_like(v)
+    nz = v != 0
+    e = np.floor(np.log2(np.abs(v[nz])))
+    ulp = 2.0 ** (e - 10)
+    out[nz] = np.sign(v[nz]) * np.floor(np.abs(v[nz]) / ulp + 0.5) * ulp
+    return out
+
+
+def test_split_tf32_is_cvt_rna_against_a_value_oracle():
+    rng = np.random.default_rng(98)
+    v = (rng.standard_normal(20000) * 2.0 ** rng.integers(-20, 21, 20000)).astype(np.float32)
+    # Exact ties (bit 12 set, below it zero), both signs; mantissas that round
+    # up into the next binade; zeros.
+    tie = (rng.integers(0, 1 << 10, 500).astype(np.uint32) << 13 | 0x1000 | 0x3F800000).view(np.float32)
+    top = np.full(8, np.float32(1.0) - np.float32(2.0 ** -24))
+    v = np.concatenate([v, tie, -tie, top, -top, np.zeros(2, np.float32)]).astype(np.float32)
+    hi, lo = tassign.split_tf32(t(v))
+    hi, lo = hi.numpy(), lo.numpy()
+    assert hi.dtype == lo.dtype == np.float32
+    assert not (hi.view(np.uint32) & 0x1FFF).any() and not (lo.view(np.uint32) & 0x1FFF).any()
+    np.testing.assert_array_equal(hi.astype(np.float64), _rna_tf32_oracle(v))
+    # The same on the bits: add half a unit of the 13 dropped bits to the
+    # magnitude (sign and magnitude are apart in f32), then clear them.
+    bits = v.view(np.uint32).astype(np.uint64)
+    np.testing.assert_array_equal(hi.view(np.uint32),
+                                  ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32))
+    rest = v.astype(np.float64) - hi.astype(np.float64)  # exact in f32, so in f64
+    assert np.array_equal(rest.astype(np.float32).astype(np.float64), rest)
+    np.testing.assert_array_equal(lo.astype(np.float64), _rna_tf32_oracle(rest))
+    # Ties went away from zero.
+    assert (np.abs(hi[20000:21000]) > np.abs(np.concatenate([tie, -tie]))).all()
+    # x = hi + lo + r with |r| <= 2^-22 |x|; exact where x has two 11-bit parts.
+    assert (np.abs(v - (hi.astype(np.float64) + lo)) <= 2.0 ** -22 * np.abs(v)).all()
+    a = _rna_tf32_oracle(rng.standard_normal(1000))
+    # |b| in [2^-13, 2^-12) |a|: below half a's last unit, and a + b within 24 bits.
+    b = _rna_tf32_oracle(a * 2.0 ** -12 * rng.uniform(0.5, 1, 1000) * rng.choice([-1, 1], 1000))
+    x2 = (a + b).astype(np.float32)
+    assert np.array_equal(x2.astype(np.float64), a + b)
+    h2, l2 = tassign.split_tf32(t(x2))
+    np.testing.assert_array_equal(h2.numpy().astype(np.float64) + l2.numpy(), a + b)
+
+
+def _bf16_oracle(v: np.ndarray) -> np.ndarray:
+    """Round f32 to bfloat16, nearest, ties to even, on the bits."""
+    u = v.astype(np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) >> 16 << 16
+    return u.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+@pytest.mark.parametrize("m,k,ds", [(1, 300, 128), (3, 129, 36), (2, 257, 100), (1, 5, 768)])
+def test_deep_operands_are_the_layout_the_deep_kernel_loads(compute, m, k, ds):
+    rng = np.random.default_rng(97)
+    cb = rng.standard_normal((m, k, ds)).astype(np.float32)
+    cb[0, 0, :4] = (np.array([0x3F808000, 0x3F818000, 0xBF808000, 0x40004000], np.uint32)
+                    .view(np.float32) / 2)  # 2c on a bf16 tie, both ways and negative
+    cd = torch.float32 if compute == "f32" else torch.bfloat16
+    x = t(np.zeros((2, m * ds), np.float32))
+    cb2, c_sqn = tassign._prepare(t(cb), x, torch.int32, cd)
+    w, norms = tassign.deep_operands(cb2, c_sqn, cd)
+    cols, depth = tassign.DEEP_STEP[cd]
+    dsp = -(-ds // depth) * depth
+    kp = -(-k // cols) * cols
+    two_c = 2 * cb
+    if compute == "bf16":
+        assert w.dtype == torch.bfloat16 and tuple(w.shape) == (m, k, dsp)
+        got = w.to(torch.float32).numpy()
+        np.testing.assert_array_equal(got[..., :ds], _bf16_oracle(two_c))
+    else:
+        assert w.dtype == torch.float32 and tuple(w.shape) == (2, m, k, dsp)
+        got = w.numpy()
+        np.testing.assert_array_equal(got[0, ..., :ds], _rna_tf32_oracle(two_c))
+        np.testing.assert_array_equal(got[1, ..., :ds],
+                                      _rna_tf32_oracle(two_c.astype(np.float64) - got[0, ..., :ds]))
+    assert not got[..., ds:].any()  # zeros past ds
+    assert tuple(norms.shape) == (m, kp)
+    np.testing.assert_array_equal(norms[:, :k].numpy(), c_sqn.numpy())
+    assert bool(torch.isinf(norms[:, k:]).all()) and bool((norms[:, k:] > 0).all())
+
+
+def test_the_wide_route_is_a_pure_function_of_the_width_and_the_alignment():
+    for ds in range(1, 800):
+        for aligned in (False, True):
+            want = "deep" if ds > 32 and ds % 4 == 0 and aligned else "shallow"
+            assert tassign.wide_route(ds, aligned) == want
+    # What the wrappers hand the C entries: the converted operands only where
+    # the route is deep (x's own address decides the alignment).
+    for ds, deep in ((128, True), (36, True), (33, False), (12, False), (2, False)):
+        cb = torch.randn((2, 7, ds), generator=torch.Generator().manual_seed(ds))
+        cb2, c_sqn = cb + cb, (cb * cb).sum(2)
+        buf = torch.zeros((5 * 2 * ds + 1,))
+        for x, ok in ((buf[:-1].view(5, 2 * ds), deep), (buf[1:].view(5, 2 * ds), False)):
+            assert x.data_ptr() % 16 == (0 if x.storage_offset() == 0 else 4)
+            got = tassign._wide_operands(cb2, c_sqn, x, torch.float32)
+            assert got[2] is ok
+            if ok:
+                assert tuple(got[0].shape) == (2, 2, 7, -(-ds // 32) * 32)
+            else:
+                assert got[0] is cb2 and got[1] is c_sqn

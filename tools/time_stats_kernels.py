@@ -210,7 +210,7 @@ def ablated(n_rows: int) -> None:
                 encode_fn.argtypes = list(_build._ENTRIES["rt_encode"][1])
                 calls.append(("encode_f32", "rt_encode", encode_fn,
                               (x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), codes.data_ptr(),
-                               n_rows, m, k, ds, 0, 1, stream)))
+                               n_rows, m, k, ds, 0, 1, 0, stream)))
             for mode, entry, fn, args in calls:
                 fn.restype = ctypes.c_int
 
