@@ -14,7 +14,9 @@ other subvector width: k-means at IVF's coarse shapes (d=128, k=4,096 over
 2^20 rows; d=768, k=16,384 over 2^19 rows; m = 1, ds = d) and a quantizer
 at the reference's quality-gate width (d=20, m=10, k=128, ds=2) over the
 corpus's first 20 columns, after a probe of the tensor cores' accumulation
-that the verify bound rests on.
+that the verify bound rests on; it also times the any-width decode kernels at
+d=300, k=256 (m = 150 and 30) over 2^21 rows.  The serving phase also searches
+a corpus whose k-th place is always tied and holds the ids to a stable sort's.
 Every phase prints one JSON line.  The run fails (non-zero exit, no result
 line) without a CUDA device, when a kernel does not build, does not launch
 or disagrees, or when a path did not go through its kernels.  The last line
@@ -50,12 +52,13 @@ import torch
 from reductive_tpu_torch import Pq, io, kmeans, ops, train_opq_chunked, train_pq, train_pq_chunked
 from reductive_tpu_torch.ops.adc import quantize_tables_int8
 from reductive_tpu_torch.ops.assign import pq_encode_verify_flags, verify_scale, wide_route
-from reductive_tpu_torch.ops.decode import quantize_codebook_int8
+from reductive_tpu_torch.ops.decode import decode_table, launch_decode, quantize_codebook_int8
 from reductive_tpu_torch.ops.probe import probe_wgmma_tf32
 from reductive_tpu_torch.ops.stats import pq_assign_stats_verify_flags, stats_from_codes
 from reductive_tpu_torch.pq import primitives
 from reductive_tpu_torch.pq.opq import create_projection_matrix
 from reductive_tpu_torch.pq.train import init_codebooks_random
+from reductive_tpu_torch import search as search_module
 from reductive_tpu_torch.search import adc_tables, search
 
 SEED = 0
@@ -116,6 +119,7 @@ WIDE_KERNELS = tuple(name for name in KERNELS if name.endswith(("_wide", "_scala
 IVF10M = (1 << 20, 128, 4096)
 IVF100M = (1 << 19, 768, 16384)
 GATE_M, GATE_BITS = 10, 7
+N_D300 = 1 << 21                # rows of the wide phase's 300-d decode shapes
 
 
 class SmokeFailure(RuntimeError):
@@ -572,8 +576,10 @@ def phase_serve(pq, corpus):
         "adc_tables_ms": time_ms(lambda: adc_tables(pq, q16)),
         "adc_kernel_ms": time_ms(lambda: ops.adc_scores_kernel(tables, codes)),
         "torch_topk_ms": time_ms(lambda: torch.topk(scores, TOP_K, dim=1, largest=False)),
+        "selection_ms": time_ms(lambda: search_module._smallest(scores, None, TOP_K)),
     }
     del scores
+    ties = tie_check(pq, codes, q16, q128)
 
     emit(
         "serve", n=n, d=D, m=M, k=K, top_k=TOP_K, search_16q_breakdown=breakdown,
@@ -585,10 +591,38 @@ def phase_serve(pq, corpus):
         search_16q_int8_pairs_per_s=16 * n / t_s8, search_16q_refine_s=t_ref,
         agree_f32_with_exact=agree_f32, agree_bf16_with_exact=agree_bf16,
         mse=mse, mse_fast=mse_fast, mse_int8=mse_int8,
-        index_agreement_with_einsum=overlaps,
+        index_agreement_with_einsum=overlaps, tie_check=ties,
         peak_memory_bytes=peak, launches=launches,
     )
     return codes, launches
+
+
+def tie_check(pq, codes, q16, q128):
+    """Search over a corpus of 4,000 distinct codes, each held by about 1,000
+    rows spread over it, so that every query's k-th place is a tie: the ids
+    must be a stable sort's first ``TOP_K`` of the same scores (lowest ids
+    among equal scores, as the JAX package's ``top_k`` keeps them), dense at
+    16 queries and streamed at 128.  Also reports whether ``torch.topk``
+    alone keeps the lowest ids here (the property the selection no longer
+    relies on)."""
+    n = codes.shape[0]
+    gen = torch.Generator(device=codes.device).manual_seed(SEED + 1)
+    tied = codes[:4000][torch.randint(0, 4000, (n,), generator=gen, device=codes.device)]
+    out = {"rows": n, "distinct_codes": 4000}
+    for name, q in (("16q", q16), ("128q", q128)):
+        _, ids = search(pq, q, tied, TOP_K)
+        same, topk_same = True, True
+        for i in range(0, q.shape[0], 16):
+            scores = ops.adc_scores_kernel(adc_tables(pq, q[i:i + 16]), tied, splits=2)
+            want = torch.sort(scores, dim=1, stable=True).indices[:, :TOP_K]
+            same &= bool(torch.equal(ids[i:i + 16], want))
+            got = torch.topk(scores, TOP_K, dim=1, largest=False).indices
+            topk_same &= bool(torch.equal(torch.sort(got, dim=1).values, torch.sort(want, dim=1).values))
+            del scores
+        require(same, f"serve: with ties at the k-th place the {name} search ids are not a stable sort's")
+        out[f"ids_equal_stable_sort_{name}"] = same
+        out[f"torch_topk_keeps_lowest_ids_{name}"] = topk_same
+    return out
 
 
 # -- the training path ---------------------------------------------------------
@@ -1095,7 +1129,7 @@ def phase_wide(corpus, gen):
     def row(name, cb, x, kernel, plain, library, nbytes, nops, op_type, alone=None):
         bound_ms, bound_by = bound(nbytes, nops, op_type)
         m, k, ds = cb.shape
-        out = {"name": name, "shape": f"n={x.shape[0]} d={x.shape[1]} m={m} k={k} ds={ds}",
+        out = {"name": name, "shape": f"n={x.shape[0]} d={m * ds} m={m} k={k} ds={ds}",
                "ms": time_ms(kernel, 3), "plain_ms": time_ms(plain, 1),
                "library_ms": time_ms(library, 1), "bound_ms": bound_ms, "bound_by": bound_by}
         if alone is not None:
@@ -1153,23 +1187,44 @@ def phase_wide(corpus, gen):
                                 "tf32" if mode == "f32" else "bf16"))
         return rows
 
-    n_c, m_c = x20.shape[0], GATE_M
-    dec_bytes = n_c * m_c + 4 * m_c * 128 * 2 + 4 * n_c * 20
-    idx20 = codes20.to(torch.int64) + torch.arange(m_c, device=dev)[None, :] * 128
+    def decode_rows(cb, codes):
+        """The two any-width decode kernels: wrapper, C entry alone (the table
+        built outside the timed call), plain version, ``F.embedding``."""
+        n, m = codes.shape
+        _, k, ds = cb.shape
+        nbytes = n * m + 4 * m * k * ds + 4 * n * m * ds  # codes, codebook, output once each
+        idx = codes.to(torch.int64) + torch.arange(m, device=dev)[None, :] * k
+        out = torch.empty((n, m * ds), device=dev)
+        rows = []
+        for name, splits in (("decode_scalar", 3), ("decode_int8_scalar", "int8")):
+            table = decode_table(cb, splits)
+            library = (library_decode_int8(cb, codes) if splits == "int8" else
+                       lambda: torch.nn.functional.embedding(idx, table[0].reshape(-1, ds)))
+            rows.append(row(name, cb, codes, lambda: ops.pq_decode(cb, codes, splits=splits),
+                            lambda: ops.pq_decode_reference(cb, codes, splits=splits), library,
+                            nbytes, n * m * ds if splits == "int8" else 0, "f32",
+                            alone=lambda: launch_decode(table, codes, out)))
+        del idx, out
+        return rows
+
     times = {
         "ivf10m": stats_rows(cb_a, xa, ("f32", "verify")),
         "ivf100m": assign_rows(cb_b, xb) + stats_rows(cb_b, xb, ("f32",)),
-        "gate_ds2": assign_rows(cb_c, x20) + stats_rows(cb_c, x20, ("bf16", "f32")) + [
-            row("decode_scalar", cb_c, x20, lambda: ops.pq_decode(cb_c, codes20, splits=3),
-                lambda: ops.pq_decode_reference(cb_c, codes20, splits=3),
-                lambda: torch.nn.functional.embedding(idx20, cb_c.reshape(-1, 2)),
-                dec_bytes, 0, "f32"),
-            row("decode_int8_scalar", cb_c, x20,
-                lambda: ops.pq_decode(cb_c, codes20, splits="int8"),
-                lambda: ops.pq_decode_reference(cb_c, codes20, splits="int8"),
-                library_decode_int8(cb_c, codes20), dec_bytes, n_c * 20, "f32"),
-        ],
+        "gate_ds2": assign_rows(cb_c, x20) + stats_rows(cb_c, x20, ("bf16", "f32"))
+        + decode_rows(cb_c, codes20),
     }
+    # 300-d embeddings (fastText, word2vec and GloVe publish 300-d vectors), k=256,
+    # at m = 150 (ds = 2) and m = 30 (ds = 10): the f32 table (307 KB) does not fit
+    # a block's shared memory, the int8 one (78 KB) would; timed only.
+    for m_w in (150, 30):
+        cb_w = torch.randn((m_w, 256, 300 // m_w), generator=gen, device=dev)
+        codes_w = torch.randint(0, 256, (N_D300, m_w), generator=gen, device=dev, dtype=torch.uint8)
+        for name, splits in (("decode_scalar", 3), ("decode_int8_scalar", "int8")):
+            compared.append({"kernel": name, "shape": f"n={N_D300} d=300 m={m_w} k=256",
+                             **compare_decode(cb_w, codes_w, splits)})
+        times[f"d300_m{m_w}"] = decode_rows(cb_w, codes_w)
+        del cb_w, codes_w
+        torch.cuda.empty_cache()
     largest = {"encode_f32_wide": "ivf100m", "encode_bf16_wide": "ivf100m",
                "encode_verify_wide": "ivf100m", "stats_f32_wide": "ivf100m",
                "stats_verify_wide": "ivf10m", "stats_bf16_wide": "gate_ds2",

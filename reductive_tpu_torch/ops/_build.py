@@ -43,8 +43,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _ENTRIES = {
     "rt_encode": ("encode", (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P)),
     "rt_encode_verify": ("encode", (_P, _P, _P, _P, _P, _F, _P, _L, _I, _I, _I, _I, _I, _P)),
-    "rt_decode": ("decode", (_P, _I, _I, _P, _P, _L, _I, _I, _I, _P)),
-    "rt_decode_int8": ("decode", (_P, _I, _I, _P, _P, _P, _L, _I, _I, _I, _P)),
+    "rt_decode_prepare": ("decode", (_P, _I, _P, _P, _P, _I, _I, _I, _P)),
+    "rt_decode": ("decode", (_P, _I, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P)),
+    "rt_decode_int8": ("decode", (_P, _I, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P)),
     "rt_adc": ("adc", (_P, _P, _I, _I, _P, _L, _I, _I, _I, _I, _I, _P)),
     "rt_adc_int8": ("adc", (_P, _P, _P, _P, _I, _I, _P, _L, _I, _I, _I, _I, _I, _P)),
     "rt_assign_stats": ("stats", (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P)),
@@ -151,8 +152,9 @@ def library(name: str) -> ctypes.CDLL:
 def launch(entry: str, counter: str | None, *args) -> None:
     """Call one C entry (which launches its kernel on the stream it is given
     and returns ``cudaGetLastError()``), raise if that is not 0, and add one
-    to the kernel's launch count (``counter=None``: a probe, not a kernel of
-    the port; nothing is counted).  This is the only place a count grows."""
+    to the kernel's launch count (``counter=None``: a probe, or the table a
+    kernel gathers from, built by its own launch; nothing is counted).  This
+    is the only place a count grows."""
     rc = query(entry, *args)
     if rc != 0:
         raise RuntimeError(

@@ -10,9 +10,8 @@ distances and inner products are preserved because the projection is
 orthonormal.  Matrix products are float32.
 
 Top-k order: results are sorted ascending by score, and among equal scores
-by ascending index (a stable sort of the small ``(nq, top_k)`` result), which
-is the order the JAX package's ``top_k`` gives.  Which of several rows tied
-exactly at the k-th score is kept is ``torch.topk``'s choice.
+by ascending index; of several rows tied exactly at the k-th score the lowest
+indices are kept.  That is what the JAX package's ``top_k`` gives.
 """
 
 from __future__ import annotations
@@ -148,16 +147,63 @@ def adc_scores_decode(
     return q_sqn[:, None] + rec_sqn[None, :] - 2.0 * qrec
 
 
+# _smallest takes rows up to this long by one stable sort; longer rows by
+# torch.topk and a repair of the ties at the k-th place, found block by block.
+_SORT_ROW = 2048
+_TIE_BLOCK = 256
+
+
 def _smallest(scores: Tensor, idx: Optional[Tensor], top_k: int) -> Tuple[Tensor, Tensor]:
     """The ``top_k`` smallest of each row of ``scores`` with their ids
-    (column numbers, or ``idx`` where given), ascending by score and, among
-    equal scores, by id."""
-    vals, sel = torch.topk(scores, min(top_k, scores.shape[1]), dim=1, largest=False)
-    ids = sel if idx is None else torch.gather(idx, 1, sel)
-    ids, order = torch.sort(ids, dim=1, stable=True)
-    vals = torch.gather(vals, 1, order)
-    vals, order = torch.sort(vals, dim=1, stable=True)
-    return vals, torch.gather(ids, 1, order)
+    (column positions, or ``idx`` gathered at them where given), ascending by
+    score and, among equal scores, by position: of the scores tied at the
+    k-th place the lowest positions are kept, as ``jax.lax.top_k`` keeps them.
+    No wait for the card, and the same result every time."""
+    k = min(top_k, scores.shape[1])
+    if scores.shape[1] <= _SORT_ROW:
+        vals, pos = torch.sort(scores, dim=1, stable=True)
+        vals, pos = vals[:, :k], pos[:, :k]
+    else:
+        vals, pos = _smallest_long(scores, k)
+    return vals, pos if idx is None else torch.gather(idx, 1, pos)
+
+
+def _smallest_long(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """:func:`_smallest` of long rows.  ``torch.topk`` gives the k-th
+    smallest score ``thr`` and every score below it; which of the scores
+    equal to ``thr`` it keeps is its own choice.  The ``need`` of them that
+    belong to the result are the first ones by position.  They lie in the
+    first ``need`` blocks of ``_TIE_BLOCK`` columns that hold a tie, so among
+    the first ``2k - 1`` blocks whose minimum is at most ``thr`` (at most
+    ``k - 1`` more hold a score below it): those blocks are gathered and a
+    running count over their ties keeps the first ``need``.  One pass over
+    the scores (the blocks' minima) besides ``torch.topk``.  A block whose
+    minimum is NaN is gathered too; a row where fewer than ``k`` are found
+    (NaN blocks in the way, or a NaN ``thr``) keeps ``torch.topk``'s
+    choice."""
+    nq, n = scores.shape
+    dev = scores.device
+    b = _TIE_BLOCK
+    vals, sel = torch.topk(scores, k, dim=1, largest=False)
+    thr = vals[:, k - 1:]
+    below = vals < thr
+    need = k - below.sum(dim=1, keepdim=True)
+    main = n // b * b
+    low = scores[:, :main].view(nq, main // b, b).amin(dim=2)
+    if main < n:
+        low = torch.cat([low, scores[:, main:].amin(dim=1, keepdim=True)], dim=1)
+    nb = low.shape[1]
+    blocks = torch.arange(nb, device=dev).masked_fill(low > thr, nb)
+    first = torch.topk(blocks, min(2 * k - 1, nb), dim=1, largest=False).values
+    # Positions of those blocks' columns; a missing block (nb) lies past n.
+    at = (first[:, :, None] * b + torch.arange(b, device=dev)).reshape(nq, -1)
+    tied = (torch.gather(scores, 1, at.clamp(max=n - 1)) == thr) & (at < n)
+    take = tied & (torch.cumsum(tied, dim=1, dtype=torch.int32) <= need)
+    keys = torch.cat([sel.masked_fill(~below, n), at.masked_fill(~take, n)], dim=1)
+    pos = torch.topk(keys, k, dim=1, largest=False).values  # the k kept, by position
+    pos = torch.where((pos < n).all(dim=1, keepdim=True), pos, torch.sort(sel, dim=1).values)
+    vals, order = torch.sort(torch.gather(scores, 1, pos), dim=1, stable=True)
+    return vals, torch.gather(pos, 1, order)
 
 
 def _scores(pq, tables, queries, codes, chunk_size, method, splits, packed, metric) -> Tensor:

@@ -20,7 +20,11 @@ The wide route (every ds outside 4, 8, 16, 32: 1, 2, 3, 12, 20, 36, 40, 48,
 64, 68, 96, 100, 128 and 768 here, its deep kernel from ds = 36 on, the
 shallow one for an x TMA cannot describe) is held to the same: each kernel
 against its plain version, encode against statistics, two launches
-bit-equal, the deep kernel against the shallow one; decode at any ds.  The verified
+bit-equal, the deep kernel against the shallow one; decode at any ds, in
+every table regime of the row-tile kernels (tiles of 1 to 64 rows), into an
+``out`` off 16 bytes and from codes that start off a word, its tables bit for
+bit the plain versions' on adversarial bit patterns, and at d=300, k=256.
+Search keeps the lowest ids among scores tied at the k-th place.  The verified
 statistics give the same bits twice on an adversarial corpus, narrow and
 wide, and so does the plain route on the card.  The probe of the tensor
 cores' accumulation must find what the verify bound assumes.
@@ -72,7 +76,8 @@ def test_encode_kernel_equals_plain(dev, n, m, k, ds, compute_dtype):
 @pytest.mark.parametrize("code_dtype", [torch.uint8, torch.int32, torch.int64])
 @pytest.mark.parametrize("n,m,k,ds", [(1000, 3, 7, 4), (4097, 16, 256, 8), (513, 24, 256, 32),
                                       (1000, 10, 128, 2), (513, 3, 7, 3), (257, 1, 16, 1),
-                                      (100, 2, 50, 5)])
+                                      (100, 2, 50, 5), (1, 10, 128, 2), (417, 10, 128, 2),
+                                      (3000, 1, 300, 7), (999, 30, 256, 10), (50, 2, 256, 1023)])
 def test_decode_kernel_equals_plain(dev, n, m, k, ds, code_dtype, splits):
     cb, _ = _data(dev, n, m, k, ds)
     codes = torch.randint(0, k, (n, m), device=dev).to(code_dtype)
@@ -406,6 +411,173 @@ def test_packed_adc_kernel(dev, n, m, k, nq, splits):
     # A view that starts off a 4-byte boundary takes the scalar route.
     assert torch.equal(
         ops.adc_scores_kernel(tables, packed[1:], splits=splits, packed=True), got[:, 1:])
+
+
+# -- decode: the row-tile kernel, its tables, and views off 16 bytes ------------------
+
+
+def _float_patterns(dev, size, seed, finite=False):
+    """f32 values of every kind of bit pattern: random bits (subnormals, huge
+    and tiny values, NaN and inf unless ``finite``), and +-0, +-FLT_MAX, the
+    largest and smallest subnormals, values a bf16 rounding tie away from
+    their neighbours."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bits = torch.randint(-(1 << 31), 1 << 31, (size,), generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+    special = torch.tensor([0, -(1 << 31), 0x7F7FFFFF, -0x00800001, 0x007FFFFF, 1, -0x7FFFFFFF,
+                            0x3F808000, 0x3F818000, -0x407F8000, 0x7F7F8000, 0x00008000],
+                           dtype=torch.int32, device=dev)
+    bits[:special.numel()] = special
+    v = bits.view(torch.float32)
+    if finite:
+        v = torch.where(torch.isfinite(v), v, torch.zeros_like(v))
+    return v
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN against NaN whatever its payload."""
+    return bool(((a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3])
+def test_the_decode_table_is_the_effective_codebook_bit_for_bit(dev, splits):
+    from reductive_tpu_torch.ops.decode import decode_table, effective_codebook
+    cb = _float_patterns(dev, 7 * 300 * 5, splits).reshape(7, 300, 5)
+    (table,) = decode_table(cb, splits)
+    assert _same_bits(table, effective_codebook(cb, splits))
+    assert _same_bits(table.cpu(), effective_codebook(cb.cpu(), splits))
+
+
+@pytest.mark.parametrize("m,k,ds", [(7, 300, 5), (1, 16384, 3), (2, 5, 70), (10, 128, 2)])
+def test_the_int8_decode_table_is_the_quantizers_bit_for_bit(dev, m, k, ds):
+    from reductive_tpu_torch.ops.decode import decode_table, quantize_codebook_int8
+    cb = _float_patterns(dev, m * k * ds, m + ds, finite=True).reshape(m, k, ds)
+    cb[0, :, 0] = 0.0  # a column of zeros: its scale is 0, its divisor 1e-30
+    cb[-1, :, -1] *= 1e-38  # a column of subnormals and zeros
+    w8, scale = decode_table(cb, "int8")
+    w8_want, scale_want = quantize_codebook_int8(cb)
+    assert torch.equal(w8, w8_want) and _same_bits(scale, scale_want)
+
+
+@pytest.mark.parametrize("splits", [3, "int8"])
+@pytest.mark.parametrize("ds", [2, 3, 8])
+def test_decode_into_an_out_off_16_bytes(dev, ds, splits):
+    from reductive_tpu_torch import Pq
+    from reductive_tpu_torch.pq.model import reconstruct_batch_into
+    n, m, k = 1001, 10, 128
+    cb, _ = _data(dev, n, m, k, ds)
+    codes = torch.randint(0, k, (n, m), device=dev, dtype=torch.uint8)
+    want = ops.pq_decode(cb, codes, splits=splits)
+    for off in (1, 2, 3):
+        flat = torch.full((n * m * ds + 4,), -1.0, device=dev)
+        out = flat[off:off + n * m * ds].view(n, m * ds)
+        assert out.is_contiguous() and out.data_ptr() % 16 == 4 * off
+        assert ops.pq_decode(cb, codes, splits=splits, out=out) is out
+        assert torch.equal(out, want)
+        assert bool((flat[:off] == -1).all()) and bool((flat[off + n * m * ds:] == -1).all())
+    if splits == 3:
+        out = torch.empty((n * m * ds + 1,), device=dev)[1:].view(n, m * ds)
+        assert reconstruct_batch_into(Pq(codebooks=cb), codes, out, method="kernel") is out
+        assert torch.equal(out, want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("ds", [2, 3, 8])
+def test_decode_codes_that_start_mid_tensor(dev, ds, packed):
+    n, m, k = 3001, 10, 16
+    cb, _ = _data(dev, n, m, k, ds)
+    codes = torch.randint(0, k, (n + 7, m), device=dev, dtype=torch.uint8)
+    if packed:
+        codes = ops.pack_u4_codes(codes)
+    for start in (1, 3, 4, 7):
+        part = codes[start:start + n]
+        want = ops.pq_decode_reference(cb, part, splits=3, packed=packed)
+        assert torch.equal(ops.pq_decode(cb, part, splits=3, packed=packed), want)
+        assert torch.equal(ops.pq_decode(cb, part, splits="int8", packed=packed),
+                           ops.pq_decode_reference(cb, part, splits="int8", packed=packed))
+
+
+@pytest.mark.parametrize("regime", ["plan", "wide_budget", "l2"])
+@pytest.mark.parametrize("splits", [3, "int8"])
+@pytest.mark.parametrize("code_dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("m", [150, 30, 10])
+def test_decode_at_300_dimensions_in_every_table_regime(dev, m, code_dtype, splits, regime,
+                                                        monkeypatch):
+    from reductive_tpu_torch.ops import decode
+    if regime != "plan":
+        budget = 0 if regime == "l2" else 200 * 1024
+        monkeypatch.setattr(decode, "_TILE_SHARED_BYTES", {False: budget, True: budget})
+    n, k, ds = 20001, 256, 300 // m
+    cb, _ = _data(dev, n, m, k, ds)
+    codes = torch.randint(0, k, (n, m), device=dev).to(code_dtype)
+    codes[::97, 3] = k - 1
+    _, group = decode.decode_tile_plan(m, k, ds, codes.element_size(), False, splits == "int8")
+    if regime == "l2":
+        assert group == 0
+    elif regime == "wide_budget" and splits == "int8":
+        assert group == m  # the whole table, 78 KB, in shared memory
+    else:
+        assert 0 < group < m  # a block stages a group of subquantizers
+    ops.reset_launch_counts()
+    got = ops.pq_decode(cb, codes, splits=splits)
+    name = "decode_int8" if splits == "int8" else "decode"
+    assert ops.launch_counts() == {name + ("" if ds % 4 == 0 else "_scalar"): 1}
+    assert torch.equal(got, ops.pq_decode_reference(cb, codes, splits=splits))
+
+
+@pytest.mark.parametrize("splits", [3, "int8"])
+@pytest.mark.parametrize("codes_as", ["uint8", "int32", "packed"])
+@pytest.mark.parametrize("n,m,k,ds", [(1000, 10, 16, 2), (513, 6, 7, 3), (257, 2, 16, 1),
+                                      (2000, 4, 16, 5), (999, 30, 16, 10), (77, 2, 3, 7)])
+def test_every_row_tile_plan_gives_the_same_bits(dev, n, m, k, ds, codes_as, splits):
+    # Tiles of 1, 7, 16 and 64 rows (their codes start off 16 bytes unless the
+    # row's bytes keep them on it), the table whole, a group of subquantizers a
+    # block, or read from L2; into an out off 16 bytes.
+    from reductive_tpu_torch.ops.decode import decode_table, launch_decode
+    cb, _ = _data(dev, n, m, k, ds)
+    codes = torch.randint(0, k, (n, m), device=dev, dtype=torch.uint8)
+    want = ops.pq_decode_reference(cb, codes, splits=splits)
+    if codes_as == "packed":
+        codes = ops.pack_u4_codes(codes)
+    elif codes_as == "int32":
+        codes = codes.to(torch.int32)
+    table = decode_table(cb, splits)
+    flat = torch.empty((n * m * ds + 1,), device=dev)
+    for rows in (1, 7, 16, 64):
+        for group in (m, 1, max(1, m // 3), 0):
+            for out in (flat[:-1].view(n, m * ds), flat[1:].view(n, m * ds)):
+                out.fill_(-1.0)
+                launch_decode(table, codes, out, packed=codes_as == "packed", plan=(rows, group))
+                assert torch.equal(out, want), (rows, group, out.data_ptr() % 16)
+
+
+def test_smallest_keeps_the_lowest_positions_among_ties_at_the_kth_place(dev):
+    from reductive_tpu_torch import search as tsearch
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for nq, n, levels, k in ((16, 4_000_000, 1000, 10), (4, 300_001, 3, 40), (3, 5000, 2, 7),
+                             (2, 2048, 5, 10), (5, 1 << 20, 100_000, 100)):
+        scores = torch.randint(0, levels, (nq, n), generator=gen, device=dev).to(torch.float32)
+        vals, ids = tsearch._smallest(scores, None, k)
+        want_vals, want_ids = torch.sort(scores, dim=1, stable=True)
+        assert torch.equal(ids, want_ids[:, :k]) and torch.equal(vals, want_vals[:, :k])
+
+
+@pytest.mark.parametrize("stream_chunk", [None, 1 << 16])
+def test_search_keeps_the_lowest_ids_among_ties_at_the_kth_place(dev, stream_chunk):
+    from reductive_tpu_torch import Pq
+    from reductive_tpu_torch.search import adc_tables, search
+    gen = torch.Generator(device=dev).manual_seed(6)
+    m, k, ds, n = 16, 256, 8, 300_000
+    pq = Pq(codebooks=torch.randn((m, k, ds), generator=gen, device=dev))
+    distinct = torch.randint(0, k, (4096, m), generator=gen, device=dev, dtype=torch.uint8)
+    # Every code is held by about 73 rows: a query's k-th place is a tie.
+    codes = distinct[torch.randint(0, 4096, (n,), generator=gen, device=dev)]
+    q = torch.randn((16, m * ds), generator=gen, device=dev)
+    scores = ops.adc_scores_kernel(adc_tables(pq, q), codes, splits=2)
+    want = torch.sort(scores, dim=1, stable=True).indices[:, :10]
+    _, ids = search(pq, q, codes, 10, stream_chunk=stream_chunk)
+    assert torch.equal(ids, want)
 
 
 def test_verified_and_packed_feed_the_entry_points(dev):

@@ -136,6 +136,68 @@ def test_search_ties_lower_index_first():
         np.testing.assert_array_equal(got[1].numpy(), [[0, 1, 2, 3]])
 
 
+def _lexsort_ids(scores, top_k):
+    """The numpy oracle: the ``top_k`` smallest of each row by (score, position)."""
+    return np.stack([np.lexsort((np.arange(row.shape[0]), row))[:top_k] for row in scores])
+
+
+@pytest.mark.parametrize("stream_chunk", [None, 256, 1000])
+@pytest.mark.parametrize("n,top_k", [(600, 10), (3000, 10), (3000, 100)])
+def test_search_keeps_the_lowest_ids_among_ties_at_the_kth_place(n, top_k, stream_chunk):
+    # A corpus of 40 distinct codes, each held by n/40 rows spread over it: the
+    # k-th place is a tie between dozens of rows, the first rows by position
+    # belong to the result (3000 rows: past the one-sort length, so the
+    # topk-and-repair route; 100 ids cut through a second tied code).
+    jpq, tpq, _, q, codes = _setup(n=n)
+    codes = codes[np.random.default_rng(n).integers(0, 40, n)]
+    scores = adc_scores(adc_tables(tpq, t(q)), t(codes)).numpy()
+    want = _lexsort_ids(scores, top_k)
+    got = search(tpq, t(q), t(codes), top_k, method="einsum", stream_chunk=stream_chunk)
+    np.testing.assert_array_equal(got[1].numpy(), want)
+    np.testing.assert_array_equal(got[0].numpy(), np.take_along_axis(scores, want, axis=1))
+    jwant = j_search(jpq, j(q), j(codes), top_k, method="einsum", stream_chunk=stream_chunk)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(jwant[1]))
+
+
+@pytest.mark.parametrize("sort_row,block", [(2048, 1024), (0, 1024), (0, 7), (0, 1)])
+def test_smallest_is_the_lexsort_oracle(sort_row, block, monkeypatch):
+    # Rows with few distinct values (ties everywhere), +inf among them, k from
+    # 1 to the whole row, blocks that do not divide the row; with ids given
+    # (the streamed merge) the ids follow the positions.
+    from reductive_tpu_torch import search as tsearch
+    monkeypatch.setattr(tsearch, "_SORT_ROW", sort_row)
+    monkeypatch.setattr(tsearch, "_TIE_BLOCK", block)
+    rng = np.random.default_rng(block)
+    for trial in range(40):
+        nq, n = int(rng.integers(1, 4)), int(rng.integers(1, 3000))
+        k = int(rng.integers(1, min(n, 50) + 1))
+        scores = rng.integers(0, int(rng.integers(1, 20)), (nq, n)).astype(np.float32)
+        if trial % 4 == 0:
+            scores[:, ::3] = np.inf
+        vals, ids = tsearch._smallest(t(scores), None, k)
+        want = _lexsort_ids(scores, k)
+        np.testing.assert_array_equal(ids.numpy(), want)
+        np.testing.assert_array_equal(vals.numpy(), np.take_along_axis(scores, want, axis=1))
+        idx = rng.permutation(10 * n)[:n].astype(np.int64)[None].repeat(nq, axis=0)
+        _, ids = tsearch._smallest(t(scores), t(idx), k)
+        np.testing.assert_array_equal(ids.numpy(), np.take_along_axis(idx, want, axis=1))
+
+
+def test_refine_keeps_candidate_order_among_duplicate_rows():
+    # Duplicated corpus rows give equal exact distances; the refine keeps the
+    # earlier candidates, as the JAX package's top_k over the candidate list.
+    jpq, tpq, x, q, codes = _setup(n=600)
+    pick = np.random.default_rng(3).integers(0, 30, 600)
+    x, codes = x[pick], codes[pick]
+    for top_k, factor in ((5, 8), (10, 30)):
+        want = j_search(jpq, j(q), j(codes), top_k, refine_with=j(x), refine_factor=factor,
+                        method="einsum")
+        got = search(tpq, t(q), t(codes), top_k, refine_with=t(x), refine_factor=factor,
+                     method="einsum")
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-5)
+
+
 def test_refine_keeps_candidate_order_among_equal_exact_scores():
     # Rows 0 and 1 are v and -v: at exactly the same distance from a zero
     # query, and the nearest rows of all.  Their codes put row 1 first in the
