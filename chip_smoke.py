@@ -31,8 +31,9 @@ encode and statistics kernels it is the least over the routes that meet
 their contract: three passes of the product in TF32 on the tensor cores
 (``bound_route``); the fp32 pipes' figure stands beside it as
 ``bound_ms_fp32_pipes``.  The f32 encode and statistics kernels run one
-assignment routine: the kernels phase holds their codes, counts and flags
-equal bit for bit on the whole corpus (``shared_assignment``).
+assignment routine, and so do the bf16 ones: the kernels phase holds their
+codes, counts and flags equal bit for bit on the whole corpus
+(``shared_assignment``).
 """
 
 from __future__ import annotations
@@ -50,8 +51,11 @@ import time
 import torch
 
 from reductive_tpu_torch import Pq, io, kmeans, ops, train_opq_chunked, train_pq, train_pq_chunked
+from reductive_tpu_torch.ops import _build
 from reductive_tpu_torch.ops.adc import quantize_tables_int8
-from reductive_tpu_torch.ops.assign import pq_encode_verify_flags, verify_scale, wide_route
+from reductive_tpu_torch.ops.assign import (
+    _prepare, bf16_tile_plan, pq_encode_verify_flags, verify_scale, wide_route,
+)
 from reductive_tpu_torch.ops.decode import decode_table, launch_decode, quantize_codebook_int8
 from reductive_tpu_torch.ops.probe import probe_wgmma_tf32
 from reductive_tpu_torch.ops.stats import pq_assign_stats_verify_flags, stats_from_codes
@@ -77,12 +81,13 @@ TOP_K = 10
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
 # What the kernels took at the flagship shape before their redesign for this
-# card (PERF.md: the statistics kernels before the tensor-core assignment, the
-# f32 and verified encode before it took the same routine; NVIDIA H100 80GB
-# HBM3 at 700 W).
-BEFORE_MS = {"stats_f32": 13.04, "stats_bf16": 9.46, "stats_verify": 17.37,
-             "stats_verify_kernel": 16.86, "encode_f32": 8.70, "encode_verify": 12.72,
-             "encode_verify_kernel": 11.29}
+# card (PERF.md: the f32 and verified statistics kernels before the
+# tensor-core assignment, the f32 and verified encode before it took the same
+# routine, the bf16 encode and statistics before they took its bf16 mode;
+# NVIDIA H100 80GB HBM3 at 700 W).
+BEFORE_MS = {"stats_f32": 13.04, "stats_bf16": 6.02, "stats_verify": 17.37,
+             "stats_verify_kernel": 16.86, "encode_f32": 8.70, "encode_bf16": 5.29,
+             "encode_verify": 12.72, "encode_verify_kernel": 11.29}
 
 KERNELS = {
     "encode_f32": ("reductive_tpu_torch/csrc/encode.cu", "reductive_tpu/ops/assign.py:138"),
@@ -340,8 +345,17 @@ def compare_shared_assignment(codebooks, x):
     """The f32 encode and the f32 statistics kernels run one assignment
     routine: the encode's codes equal the verified statistics kernel's, its
     per-cell counts equal the f32 statistics kernel's, and the two verify
-    kernels' codes and flags are equal, all bit for bit."""
+    kernels' codes and flags are equal, all bit for bit.  The bf16 encode and
+    the bf16 statistics kernel run one routine too: the encode's codes
+    counted per cell are the statistics kernel's counts."""
     m, k = codebooks.shape[:2]
+    b_codes = ops.pq_encode(codebooks, x, dtype=torch.int32, compute_dtype=torch.bfloat16)
+    b_by_code = torch.stack([torch.bincount(b_codes[:, j].long(), minlength=k) for j in range(m)])
+    del b_codes
+    _, b_counts = ops.pq_assign_stats(codebooks, x, compute_dtype=torch.bfloat16)
+    cells_bf16 = int((b_by_code.to(torch.float32) != b_counts).sum())
+    require(cells_bf16 == 0,
+            f"shared assignment: encode_bf16's counts differ from stats_bf16's in {cells_bf16} cells")
     codes = ops.pq_encode(codebooks, x, dtype=torch.int32, compute_dtype=torch.float32)
     _, s_counts, s_codes, s_flags = pq_assign_stats_verify_flags(codebooks, x)
     n_codes = int((codes != s_codes).sum())
@@ -364,7 +378,7 @@ def compare_shared_assignment(codebooks, x):
     return {"shape": f"n={x.shape[0]} d={x.shape[1]} m={m} k={k}", "codes_compared": s_codes.numel(),
             "encode_f32_codes_off_stats_verify": n_codes, "count_cells_off_stats_f32": cells_f32,
             "encode_verify_codes_off": n_vcodes, "encode_verify_flags_off": n_flags,
-            "flagged_rows": int(s_flags.sum())}
+            "flagged_rows": int(s_flags.sum()), "encode_bf16_count_cells_off_stats_bf16": cells_bf16}
 
 
 def compare_packed_decode(codebooks, codes, packed, splits):
@@ -1254,14 +1268,39 @@ def phase_wide(corpus, gen):
     return probe, launches, table
 
 
+def bf16_entries(cb, x):
+    """The C entries of the bf16 encode (uint8 codes) and statistics kernels
+    alone, as two callables, the operands prepared outside (``_prepare``'s
+    rounded ``2c`` and ``|c|^2``, the plans, the outputs); nothing counted."""
+    n = x.shape[0]
+    m, k, ds = cb.shape
+    cb2, c_sqn = _prepare(cb, x, torch.uint8, torch.bfloat16)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    enc, st = bf16_tile_plan(n, m, k, ds, sms=sms), bf16_tile_plan(n, m, k, ds)
+    codes = torch.empty((n, m), dtype=torch.uint8, device=x.device)
+    partial = torch.empty((st.blocks, m, k, ds + 1), device=x.device)
+    sums, counts = torch.empty((m, k, ds), device=x.device), torch.empty((m, k), device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr())
+    return (
+        lambda: _build.launch("rt_encode_bf16", None, *ptrs, codes.data_ptr(), n, m, k, ds, 1,
+                              enc.rows, enc.blocks, enc.smem_bytes, stream),
+        lambda: _build.launch("rt_assign_stats_bf16", None, *ptrs, partial.data_ptr(),
+                              sums.data_ptr(), counts.data_ptr(), n, m, k, ds, st.rows, st.blocks,
+                              st.smem_bytes, stream),
+    )
+
+
 def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
     """Each kernel at the shape the main paths give it (n = 4,000,000 rows;
     ADC with 16 queries, the dense search; k=16 for the packed kernels): time,
     plain version's time, one library call's time, and the bound.  For the
     verified kernels ``ms`` is the whole wrapper (kernel, ``nonzero``, exact
     re-encode of the flagged rows) and ``kernel_ms`` the kernel alone; their
-    library call is the exact path itself."""
+    library call is the exact path itself.  The bf16 encode and statistics
+    rows carry ``kernel_ms`` too: their C entries alone."""
     cb = pq.codebooks
+    encode_bf16_alone, stats_bf16_alone = bf16_entries(cb, corpus)
     n = corpus.shape[0]
     nq = 16
     tables = adc_tables(pq, corpus[:nq])
@@ -1315,7 +1354,8 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
         ("encode_bf16", lambda: ops.pq_encode(cb, corpus, compute_dtype=bf16),
          lambda: ops.pq_encode_reference(cb, corpus, compute_dtype=bf16),
          lambda: library_assign(cb, corpus, bf16),
-         lambda: compare_encode(cb, corpus, bf16), bound(enc_bytes, enc_ops, "bf16")),
+         lambda: compare_encode(cb, corpus, bf16), bound(enc_bytes, enc_ops, "bf16"),
+         encode_bf16_alone),
         ("decode", lambda: ops.pq_decode(cb, codes, splits=3),
          lambda: ops.pq_decode_reference(cb, codes, splits=3), library_decode,
          lambda: compare_decode(cb, codes, 3), bound(n * M + cb_bytes + 4 * n * D, 0, "f32")),
@@ -1338,7 +1378,8 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
         ("stats_bf16", lambda: ops.pq_assign_stats(cb, corpus, compute_dtype=bf16),
          lambda: ops.pq_assign_stats_reference(cb, corpus, compute_dtype=bf16),
          lambda: library_assign_stats(cb, corpus, bf16),
-         lambda: compare_stats(cb, corpus, bf16), bound(stats_bytes, enc_ops, "bf16")),
+         lambda: compare_stats(cb, corpus, bf16), bound(stats_bytes, enc_ops, "bf16"),
+         stats_bf16_alone),
         ("encode_verify", lambda: ops.pq_encode_verified(cb, corpus),
          lambda: ops.pq_encode_verify_reference(cb, corpus),
          lambda: primitives.quantize_batch(cb, corpus),
@@ -1437,7 +1478,8 @@ def main() -> int:
 
     by_name = {row["name"]: row for row in rows}
     ms = {name: by_name[name]["ms"] for name in BEFORE_MS if name in by_name}
-    ms.update({f"{name}_kernel": by_name[name]["kernel_ms"] for name in ("stats_verify", "encode_verify")})
+    ms.update({f"{name}_kernel": by_name[name]["kernel_ms"]
+               for name in ("stats_verify", "encode_verify", "stats_bf16", "encode_bf16")})
     emit("redesigned", shape=by_name["stats_f32"]["shape"], before_ms=BEFORE_MS, ms=ms,
          stats_verify_flag_rate={name: exact_out[name]["stats_flag_rate"]
                                  for name in ("gaussian", "adversarial")},

@@ -45,9 +45,23 @@
 // copy_rows / wait_rows, assign each tile with assign_rows and flag a row with
 // flag_row, so a row gets the same (code, best, second) bits and the same flag
 // from every one of them.
+//
+// bf16 mode (assign_rows_bf16, at the end; encode_bf16_kernel and
+// stats_bf16_kernel walk the same row-tile loop): x and 2c rounded to
+// bfloat16 (nearest even), s = 2c.x one wgmma.mma_async.m64n64k16.bf16 a
+// quarter and depth step of 16 (ds = 4 and 8 padded with zeros, ds = 32 two
+// steps) into accumulators that start at zero, then d = |c|^2 - s in one
+// rounded fp32 subtraction and the f32 mode's pairwise selection with its
+// updates on the FMA pipe (PickFma).  A, the rounded rows, comes from
+// registers, loaded from the f32 copy that copy_rows landed (the statistics
+// kernel has that copy rounded in place by the same loads, so it sums the
+// very values the products saw); B, the staged 2c in bf16, from shared memory
+// in the no-swizzle layout above with 16 values a core-matrix pair, converted
+// once per block (k <= 256) or per centroid tile.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,6 +99,25 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// d (+)= a . b^T in bf16: a, 64 x 16 in the warpgroup's registers (mma.sync's
+// m16n8k16 A layout a warp, load_rows_bf16); b, 64 x 16 in shared memory
+// behind desc_b (K-major, no swizzle); d, 64 x 64 in f32.
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                        uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32,%33,%34,%35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -420,6 +453,276 @@ __device__ __forceinline__ void flag_row(const float* xs, float best, float seco
   const float margin = second - best;
   const float limit = 2.0f * escale * sqrtf(xn2) + rho * fabsf(best);
   if (!(margin > limit)) atomicOr(flag, 1);
+}
+
+// ---- bf16 mode ------------------------------------------------------------------
+
+// Per ds, for blocks of 256 threads: the subtiles a warpgroup takes per tile
+// (tiles of 512 rows, 256 at ds = 32, where the two f32 buffers of the rows
+// would otherwise leave one block on an SM) and the blocks an SM holds:
+// three where their shared memory fits (ds <= 8), with one accumulator set a
+// warpgroup (80 registers a thread), else two, with two sets, the products of
+// quarter q + 1 in flight while quarter q is selected.  Measured at ds = 8 on
+// an H100 (C entry, encode / stats): two blocks with two sets 4.08 / 5.25 ms,
+// three with one 3.86 / 4.59.  ops/assign.py bf16_tile_plan repeats this;
+// the C entries refuse a plan that differs.
+template <int DS>
+constexpr int kBf16Subtiles = DS == 32 ? 2 : 4;
+template <int DS>
+constexpr int kBf16Blocks = DS <= 8 ? 3 : 2;
+
+// Byte offset of (centroid c, depth column tt) in the staged bf16 centroids:
+// [depth step of 16][c / 8][half of the step][c % 8][8 values], so that a
+// quarter of a step is 2 KB and b_descriptor() addresses it.
+__device__ __forceinline__ int bf16_offset(int c, int tt) {
+  return (tt >> 4) * kCentroidTile * 32 + (c >> 3) * 256 + ((tt >> 3) & 1) * 128 + (c & 7) * 16 +
+         (tt & 7) * 2;
+}
+
+// The shared memory of a bf16 block: the staged centroids (2c in bf16, then
+// |c|^2 in f32), two f32 buffers of the rows for copy_rows, and per row the
+// chosen code and distance.
+template <int DS, int SUB, int THREADS>
+struct Bf16Tile {
+  static constexpr int KS = (DS + 15) / 16;  // depth steps of 16
+  static constexpr int kRows = kTileRows<SUB, THREADS>;
+  static constexpr int kCentroidBytes = KS * kCentroidTile * 32;
+  static constexpr int kBytes = kCentroidBytes + 4 * (kCentroidTile + 2 * kRows * DS + 2 * kRows);
+  unsigned char* s_c;  // 2c, bf16
+  float* s_n;          // |c|^2 [kCentroidTile]
+  float* s_x2;         // [2][kRows][DS]
+  int* s_code;         // [kRows]
+  float* s_best;       // [kRows]
+  __device__ explicit Bf16Tile(unsigned char* base)
+      : s_c(base),
+        s_n(reinterpret_cast<float*>(base + kCentroidBytes)),
+        s_x2(s_n + kCentroidTile),
+        s_code(reinterpret_cast<int*>(s_x2 + 2 * kRows * DS)),
+        s_best(reinterpret_cast<float*>(s_code + kRows)) {}
+};
+
+// Stage the centroids k0 .. k0 + kt - 1 of one subquantizer (cbj: (k, DS) f32
+// holding 2c, already bf16 values; nj: (k,) f32 holding |c|^2) into s_c / s_n.
+// Columns from kt up to the next multiple of 64 get zeros and |c|^2 = +inf.
+// The caller synchronises around it.
+template <int DS, int THREADS>
+__device__ __forceinline__ void stage_centroids_bf16(unsigned char* s_c, float* s_n,
+                                                     const float* __restrict__ cbj,
+                                                     const float* __restrict__ nj, int k0, int kt) {
+  constexpr int kPairs = (DS + 15) / 16 * 8;  // pairs of values of a padded centroid
+  const int padded = (kt + kQuarter - 1) / kQuarter * kQuarter;
+  for (int e = threadIdx.x; e < padded * kPairs; e += THREADS) {
+    const int c = e / kPairs;
+    const int tt = 2 * (e - c * kPairs);
+    float2 v = make_float2(0.0f, 0.0f);
+    if (c < kt && tt < DS) v = *reinterpret_cast<const float2*>(cbj + (long long)(k0 + c) * DS + tt);
+    *reinterpret_cast<__nv_bfloat162*>(s_c + bf16_offset(c, tt)) =
+        __floats2bfloat162_rn(v.x, v.y);
+  }
+  for (int e = threadIdx.x; e < padded; e += THREADS)
+    s_n[e] = e < kt ? nj[k0 + e] : __int_as_float(0x7f800000);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The thread's part of a 64-row subtile as bf16 A fragments (mma.sync's
+// m16n8k16 layout: row g or g + 8 of the warp's 16, columns 2t, 2t + 1, then
+// the same 8 further), zeros past ds.  xs: the subtile's first row in shared
+// memory, rows [DS] apart.  ROUND also writes the rounded values back there:
+// each value of the subtile is loaded by exactly one thread of its warpgroup.
+template <int DS, bool ROUND>
+__device__ __forceinline__ void load_rows_bf16(float* xs, uint32_t (&a)[(DS + 15) / 16][4]) {
+  const int lane = threadIdx.x & 31;
+  const int row0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < (DS + 15) / 16; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = 16 * ks + 8 * (i >> 1) + 2 * t;
+      float2* at = reinterpret_cast<float2*>(xs + (row0 + 8 * (i & 1)) * DS + col);
+      const float2 v = col < DS ? *at : make_float2(0.0f, 0.0f);
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v.x, v.y);  // .x (low half) = v.x
+      a[ks][i] = *reinterpret_cast<const uint32_t*>(&b);
+      if constexpr (ROUND) {
+        if (col < DS) *at = __bfloat1622float2(b);
+      }
+    }
+  }
+}
+
+// Start the products of one quarter of the staged centroids into d (from
+// zero) and commit them as one group.
+template <int KS>
+__device__ __forceinline__ void start_products_bf16(float (&d)[32], const unsigned char* s_c,
+                                                    const uint32_t (&a)[KS][4], int quarter) {
+  wgmma_fence();  // the selection has read d; the fragments were just written
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_m64n64k16_bf16_rs(
+        d, a[ks], b_descriptor(reinterpret_cast<const uint32_t*>(s_c + ks * kCentroidTile * 32), quarter),
+        ks > 0);
+  wgmma_commit();
+}
+
+// The bf16 mode's selection: Pick's pairwise walk, state and compares, with
+// its three updates as predicated FMAs (x * 1 + 0 is x; a zero of either sign
+// compares equal to the other) on the FMA pipe, where Pick's selects take the
+// half-rate ALU pipe that the selection waits for; the compare and the
+// pair's minimum stay there.  The base is a float (columns below 2^24).
+// Measured at ds = 8 on an H100 (C entry, encode / stats): 3.66 / 4.52 ms
+// against 3.90 / 4.69 with Pick.
+struct PickFma {
+  float best[2];  // least distance so far
+  float keep[2];  // d0 of the pair that holds it
+  float base[2];  // first column of the 8-column group that holds it
+
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      best[h] = keep[h] = __int_as_float(0x7f800000);  // +inf
+      base[h] = 0.0f;
+    }
+  }
+
+  // Scores d0, d1 of the columns col + off + 2t, col + off + 2t + 1 for row h.
+  __device__ __forceinline__ void take(int h, float d0, float d1, float col, float off) {
+    const float lo = fminf(d0, d1);
+    asm("{\n.reg .pred p;\nsetp.lt.f32 p, %3, %0;\n"
+        "@p fma.rn.f32 %0, %3, 0f3F800000, 0f00000000;\n"
+        "@p fma.rn.f32 %1, %4, 0f3F800000, 0f00000000;\n"
+        "@p add.rn.f32 %2, %5, %6;\n}\n"
+        : "+f"(best[h]), "+f"(keep[h]), "+f"(base[h])
+        : "f"(lo), "f"(d0), "f"(col), "f"(off));
+  }
+
+  // As Pick::finish: every lane of row h gets the chosen index and distance.
+  __device__ __forceinline__ void finish(int h, int& idx, float& dist) const {
+    const int t = threadIdx.x & 3;
+    float v = best[h];
+    int i = (int)base[h] + 2 * t + (keep[h] == v ? 0 : 1);
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+      if (ov < v || (ov == v && oi < i)) {
+        v = ov;
+        i = oi;
+      }
+    }
+    idx = i;
+    dist = v;
+  }
+};
+
+// The selection of one quarter: scores |c|^2 - s of the columns col .., the
+// first `cols` of them real.
+__device__ __forceinline__ void select_quarter(PickFma& pick, const float (&d)[32],
+                                               const float* s_nq, int col, int cols) {
+  const int t = threadIdx.x & 3;
+  const float colf = __int2float_rn(col);
+#pragma unroll
+  for (int i = 0; i < kQuarter / 8; ++i) {
+    if (8 * i < cols) {  // the same for every thread
+      const float2 nn = *reinterpret_cast<const float2*>(s_nq + 8 * i + 2 * t);
+      pick.take(0, nn.x - d[4 * i + 0], nn.y - d[4 * i + 1], colf, 8.0f * i);
+      pick.take(1, nn.x - d[4 * i + 2], nn.y - d[4 * i + 3], colf, 8.0f * i);
+    }
+  }
+}
+
+// scan_quarters of the f32 mode for the bf16 products, with SETS (1 or 2)
+// accumulator sets: with two, the products of quarter q + 1 run while
+// quarter q is selected; with one, each quarter's products are waited for
+// (the other warpgroups of the SM select meanwhile).
+template <int KS, int NQ, int SETS>
+__device__ __forceinline__ void scan_quarters_bf16(const unsigned char* s_c, const float* s_n,
+                                                   const uint32_t (&a)[KS][4], int k0,
+                                                   int last_cols, PickFma& pick) {
+  float d[SETS][32];
+  if constexpr (SETS == 2) start_products_bf16<KS>(d[0], s_c, a, 0);
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    if constexpr (SETS == 1) {
+      start_products_bf16<KS>(d[0], s_c, a, q);
+      wgmma_wait<0>();
+    } else if (q + 1 < NQ) {
+      start_products_bf16<KS>(d[(q + 1) & 1], s_c, a, q + 1);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    pin(d[q % SETS]);
+    select_quarter(pick, d[q % SETS], s_n + q * kQuarter, k0 + q * kQuarter,
+                   q + 1 < NQ ? kQuarter : last_cols);
+  }
+}
+
+// Scan the staged centroid tile (kt columns, global columns k0 ..) for one
+// subtile.  All four warps of the warpgroup call it together.
+template <int KS, int SETS>
+__device__ __forceinline__ void scan_bf16(const unsigned char* s_c, const float* s_n,
+                                          const uint32_t (&a)[KS][4], int k0, int kt,
+                                          PickFma& pick) {
+  const int quarters = (kt + kQuarter - 1) / kQuarter;  // the same for every thread
+  const int last = kt - (quarters - 1) * kQuarter;
+  switch (quarters) {
+    case 1: scan_quarters_bf16<KS, 1, SETS>(s_c, s_n, a, k0, last, pick); break;
+    case 2: scan_quarters_bf16<KS, 2, SETS>(s_c, s_n, a, k0, last, pick); break;
+    case 3: scan_quarters_bf16<KS, 3, SETS>(s_c, s_n, a, k0, last, pick); break;
+    default: scan_quarters_bf16<KS, 4, SETS>(s_c, s_n, a, k0, last, pick); break;
+  }
+}
+
+// Assign the rows of a tile that copy_rows landed in s_x ([kRows][DS] f32) to
+// the k centroids of one subquantizer (cbj: (k, DS) f32 holding 2c, already
+// bf16 values; nj: (k,) f32 holding |c|^2): the chosen index into s_code and
+// its distance into s_best, per row (ROUND: s_x then holds the rounded rows).
+// The centroids are staged as assign_rows stages them (`staged`: the first
+// centroid held, -1 for none), once per block for k <= 256; an earlier
+// centroid tile keeps a tie.  Every thread of the block calls it; the caller
+// synchronises before the results are read.
+template <int DS, int SUB, int THREADS, bool ROUND>
+__device__ __forceinline__ void assign_rows_bf16(const Bf16Tile<DS, SUB, THREADS>& sm, int& staged,
+                                                 const float* __restrict__ cbj,
+                                                 const float* __restrict__ nj, int k, float* s_x) {
+  constexpr int KS = Bf16Tile<DS, SUB, THREADS>::KS;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  for (int k0 = 0; k0 < k; k0 += kCentroidTile) {
+    const int kt = min(kCentroidTile, k - k0);
+    if (staged != k0) {  // the same for every thread
+      __syncthreads();
+      stage_centroids_bf16<DS, THREADS>(sm.s_c, sm.s_n, cbj, nj, k0, kt);
+      staged = k0;
+      __syncthreads();
+    }
+#pragma unroll 1
+    for (int s = 0; s < SUB; ++s) {
+      const int first = ((warp >> 2) * SUB + s) * kSubtile;
+      uint32_t a[KS][4];
+      load_rows_bf16<DS, ROUND>(s_x + first * DS, a);
+      PickFma pick;
+      pick.reset();
+      scan_bf16<KS, kBf16Blocks<DS> == 3 ? 1 : 2>(sm.s_c, sm.s_n, a, k0, kt, pick);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int idx;
+        float best;
+        pick.finish(h, idx, best);
+        const int in_tile = first + 16 * (warp & 3) + g + 8 * h;
+        if (t == 0) {
+          if (k0 > 0 && !(best < sm.s_best[in_tile])) {
+            best = sm.s_best[in_tile];
+            idx = sm.s_code[in_tile];
+          }
+          sm.s_code[in_tile] = idx;
+          sm.s_best[in_tile] = best;
+        }
+      }
+    }
+  }
 }
 
 }  // namespace assign_tile

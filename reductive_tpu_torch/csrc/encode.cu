@@ -32,15 +32,18 @@
 //   meet in L2: writing the codes costs 0.06 ms of 5.2 at the flagship shape.
 //
 // * bf16 (encode_bf16_kernel): x and 2c rounded to bfloat16, products and
-//   sums in f32, on the tensor cores (mma.sync.m16n8k8).  What bounds it: the
-//   bytes (the tensor cores make the operations cheap); what this kernel
-//   really waits for is the compare-and-select after each 16x8 tile of
-//   scores.  Design: a warp holds the A fragments of 64 rows in registers and
-//   walks the centroids eight at a time; the accumulator starts at -|c|^2, so
-//   a tile comes out as 2c.x - |c|^2 and the epilogue is an argmax: one
-//   compare and two selects per score.  Each thread sees its columns in
-//   rising order and keeps the first maximum; the four threads that share a
-//   row then take the larger value and, on a tie, the lower index.
+//   sums in f32 on the tensor cores: assign_tile.cuh's bf16 routine
+//   (assign_rows_bf16: wgmma m64n64k16, A from registers, over quarters of
+//   64 centroids, then d = |c|^2 - s and the f32 mode's pairwise selection,
+//   its updates on the FMA pipe), the one stats_bf16_kernel runs, so a row's
+//   code is the same bits in both.  What bounds it: the bytes (x read once,
+//   2 GB at the flagship shape, against 0.5 ms of bf16 products padded to a
+//   depth of 16); what it waits for is the selection's compares and minima on
+//   the half-rate ALU pipe, then the products.  Design: the f32 mode's loop
+//   (P blocks per subquantizer, the next tile's rows by cp.async while this
+//   one is assigned, the centroids converted once per block for k <= 256),
+//   three blocks an SM at ds <= 8, with the launch plan (rows a tile, P,
+//   shared memory) from ops/assign.py bf16_tile_plan.
 //
 // * verified (encode_f32_kernel with VERIFY; replaces the TPU kernel
 //   reductive_tpu/ops/assign.py::_encode_verify_kernel): the f32 kernel, whose
@@ -55,7 +58,6 @@
 //   ops/assign.py, route "tf32x3"); it re-encodes the flagged rows with the
 //   exact path.  The bound is the f32 kernel's plus 4*n bytes of flags.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -128,120 +130,43 @@ encode_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
   }
 }
 
-// ---- bf16 mode on the tensor cores ---------------------------------------
+// ---- bf16 mode: assign_tile.cuh's bf16 routine ------------------------------
 
-constexpr int kRowTiles = 4;                          // 16-row tiles a warp holds
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerBlock = kWarps * kRowTiles * 16;
-
-__device__ __forceinline__ void mma_m16n8k8_bf16(float (&c)[4], uint32_t a0, uint32_t a1,
-                                                 uint32_t b0) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int DS, typename OutT>
-__global__ void __launch_bounds__(kThreads)
+template <int DS, int SUB, typename OutT>
+__global__ void __launch_bounds__(kThreads, assign_tile::kBf16Blocks<DS>)
 encode_bf16_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
-                   const float* __restrict__ csqn, OutT* __restrict__ codes,
-                   long long n, int m, int k) {
-  constexpr int KS = (DS + 7) / 8;  // k-steps of 8; ds = 4 is padded with zeros
-  constexpr int DSP = KS * 8;
-  __shared__ __align__(16) __nv_bfloat16 s_c[kCentroidTile * DSP];  // [c][t]
-  __shared__ __align__(8) float s_n[kCentroidTile];                 // -|c|^2
+                   const float* __restrict__ csqn, OutT* __restrict__ codes, long long n, int m,
+                   int k, int P) {
+  using T = assign_tile::Bf16Tile<DS, SUB, kThreads>;
+  constexpr int kTile = T::kRows;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const T sm(smem);
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;  // row of the fragment (and g + 8)
-  const int t = lane & 3;   // column pair 2t, 2t + 1
-  const int j = blockIdx.x % m;  // the m blocks of a row tile meet in L2
-  const long long d = (long long)m * DS;
-  const long long row0 = (long long)(blockIdx.x / m) * kRowsPerBlock + warp * (kRowTiles * 16);
-
-  uint32_t a[kRowTiles][KS][2];
-  float best[kRowTiles][2];
-  int best_idx[kRowTiles][2];
-#pragma unroll
-  for (int rt = 0; rt < kRowTiles; ++rt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long row = row0 + rt * 16 + g + 8 * h;
-      best[rt][h] = __int_as_float(0xff800000);  // -inf
-      best_idx[rt][h] = 0;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const int col = ks * 8 + 2 * t;
-        float2 v = make_float2(0.f, 0.f);
-        if (row < n && col < DS)
-          v = *reinterpret_cast<const float2*>(x + row * d + (long long)j * DS + col);
-        a[rt][ks][h] = pack_bf16x2(v.x, v.y);
-      }
-    }
-  }
-
+  const int j = blockIdx.x % m;
+  const int p = blockIdx.x / m;
+  const long long n_tiles = (n + kTile - 1) / kTile;
   const float* cbj = cb2 + (long long)j * k * DS;
   const float* nj = csqn + (long long)j * k;
-  for (int k0 = 0; k0 < k; k0 += kCentroidTile) {
-    const int kt = min(kCentroidTile, k - k0);
-    const int kt8 = (kt + 7) & ~7;  // a ragged last tile is padded: zeros, -inf
-    __syncthreads();
-    for (int e = threadIdx.x; e < kt8 * DSP; e += kThreads) {
-      const int c = e / DSP;
-      const int tt = e - c * DSP;
-      const float v = (c < kt && tt < DS) ? cbj[(long long)(k0 + c) * DS + tt] : 0.0f;
-      s_c[e] = __float2bfloat16_rn(v);
-    }
-    for (int e = threadIdx.x; e < kt8; e += kThreads)
-      s_n[e] = e < kt ? -nj[k0 + e] : __int_as_float(0xff800000);
+
+  int buffer = 0;
+  if (p < n_tiles) assign_tile::copy_rows<DS, kTile, kThreads>(x, n, m, j, p, sm.s_x2);
+
+  int staged = -1;
+  for (long long tile = p; tile < n_tiles; tile += P) {
+    const long long row0 = tile * kTile;
+    float* s_x = sm.s_x2 + buffer * (kTile * DS);
+    assign_tile::wait_rows();
+    __syncthreads();  // this tile has landed; the previous tile's codes are out
+    buffer ^= 1;
+    if (tile + P < n_tiles)
+      assign_tile::copy_rows<DS, kTile, kThreads>(x, n, m, j, tile + P, sm.s_x2 + buffer * (kTile * DS));
+
+    assign_tile::assign_rows_bf16<DS, SUB, kThreads, false>(sm, staged, cbj, nj, k, s_x);
     __syncthreads();
 
-    for (int c8 = 0; c8 < kt8; c8 += 8) {
-      uint32_t b[KS];
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        b[ks] = *reinterpret_cast<const uint32_t*>(s_c + (c8 + g) * DSP + ks * 8 + 2 * t);
-      const float2 nn = *reinterpret_cast<const float2*>(s_n + c8 + 2 * t);
-      const int ci = k0 + c8 + 2 * t;
-      float acc[kRowTiles][4];
-#pragma unroll
-      for (int rt = 0; rt < kRowTiles; ++rt) {  // all products first, then all selects
-        acc[rt][0] = nn.x; acc[rt][1] = nn.y; acc[rt][2] = nn.x; acc[rt][3] = nn.y;
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks)
-          mma_m16n8k8_bf16(acc[rt], a[rt][ks][0], a[rt][ks][1], b[ks]);
-      }
-#pragma unroll
-      for (int rt = 0; rt < kRowTiles; ++rt) {
-        if (acc[rt][0] > best[rt][0]) { best[rt][0] = acc[rt][0]; best_idx[rt][0] = ci; }
-        if (acc[rt][1] > best[rt][0]) { best[rt][0] = acc[rt][1]; best_idx[rt][0] = ci + 1; }
-        if (acc[rt][2] > best[rt][1]) { best[rt][1] = acc[rt][2]; best_idx[rt][1] = ci; }
-        if (acc[rt][3] > best[rt][1]) { best[rt][1] = acc[rt][3]; best_idx[rt][1] = ci + 1; }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rt = 0; rt < kRowTiles; ++rt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v = best[rt][h];
-      int i = best_idx[rt][h];
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-        if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-      }
-      const long long row = row0 + rt * 16 + g + 8 * h;
-      if (t == 0 && row < n) codes[row * m + j] = (OutT)i;
+    for (int e = threadIdx.x; e < kTile; e += kThreads) {
+      const long long row = row0 + e;
+      if (row < n) codes[row * m + j] = (OutT)sm.s_code[e];
     }
   }
 }
@@ -288,24 +213,31 @@ cudaError_t launch_f32(const float* x, const float* cb2, const float* csqn, void
                                                      flags, n, m, k, stream);
 }
 
+// The plan (rows a tile, P, shared-memory bytes) is ops/assign.py
+// bf16_tile_plan's; -1 for one this build does not hold.
 template <int DS>
-cudaError_t launch_bf16(const float* x, const float* cb2, const float* csqn, void* codes,
-                        long long n, int m, int k, int out_u8, cudaStream_t stream) {
-  const long long blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock * m;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+int launch_bf16(const float* x, const float* cb2, const float* csqn, void* codes, long long n,
+                int m, int k, int out_u8, int rows, int P, int bytes, cudaStream_t stream) {
+  constexpr int SUB = assign_tile::kBf16Subtiles<DS>;
+  using T = assign_tile::Bf16Tile<DS, SUB, kThreads>;
+  const long long blocks = (long long)P * m;
+  if (rows != T::kRows || bytes != T::kBytes || P <= 0 || blocks > 0x7fffffffLL) return -1;
+  auto kern = out_u8 ? (const void*)encode_bf16_kernel<DS, SUB, uint8_t>
+                     : (const void*)encode_bf16_kernel<DS, SUB, int32_t>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
   if (out_u8)
-    encode_bf16_kernel<DS, uint8_t><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        x, cb2, csqn, (uint8_t*)codes, n, m, k);
+    encode_bf16_kernel<DS, SUB, uint8_t><<<(unsigned)blocks, kThreads, bytes, stream>>>(
+        x, cb2, csqn, (uint8_t*)codes, n, m, k, P);
   else
-    encode_bf16_kernel<DS, int32_t><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        x, cb2, csqn, (int32_t*)codes, n, m, k);
-  return cudaGetLastError();
+    encode_bf16_kernel<DS, SUB, int32_t><<<(unsigned)blocks, kThreads, bytes, stream>>>(
+        x, cb2, csqn, (int32_t*)codes, n, m, k, P);
+  return (int)cudaGetLastError();
 }
 
 template <int DS>
 cudaError_t launch(const float* x, const float* cb2, const float* csqn, void* codes, long long n,
-                   int m, int k, int bf16, int out_u8, cudaStream_t stream) {
-  if (bf16) return launch_bf16<DS>(x, cb2, csqn, codes, n, m, k, out_u8, stream);
+                   int m, int k, int out_u8, cudaStream_t stream) {
   return launch_f32<DS, false>(x, cb2, csqn, codes, nullptr, 0.0f, nullptr, n, m, k, out_u8,
                                stream);
 }
@@ -313,9 +245,11 @@ cudaError_t launch(const float* x, const float* cb2, const float* csqn, void* co
 }  // namespace
 
 // x (n, m*ds) f32, cb2 (m, k, ds) f32 holding 2c (already rounded to bf16
-// values in bf16 mode), csqn (m, k) f32, codes (n, m) uint8 or int32.  deep:
-// the wide route's deep kernel (ops/assign.py wide_route), with cb2 and csqn
-// as ops/assign.py deep_operands writes them.
+// values in bf16 mode), csqn (m, k) f32, codes (n, m) uint8 or int32.  At ds
+// in 4, 8, 16, 32 the f32 mode only (bf16 there: rt_encode_bf16); at every
+// other ds both modes, on the wide route.  deep: the wide route's deep kernel
+// (ops/assign.py wide_route), with cb2 and csqn as ops/assign.py
+// deep_operands writes them.
 // Returns cudaGetLastError() after the launch; -1 for a shape it does not take.
 extern "C" int rt_encode(const void* x, const void* cb2, const void* csqn, void* codes,
                          long long n, int m, int k, int ds, int bf16, int out_u8, int deep,
@@ -326,14 +260,38 @@ extern "C" int rt_encode(const void* x, const void* cb2, const void* csqn, void*
   const float* xf = (const float*)x;
   const float* cf = (const float*)cb2;
   const float* nf = (const float*)csqn;
+  const bool narrow = ds == 4 || ds == 8 || ds == 16 || ds == 32;
+  if (narrow && bf16) return -1;
   switch (ds) {
-    case 4: return (int)launch<4>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
-    case 8: return (int)launch<8>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
-    case 16: return (int)launch<16>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
-    case 32: return (int)launch<32>(xf, cf, nf, codes, n, m, k, bf16, out_u8, s);
+    case 4: return (int)launch<4>(xf, cf, nf, codes, n, m, k, out_u8, s);
+    case 8: return (int)launch<8>(xf, cf, nf, codes, n, m, k, out_u8, s);
+    case 16: return (int)launch<16>(xf, cf, nf, codes, n, m, k, out_u8, s);
+    case 32: return (int)launch<32>(xf, cf, nf, codes, n, m, k, out_u8, s);
     default:  // every other ds: the wide route of assign_wide.cuh
       return (int)assign_wide::launch(xf, cb2, nf, {codes, m, 1, out_u8}, bf16 != 0, false,
                                       nullptr, 0.0f, nullptr, n, m, k, ds, deep != 0, s);
+  }
+}
+
+// The bf16 mode at ds in 4, 8, 16, 32: arguments as rt_encode's, and the
+// launch plan of ops/assign.py bf16_tile_plan (rows a tile, P blocks per
+// subquantizer, dynamic shared memory in bytes).  -1 for a shape or a plan it
+// does not take.
+extern "C" int rt_encode_bf16(const void* x, const void* cb2, const void* csqn, void* codes,
+                              long long n, int m, int k, int ds, int out_u8, int rows, int P,
+                              int bytes, void* stream) {
+  if (n <= 0) return 0;
+  if (m <= 0 || k <= 0) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xf = (const float*)x;
+  const float* cf = (const float*)cb2;
+  const float* nf = (const float*)csqn;
+  switch (ds) {
+    case 4: return launch_bf16<4>(xf, cf, nf, codes, n, m, k, out_u8, rows, P, bytes, s);
+    case 8: return launch_bf16<8>(xf, cf, nf, codes, n, m, k, out_u8, rows, P, bytes, s);
+    case 16: return launch_bf16<16>(xf, cf, nf, codes, n, m, k, out_u8, rows, P, bytes, s);
+    case 32: return launch_bf16<32>(xf, cf, nf, codes, n, m, k, out_u8, rows, P, bytes, s);
+    default: return -1;
   }
 }
 

@@ -19,9 +19,10 @@
 //   2. assignment on the tensor cores.  f32 mode: the 3xTF32 split product
 //      (wgmma) and pairwise selection of csrc/assign_tile.cuh, whose row-tile
 //      loop (copy_rows, assign_rows, flag_row) the f32 encode runs too, so
-//      both give a row the same code and flag.  bf16 mode:
-//      mma.sync with the accumulator started at -|c|^2, as csrc/encode.cu.  The
-//      codes go to shared memory, -1 for rows past n;
+//      both give a row the same code and flag.  bf16 mode: the same loop
+//      with assign_tile.cuh's bf16 routine (assign_rows_bf16), which the bf16
+//      encode runs too, so both give a row the same code.  The codes go to
+//      shared memory, -1 for rows past n;
 //   3. accumulation without atomics, with work proportional to the rows.  Up
 //      to 256 centroids: a counting sort of the tile's row slots by code
 //      (per-warp histograms from __match_any_sync, a prefix over warps and
@@ -40,7 +41,8 @@
 // order, the slots in slot order.
 //
 // In bf16 mode the sums are of the bf16-rounded x (accumulated in f32), as in
-// the TPU kernel, where one rounded copy of x feeds both products.
+// the TPU kernel, where one rounded copy of x feeds both products: the pass
+// that converts a tile for the products rounds its f32 copy in place.
 //
 // Verified mode (stats_f32_kernel with VERIFY; replaces the TPU kernel
 // reductive_tpu/ops/stats.py::_stats_verify_kernel): the f32 mode, whose
@@ -57,10 +59,11 @@
 // What bounds it on an H100: f32 mode, the selection's compares and selects
 // on the half-rate ALU pipe (the products, 3 x 2*n*m*k*ds operations in TF32,
 // and the bytes of x are both below it); bf16 mode, likewise its selection.
-// In f32 mode the next tile's subvectors are copied by cp.async into a second
-// buffer while this tile is assigned and accumulated; no TMA ring: a tile is
-// 16 KB and the staged centroids 16 to 64 KB.  Shared memory is dynamic: it
-// exceeds 48 KB.
+// In both modes the next tile's subvectors are copied by cp.async into a
+// second buffer while this tile is assigned and accumulated; no TMA ring: a
+// tile is 16 to 64 KB and the staged centroids 8 to 64 KB.  Shared memory is
+// dynamic: it exceeds 48 KB.  The bf16 mode's launch plan (rows a tile, P,
+// shared memory) is ops/assign.py bf16_tile_plan's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -340,156 +343,55 @@ stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
   if (one) write_slot<DS>(slot, k, acc, cnt);
 }
 
-// ---- bf16 mode on the tensor cores -----------------------------------------
+// ---- bf16 mode: assign_tile.cuh's bf16 routine ------------------------------
 
-constexpr int kRowTiles = 4;  // 16-row tiles a warp holds
-constexpr int kRowsPerBlock = kWarps * kRowTiles * 16;
-
-template <int DS>
-struct Bf16Shape {
-  static constexpr int DSP = (DS + 7) / 8 * 8;
-  static constexpr int kBytes = 4 * (kRowsPerBlock * DS + kCentroidTile + kRowsPerBlock) +
-                                Scratch<kRowsPerBlock>::kBytes + 2 * kCentroidTile * DSP;
-};
-
-__device__ __forceinline__ void mma_m16n8k8_bf16(float (&c)[4], uint32_t a0, uint32_t a1,
-                                                 uint32_t b0) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
-
-template <int DS>
-__global__ void __launch_bounds__(kThreads)
+template <int DS, int SUB>
+__global__ void __launch_bounds__(kThreads, assign_tile::kBf16Blocks<DS>)
 stats_bf16_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
-                  const float* __restrict__ csqn, float* __restrict__ partial,
-                  long long n, int m, int k, int P) {
-  constexpr int KS = (DS + 7) / 8;  // k-steps of 8; ds = 4 is padded with zeros
-  constexpr int DSP = KS * 8;
-  constexpr int kTile = kRowsPerBlock;
+                  const float* __restrict__ csqn, float* __restrict__ partial, long long n, int m,
+                  int k, int P) {
+  using T = assign_tile::Bf16Tile<DS, SUB, kThreads>;
+  constexpr int kTile = T::kRows;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s_x = reinterpret_cast<float*>(smem);                 // [kTile][DS], bf16-rounded values
-  float* s_n = s_x + kTile * DS;                               // [kCentroidTile], -|c|^2
-  int* s_code = reinterpret_cast<int*>(s_n + kCentroidTile);   // [kTile]
-  unsigned char* s_scratch = reinterpret_cast<unsigned char*>(s_code + kTile);
-  Scratch<kTile> scratch(s_scratch);
-  __nv_bfloat16* s_c =
-      reinterpret_cast<__nv_bfloat16*>(s_scratch + Scratch<kTile>::kBytes);  // [kCentroidTile][DSP]
+  const T sm(smem);
+  Scratch<kTile> scratch(smem + T::kBytes);
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;  // row of the fragment (and g + 8)
-  const int t = lane & 3;   // column pair 2t, 2t + 1
   const int j = blockIdx.x % m;
   const int p = blockIdx.x / m;
-  const long long d = (long long)m * DS;
   const long long n_tiles = (n + kTile - 1) / kTile;
   const bool one = k <= kThreads;
   float* slot = partial + ((long long)p * m + j) * (long long)k * (DS + 1);
   const float* cbj = cb2 + (long long)j * k * DS;
   const float* nj = csqn + (long long)j * k;
 
-  float sum[DS];
+  float acc[DS];
   unsigned int cnt = 0;
 #pragma unroll
-  for (int e = 0; e < DS; ++e) sum[e] = 0.0f;
+  for (int e = 0; e < DS; ++e) acc[e] = 0.0f;
   if (!one) zero_slot<DS>(slot, k);
+
+  int buffer = 0;
+  if (p < n_tiles) assign_tile::copy_rows<DS, kTile, kThreads>(x, n, m, j, p, sm.s_x2);
 
   int staged = -1;
   for (long long tile = p; tile < n_tiles; tile += P) {
-    const int in_tile0 = warp * (kRowTiles * 16);
-    const long long row0 = tile * kTile + in_tile0;
+    const long long row0 = tile * kTile;
+    float* s_x = sm.s_x2 + buffer * (kTile * DS);
+    assign_tile::wait_rows();
+    __syncthreads();  // this tile has landed; the previous tile's accumulation has ended
+    buffer ^= 1;
+    if (tile + P < n_tiles)
+      assign_tile::copy_rows<DS, kTile, kThreads>(x, n, m, j, tile + P, sm.s_x2 + buffer * (kTile * DS));
 
-    uint32_t a[kRowTiles][KS][2];
-    float best[kRowTiles][2];
-    int best_idx[kRowTiles][2];
-    __syncthreads();  // the previous tile's accumulation has ended: s_x and s_code are free
-#pragma unroll
-    for (int rt = 0; rt < kRowTiles; ++rt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int in_tile = in_tile0 + rt * 16 + g + 8 * h;
-        const long long row = row0 + rt * 16 + g + 8 * h;
-        best[rt][h] = __int_as_float(0xff800000);  // -inf
-        best_idx[rt][h] = 0;
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          const int col = ks * 8 + 2 * t;
-          float2 v = make_float2(0.f, 0.f);
-          if (row < n && col < DS)
-            v = *reinterpret_cast<const float2*>(x + row * d + (long long)j * DS + col);
-          const __nv_bfloat162 vb = __floats2bfloat162_rn(v.x, v.y);  // .x (low half) = v.x
-          a[rt][ks][h] = *reinterpret_cast<const uint32_t*>(&vb);
-          if (col < DS)
-            *reinterpret_cast<float2*>(s_x + in_tile * DS + col) = __bfloat1622float2(vb);
-        }
-      }
-    }
-
-    for (int k0 = 0; k0 < k; k0 += kCentroidTile) {
-      const int kt = min(kCentroidTile, k - k0);
-      const int kt8 = (kt + 7) & ~7;  // a ragged last tile is padded: zeros, -inf
-      if (staged != k0) {
-        __syncthreads();
-        for (int e = threadIdx.x; e < kt8 * DSP; e += kThreads) {
-          const int c = e / DSP;
-          const int tt = e - c * DSP;
-          const float v = (c < kt && tt < DS) ? cbj[(long long)(k0 + c) * DS + tt] : 0.0f;
-          s_c[e] = __float2bfloat16_rn(v);
-        }
-        for (int e = threadIdx.x; e < kt8; e += kThreads)
-          s_n[e] = e < kt ? -nj[k0 + e] : __int_as_float(0xff800000);
-        staged = k0;
-        __syncthreads();
-      }
-
-      for (int c8 = 0; c8 < kt8; c8 += 8) {
-        uint32_t b[KS];
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks)
-          b[ks] = *reinterpret_cast<const uint32_t*>(s_c + (c8 + g) * DSP + ks * 8 + 2 * t);
-        const float2 nn = *reinterpret_cast<const float2*>(s_n + c8 + 2 * t);
-        const int ci = k0 + c8 + 2 * t;
-        float sc[kRowTiles][4];
-#pragma unroll
-        for (int rt = 0; rt < kRowTiles; ++rt) {  // all products first, then all selects
-          sc[rt][0] = nn.x; sc[rt][1] = nn.y; sc[rt][2] = nn.x; sc[rt][3] = nn.y;
-#pragma unroll
-          for (int ks = 0; ks < KS; ++ks)
-            mma_m16n8k8_bf16(sc[rt], a[rt][ks][0], a[rt][ks][1], b[ks]);
-        }
-#pragma unroll
-        for (int rt = 0; rt < kRowTiles; ++rt) {
-          if (sc[rt][0] > best[rt][0]) { best[rt][0] = sc[rt][0]; best_idx[rt][0] = ci; }
-          if (sc[rt][1] > best[rt][0]) { best[rt][0] = sc[rt][1]; best_idx[rt][0] = ci + 1; }
-          if (sc[rt][2] > best[rt][1]) { best[rt][1] = sc[rt][2]; best_idx[rt][1] = ci; }
-          if (sc[rt][3] > best[rt][1]) { best[rt][1] = sc[rt][3]; best_idx[rt][1] = ci + 1; }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int rt = 0; rt < kRowTiles; ++rt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v = best[rt][h];
-        int i = best_idx[rt][h];
-#pragma unroll
-        for (int off = 1; off <= 2; off <<= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-          const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-          if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-        }
-        const int in_tile = in_tile0 + rt * 16 + g + 8 * h;
-        if (t == 0) s_code[in_tile] = (tile * kTile + in_tile) < n ? i : -1;
-      }
-    }
+    // Rounds s_x in place: the sums are of the rounded rows.
+    assign_tile::assign_rows_bf16<DS, SUB, kThreads, true>(sm, staged, cbj, nj, k, s_x);
     __syncthreads();
-    accumulate_tile<DS, kTile>(s_x, s_code, scratch, one, slot, sum, cnt);
+    for (int e = threadIdx.x; e < kTile; e += kThreads)
+      if (row0 + e >= n) sm.s_code[e] = -1;  // rows past n take no part
+    __syncthreads();
+    accumulate_tile<DS, kTile>(s_x, sm.s_code, scratch, one, slot, acc, cnt);
   }
-  if (one) write_slot<DS>(slot, k, sum, cnt);
+  if (one) write_slot<DS>(slot, k, acc, cnt);
 }
 
 // ---- the P slots added in slot order ---------------------------------------
@@ -514,43 +416,36 @@ stats_reduce_kernel(const float* __restrict__ partial, float* __restrict__ sums,
   }
 }
 
-// mode: 0 f32, 1 bf16, 2 verified (f32 with escale, rho, codes_out and flags).
+cudaError_t reduce(const float* partial, float* sums, float* counts, long long n_cells, int ds,
+                   int P, cudaStream_t stream) {
+  const long long blocks = (n_cells * (ds + 1) + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  stats_reduce_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(partial, sums, counts, n_cells, ds, P);
+  return cudaGetLastError();
+}
+
+// verify: the verified mode (f32 with escale, rho, codes_out and flags).
 template <int DS>
 cudaError_t launch(const float* x, const float* cb2, const float* csqn, float* partial,
                    float* sums, float* counts, const float* escale, float rho, int* codes_out,
-                   int* flags, long long n, int m, int k, int mode, int P,
+                   int* flags, long long n, int m, int k, bool verify, int P,
                    cudaStream_t stream) {
   const long long blocks = (long long)P * m;
-  const long long cells = (long long)m * k;
-  const long long reduce_blocks = (cells * (DS + 1) + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL || reduce_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaError_t err;
-  if (mode == 1) {
-    constexpr int bytes = Bf16Shape<DS>::kBytes;
-    err = cudaFuncSetAttribute(stats_bf16_kernel<DS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
-    if (err != cudaSuccess) return err;
-    stats_bf16_kernel<DS><<<(unsigned)blocks, kThreads, bytes, stream>>>(x, cb2, csqn, partial, n,
-                                                                         m, k, P);
-  } else {
-    constexpr int SUB = assign_tile::kSubtiles<DS>;
-    constexpr int bytes = F32Shape<DS, SUB>::kBytes;
-    auto kern = mode == 2 ? stats_f32_kernel<DS, SUB, true> : stats_f32_kernel<DS, SUB, false>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    kern<<<(unsigned)blocks, kThreads, bytes, stream>>>(x, cb2, csqn, partial, escale, rho,
-                                                        codes_out, flags, n, m, k, P);
-  }
-  err = cudaGetLastError();
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  constexpr int SUB = assign_tile::kSubtiles<DS>;
+  constexpr int bytes = F32Shape<DS, SUB>::kBytes;
+  auto kern = verify ? stats_f32_kernel<DS, SUB, true> : stats_f32_kernel<DS, SUB, false>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  stats_reduce_kernel<<<(unsigned)reduce_blocks, kThreads, 0, stream>>>(partial, sums, counts, cells,
-                                                                      DS, P);
-  return cudaGetLastError();
+  kern<<<(unsigned)blocks, kThreads, bytes, stream>>>(x, cb2, csqn, partial, escale, rho, codes_out,
+                                                      flags, n, m, k, P);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return reduce(partial, sums, counts, (long long)m * k, DS, P, stream);
 }
 
 int assign_stats(const void* x, const void* cb2, const void* csqn, void* partial, void* sums,
                  void* counts, const void* escale, float rho, void* codes, void* flags,
-                 long long n, int m, int k, int ds, int mode, int P, void* stream) {
+                 long long n, int m, int k, int ds, bool verify, int P, void* stream) {
   if (n <= 0 || m <= 0 || k <= 0 || P <= 0) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   const float* xf = (const float*)x;
@@ -563,12 +458,32 @@ int assign_stats(const void* x, const void* cb2, const void* csqn, void* partial
   int* co = (int*)codes;
   int* fl = (int*)flags;
   switch (ds) {
-    case 4: return (int)launch<4>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
-    case 8: return (int)launch<8>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
-    case 16: return (int)launch<16>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
-    case 32: return (int)launch<32>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, mode, P, s);
+    case 4: return (int)launch<4>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, verify, P, s);
+    case 8: return (int)launch<8>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, verify, P, s);
+    case 16: return (int)launch<16>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, verify, P, s);
+    case 32: return (int)launch<32>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, verify, P, s);
     default: return -1;
   }
+}
+
+// The plan (rows a tile, P, shared-memory bytes) is ops/assign.py
+// bf16_tile_plan's; -1 for one this build does not hold.
+template <int DS>
+int launch_bf16(const float* x, const float* cb2, const float* csqn, float* partial, float* sums,
+                float* counts, long long n, int m, int k, int rows, int P, int bytes,
+                cudaStream_t stream) {
+  constexpr int SUB = assign_tile::kBf16Subtiles<DS>;
+  using T = assign_tile::Bf16Tile<DS, SUB, kThreads>;
+  constexpr int kBytes = T::kBytes + Scratch<T::kRows>::kBytes;
+  const long long blocks = (long long)P * m;
+  if (rows != T::kRows || bytes != kBytes || P <= 0 || blocks > 0x7fffffffLL) return -1;
+  cudaError_t err = cudaFuncSetAttribute(stats_bf16_kernel<DS, SUB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  stats_bf16_kernel<DS, SUB><<<(unsigned)blocks, kThreads, bytes, stream>>>(x, cb2, csqn, partial,
+                                                                            n, m, k, P);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)reduce(partial, sums, counts, (long long)m * k, DS, P, stream);
 }
 
 // ---- the wide route: statistics from the codes -----------------------------
@@ -824,18 +739,42 @@ int assign_stats_wide(const float* x, const void* cb2, const float* csqn, int* c
 
 }  // namespace
 
-// x (n, m*ds) f32, cb2 (m, k, ds) f32 holding 2c (already rounded to bf16
-// values in bf16 mode), csqn (m, k) f32, partial (P, m, k, ds + 1) f32 scratch
-// (need not be initialised), sums (m, k, ds) f32, counts (m, k) f32.
+// x (n, m*ds) f32, cb2 (m, k, ds) f32 holding 2c, csqn (m, k) f32, partial
+// (P, m, k, ds + 1) f32 scratch (need not be initialised), sums (m, k, ds)
+// f32, counts (m, k) f32; the f32 mode.
 // Returns cudaGetLastError() after the launches; -1 for a shape it does not take.
 extern "C" int rt_assign_stats(const void* x, const void* cb2, const void* csqn, void* partial,
-                               void* sums, void* counts, long long n, int m, int k, int ds,
-                               int bf16, int P, void* stream) {
+                               void* sums, void* counts, long long n, int m, int k, int ds, int P,
+                               void* stream) {
   return assign_stats(x, cb2, csqn, partial, sums, counts, nullptr, 0.0f, nullptr, nullptr, n, m,
-                      k, ds, bf16 ? 1 : 0, P, stream);
+                      k, ds, false, P, stream);
 }
 
-// As rt_assign_stats in f32 mode, with the verification outputs: escale (m,)
+// The bf16 mode: arguments as rt_assign_stats's (cb2 already rounded to bf16
+// values), and the launch plan of ops/assign.py bf16_tile_plan (rows a tile,
+// P, dynamic shared memory in bytes).  -1 for a shape or a plan it does not
+// take.
+extern "C" int rt_assign_stats_bf16(const void* x, const void* cb2, const void* csqn,
+                                    void* partial, void* sums, void* counts, long long n, int m,
+                                    int k, int ds, int rows, int P, int bytes, void* stream) {
+  if (n <= 0 || m <= 0 || k <= 0) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xf = (const float*)x;
+  const float* cf = (const float*)cb2;
+  const float* nf = (const float*)csqn;
+  float* pf = (float*)partial;
+  float* sf = (float*)sums;
+  float* tf = (float*)counts;
+  switch (ds) {
+    case 4: return launch_bf16<4>(xf, cf, nf, pf, sf, tf, n, m, k, rows, P, bytes, s);
+    case 8: return launch_bf16<8>(xf, cf, nf, pf, sf, tf, n, m, k, rows, P, bytes, s);
+    case 16: return launch_bf16<16>(xf, cf, nf, pf, sf, tf, n, m, k, rows, P, bytes, s);
+    case 32: return launch_bf16<32>(xf, cf, nf, pf, sf, tf, n, m, k, rows, P, bytes, s);
+    default: return -1;
+  }
+}
+
+// As rt_assign_stats, with the verification outputs: escale (m,)
 // f32 and rho set the margin below which a (row, subquantizer) is flagged (see
 // ops/assign.py); codes (m, n) int32 receives the chosen codes, one row of it
 // per subquantizer; flags (n,) int32, zeroed by the caller, receives 1 for a
@@ -846,7 +785,7 @@ extern "C" int rt_assign_stats_verify(const void* x, const void* cb2, const void
                                       long long n, int m, int k, int ds, int P, void* stream) {
   if (escale == nullptr || codes == nullptr || flags == nullptr) return -1;
   return assign_stats(x, cb2, csqn, partial, sums, counts, escale, rho, codes, flags, n, m, k, ds,
-                      2, P, stream);
+                      true, P, stream);
 }
 
 // Scratch of rt_assign_stats_wide, in int32 words.

@@ -42,13 +42,15 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # 32-bit ints.
 _ENTRIES = {
     "rt_encode": ("encode", (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P)),
+    "rt_encode_bf16": ("encode", (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P)),
     "rt_encode_verify": ("encode", (_P, _P, _P, _P, _P, _F, _P, _L, _I, _I, _I, _I, _I, _P)),
     "rt_decode_prepare": ("decode", (_P, _I, _P, _P, _P, _I, _I, _I, _P)),
     "rt_decode": ("decode", (_P, _I, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P)),
     "rt_decode_int8": ("decode", (_P, _I, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P)),
     "rt_adc": ("adc", (_P, _P, _I, _I, _P, _L, _I, _I, _I, _I, _I, _P)),
     "rt_adc_int8": ("adc", (_P, _P, _P, _P, _I, _I, _P, _L, _I, _I, _I, _I, _I, _P)),
-    "rt_assign_stats": ("stats", (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P)),
+    "rt_assign_stats": ("stats", (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P)),
+    "rt_assign_stats_bf16": ("stats", (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P)),
     "rt_assign_stats_verify": (
         "stats", (_P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _L, _I, _I, _I, _I, _P)),
     "rt_assign_stats_wide": (

@@ -25,10 +25,11 @@ Two modes, chosen by ``compute_dtype``:
   (:func:`deep_operands`), with the same arithmetic.
 * ``torch.bfloat16`` (default): ``x`` and ``2c`` each rounded to bfloat16
   (nearest even), products and sums in f32, ``|c|^2`` in f32 from the
-  unrounded codebook.  The narrow kernel runs this mode on the tensor cores
-  and starts each sum at ``-|c|^2`` (it maximizes ``2c.x - |c|^2``), which is
-  the same number up to f32 rounding; the wide route sums the products from
-  zero and subtracts them from ``|c|^2``.
+  unrounded codebook.  Every kernel sums the products on the tensor cores from
+  zero and subtracts the sum from ``|c|^2`` in f32, as the plain version does.
+  At ``ds`` in 4, 8, 16, 32 the encode and the statistics kernel run one bf16
+  routine (``csrc/assign_tile.cuh``), so the two give a row the same code bit
+  for bit, with the launch plan of :func:`bf16_tile_plan`.
 
 The minimum is the true ``(distance, index)`` minimum; the JAX kernel's
 packed sortable key, which coarsens ties, is not part of the contract.  The
@@ -157,6 +158,8 @@ and held to the exact path there: no unflagged row may differ.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch import Tensor
 
@@ -168,6 +171,7 @@ __all__ = [
     "pq_encode_verified", "pq_encode_verify_reference", "pq_encode_verify_flags",
     "verify_scale", "VERIFY_RHO", "F32_ROUTE", "WIDE_ROUTE", "f32_route", "wide_chunking",
     "flagged_rows", "wide_route", "split_tf32", "deep_operands", "DEEP_STEP",
+    "TilePlan", "bf16_tile_plan",
 ]
 
 # The widths of the narrow kernels (csrc/assign_tile.cuh); every other ds >= 1
@@ -213,6 +217,66 @@ def wide_route(ds: int, aligned: bool) -> str:
     ``csrc/assign_wide.cuh``, any ``ds`` and alignment) otherwise.  Both run
     the same arithmetic (route :data:`WIDE_ROUTE`)."""
     return "deep" if ds > 32 and ds % 4 == 0 and aligned else "shallow"
+
+
+# The statistics kernels' grid is P blocks per subquantizer; P comes from the
+# shapes alone (never from the card), so that the order of every sum, and with
+# it the result's bits, is the same wherever the kernel runs.  The target is
+# four waves of two blocks on each of an H100's 132 SMs.
+_TARGET_BLOCKS = 1056
+_MAX_PARTIAL_ELEMS = 1 << 26  # 256 MB of float32 scratch
+_MIN_ROWS_PER_TILE = 256  # no more blocks than 256-row tiles (the kernels' hold 128 to 512)
+
+
+def _blocks_per_subquantizer(n: int, m: int, k: int, ds: int, target: int = _TARGET_BLOCKS) -> int:
+    tiles = -(-n // _MIN_ROWS_PER_TILE)  # a block without a tile only writes zeros
+    by_fill = -(-target // m)
+    by_scratch = _MAX_PARTIAL_ELEMS // (m * k * (ds + 1))
+    return max(1, min(tiles, by_fill, by_scratch))
+
+
+class TilePlan(NamedTuple):
+    """How a narrow bf16 kernel is launched (:func:`bf16_tile_plan`)."""
+
+    rows: int           # rows of a tile
+    blocks: int         # P, blocks per subquantizer
+    smem_bytes: int     # dynamic shared memory of a block
+    blocks_per_sm: int  # blocks an SM holds (3: 256 threads at <= 80 registers; 2: <= 128)
+
+
+_CENTROID_TILE = 256  # centroids a narrow kernel stages at a time
+# The encode's grid: four waves of the blocks the card holds (a block that ends
+# early takes another row tile).
+_ENCODE_WAVES = 4
+
+
+def bf16_tile_plan(n: int, m: int, k: int, ds: int, *, sms: int | None = None) -> TilePlan:
+    """The launch plan of the narrow bf16 kernels (``csrc/encode.cu``
+    ``encode_bf16_kernel``, ``csrc/stats.cu`` ``stats_bf16_kernel``; ``ds``
+    in 4, 8, 16, 32): tiles of 512 rows (256 at ``ds = 32``); shared memory
+    for the staged centroids (``2c`` in bf16, a depth of 16 per step, and
+    ``|c|^2``), two f32 buffers of the rows, a code and a distance per row,
+    and for the statistics (``sms=None``) the counting sort's scratch; three
+    blocks an SM where their shared memory fits (ds <= 8, with one
+    accumulator set a warpgroup), else two.  P: for the statistics a
+    function of the shapes alone (:func:`_blocks_per_subquantizer`, its
+    target scaled to the blocks an SM holds: the order of the partial sums
+    depends on it); for the encode (``sms``, the card's multiprocessors) four
+    waves of what the card holds, at most one block per tile.  The C entries
+    refuse a plan whose rows or bytes are not the ones they were compiled
+    for.  ``k`` and the data never change the rows or the bytes."""
+    if ds not in _NARROW_DS:
+        raise ValueError(f"the narrow bf16 kernels take ds in {_NARROW_DS}, got {ds}")
+    rows = 256 if ds == 32 else 512
+    steps = -(-ds // 16)
+    smem = steps * _CENTROID_TILE * 32 + 4 * (_CENTROID_TILE + 2 * rows * ds + 2 * rows)
+    per_sm = 3 if ds <= 8 else 2
+    if sms is None:
+        smem += 4 * (8 * _CENTROID_TILE + _CENTROID_TILE + 8) + 2 * rows  # the counting sort
+        blocks = _blocks_per_subquantizer(n, m, k, ds, _TARGET_BLOCKS * per_sm // 2)
+    else:
+        blocks = max(1, min(-(-n // rows), _ENCODE_WAVES * sms * per_sm // m))
+    return TilePlan(rows, blocks, smem, per_sm)
 
 
 def split_tf32(w: Tensor) -> tuple[Tensor, Tensor]:
@@ -342,15 +406,25 @@ def pq_encode(
     else:
         raw = torch.empty((n, m), dtype=dtype if direct else torch.int32, device=x.device)
     bf16 = compute_dtype == torch.bfloat16
-    counter = ("encode_bf16" if bf16 else "encode_f32") + ("" if ds in _NARROW_DS else "_wide")
-    cb2, c_sqn, deep = _wide_operands(cb2, c_sqn, x, compute_dtype)
+    out_u8 = int(raw.dtype == torch.uint8)
     with torch.cuda.device(x.device):
-        _build.launch(
-            "rt_encode", counter,
-            x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), raw.data_ptr(),
-            n, m, k, ds, int(bf16), int(raw.dtype == torch.uint8), int(deep),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if bf16 and ds in _NARROW_DS:
+            sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+            plan = bf16_tile_plan(n, m, k, ds, sms=sms)
+            _build.launch(
+                "rt_encode_bf16", "encode_bf16",
+                x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), raw.data_ptr(),
+                n, m, k, ds, out_u8, plan.rows, plan.blocks, plan.smem_bytes, stream,
+            )
+        else:
+            counter = ("encode_bf16" if bf16 else "encode_f32") + ("" if ds in _NARROW_DS else "_wide")
+            cb2, c_sqn, deep = _wide_operands(cb2, c_sqn, x, compute_dtype)
+            _build.launch(
+                "rt_encode", counter,
+                x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), raw.data_ptr(),
+                n, m, k, ds, int(bf16), out_u8, int(deep), stream,
+            )
     if out is None:
         return raw if direct else raw.to(dtype)
     return out if raw is out else out.copy_(raw)

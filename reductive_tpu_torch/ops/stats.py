@@ -59,8 +59,8 @@ from ..linalg import one_hot_sums
 from ..pq.primitives import nearest_centroids, quantize_batch
 from . import _build
 from .assign import (
-    _NARROW_DS, F32_ROUTE, VERIFY_RHO, _check_k, _prepare, _wide_operands, flagged_rows,
-    pq_encode_verify_reference, verify_scale,
+    _NARROW_DS, F32_ROUTE, VERIFY_RHO, _blocks_per_subquantizer, _check_k, _prepare,
+    _wide_operands, bf16_tile_plan, flagged_rows, pq_encode_verify_reference, verify_scale,
 )
 
 __all__ = [
@@ -74,12 +74,6 @@ __all__ = [
 STATS_ROUTE = F32_ROUTE
 # Rows the plain version takes at a time.
 _REFERENCE_CHUNK = 1 << 16
-# The kernel's grid is P blocks per subquantizer; P comes from the shapes
-# alone (never from the card), so that the order of every sum, and with it
-# the result's bits, is the same wherever the kernel runs.
-_TARGET_BLOCKS = 1056
-_MAX_PARTIAL_ELEMS = 1 << 26  # 256 MB of float32 scratch
-_MIN_ROWS_PER_TILE = 256  # no more blocks than 256-row tiles (the kernel's hold 128 to 512)
 
 
 def pq_assign_stats_reference(
@@ -103,13 +97,6 @@ def pq_assign_stats_reference(
         sums += one_hot_sums(codes, xs, k)[0]
         counts += torch.bincount((codes + cell0).reshape(-1), minlength=m * k)
     return sums, counts.reshape(m, k).to(torch.float32)
-
-
-def _blocks_per_subquantizer(n: int, m: int, k: int, ds: int) -> int:
-    tiles = -(-n // _MIN_ROWS_PER_TILE)  # a block without a tile only writes zeros
-    by_fill = -(-_TARGET_BLOCKS // m)
-    by_scratch = _MAX_PARTIAL_ELEMS // (m * k * (ds + 1))
-    return max(1, min(tiles, by_fill, by_scratch))
 
 
 def _launch_stats(codebooks: Tensor, x: Tensor, compute_dtype, verify=None):
@@ -137,16 +124,23 @@ def _launch_stats(codebooks: Tensor, x: Tensor, compute_dtype, verify=None):
     if wide:
         _launch_wide(cb2, c_sqn, x, codes, sums, counts, compute_dtype, verify, flags)
         return sums, counts, (codes if verify is not None else None), flags
-    blocks = _blocks_per_subquantizer(n, m, k, ds)
+    plan = bf16_tile_plan(n, m, k, ds) if verify is None and compute_dtype == torch.bfloat16 else None
+    blocks = _blocks_per_subquantizer(n, m, k, ds) if plan is None else plan.blocks
     partial = torch.empty((blocks, m, k, ds + 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if verify is None:
-            bf16 = compute_dtype == torch.bfloat16
+        if plan is not None:
             _build.launch(
-                "rt_assign_stats", "stats_bf16" if bf16 else "stats_f32",
+                "rt_assign_stats_bf16", "stats_bf16",
                 x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), partial.data_ptr(),
-                sums.data_ptr(), counts.data_ptr(), n, m, k, ds, int(bf16), blocks, stream,
+                sums.data_ptr(), counts.data_ptr(), n, m, k, ds, plan.rows, plan.blocks,
+                plan.smem_bytes, stream,
+            )
+        elif verify is None:
+            _build.launch(
+                "rt_assign_stats", "stats_f32",
+                x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), partial.data_ptr(),
+                sums.data_ptr(), counts.data_ptr(), n, m, k, ds, blocks, stream,
             )
         else:
             escale, rho = verify

@@ -15,7 +15,11 @@ row reaches, at every ds; for the verified kernels the same shapes plus
 duplicated centroids, rows on a centroid pair's midpoint, zero rows and rows
 scaled far up and down; for the packed-u4 kernels m = 2, m no multiple of 8
 and k below 16.  The f32 encode and the f32 statistics kernels run one
-assignment routine: their codes, counts and flags are held equal bit for bit.
+assignment routine: their codes, counts and flags are held equal bit for bit;
+so do the bf16 ones (the encode's codes counted per cell are the statistics
+kernel's counts), and where the bf16 products are exact the bf16 encode is
+the plain version bit for bit, first index among duplicated centroids
+included.
 The wide route (every ds outside 4, 8, 16, 32: 1, 2, 3, 12, 20, 36, 40, 48,
 64, 68, 96, 100, 128 and 768 here, its deep kernel from ds = 36 on, the
 shallow one for an x TMA cannot describe) is held to the same: each kernel
@@ -366,6 +370,84 @@ def test_encode_f32_kernel_assigns_as_the_statistics_kernel(dev, n, m, k, ds, ve
             for out in (torch.empty((n, m), dtype=dtype, device=dev),
                         torch.empty((m, n), dtype=dtype, device=dev).T):
                 assert encode(dtype=dtype, out=out) is out and torch.equal(out.to(torch.int32), codes)
+
+
+# The bf16 encode and the bf16 statistics kernel run one routine
+# (assign_tile.cuh's assign_rows_bf16): the encode's codes counted per cell are
+# the statistics kernel's counts, bit for bit.  Rows around the 512-row tile,
+# k within, at and above one staged tile of 256, every narrow ds.
+@pytest.mark.parametrize("n", [1, 1023, 1025])
+@pytest.mark.parametrize("k", [1, 7, 16, 256, 260])
+@pytest.mark.parametrize("ds", [4, 8, 16, 32])
+def test_encode_bf16_kernel_assigns_as_the_statistics_kernel(dev, ds, k, n):
+    m = 3
+    bf16 = torch.bfloat16
+    cb, x = _data(dev, n, m, k, ds, seed=6)
+    ops.reset_launch_counts()
+    codes = ops.pq_encode(cb, x, dtype=torch.int32, compute_dtype=bf16)
+    _, counts = ops.pq_assign_stats(cb, x, compute_dtype=bf16)
+    assert ops.launch_counts() == {"encode_bf16": 1, "stats_bf16": 1}
+    by_code = torch.stack([torch.bincount(codes[:, jq].long(), minlength=k) for jq in range(m)])
+    assert torch.equal(by_code.to(torch.float32), counts)
+    if k <= 256:
+        assert torch.equal(ops.pq_encode(cb, x, compute_dtype=bf16).to(torch.int32), codes)
+
+
+@pytest.mark.parametrize("k", [7, 256, 260])
+@pytest.mark.parametrize("ds", [4, 8, 16, 32])
+def test_encode_bf16_kernel_is_the_plain_version_where_the_products_are_exact(dev, ds, k):
+    # Codebooks of small integers, every centroid twice (c and c + ceil(k/2)),
+    # and rows drawn from them plus halves: every value is exact in bf16 and
+    # every product and sum exact in f32 in any order, so the kernel and the
+    # plain version see the same distances, and a row on a centroid ties its
+    # twin: the first index must win.
+    m, n = 4, 3000
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(7)
+    half = torch.randint(-4, 5, (m, (k + 1) // 2, ds), generator=gen, device=dev).float()
+    cb = torch.cat([half, half], dim=1)[:, :k].contiguous()
+    pick = torch.randint(0, k, (n, m), generator=gen, device=dev)
+    x = cb[torch.arange(m, device=dev)[None, :], pick]
+    x = x + 0.5 * torch.randint(-1, 2, x.shape, generator=gen, device=dev).float()
+    x = x.reshape(n, m * ds).contiguous()
+    want = ops.pq_encode_reference(cb, x, dtype=torch.int32, compute_dtype=bf16)
+    assert int((want >= (k + 1) // 2).sum()) == 0  # a twin never wins: its first copy does
+    for dtype in (torch.int32,) + ((torch.uint8,) if k <= 256 else ()):
+        got = ops.pq_encode(cb, x, dtype=dtype, compute_dtype=bf16)
+        assert torch.equal(got.to(torch.int32), want)
+    _, counts = ops.pq_assign_stats(cb, x, compute_dtype=bf16)
+    by_code = torch.stack([torch.bincount(want[:, jq].long(), minlength=k) for jq in range(m)])
+    assert torch.equal(by_code.to(torch.float32), counts)
+
+
+def test_the_bf16_entries_refuse_another_plan(dev):
+    from reductive_tpu_torch.ops import _build
+    from reductive_tpu_torch.ops.assign import _prepare, bf16_tile_plan
+
+    n, m, k, ds = 1000, 4, 256, 8
+    cb, x = _data(dev, n, m, k, ds)
+    cb2, c_sqn = _prepare(cb, x, torch.int32, torch.bfloat16)
+    codes = torch.empty((n, m), dtype=torch.int32, device=dev)
+    partial = torch.empty((64, m, k, ds + 1), device=dev)
+    sums, counts = torch.empty((m, k, ds), device=dev), torch.empty((m, k), device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    enc, st = bf16_tile_plan(n, m, k, ds, sms=sms), bf16_tile_plan(n, m, k, ds)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr())
+    for rows, extra in ((enc.rows // 2, 0), (enc.rows, 16)):
+        with pytest.raises(RuntimeError, match="shape not taken"):
+            _build.launch("rt_encode_bf16", None, *ptrs, codes.data_ptr(), n, m, k, ds, 0, rows,
+                          enc.blocks, enc.smem_bytes + extra, stream)
+        with pytest.raises(RuntimeError, match="shape not taken"):
+            _build.launch("rt_assign_stats_bf16", None, *ptrs, partial.data_ptr(), sums.data_ptr(),
+                          counts.data_ptr(), n, m, k, ds, rows, st.blocks, st.smem_bytes + extra,
+                          stream)
+    # The bf16 mode at a narrow ds goes through its own entry only.
+    with pytest.raises(RuntimeError, match="shape not taken"):
+        _build.launch("rt_encode", None, *ptrs, codes.data_ptr(), n, m, k, ds, 1, 0, 0, stream)
+    _build.launch("rt_encode_bf16", None, *ptrs, codes.data_ptr(), n, m, k, ds, 0, enc.rows,
+                  enc.blocks, enc.smem_bytes, stream)
+    assert torch.equal(codes, ops.pq_encode(cb, x, dtype=torch.int32, compute_dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("n,k,ds", [(1, 7, 8), (1000, 256, 8), (777, 1000, 16), (3000, 300, 4),

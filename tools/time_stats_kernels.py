@@ -7,19 +7,24 @@ Prints one JSON line per measurement (CUDA-event medians after a warm-up,
 milliseconds) and, first, the card's name and power limit:
 
 * ``stats_f32``, ``stats_bf16`` and ``stats_verify`` (kernel alone and whole
-  wrapper), ``encode_f32`` (uint8 and int32 codes) and ``encode_verify``
-  (kernel alone and whole wrapper) at the flagship width d=128, m=16, k=256,
-  ds=8 over ``--n`` rows (4,000,000), and at the shapes ``chip_smoke.py``'s
-  kernels phase compares;
+  wrapper), ``encode_f32`` and ``encode_bf16`` (uint8 and int32 codes) and
+  ``encode_verify`` (kernel alone and whole wrapper) at the flagship width
+  d=128, m=16, k=256, ds=8 over ``--n`` rows (4,000,000), and at the shapes
+  ``chip_smoke.py``'s kernels phase compares; at the flagship shape also the
+  C entries of ``encode_bf16`` and ``stats_bf16`` alone, the operands
+  prepared outside (``*_kernel``);
 * a sweep over k and over ds, whose slope in k is the assignment (products and
   selection) and whose intercept is loads, staging and, for the statistics,
   accumulation;
 * builds of ``csrc/stats.cu`` and ``csrc/encode.cu`` with a part compiled out
-  (made in a temporary copy of ``csrc/``, never in the package): without the
+  (made in a temporary copy of ``csrc/``, never in the package), timed
+  through the C entries of both modes at the flagship shape: without the
   accumulation, without the encode's code writes, with the selection cut to
   its running minimum, with one of the split's three products, with one
-  block on an SM and with smaller tiles, at the flagship shape: the
-  differences are those parts' shares.
+  block on an SM and with smaller tiles (f32); without the selection, with
+  the selection cut to its running minimum, without the row copies after a
+  block's first two tiles and without the products (bf16).  The differences
+  are those parts' shares.
 
 With ``--against DIR`` (another checkout of the repository, for example the
 parent commit unpacked by ``git archive``) the timings of the first two groups
@@ -33,6 +38,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -93,9 +99,13 @@ def worker(label: str, n_rows: int, sweep: bool) -> None:
         shape = f"n={n} d={m * ds} m={m} k={k} ds={ds}"
         f32, i32 = torch.float32, torch.int32
         code = torch.uint8 if k <= 256 else i32
-        emit(checkout=label, shape=shape,
+        bf16 = torch.bfloat16
+        alone = bf16_entries(cb, x) if (n, m, k, ds) == (n_rows, *FLAGSHIP) else {}
+        emit(checkout=label, shape=shape, **alone,
              stats_f32=time_ms(lambda: ops.pq_assign_stats(cb, x, compute_dtype=f32)),
-             stats_bf16=time_ms(lambda: ops.pq_assign_stats(cb, x, compute_dtype=torch.bfloat16)),
+             stats_bf16=time_ms(lambda: ops.pq_assign_stats(cb, x, compute_dtype=bf16)),
+             encode_bf16=time_ms(lambda: ops.pq_encode(cb, x, dtype=code, compute_dtype=bf16)),
+             encode_bf16_int32=time_ms(lambda: ops.pq_encode(cb, x, dtype=i32, compute_dtype=bf16)),
              stats_verify_kernel=time_ms(lambda: pq_assign_stats_verify_flags(cb, x)),
              stats_verified=time_ms(lambda: ops.pq_assign_stats_verified(cb, x)),
              flag_rate=float(pq_assign_stats_verify_flags(cb, x)[3].float().mean()),
@@ -108,7 +118,44 @@ def worker(label: str, n_rows: int, sweep: bool) -> None:
         torch.cuda.empty_cache()
 
 
-# name -> [(file under csrc, text that must occur exactly once, its replacement)]
+def bf16_entries(cb, x):
+    """Milliseconds of the bf16 encode (uint8 codes) and statistics C entries
+    alone, operands prepared outside, in this checkout: through the entries
+    that take ``bf16_tile_plan``'s plan where the package has it, else
+    through ``rt_encode`` / ``rt_assign_stats`` with their bf16 flag."""
+    import torch
+    from reductive_tpu_torch.ops import _build, assign
+    from reductive_tpu_torch.ops.assign import _prepare
+    from reductive_tpu_torch.ops.stats import _blocks_per_subquantizer  # in either checkout
+
+    n = x.shape[0]
+    m, k, ds = cb.shape
+    cb2, c_sqn = _prepare(cb, x, torch.int32, torch.bfloat16)
+    blocks = _blocks_per_subquantizer(n, m, k, ds)
+    if hasattr(assign, "bf16_tile_plan"):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        enc, st = assign.bf16_tile_plan(n, m, k, ds, sms=sms), assign.bf16_tile_plan(n, m, k, ds)
+        blocks = st.blocks
+    partial = torch.empty((blocks, m, k, ds + 1), device="cuda")
+    sums, counts = torch.empty((m, k, ds), device="cuda"), torch.empty((m, k), device="cuda")
+    codes = torch.empty((n, m), dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr())
+    if hasattr(assign, "bf16_tile_plan"):
+        encode = ("rt_encode_bf16", *ptrs, codes.data_ptr(), n, m, k, ds, 1, enc.rows, enc.blocks,
+                  enc.smem_bytes, stream)
+        stats = ("rt_assign_stats_bf16", *ptrs, partial.data_ptr(), sums.data_ptr(),
+                 counts.data_ptr(), n, m, k, ds, st.rows, st.blocks, st.smem_bytes, stream)
+    else:
+        encode = ("rt_encode", *ptrs, codes.data_ptr(), n, m, k, ds, 1, 1, 0, stream)
+        stats = ("rt_assign_stats", *ptrs, partial.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+                 n, m, k, ds, 1, blocks, stream)
+    return {"encode_bf16_kernel": time_ms(lambda: _build.launch(encode[0], None, *encode[1:])),
+            "stats_bf16_kernel": time_ms(lambda: _build.launch(stats[0], None, *stats[1:]))}
+
+
+# name -> [(file under csrc, text that must occur at least once, its
+# replacement for every occurrence)]
 ABLATIONS = {
     "whole": [],
     # The encode assigns and flags but writes no code.
@@ -119,8 +166,8 @@ ABLATIONS = {
     "no_accumulation": [
         ("stats.cu", "    accumulate_tile<DS, kTile>(s_x, s_code, scratch, one, slot, acc, cnt);\n",
          "    if (s_code[threadIdx.x % kTile] == 0x7fffffff) acc[0] += 1.0f;  // keeps the codes live\n"),
-        ("stats.cu", "    accumulate_tile<DS, kTile>(s_x, s_code, scratch, one, slot, sum, cnt);\n",
-         "    if (s_code[threadIdx.x % kTile] == 0x7fffffff) sum[0] += 1.0f;\n"),
+        ("stats.cu", "    accumulate_tile<DS, kTile>(s_x, sm.s_code, scratch, one, slot, acc, cnt);\n",
+         "    if (sm.s_code[threadIdx.x % kTile] == 0x7fffffff) acc[0] += 1.0f;\n"),
     ],
     # f32 mode only: as many registers as the compiler likes, so one block on an SM.
     "one_block_per_sm": [
@@ -139,6 +186,44 @@ ABLATIONS = {
     "selection_is_min_only": [
         ("assign_tile.cuh",
          "    if (lo < best[h]) {\n      best[h] = lo;\n      keep[h] = d0;\n      base[h] = col0;\n    }\n",
+         "    best[h] = fminf(best[h], lo);\n"),
+    ],
+    # bf16 mode: of each quarter's scores only those of its first 8-column group
+    # are selected.
+    "bf16_no_selection": [
+        ("assign_tile.cuh",
+         "    if (8 * i < cols) {  // the same for every thread\n",
+         "    if (i == 0 && 8 * i < cols) {\n"),
+    ],
+    # bf16 mode: a block copies the rows of its first two tiles only and then
+    # assigns those again (both buffers hold real rows; no global loads).
+    "bf16_no_row_copies": [
+        ("encode.cu", "    if (tile + P < n_tiles)\n      assign_tile::copy_rows<DS, kTile, kThreads>"
+                      "(x, n, m, j, tile + P, sm.s_x2",
+         "    if (tile == p && tile + P < n_tiles)\n      assign_tile::copy_rows<DS, kTile, kThreads>"
+         "(x, n, m, j, tile + P, sm.s_x2"),
+        ("stats.cu", "    if (tile + P < n_tiles)\n      assign_tile::copy_rows<DS, kTile, kThreads>"
+                     "(x, n, m, j, tile + P, sm.s_x2",
+         "    if (tile == p && tile + P < n_tiles)\n      assign_tile::copy_rows<DS, kTile, kThreads>"
+         "(x, n, m, j, tile + P, sm.s_x2"),
+    ],
+    # bf16 mode: the accumulators are zeroed where the products would fill them.
+    "bf16_no_products": [
+        ("assign_tile.cuh",
+         "    wgmma_m64n64k16_bf16_rs(\n"
+         "        d, a[ks], b_descriptor(reinterpret_cast<const uint32_t*>(s_c + ks * kCentroidTile * 32), quarter),\n"
+         "        ks > 0);\n",
+         "    for (int z = 0; z < 32; ++z) asm volatile(\"mov.b32 %0, 0;\" : \"=f\"(d[z]));\n"),
+    ],
+    # bf16 mode: the running minimum stays, the compare and the three updates go.
+    "bf16_selection_is_min_only": [
+        ("assign_tile.cuh",
+         "    asm(\"{\\n.reg .pred p;\\nsetp.lt.f32 p, %3, %0;\\n\"\n"
+         "        \"@p fma.rn.f32 %0, %3, 0f3F800000, 0f00000000;\\n\"\n"
+         "        \"@p fma.rn.f32 %1, %4, 0f3F800000, 0f00000000;\\n\"\n"
+         "        \"@p add.rn.f32 %2, %5, %6;\\n}\\n\"\n"
+         "        : \"+f\"(best[h]), \"+f\"(keep[h]), \"+f\"(base[h])\n"
+         "        : \"f\"(lo), \"f\"(d0), \"f\"(col), \"f\"(off));\n",
          "    best[h] = fminf(best[h], lo);\n"),
     ],
     # f32 mode only: x_hi.w_hi alone, without the two small products of the split.
@@ -164,19 +249,22 @@ def ablated(n_rows: int) -> None:
     sys.path.insert(0, str(ROOT))
     import torch
     from reductive_tpu_torch.ops import _build
-    from reductive_tpu_torch.ops.assign import _prepare
-    from reductive_tpu_torch.ops.stats import _blocks_per_subquantizer
+    from reductive_tpu_torch.ops.assign import _blocks_per_subquantizer, _prepare, bf16_tile_plan
 
     m, k, ds = FLAGSHIP
     cb, x = make(n_rows, m, k, ds)
     cb2, c_sqn = _prepare(cb, x, torch.int32, torch.float32)
+    cb2_bf16, _ = _prepare(cb, x, torch.int32, torch.bfloat16)
     blocks = _blocks_per_subquantizer(n_rows, m, k, ds)
-    partial = torch.empty((blocks, m, k, ds + 1), device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    enc_plan, stats_plan = bf16_tile_plan(n_rows, m, k, ds, sms=sms), bf16_tile_plan(n_rows, m, k, ds)
+    partial = torch.empty((max(blocks, stats_plan.blocks), m, k, ds + 1), device="cuda")
     sums, counts = torch.empty((m, k, ds), device="cuda"), torch.empty((m, k), device="cuda")
     codes = torch.empty((n_rows, m), dtype=torch.uint8, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     csrc = ROOT / "reductive_tpu_torch" / "csrc"
     with tempfile.TemporaryDirectory() as tmp:
+        builds = {}  # name -> (copy of csrc, sources built there)
         for name, swaps in ABLATIONS.items():
             work = Path(tmp) / name
             work.mkdir()
@@ -184,34 +272,55 @@ def ablated(n_rows: int) -> None:
                 text = src.read_text()
                 for file, old, new in swaps:
                     if src.name == file:
-                        if text.count(old) != 1:
-                            raise SystemExit(f"{name}: the text to replace is not in {file} exactly once")
+                        if old not in text:
+                            raise SystemExit(f"{name}: the text to replace is not in {file}")
                         text = text.replace(old, new)
                 (work / src.name).write_text(text)
             touched = {file for file, _, _ in swaps}
-            sources = ["stats"] + (["encode"] if not touched or touched & {"encode.cu", "assign_tile.cuh"}
-                                   else [])
-            procs = {src: subprocess.Popen([_build._nvcc(), *_build._NVCC_FLAGS, "-I", str(work), "-o",
-                                            str(work / f"lib{src}.so"), str(work / f"{src}.cu")])
-                     for src in sources}
-            for src, proc in procs.items():
-                if proc.wait() != 0:
-                    raise SystemExit(f"{name}: nvcc failed for {src}.cu")
-            calls = []
-            stats_fn = ctypes.CDLL(str(work / "libstats.so")).rt_assign_stats
-            stats_fn.argtypes = list(_build._ENTRIES["rt_assign_stats"][1])
-            for mode, bf16 in (("stats_f32", 0), ("stats_bf16", 1)):
-                calls.append((mode, "rt_assign_stats", stats_fn,
-                              (x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), partial.data_ptr(),
-                               sums.data_ptr(), counts.data_ptr(), n_rows, m, k, ds, bf16, blocks,
-                               stream)))
+            builds[name] = (work, ["stats"] + (
+                ["encode"] if not touched or touched & {"encode.cu", "assign_tile.cuh"} else []))
+        # Every build at once, as many compilers at a time as the host has cores.
+        jobs = [(name, work, src) for name, (work, sources) in builds.items() for src in sources]
+        running = []
+        while jobs or running:
+            while jobs and len(running) < (os.cpu_count() or 4):
+                name, work, src = jobs.pop(0)
+                running.append((name, src, subprocess.Popen(
+                    [_build._nvcc(), *_build._NVCC_FLAGS, "-I", str(work), "-o",
+                     str(work / f"lib{src}.so"), str(work / f"{src}.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            name, src, proc = running.pop(0)
+            out, _ = proc.communicate()
+            for line in out.splitlines():  # ptxas warnings, such as wgmma serialised
+                print(f"{name} {src}.cu: {line}", flush=True)
+            if proc.returncode != 0:
+                raise SystemExit(f"{name}: nvcc failed for {src}.cu")
+        for name, (work, sources) in builds.items():
+            libs = {src: ctypes.CDLL(str(work / f"lib{src}.so")) for src in sources}
+
+            def entry_fn(entry):
+                fn = getattr(libs[_build._ENTRIES[entry][0]], entry)
+                fn.argtypes = list(_build._ENTRIES[entry][1])
+                return fn
+
+            stats_out = (partial.data_ptr(), sums.data_ptr(), counts.data_ptr(), n_rows, m, k, ds)
+            calls = [
+                ("stats_f32", "rt_assign_stats", (x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(),
+                                                  *stats_out, blocks, stream)),
+                ("stats_bf16", "rt_assign_stats_bf16",
+                 (x.data_ptr(), cb2_bf16.data_ptr(), c_sqn.data_ptr(), *stats_out, stats_plan.rows,
+                  stats_plan.blocks, stats_plan.smem_bytes, stream)),
+            ]
             if "encode" in sources:
-                encode_fn = ctypes.CDLL(str(work / "libencode.so")).rt_encode
-                encode_fn.argtypes = list(_build._ENTRIES["rt_encode"][1])
-                calls.append(("encode_f32", "rt_encode", encode_fn,
-                              (x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), codes.data_ptr(),
-                               n_rows, m, k, ds, 0, 1, 0, stream)))
-            for mode, entry, fn, args in calls:
+                calls += [
+                    ("encode_f32", "rt_encode", (x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(),
+                                                 codes.data_ptr(), n_rows, m, k, ds, 0, 1, 0, stream)),
+                    ("encode_bf16", "rt_encode_bf16",
+                     (x.data_ptr(), cb2_bf16.data_ptr(), c_sqn.data_ptr(), codes.data_ptr(), n_rows,
+                      m, k, ds, 1, enc_plan.rows, enc_plan.blocks, enc_plan.smem_bytes, stream)),
+                ]
+            for mode, entry, args in calls:
+                fn = entry_fn(entry)
                 fn.restype = ctypes.c_int
 
                 def call():
