@@ -54,7 +54,8 @@ from reductive_tpu_torch import Pq, io, kmeans, ops, train_opq_chunked, train_pq
 from reductive_tpu_torch.ops import _build
 from reductive_tpu_torch.ops.adc import quantize_tables_int8
 from reductive_tpu_torch.ops.assign import (
-    _prepare, bf16_tile_plan, pq_encode_verify_flags, verify_scale, wide_route,
+    VERIFY_ENCODE_CHUNK, _prepare, bf16_tile_plan, pq_encode_verify_flags, reset_verify_tiers,
+    verify_caps, verify_scale, verify_tiers, wide_route,
 )
 from reductive_tpu_torch.ops.decode import decode_table, launch_decode, quantize_codebook_int8
 from reductive_tpu_torch.ops.probe import probe_wgmma_tf32
@@ -87,7 +88,8 @@ PEAK_OPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
 # NVIDIA H100 80GB HBM3 at 700 W).
 BEFORE_MS = {"stats_f32": 13.04, "stats_bf16": 6.02, "stats_verify": 17.37,
              "stats_verify_kernel": 16.86, "encode_f32": 8.70, "encode_bf16": 5.29,
-             "encode_verify": 12.72, "encode_verify_kernel": 11.29}
+             "encode_verify": 12.72, "encode_verify_kernel": 11.29, "adc": 0.698,
+             "adc_u4": 0.557}
 
 KERNELS = {
     "encode_f32": ("reductive_tpu_torch/csrc/encode.cu", "reductive_tpu/ops/assign.py:138"),
@@ -223,18 +225,28 @@ def compare_decode(codebooks, codes, splits):
     return {"n_mismatch": n_mismatch, "max_abs_err": float((got - want).abs().max())}
 
 
+def bits_differ(got, want) -> int:
+    """Scores whose f32 bit patterns differ."""
+    return int((got.view(torch.int32) != want.view(torch.int32)).sum())
+
+
 def compare_adc(tables, codes, splits):
-    """Kernel against plain version, rtol 1e-5 with atol 1e-5 * max|score|
-    (both add the m entries in the order j = 0..m-1, so 0 is expected)."""
+    """Kernel against plain version: for splits 1 to 3 bit for bit (both add
+    the m entries in the order j = 0..m-1); for ``"int8"`` rtol 1e-5 with atol
+    1e-5 * max|score|, the scores that differ in any bit counted beside."""
     got = ops.adc_scores_kernel(tables, codes, splits=splits)
     want = ops.adc_scores_reference(tables, codes, splits=splits)
     torch.cuda.synchronize()
     require(got.shape == want.shape, "adc: shape")
     err = (got - want).abs()
-    tol = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
-    n_mismatch = int((err > tol).sum())
-    require(n_mismatch == 0, f"adc splits={splits}: {n_mismatch} scores beyond tolerance")
-    return {"n_mismatch": n_mismatch, "max_abs_err": float(err.max())}
+    n_bits = bits_differ(got, want)
+    if splits == "int8":
+        tol = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
+        n_mismatch = int((err > tol).sum())
+    else:
+        n_mismatch = n_bits
+    require(n_mismatch == 0, f"adc splits={splits}: {n_mismatch} scores differ")
+    return {"n_mismatch": n_mismatch, "n_bits_differ": n_bits, "max_abs_err": float(err.max())}
 
 
 def compare_stats(codebooks, x, compute_dtype):
@@ -400,7 +412,7 @@ def compare_packed_adc(tables, codes, packed, splits):
     want = ops.adc_scores_reference(tables, packed, splits=splits, packed=True)
     unpacked = ops.adc_scores_kernel(tables, codes, splits=splits)
     torch.cuda.synchronize()
-    n_mismatch = int((got != want).sum()) + int((got != unpacked).sum())
+    n_mismatch = bits_differ(got, want) + bits_differ(got, unpacked)
     require(n_mismatch == 0, f"packed adc splits={splits}: {n_mismatch} scores differ")
     return {"n_mismatch": n_mismatch, "max_abs_err": float((got - want).abs().max())}
 
@@ -441,7 +453,9 @@ def phase_kernels(pq, corpus, gen):
             ("decode_splits1", compare_decode(pq.codebooks, codes, 1)),
             ("decode_splits3", compare_decode(pq.codebooks, codes, 3)),
             ("decode_int8", compare_decode(pq.codebooks, codes, "int8")),
+            ("adc_splits1", compare_adc(tables, codes, 1)),
             ("adc_splits2", compare_adc(tables, codes, 2)),
+            ("adc_splits3", compare_adc(tables, codes, 3)),
             ("adc_int8", compare_adc(tables, codes, "int8")),
             ("stats_f32", compare_stats(pq.codebooks, x, torch.float32)),
             ("stats_bf16", compare_stats(pq.codebooks, x, torch.bfloat16)),
@@ -807,6 +821,13 @@ def adversarial_corpus(codebooks, n, gen):
     return cb, x.reshape(n, m * ds)
 
 
+def tier_names() -> dict[str, int]:
+    """The verified wrappers' tiers taken since the last reset, as
+    ``{"encode_cap": calls, "stats_cap2": calls, ...}``: ``cap`` and ``cap2``
+    re-encode the flagged rows only, ``exact`` the whole batch."""
+    return {f"{wrapper}_{tier}": count for (wrapper, tier), count in sorted(verify_tiers().items())}
+
+
 def exact_checks(name, codebooks, x, cap_frac=1 / 16):
     """``pq_encode_verified`` against the exact path on every code, and
     ``pq_assign_stats_verified`` against the exact path's counts in every
@@ -816,6 +837,7 @@ def exact_checks(name, codebooks, x, cap_frac=1 / 16):
     n = x.shape[0]
     k = codebooks.shape[1]
     oracle = primitives.quantize_batch(codebooks, x, dtype=torch.int32)
+    reset_verify_tiers()
     got = ops.pq_encode_verified(codebooks, x, dtype=torch.int32, cap_frac=cap_frac)
     n_wrong = int((got != oracle).sum())
     require(n_wrong == 0, f"exact: {name}: {n_wrong} of {got.numel()} codes differ from the exact path")
@@ -826,6 +848,7 @@ def exact_checks(name, codebooks, x, cap_frac=1 / 16):
     require(bool(torch.equal(sums, again[0])) and bool(torch.equal(counts, again[1])),
             f"exact: {name}: two calls of pq_assign_stats_verified differ")
     del again
+    tiers = tier_names()
     cells_off = int((counts != want_counts).sum())
     require(cells_off == 0, f"exact: {name}: counts differ from the exact path's in {cells_off} cells")
     err = (sums - want_sums).abs()
@@ -849,7 +872,10 @@ def exact_checks(name, codebooks, x, cap_frac=1 / 16):
         "rows": n, "codes_compared": oracle.numel(), "code_mismatches": n_wrong,
         "count_cells_off": cells_off, "max_abs_err_sums": float(err.max()),
         "stats_verified_bit_equal_calls": True,
-        "cap_frac": cap_frac, "flag_rate": float(flags.float().mean()),
+        "cap_frac": cap_frac, "tiers": tiers,
+        "caps": {"encode": verify_caps(n, cap_frac, VERIFY_ENCODE_CHUNK),
+                 "stats": verify_caps(n, cap_frac, min(16384, max(256, n)))},
+        "flag_rate": float(flags.float().mean()),
         "flag_rate_at_2^-14": float(wide.float().mean()),
         "rows_the_kernel_alone_got_wrong": int(wrong_rows.sum()),
         "stats_flag_rate": float(s_flags.float().mean()),
@@ -869,15 +895,19 @@ def phase_exact(pq, corpus, train_out):
     out = {"gaussian": exact_checks("gaussian", pq.codebooks, corpus)}
     cb_adv, x_adv = adversarial_corpus(pq.codebooks, N_PREFIX, gen)
     # Most of these rows are flagged: cap_frac=1.0 keeps the gather-and-move
-    # route, cap_frac=1e-9 takes the everything-by-the-exact-path route.
+    # route (its cap is every row); at cap_frac=1e-9 the cap is one chunk of
+    # 16,384 rows and the second tier 65,536, below the flagged count, so the
+    # whole batch takes the exact path.
     out["adversarial"] = exact_checks("adversarial", cb_adv, x_adv, 1.0)
     out["adversarial_cap_1e-9"] = exact_checks("adversarial cap_frac=1e-9", cb_adv, x_adv, 1e-9)
     del cb_adv, x_adv
 
     n_it = 4
     state = gen.get_state()
+    reset_verify_tiers()
     trained, seconds = timed(
         lambda: train_pq_chunked(gen, corpus, M, BITS, n_it, compute_dtype="verified"))
+    pq_tiers = tier_names()
     gen.set_state(state)
     init_codebooks_random(corpus, gen, K, DS)
     initial = Pq(codebooks=init_codebooks_random(corpus, gen, K, DS))
@@ -889,12 +919,14 @@ def phase_exact(pq, corpus, train_out):
         **require_trained("pq_chunked_verified", trained, initial, corpus),
         "seconds_per_iteration": seconds / n_it, "rows_per_s": n_it * n / seconds,
         "seconds_per_iteration_f32": train_out["pq_chunked_f32"]["seconds_per_iteration"],
-        "losses": losses,
+        "losses": losses, "tiers": pq_tiers,
     }
 
     state = gen.get_state()
+    reset_verify_tiers()
     opq, seconds = timed(
         lambda: train_opq_chunked(gen, corpus, M, BITS, 1, compute_dtype="verified"))
+    opq_tiers = tier_names()
     gen.set_state(state)
     projection0 = create_projection_matrix(corpus, M)
     init_codebooks_random(corpus, gen, K, DS, projection0)
@@ -906,7 +938,7 @@ def phase_exact(pq, corpus, train_out):
         **require_trained("opq_chunked_verified", opq, initial, corpus),
         "seconds_per_iteration": seconds, "rows_per_s": n / seconds,
         "seconds_per_iteration_f32": train_out["opq_chunked_f32"]["seconds_per_iteration"],
-        "orthonormal_err": ortho_err,
+        "orthonormal_err": ortho_err, "tiers": opq_tiers,
     }
     launches = ops.launch_counts()
     require(launches.get("stats_verify", 0) > 0 and launches.get("encode_verify", 0) > 0,
@@ -1035,8 +1067,8 @@ def exact_line(name, codebooks, x):
     """``exact_checks`` with its rates under their own names."""
     res = exact_checks(name, codebooks, x)
     return {key: res[key] for key in ("rows", "codes_compared", "code_mismatches",
-                                      "count_cells_off", "flag_rate", "stats_flag_rate",
-                                      "rows_the_kernel_alone_got_wrong", "max_abs_err_sums")}
+                                      "count_cells_off", "flag_rate", "stats_flag_rate", "tiers",
+                                      "caps", "rows_the_kernel_alone_got_wrong", "max_abs_err_sums")}
 
 
 def phase_wide(corpus, gen):
@@ -1066,6 +1098,7 @@ def phase_wide(corpus, gen):
     torch.cuda.synchronize()
 
     ops.reset_launch_counts()
+    reset_verify_tiers()
     t0 = time.perf_counter()
     losses_a = []
     for cd in (f32, f32, "verified"):  # one Lloyd's iteration a call, to read every loss
@@ -1091,6 +1124,7 @@ def phase_wide(corpus, gen):
     torch.cuda.synchronize()
     t_c = time.perf_counter() - t0
     launches = ops.launch_counts()
+    path_tiers = tier_names()
     for name in WIDE_KERNELS:
         require(launches.get(name, 0) > 0, f"wide: kernel {name} was never launched")
 
@@ -1143,9 +1177,13 @@ def phase_wide(corpus, gen):
     def row(name, cb, x, kernel, plain, library, nbytes, nops, op_type, alone=None):
         bound_ms, bound_by = bound(nbytes, nops, op_type)
         m, k, ds = cb.shape
+        reset_verify_tiers()
         out = {"name": name, "shape": f"n={x.shape[0]} d={m * ds} m={m} k={k} ds={ds}",
-               "ms": time_ms(kernel, 3), "plain_ms": time_ms(plain, 1),
-               "library_ms": time_ms(library, 1), "bound_ms": bound_ms, "bound_by": bound_by}
+               "ms": time_ms(kernel, 3)}
+        if verify_tiers():  # the verified wrapper: the tier its timed calls took
+            out["tiers"] = tier_names()
+        out.update({"plain_ms": time_ms(plain, 1), "library_ms": time_ms(library, 1),
+                    "bound_ms": bound_ms, "bound_by": bound_by})
         if alone is not None:
             out["kernel_ms"] = time_ms(alone, 3)
         torch.cuda.empty_cache()
@@ -1260,6 +1298,7 @@ def phase_wide(corpus, gen):
          ivf10m_losses=losses_a, ivf100m_loss={"initial": loss_b0, "after_1": float(loss_b)},
          gate_ds2={"mse": mse20, "mse_int8": mse20_int8, "bf16_agrees_with_f32": agree20},
          exact=exact, shared_assignment=shared, compared=compared, times=times,
+         tiers=path_tiers,
          routes=routes,
          assign_blocks={"blocks": n_blocks, "sms": torch.cuda.get_device_properties(dev).multi_processor_count},
          launches=launches)

@@ -18,9 +18,17 @@ int32 sum, ``score = float(sum) * scale[q] + offset[q]``.
 ``m``): the kernel takes both nibbles of each byte, low then high, so the
 sum keeps its order and the scores are bit-equal to the unpacked kernel's on
 the unpacked codes, at half the code bytes read and held.
+
+The f32 kernel's launch plan is :func:`adc_plan`, a function of the shapes:
+lanes over queries; each table entry stored once for each row of a load's
+phase where 32 copies of the tables fit, or else once, with each lane lagging
+its rows' codes by its row's place in the phase (both: no bank conflicts);
+and a persistent grid that fills each block's tables once.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,24 +40,110 @@ from .packing import check_packed, unpack_u4_codes
 
 __all__ = [
     "adc_scores_kernel", "adc_scores_reference", "quantize_tables_int8",
-    "max_query_batch", "query_tile",
+    "max_query_batch", "query_tile", "AdcPlan", "adc_plan",
 ]
 
 # Shared memory one block may use on Hopper (232,448 bytes of the SM's 256 KB).
 _SMEM_BYTES = 227 * 1024
+# Shared memory of one SM, and what the system keeps of it for each block.
+_SM_SMEM_BYTES = 228 * 1024
+_BLOCK_RESERVED_BYTES = 1024
 _GRID_Y_MAX = 65535
 _RECIP_255 = float(np.float32(1.0) / np.float32(255.0))
+# The f32 kernel (csrc/adc.cu adc_f32_kernel): at most two blocks an SM (its
+# __launch_bounds__), a block's rows start on a multiple of 64, at most 32
+# queries a block.
+_F32_MAX_BLOCKS_PER_SM = 2
+_F32_ROW_ALIGN = 64
+_F32_MAX_QUERIES = 32
+_H100_SMS = 132
+
+
+class AdcPlan(NamedTuple):
+    """How the f32 ADC kernel is launched (:func:`adc_plan`)."""
+
+    queries: int          # QT: queries whose tables a block holds
+    replicas: int         # copies of each entry: 1, or 32 // queries (no bank conflicts)
+    skew: bool            # lanes lag their rows' codes (no bank conflicts at R = 1)
+    rows_per_load: int    # rows one warp load serves: QT / min(QT, 4) lanes a row
+    query_tiles: int      # the grid's second axis
+    blocks: int           # blocks per query tile, each over one range of rows
+    rows_per_block: int
+    threads: int          # a block's: 1,024 at one block an SM, else 512
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def adc_plan(n: int, nq: int, m: int, k: int, packed: bool = False, *,
+             sms: int = _H100_SMS) -> AdcPlan:
+    """The launch plan of the f32 ADC kernel (``csrc/adc.cu``
+    ``adc_f32_kernel``) for ``nq`` queries over ``n`` rows of ``m`` codes
+    below ``k`` (``packed``: two u4 codes a byte, ``k <= 16``, even ``m``).
+
+    Where 32 copies of the tables' floats fit a block (``128*m*k`` bytes:
+    every ``k <= 16`` up to m = 113), a block holds ``QT`` = the least power
+    of two that covers ``nq`` (at most 32) queries, each entry stored
+    ``32 // QT`` times, one copy for each row of a load's phase: no bank
+    conflicts.  Elsewhere each entry is stored once and ``QT`` is the largest
+    power of two up to that cover whose tables fit; at ``QT`` = 8 or 16 with
+    ``m % 4 == 0`` (uint8 codes, unpacked) the lanes lag their rows' codes by
+    their row's place in a phase (``skew``), which makes those lookups free
+    of conflicts too.  Blocks: as many as are resident at once (two of 512
+    threads an SM where their shared memory allows, else one of 1,024),
+    shared among the query tiles, each over a range of rows that is a multiple
+    of 64 (none empty).  ``sms`` is the card's multiprocessors; no score
+    depends on the plan.  Raises ``ValueError`` when one query's tables
+    outgrow a block."""
+    if packed and (k > 16 or m % 2):
+        raise ValueError(f"packed codes need k <= 16 and an even m, got m={m}, k={k}")
+    if nq <= 0 or m <= 0 or k <= 0 or n < 0:
+        raise ValueError(f"no ADC plan for n={n}, nq={nq}, m={m}, k={k}")
+    entry = m * k * 4  # bytes of one query's tables
+    if entry > _SMEM_BYTES:
+        raise ValueError(
+            f"no shared-memory tiling for m={m}, k={k}: one query's tables exceed a block's "
+            "shared memory; use the einsum scorer (reductive_tpu_torch.search.adc_scores)"
+        )
+    cover = min(_F32_MAX_QUERIES, _pow2_at_least(nq))
+    if _F32_MAX_QUERIES * entry <= _SMEM_BYTES:
+        qt, replicas = cover, _F32_MAX_QUERIES // cover
+    else:
+        qt, replicas = cover, 1
+        while qt * entry > _SMEM_BYTES:
+            qt //= 2
+    smem = replicas * qt * entry
+    per_sm = max(1, min(_F32_MAX_BLOCKS_PER_SM,
+                        _SM_SMEM_BYTES // (smem + _BLOCK_RESERVED_BYTES)))
+    tiles = -(-nq // qt)
+    blocks = max(1, min(sms * per_sm // tiles, -(-n // _F32_ROW_ALIGN)))
+    per_block = -(-n // blocks)
+    rows = max(_F32_ROW_ALIGN, -(-per_block // _F32_ROW_ALIGN) * _F32_ROW_ALIGN)
+    blocks = max(1, -(-n // rows))
+    skew = replicas == 1 and qt in (8, 16) and m % 4 == 0 and not packed
+    threads = 1024 if per_sm == 1 else 512
+    return AdcPlan(qt, replicas, skew, 32 // (qt // min(qt, 4)), tiles, blocks, rows, threads,
+                   smem, per_sm)
 
 
 def query_tile(m: int, k: int, splits=2) -> int:
-    """Queries whose tables one block holds in shared memory: the largest of
-    8, 4, 2, 1 that fits (``m*k`` entries a query, 4 bytes each, 1 for
-    ``"int8"``).  0 when not even one query's tables fit."""
-    itemsize = 1 if splits == "int8" else 4
-    for qt in (8, 4, 2, 1):
-        if qt * m * k * itemsize <= _SMEM_BYTES:
-            return qt
-    return 0
+    """Queries whose tables one block holds in shared memory, at most: for
+    f32 tables :func:`adc_plan`'s ``queries`` for a large batch (32 where
+    every entry's 32 copies fit, else the largest power of two whose tables
+    fit: 8 at m=16, k=256, 16 KB a query); for ``"int8"`` the largest of 8,
+    4, 2, 1 that fits (1 byte an entry).  0 when not even one query's tables
+    fit."""
+    if splits == "int8":
+        for qt in (8, 4, 2, 1):
+            if qt * m * k <= _SMEM_BYTES:
+                return qt
+        return 0
+    if m * k * 4 > _SMEM_BYTES:
+        return 0
+    return adc_plan(1, _F32_MAX_QUERIES, m, k).queries
 
 
 def max_query_batch(m: int, k: int, splits=2) -> int:
@@ -159,12 +253,12 @@ def adc_scores_kernel(
     codes = codes.contiguous()
     suffix = "_u4" if packed else ""
     out = torch.empty((nq, n), dtype=torch.float32, device=codes.device)
-    props = torch.cuda.get_device_properties(codes.device)
-    row_blocks = max(1, min(-(-n // 1024), props.multi_processor_count))
+    sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
         if splits == "int8":
             t8, scale, offset = quantize_tables_int8(tables)
+            row_blocks = max(1, min(-(-n // 1024), sms))
             _build.launch(
                 "rt_adc_int8", "adc_int8" + suffix,
                 t8.data_ptr(), scale.data_ptr(), offset.data_ptr(), codes.data_ptr(),
@@ -172,10 +266,11 @@ def adc_scores_kernel(
             )
         else:
             table = effective_codebook(tables, splits)
+            plan = adc_plan(n, nq, m, k, packed, sms=sms)
             _build.launch(
                 "rt_adc", "adc" + suffix,
                 table.data_ptr(), codes.data_ptr(), codes.element_size(), int(packed),
-                out.data_ptr(),
-                n, nq, m, k, qt, row_blocks, stream,
+                out.data_ptr(), n, nq, m, k, plan.queries, plan.replicas, int(plan.skew),
+                plan.blocks, plan.rows_per_block, plan.threads, plan.smem_bytes, stream,
             )
     return out

@@ -158,6 +158,7 @@ and held to the exact path there: no unflagged row may differ.
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import torch
@@ -170,7 +171,8 @@ __all__ = [
     "pq_encode", "pq_encode_reference", "assign_nearest",
     "pq_encode_verified", "pq_encode_verify_reference", "pq_encode_verify_flags",
     "verify_scale", "VERIFY_RHO", "F32_ROUTE", "WIDE_ROUTE", "f32_route", "wide_chunking",
-    "flagged_rows", "wide_route", "split_tf32", "deep_operands", "DEEP_STEP",
+    "flagged_rows", "verify_caps", "verify_tiers", "reset_verify_tiers", "VERIFY_ENCODE_CHUNK",
+    "wide_route", "split_tf32", "deep_operands", "DEEP_STEP",
     "TilePlan", "bf16_tile_plan",
 ]
 
@@ -511,14 +513,46 @@ def pq_encode_verify_reference(
     return codes, flags
 
 
-def flagged_rows(flags: Tensor, cap_frac: float) -> Tensor | None:
+# Rows a chunk of the verified encode's exact re-encode, as the JAX package
+# walks them; its cap is rounded up to whole chunks of this size.
+VERIFY_ENCODE_CHUNK = 16384
+
+_tiers: collections.Counter = collections.Counter()
+
+
+def verify_caps(n: int, cap_frac: float, chunk: int) -> tuple[int, int]:
+    """``(cap, cap2)``: the JAX package's two tiers of flagged rows for a
+    verified call over ``n`` rows.  ``cap`` is ``cap_frac`` of the rows
+    rounded up to whole chunks (at least one chunk, at most ``n``), ``cap2``
+    four times that (at most ``n``).  Up to ``cap2`` flagged rows only the
+    flagged rows are computed again by the exact path; above it everything."""
+    cap = min(max(chunk, -(-int(n * cap_frac) // chunk) * chunk), n)
+    return cap, min(4 * cap, n)
+
+
+def verify_tiers() -> dict[tuple[str, str], int]:
+    """How often each verified wrapper (``"encode"``, ``"stats"``) took each
+    tier (``"cap"``, ``"cap2"``, ``"exact"``) since the last reset."""
+    return dict(_tiers)
+
+
+def reset_verify_tiers() -> None:
+    _tiers.clear()
+
+
+def flagged_rows(flags: Tensor, cap_frac: float, chunk: int, wrapper: str) -> Tensor | None:
     """Indices of the flagged rows (``torch.nonzero``: the host waits for the
-    device here), or ``None`` when more than ``cap_frac`` of the rows are
-    flagged and everything is to be computed by the exact path."""
+    device here), or ``None`` when more than ``cap2`` of :func:`verify_caps`
+    are flagged and everything is to be computed by the exact path.  Counts
+    the tier taken under ``wrapper`` (:func:`verify_tiers`).  The JAX package
+    pads the flagged rows to ``cap`` or ``cap2`` rows for its static shapes;
+    here they are taken as they are, at both tiers, with the same result."""
     idx = torch.nonzero(flags)[:, 0]
-    if idx.shape[0] > cap_frac * flags.shape[0]:
-        return None
-    return idx
+    cap, cap2 = verify_caps(flags.shape[0], cap_frac, chunk)
+    count = idx.shape[0]
+    tier = "cap" if count <= cap else "cap2" if count <= cap2 else "exact"
+    _tiers[(wrapper, tier)] += 1
+    return None if tier == "exact" else idx
 
 
 def pq_encode_verify_flags(
@@ -569,17 +603,18 @@ def pq_encode_verified(
     rows are gathered, encoded again by the exact path (which walks them in
     chunks: 16,384 rows at m=16, k=256) and written back by index.  Finding
     them is a ``torch.nonzero``: the host waits for the device once per call.
-    Above ``cap_frac`` of the rows
-    flagged (data full of near-ties) everything is encoded by the exact path
-    instead of gathered, so the result is right at any flag rate.
+    Above ``cap2`` flagged rows (:func:`verify_caps` with chunks of
+    :data:`VERIFY_ENCODE_CHUNK` rows: ``cap_frac`` of the rows rounded up to
+    whole chunks, times four; data full of near-ties) everything is encoded by
+    the exact path instead of gathered, so the result is right at any flag rate.
 
     CUDA tensors go through the kernel (any ``ds``, ``k <= 65536``; a larger
     ``k`` raises); CPU tensors through :func:`pq_encode_verify_reference`.
     """
     codes, flags = pq_encode_verify_flags(codebooks, x, dtype=dtype)
-    idx = flagged_rows(flags, cap_frac)
+    idx = flagged_rows(flags, cap_frac, VERIFY_ENCODE_CHUNK, "encode")
     if idx is None:
         return quantize_batch(codebooks, x, dtype=dtype)
     if idx.shape[0]:
-        codes[idx] = quantize_batch(codebooks, x[idx], dtype=dtype)
+        codes[idx] = quantize_batch(codebooks, x[idx], dtype=dtype, batch=x.shape[0])
     return codes

@@ -218,15 +218,17 @@ def stats_from_codes(codes: Tensor, x: Tensor, k: int) -> tuple[Tensor, Tensor]:
 
 
 def exact_stats_chunked(codebooks: Tensor, x: Tensor, chunk: int = 16384) -> tuple[Tensor, Tensor]:
-    """Statistics under the exact path's assignment, in ``chunk``-row slices:
-    what :func:`pq_assign_stats_verified` computes when too many rows are
-    flagged.  Right at any flag rate."""
+    """Statistics under the exact path's assignment, in ``chunk``-row slices
+    (each coded as the whole batch codes it): what
+    :func:`pq_assign_stats_verified` computes when too many rows are flagged.
+    Right at any flag rate."""
     m, k, ds = codebooks.shape
     sums = torch.zeros((m, k, ds), dtype=torch.float32, device=x.device)
     counts = torch.zeros((m, k), dtype=torch.float32, device=x.device)
     for i in range(0, x.shape[0], chunk):
         xc = x[i:i + chunk]
-        s2, c2 = stats_from_codes(quantize_batch(codebooks, xc, dtype=torch.int32), xc, k)
+        codes = quantize_batch(codebooks, xc, dtype=torch.int32, batch=x.shape[0])
+        s2, c2 = stats_from_codes(codes, xc, k)
         sums += s2
         counts += c2
     return sums, counts
@@ -299,8 +301,10 @@ def pq_assign_stats_verified(
     ``nonzero``, so that the one-hot product below takes those rows only,
     a few in a thousand of the flagged ones on Gaussian data) are moved: for
     each (row, j) whose code changed ``+x_j`` and ``+1`` into its new cell,
-    ``-x_j`` and ``-1`` into its old one.  Above ``cap_frac`` of the rows flagged,
-    the whole pass is :func:`exact_stats_chunked` instead.  ``x`` of another
+    ``-x_j`` and ``-1`` into its old one.  Above ``cap2`` flagged rows
+    (:func:`~reductive_tpu_torch.ops.assign.verify_caps` with chunks of
+    ``min(16384, max(256, n))`` rows, as the JAX package takes them), the
+    whole pass is :func:`exact_stats_chunked` instead.  ``x`` of another
     dtype is cast to f32 first.  Composes with the chunked trainers through
     ``compute_dtype="verified"``.
 
@@ -310,12 +314,12 @@ def pq_assign_stats_verified(
     """
     x = x.to(torch.float32)
     sums, counts, codes, flags = pq_assign_stats_verify_flags(codebooks, x)
-    idx = flagged_rows(flags, cap_frac)
+    idx = flagged_rows(flags, cap_frac, min(16384, max(256, x.shape[0])), "stats")
     if idx is None:
         return exact_stats_chunked(codebooks, x)
     if idx.shape[0]:
         xf = x[idx]
-        new = quantize_batch(codebooks, xf, dtype=torch.int32)
+        new = quantize_batch(codebooks, xf, dtype=torch.int32, batch=x.shape[0])
         old = codes[idx]
         moved = torch.nonzero((new != old).any(dim=1))[:, 0]
         if moved.shape[0]:

@@ -21,8 +21,12 @@ __all__ = [
 ]
 
 # quantize_batch walks the rows in chunks so that the (rows, m, k) distance
-# tensor stays below this many elements (256 MB of float32).
+# tensor stays below this many elements (256 MB of float32), of about a
+# sixteenth of the batch but at least this many rows: a verified wrapper pads
+# the few rows it codes again to one chunk of its batch, so the chunk follows
+# the batch's size rather than only the bound.
 _DIST_ELEMS = 1 << 26
+_MIN_CHUNK_ROWS = 2048
 
 
 def reconstructed_len(codebooks: Tensor) -> int:
@@ -45,29 +49,44 @@ def check_code_dtype(codebooks: Tensor, dtype: torch.dtype) -> None:
         )
 
 
-def nearest_centroids(cb2: Tensor, c_sqn: Tensor, xs: Tensor) -> Tensor:
+def nearest_centroids(cb2: Tensor, c_sqn: Tensor, xs: Tensor, batch: int | None = None) -> Tensor:
     """``argmin_c (c_sqn[j, c] - cb2[j, c] . xs[i, j])`` as int64 ``(n, m)``,
     the first index on ties (``torch.argmin`` returns the first minimum).
     ``cb2`` holds the doubled centroids ``2c``, ``xs`` is ``(n, m, ds)``.
-    Rows are taken in chunks that bound the distance tensor."""
-    n, m, _ = xs.shape
+
+    Rows are taken in chunks of ``min(batch, s, max(2048, batch / 16))``
+    rows, ``s`` the rows whose distance tensor stays within ``_DIST_ELEMS``,
+    a shorter last chunk padded with zeros: every row's products are taken in
+    a product of that one shape.  A product's rounding may depend on its shape (on the card the
+    library chooses its algorithm by it, and near-ties at a wide ``ds`` then
+    fall either way), so ``batch`` (default ``n``) lets a subset of a batch's
+    rows be coded exactly as the whole batch codes them."""
+    n, m, ds = xs.shape
     k = cb2.shape[1]
-    step = max(1, _DIST_ELEMS // (m * k))
+    batch = n if batch is None else batch
+    rows = max(1, min(batch, _DIST_ELEMS // (m * k), max(_MIN_CHUNK_ROWS, -(-batch // 16))))
     out = torch.empty((n, m), dtype=torch.int64, device=xs.device)
-    for i in range(0, n, step):
-        cross2 = torch.einsum("nmd,mkd->nmk", xs[i:i + step], cb2)
-        out[i:i + step] = torch.argmin(c_sqn[None] - cross2, dim=2)
+    for i in range(0, n, rows):
+        xc = xs[i:i + rows]
+        if xc.shape[0] < rows:
+            xc = torch.cat([xc, xc.new_zeros((rows - xc.shape[0], m, ds))])
+        cross2 = torch.einsum("nmd,mkd->nmk", xc, cb2)
+        out[i:i + rows] = torch.argmin(c_sqn[None] - cross2, dim=2)[:min(rows, n - i)]
     return out
 
 
-def quantize_batch(codebooks: Tensor, x: Tensor, dtype: torch.dtype = torch.uint8) -> Tensor:
+def quantize_batch(
+    codebooks: Tensor, x: Tensor, dtype: torch.dtype = torch.uint8, *, batch: int | None = None
+) -> Tensor:
     """Encode ``(n, m * ds)`` vectors to ``(n, m)`` centroid indices of
     ``dtype``, in float32 (``allow_tf32`` stays off).  Argmin ties break to
     the first index.
 
     ``|x|^2`` does not affect the argmin, so the distance is
     ``|c|^2 - (c.x + c.x)``; doubling the centroids before the product gives
-    the same bits (a scaling by two is exact).
+    the same bits (a scaling by two is exact).  ``batch``: code these rows as
+    a batch of that many rows codes them (see :func:`nearest_centroids`); the
+    verified wrappers pass their batch's size when they code its flagged rows.
     """
     check_code_dtype(codebooks, dtype)
     m, k, ds = codebooks.shape
@@ -78,7 +97,7 @@ def quantize_batch(codebooks: Tensor, x: Tensor, dtype: torch.dtype = torch.uint
         )
     c_sqn = torch.einsum("mkd,mkd->mk", codebooks, codebooks)
     xs = x.reshape(x.shape[0], m, ds)
-    return nearest_centroids(codebooks + codebooks, c_sqn, xs).to(dtype)
+    return nearest_centroids(codebooks + codebooks, c_sqn, xs, batch).to(dtype)
 
 
 def quantize(codebooks: Tensor, x: Tensor, dtype: torch.dtype = torch.uint8) -> Tensor:

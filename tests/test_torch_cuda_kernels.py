@@ -95,7 +95,16 @@ def test_decode_kernel_equals_plain(dev, n, m, k, ds, code_dtype, splits):
 @pytest.mark.parametrize("code_dtype", [torch.uint8, torch.int32])
 @pytest.mark.parametrize(
     "n,m,k,nq", [(1000, 3, 7, 5), (4097, 16, 256, 16), (2000, 24, 256, 130), (999, 64, 256, 9),
-                 (999, 200, 256, 3)]
+                 (999, 200, 256, 3),
+                 # The f32 plan's edges (ops.adc.adc_plan): one query, 130 (a ragged
+                 # query tile), k = 16 and 17 (32 copies of every entry), m = 113 and
+                 # 114 at k = 16 (the last shape with copies, the first without),
+                 # odd m, rows that end mid-block and mid-load, three rows; the
+                 # skewed walk at 16 queries a block (m = 8) and over three 16-byte
+                 # loads a row (m = 48).
+                 (1000, 16, 16, 1), (70001, 16, 256, 1), (1025, 17, 17, 130),
+                 (65601, 31, 256, 20), (5000, 113, 16, 40), (5000, 114, 16, 40), (3, 5, 16, 33),
+                 (5001, 8, 256, 16), (2500, 48, 128, 11)]
 )
 def test_adc_kernel_equals_plain(dev, n, m, k, nq, code_dtype, splits):
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -481,7 +490,11 @@ def test_packed_decode_kernel(dev, n, m, k, ds, splits):
 
 @pytest.mark.parametrize("splits", [1, 2, 3, "int8"])
 @pytest.mark.parametrize("n,m,k,nq", [(1000, 2, 16, 5), (4097, 16, 16, 16), (999, 6, 7, 9),
-                                      (2000, 24, 16, 130), (777, 10, 16, 3)])
+                                      (2000, 24, 16, 130), (777, 10, 16, 3),
+                                      # One query, 130, rows a 16-byte load (m = 32), an
+                                      # odd number of bytes a row (m = 30), no copies (m = 114).
+                                      (1025, 16, 16, 1), (70001, 16, 16, 130), (4000, 32, 16, 16),
+                                      (3001, 30, 16, 33), (500, 114, 16, 20)])
 def test_packed_adc_kernel(dev, n, m, k, nq, splits):
     gen = torch.Generator(device=dev).manual_seed(1)
     tables = torch.randn((nq, m, k), generator=gen, device=dev) * 10
@@ -493,6 +506,30 @@ def test_packed_adc_kernel(dev, n, m, k, nq, splits):
     # A view that starts off a 4-byte boundary takes the scalar route.
     assert torch.equal(
         ops.adc_scores_kernel(tables, packed[1:], splits=splits, packed=True), got[:, 1:])
+
+
+@pytest.mark.parametrize("offset", [1, 4, 8])
+@pytest.mark.parametrize("m", [16, 24])
+def test_adc_kernel_on_codes_off_a_word(dev, m, offset):
+    # A view that starts off 16 bytes takes 4-byte loads (offset 4, 8) or
+    # bytes (offset 1); the skewed walk only on whole words.
+    n, nq, k = 3001, 16, 256
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tables = torch.randn((nq, m, k), generator=gen, device=dev)
+    flat = torch.randint(0, k, (n * m + offset,), generator=gen, device=dev).to(torch.uint8)
+    codes = flat[offset:].view(n, m)
+    for splits in (1, 2, 3):
+        got = ops.adc_scores_kernel(tables, codes, splits=splits)
+        assert torch.equal(got, ops.adc_scores_reference(tables, codes, splits=splits))
+        assert torch.equal(got, ops.adc_scores_kernel(tables, codes.clone(), splits=splits))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_adc_kernel_takes_no_rows(dev, packed):
+    tables = torch.randn((3, 4, 16), device=dev)
+    codes = torch.zeros((0, 2 if packed else 4), dtype=torch.uint8, device=dev)
+    got = ops.adc_scores_kernel(tables, codes, packed=packed)
+    assert got.shape == (3, 0) and got.dtype == torch.float32
 
 
 # -- decode: the row-tile kernel, its tables, and views off 16 bytes ------------------

@@ -134,6 +134,12 @@ def test_query_tiling_by_shared_memory():
     assert query_tile(64, 256, "int8") == 8  # 16 KB a query in int8
     assert max_query_batch(24, 256) == 65535 * 8
     assert max_query_batch(24, 65536) == 0
+    # Where 32 copies of every entry fit (128*m*k bytes), the f32 kernel holds
+    # 32 queries a block; int8 tables keep their rule.
+    assert query_tile(16, 16) == 32 and query_tile(113, 16) == 32
+    assert query_tile(114, 16) == 16         # 7.1 KB a query: 32 copies do not fit, 16 queries do
+    assert query_tile(16, 16, "int8") == 8
+    assert max_query_batch(16, 16) == 65535 * 32
 
 
 def test_adc_errors():

@@ -97,8 +97,10 @@ ENCODE_CASES = {
     "gaussian": (make_pq_data, (3000, 4, 16, 4), 256, 1 / 16),
     "exact_ties": (_duplicated, (500, 2, 8, 4), 128, 1 / 16),
     "over_the_cap": (_near_coincident, (400, 2, 8, 4), 128, 1e-9),
-    # Most of these rows are flagged: cap_frac=1.0 gathers and re-encodes
-    # them, 1e-9 encodes everything by the exact path.
+    # Most of these rows are flagged.  At these n the cap (a whole chunk, cut
+    # to n) takes every flagged row at any cap_frac, in the JAX package and
+    # here: both gather and re-encode them (the exact path above the second
+    # tier: test_the_wrappers_follow_the_tiers).
     "adversarial": (_adversarial, (1000, 4, 16, 8), 256, 1.0),
     "adversarial_over_the_cap": (_adversarial, (1000, 4, 16, 8), 256, 1e-9),
 }
@@ -227,11 +229,60 @@ def test_the_encode_and_the_statistics_flag_alike_by_default(make):
     assert int(e_flags.sum()) > 0 or make is make_pq_data  # the ties are flagged
 
 
+def _reference_caps(n, cap_frac, chunk):
+    """The JAX package's tiers, as written there
+    (reductive_tpu/ops/assign.py:465-471, reductive_tpu/ops/stats.py:495-497)."""
+    cap = min(max(chunk, -(-int(n * cap_frac) // chunk) * chunk), n)
+    cap2 = min(4 * cap, n)
+    return cap, cap2
+
+
+@pytest.mark.parametrize("cap_frac", [1e-9, 1 / 64, 1 / 16, 0.0629, 0.25, 1.0])
+@pytest.mark.parametrize("n", [0, 1, 8, 255, 256, 300, 16383, 16384, 16385, 32768, 65536,
+                               65537, 262144, 524288, 1_000_000, 4_000_000])
+def test_verify_caps_are_the_references(n, cap_frac):
+    for chunk in (tassign.VERIFY_ENCODE_CHUNK, min(16384, max(256, n))):
+        cap, cap2 = tassign.verify_caps(n, cap_frac, chunk)
+        assert (cap, cap2) == _reference_caps(n, cap_frac, chunk)
+        assert cap <= cap2 <= n and (cap == n or cap % chunk == 0)
+    assert tassign.VERIFY_ENCODE_CHUNK == 16384
+
+
 def test_flagged_rows_and_the_cap():
+    # The reference's tiers: at n = 8 the cap is a whole chunk, cut to n, so
+    # every flag count gathers; nothing falls to the exact path.
     flags = torch.tensor([0, 1, 0, 1, 1, 0, 0, 0], dtype=torch.int32)
-    np.testing.assert_array_equal(tassign.flagged_rows(flags, 0.5).numpy(), [1, 3, 4])
-    assert tassign.flagged_rows(flags, 0.25) is None  # 3 of 8 are more than a quarter
-    assert tassign.flagged_rows(torch.zeros(8, dtype=torch.int32), 1e-9).numel() == 0
+    tassign.reset_verify_tiers()
+    np.testing.assert_array_equal(tassign.flagged_rows(flags, 0.5, 256, "stats").numpy(), [1, 3, 4])
+    np.testing.assert_array_equal(tassign.flagged_rows(flags, 0.25, 256, "stats").numpy(), [1, 3, 4])
+    np.testing.assert_array_equal(
+        tassign.flagged_rows(torch.ones(8, dtype=torch.int32), 1e-9, 16384, "encode").numpy(),
+        np.arange(8))
+    assert tassign.flagged_rows(torch.zeros(8, dtype=torch.int32), 1e-9, 16384, "encode").numel() == 0
+    assert tassign.verify_tiers() == {("stats", "cap"): 2, ("encode", "cap"): 2}
+    tassign.reset_verify_tiers()
+    assert tassign.verify_tiers() == {}
+
+
+@pytest.mark.parametrize("n,cap_frac,chunk", [(100_000, 1 / 16, 16384), (70_000, 1e-9, 16384),
+                                              (2000, 0.01, 256), (200_000, 0.1, 16384)])
+def test_flagged_rows_at_the_tiers_edges(n, cap_frac, chunk):
+    cap, cap2 = tassign.verify_caps(n, cap_frac, chunk)
+    assert cap < cap2 < n  # both tiers exist at these shapes
+    rng = np.random.default_rng(n)
+    tassign.reset_verify_tiers()
+    for count, tier in ((cap, "cap"), (cap + 1, "cap2"), (cap2, "cap2"), (cap2 + 1, "exact")):
+        rows = np.sort(rng.choice(n, count, replace=False))
+        flags = torch.zeros(n, dtype=torch.int32)
+        flags[torch.from_numpy(rows)] = 1
+        got = tassign.flagged_rows(flags, cap_frac, chunk, "encode")
+        if tier == "exact":
+            assert got is None
+        else:
+            np.testing.assert_array_equal(got.numpy(), rows)
+        assert tassign.verify_tiers()[("encode", tier)] >= 1
+    assert tassign.verify_tiers() == {("encode", "cap"): 1, ("encode", "cap2"): 2,
+                                      ("encode", "exact"): 1}
 
 
 def test_encode_wrapper_corrects_what_the_first_stage_got_wrong(monkeypatch):
@@ -246,9 +297,107 @@ def test_encode_wrapper_corrects_what_the_first_stage_got_wrong(monkeypatch):
         return wrong.to(dtype), flags.clone()
 
     monkeypatch.setattr(tassign, "pq_encode_verify_flags", first_stage)
-    for cap_frac in (1 / 2, 1e-9):  # gather-and-rewrite, then everything by the exact path
+    # At 300 rows the cap is the whole batch: both gather and rewrite the
+    # flagged rows (above the second tier: test_the_wrappers_follow_the_tiers).
+    for cap_frac in (1 / 2, 1e-9):
         got = pq_encode_verified(t(cb), t(x), dtype=torch.int32, cap_frac=cap_frac)
         np.testing.assert_array_equal(got.numpy(), oracle.numpy())
+
+
+def _flags_of_count(n, count, seed):
+    rows = np.sort(np.random.default_rng(seed).choice(n, count, replace=False))
+    flags = torch.zeros(n, dtype=torch.int32)
+    flags[torch.from_numpy(rows)] = 1
+    return flags
+
+
+@pytest.mark.parametrize("tier", ["cap", "cap2", "exact"])
+def test_the_wrappers_follow_the_tiers(monkeypatch, tier):
+    """Rows flagged beyond ``cap_frac * n`` but within ``cap2`` are the only
+    ones given to the exact path; beyond ``cap2`` the whole batch is.  The
+    first stage (monkeypatched) carries wrong codes on every flagged row, so
+    the result is the oracle's only if the right rows were recomputed."""
+    n, m, k, ds = 70_000, 3, 8, 2
+    cb, x = make_pq_data(51, n, m, k, ds)
+    oracle, osums, ocounts = _oracle_stats(cb, x)
+    oracle = t(oracle)
+    cap_frac = 1 / 16  # cap_frac * n = 4,375; cap 16,384, cap2 65,536 for both wrappers
+    cap, cap2 = tassign.verify_caps(n, cap_frac, 16384)
+    assert (cap, cap2) == (16384, 65536) and tassign.verify_caps(n, cap_frac, 16384) == \
+        _reference_caps(n, cap_frac, min(16384, max(256, n)))
+    count = {"cap": 4376, "cap2": cap2, "exact": cap2 + 1}[tier]
+    flags = _flags_of_count(n, count, 52)
+    wrong = torch.where(flags[:, None] == 1, (oracle + 1) % k, oracle).to(torch.int32)
+    seen = []
+
+    def exact_path(codebooks, rows, dtype=torch.uint8, batch=None):
+        # The flagged rows are coded as the whole batch codes them.
+        assert batch == n or (batch is None and rows.shape[0] == n)
+        seen.append(rows.shape[0])
+        return tprim.quantize_batch(codebooks, rows, dtype=dtype, batch=batch)
+
+    monkeypatch.setattr(tassign, "pq_encode_verify_flags",
+                        lambda codebooks, rows, *, dtype, **kw: (wrong.to(dtype), flags.clone()))
+    monkeypatch.setattr(tassign, "quantize_batch", exact_path)
+    tassign.reset_verify_tiers()
+    got = pq_encode_verified(t(cb), t(x), dtype=torch.int32, cap_frac=cap_frac)
+    np.testing.assert_array_equal(got.numpy(), oracle.numpy())
+    assert seen == [n if tier == "exact" else count]
+    assert tassign.verify_tiers() == {("encode", tier): 1}
+
+    seen.clear()
+    monkeypatch.setattr(tstats, "pq_assign_stats_verify_flags", lambda codebooks, rows, **kw: (
+        *tstats.stats_from_codes(wrong, rows, k), wrong.clone(), flags.clone()))
+    monkeypatch.setattr(tstats, "quantize_batch", exact_path)
+    monkeypatch.setattr(tstats, "exact_stats_chunked", _recording(tstats.exact_stats_chunked, seen))
+    sums, counts = pq_assign_stats_verified(t(cb), t(x), cap_frac=cap_frac)
+    np.testing.assert_array_equal(counts.numpy(), ocounts)
+    np.testing.assert_allclose(sums.numpy(), osums, rtol=1e-5, atol=1e-5)
+    if tier == "exact":  # the whole pass, which walks the batch in chunks
+        assert seen[0] == ("whole pass", n) and sum(seen[1:]) == n
+    else:
+        assert seen == [count]
+    assert tassign.verify_tiers() == {("encode", tier): 1, ("stats", tier): 1}
+
+
+@pytest.mark.parametrize("n,batch,min_rows", [(1000, None, 2048), (1000, 5000, 2048),
+                                              (300, 5000, 2048), (37, 37, 2048),
+                                              (1000, None, 16), (300, 1000, 16)])
+def test_the_exact_path_takes_every_row_in_a_product_of_one_shape(monkeypatch, n, batch, min_rows):
+    """``nearest_centroids`` walks the rows in chunks of ``min(batch, s,
+    max(min_rows, batch / 16))`` rows (``s`` the rows within ``_DIST_ELEMS``),
+    the last one padded: every row's products are taken at one shape,
+    whatever the batch, so that a subset coded with its batch's size gets the
+    whole batch's codes even where the product's rounding depends on its
+    shape (on the card, at a wide ds)."""
+    m, k, ds = 2, 16, 3
+    cb, x = make_pq_data(53, max(n, batch or 0), m, k, ds)
+    monkeypatch.setattr(tprim, "_DIST_ELEMS", 128 * m * k)  # s = 128 rows
+    monkeypatch.setattr(tprim, "_MIN_CHUNK_ROWS", min_rows)
+    shapes = []
+    einsum = torch.einsum
+
+    def recording(eq, a, b):
+        shapes.append(tuple(a.shape))
+        return einsum(eq, a, b)
+
+    monkeypatch.setattr(torch, "einsum", recording)
+    got = tprim.quantize_batch(t(cb), t(x[:n]), dtype=torch.int32, batch=batch)
+    monkeypatch.setattr(torch, "einsum", einsum)
+    b = n if batch is None else batch
+    rows = min(b, 128, max(min_rows, -(-b // 16)))
+    assert shapes[1:] and set(shapes[1:]) == {(rows, m, ds)}  # shapes[0]: the norms
+    assert len(shapes) - 1 == -(-n // rows)
+    monkeypatch.undo()
+    np.testing.assert_array_equal(
+        got.numpy(), tprim.quantize_batch(t(cb), t(x), dtype=torch.int32).numpy()[:n])
+
+
+def _recording(fn, seen):
+    def wrapped(codebooks, rows, *args, **kwargs):
+        seen.append(("whole pass", rows.shape[0]))
+        return fn(codebooks, rows, *args, **kwargs)
+    return wrapped
 
 
 # -- the bound behind the flags ----------------------------------------------------
