@@ -11,11 +11,13 @@ statistics and trainers against the f32 einsum path) and the packed path
 d=128, m=16, ds=8 (k=256; k=16 for the packed path) over a corpus of
 4,000,000 rows, and checks what comes out.  The wide phase drives every
 other subvector width: k-means at IVF's coarse shapes (d=128, k=4,096 over
-2^20 rows; d=768, k=16,384 over 2^19 rows; m = 1, ds = d) and a quantizer
-at the reference's quality-gate width (d=20, m=10, k=128, ds=2) over the
-corpus's first 20 columns, after a probe of the tensor cores' accumulation
-that the verify bound rests on; it also times the any-width decode kernels at
-d=300, k=256 (m = 150 and 30) over 2^21 rows.  The serving phase also searches
+2^20 rows; d=768, k=16,384 over 2^19 rows; m = 1, ds = d: the deep kernel),
+a quantizer at the reference's quality-gate width (d=20, m=10, k=128, ds=2:
+the narrow kernels' padded instances) over the corpus's first 20 columns and
+one at d=300, m=6, k=256 (ds=50: the shallow kernel) over 2^21 rows, after a
+probe of the tensor cores' accumulation that the verify bound rests on; it
+also times the any-width decode kernels and the padded encode and statistics
+kernels at d=300, k=256 (m = 150 and 30) over 2^21 rows.  The serving phase also searches
 a corpus whose k-th place is always tied and holds the ids to a stable sort's.
 Every phase prints one JSON line.  The run fails (non-zero exit, no result
 line) without a CUDA device, when a kernel does not build, does not launch
@@ -55,7 +57,7 @@ from reductive_tpu_torch.ops import _build
 from reductive_tpu_torch.ops.adc import quantize_tables_int8
 from reductive_tpu_torch.ops.assign import (
     VERIFY_ENCODE_CHUNK, _prepare, bf16_tile_plan, pq_encode_verify_flags, reset_verify_tiers,
-    verify_caps, verify_scale, verify_tiers, wide_route,
+    assign_route, verify_caps, verify_scale, verify_tiers,
 )
 from reductive_tpu_torch.ops.decode import decode_table, launch_decode, quantize_codebook_int8
 from reductive_tpu_torch.ops.probe import probe_wgmma_tf32
@@ -115,18 +117,27 @@ KERNELS = {
     "stats_verify_wide": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:272"),
     "decode_scalar": ("reductive_tpu_torch/csrc/decode.cu", "reductive_tpu/ops/decode.py:166"),
     "decode_int8_scalar": ("reductive_tpu_torch/csrc/decode.cu", "reductive_tpu/ops/decode.py:180"),
+    "encode_f32_pad": ("reductive_tpu_torch/csrc/encode.cu", "reductive_tpu/ops/assign.py:138"),
+    "encode_bf16_pad": ("reductive_tpu_torch/csrc/encode.cu", "reductive_tpu/ops/assign.py:138"),
+    "encode_verify_pad": ("reductive_tpu_torch/csrc/encode.cu", "reductive_tpu/ops/assign.py:298"),
+    "stats_f32_pad": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:50"),
+    "stats_bf16_pad": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:50"),
+    "stats_verify_pad": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:272"),
 }
 SERVE_KERNELS = ("encode_f32", "encode_bf16", "decode", "decode_int8", "adc", "adc_int8")
 PACKED_KERNELS = ("decode_u4", "decode_int8_u4", "adc_u4", "adc_int8_u4")
-WIDE_KERNELS = tuple(name for name in KERNELS if name.endswith(("_wide", "_scalar")))
+WIDE_KERNELS = tuple(name for name in KERNELS if name.endswith(("_wide", "_scalar", "_pad")))
 # The wide phase's shapes: IVF's coarse stage in benches/ivf10m.py (d=128,
 # 4,096 cells, over 2^20 rows) and benches/ivf100m.py (d=768, 16,384 cells,
 # its 2^19-row training sample); the reference's quality-gate width, d=20,
-# m=10, k=128 (ds=2), over the corpus's first 20 columns.
+# m=10, k=128 (ds=2), over the corpus's first 20 columns; 300-d vectors
+# (fastText, word2vec and GloVe publish 300-d ones) at m=6, k=256 (ds=50,
+# not a multiple of 4: the shallow kernel), over 2^21 rows.
 IVF10M = (1 << 20, 128, 4096)
 IVF100M = (1 << 19, 768, 16384)
 GATE_M, GATE_BITS = 10, 7
-N_D300 = 1 << 21                # rows of the wide phase's 300-d decode shapes
+N_D300 = 1 << 21                # rows of the wide phase's 300-d shapes
+D300_SHALLOW_M = 6              # ds = 50
 
 
 class SmokeFailure(RuntimeError):
@@ -1071,14 +1082,24 @@ def exact_line(name, codebooks, x):
                                       "caps", "rows_the_kernel_alone_got_wrong", "max_abs_err_sums")}
 
 
+def train_quantizer(gen, x, m, bits):
+    """One Lloyd's iteration of the chunked PQ trainer in each mode (bf16,
+    then f32 and verified from the model before), and the model."""
+    pq = train_pq_chunked(gen, x, m, bits, 1, compute_dtype=torch.bfloat16)
+    pq = train_pq_chunked(gen, x, m, bits, 1, initial_model=pq)
+    return train_pq_chunked(gen, x, m, bits, 1, compute_dtype="verified", initial_model=pq)
+
+
 def phase_wide(corpus, gen):
     """Every subvector width on the card: the probe of the tensor cores'
     accumulation; then, with every count at 0, k-means at IVF's two coarse
-    shapes and a ds = 2 quantizer through their entry points; then each wide
-    kernel against its plain version, encode against statistics, two
-    statistics launches bit-equal, the verified paths against the exact one,
-    and the times.  Returns the probe, the path's launches and the rows of
-    the kernels line."""
+    shapes (the deep kernel), a ds = 2 quantizer (the narrow kernels' padded
+    instances) and a ds = 50 one (the shallow kernel) through their entry
+    points; then each kernel of those paths against its plain version, encode
+    against statistics, two statistics launches bit-equal, the verified paths
+    against the exact one, and the times, with the padded kernels also at
+    the 300-d widths m = 150 (ds = 2) and m = 30 (ds = 10).  Returns the
+    probe, the path's launches and the rows of the kernels line."""
     dev = corpus.device
     f32, bf16 = torch.float32, torch.bfloat16
     # The TF32 instructions of the narrow route and the shallow kernel (N = 64)
@@ -1093,6 +1114,7 @@ def phase_wide(corpus, gen):
     xa = torch.randn((n_a, d_a), generator=gen, device=dev)
     xb = torch.randn((n_b, d_b), generator=gen, device=dev)
     x20 = corpus[:, :20].contiguous()
+    x300 = torch.randn((N_D300, 300), generator=gen, device=dev)
     ca = xa[kmeans.random_distinct_indices(gen, n_a, k_a)]
     cb0 = xb[kmeans.random_distinct_indices(gen, n_b, k_b)]
     torch.cuda.synchronize()
@@ -1115,7 +1137,7 @@ def phase_wide(corpus, gen):
     torch.cuda.synchronize()
     t_b = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pq20 = train_pq_chunked(gen, x20, GATE_M, GATE_BITS, 1, compute_dtype=bf16)
+    pq20 = train_quantizer(gen, x20, GATE_M, GATE_BITS)
     codes20_bf16 = pq20.quantize_batch(x20, method="kernel")
     codes20 = pq20.quantize_batch(x20, method="kernel-f32")
     verified20 = ops.pq_encode_verified(pq20.codebooks, x20)
@@ -1123,6 +1145,13 @@ def phase_wide(corpus, gen):
     rec20_int8 = pq20.reconstruct_batch(codes20, method="kernel-int8")
     torch.cuda.synchronize()
     t_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pq300 = train_quantizer(gen, x300, D300_SHALLOW_M, 8)
+    codes300_bf16 = pq300.quantize_batch(x300, method="kernel")
+    codes300 = pq300.quantize_batch(x300, method="kernel-f32")
+    verified300 = ops.pq_encode_verified(pq300.codebooks, x300)
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
     launches = ops.launch_counts()
     path_tiers = tier_names()
     for name in WIDE_KERNELS:
@@ -1134,15 +1163,20 @@ def phase_wide(corpus, gen):
             f"wide: the d={d_a} k-means loss rose: {losses_a}")
     require(float(loss_b) < loss_b0, f"wide: the d={d_b} loss {float(loss_b)} is not below {loss_b0}")
     require(bool(torch.isfinite(ca).all()) and bool(torch.isfinite(cb1).all()), "wide: centroids")
-    for codes, k in ((near_bf16, k_b), (near_f32, k_b), (verified_b, k_b)):
-        require(int(codes.min()) >= 0 and int(codes.max()) < k, "wide: a code out of range")
+    for codes, k in ((near_bf16, k_b), (near_f32, k_b), (verified_b, k_b), (codes300_bf16, 256),
+                     (codes300, 256), (verified300, 256), (verified20, 1 << GATE_BITS)):
+        require(int(codes.long().min()) >= 0 and int(codes.long().max()) < k,
+                "wide: a code out of range")
+    require(bool(torch.isfinite(pq20.codebooks).all()) and bool(torch.isfinite(pq300.codebooks).all()),
+            "wide: a trained codebook is not finite")
     mse20 = float((rec20 - x20).pow(2).mean())
     mse20_int8 = float((rec20_int8 - x20).pow(2).mean())
     require(mse20 < 0.1 and mse20_int8 < 0.1, f"wide: ds=2 reconstruction error {mse20} {mse20_int8}")
     require(bool(torch.equal(rec20, primitives.reconstruct_batch(pq20.codebooks, codes20))),
             "wide: the ds=2 decode is not bit-equal to the gather")
     agree20 = float((codes20_bf16 == codes20).float().mean())
-    del rec20, rec20_int8, start_b
+    agree300 = float((codes300_bf16 == codes300).float().mean())
+    del rec20, rec20_int8, start_b, codes300_bf16, codes300, verified300
 
     # Each kernel against its plain version, shape by shape; encode against
     # statistics; the verified paths against the exact one.
@@ -1150,20 +1184,29 @@ def phase_wide(corpus, gen):
         "ivf10m": (ca[None].contiguous(), xa),
         "ivf100m": (cb1[None].contiguous(), xb),
         "gate_ds2": (pq20.codebooks, x20),
+        "d300_m6": (pq300.codebooks, x300),
     }
+    routes = {label: assign_route(cb.shape[2], x.data_ptr() % 16 == 0)
+              for label, (cb, x) in shapes.items()}
+    require(routes == {"ivf10m": "deep", "ivf100m": "deep", "gate_ds2": "narrow",
+                       "d300_m6": "shallow"}, f"wide: the shapes take other routes: {routes}")
+    suffix = {label: "_pad" if route == "narrow" else "_wide" for label, route in routes.items()}
     compared, exact, shared = [], {}, {}
     for label, (cb, x) in shapes.items():
         shape = f"n={x.shape[0]} d={x.shape[1]} m={cb.shape[0]} k={cb.shape[1]}"
+        sfx = suffix[label]
         for name, res in (
-            ("encode_f32_wide", compare_encode(cb, x, f32, scale_gap=True)),
-            ("encode_bf16_wide", compare_encode(cb, x, bf16, scale_gap=True)),
-            ("stats_f32_wide", compare_stats(cb, x, f32)),
-            ("encode_verify_wide", compare_encode_verify(cb, x)),
-            ("stats_verify_wide", compare_stats_verify(cb, x)),
-        ) + ((("stats_bf16_wide", compare_stats(cb, x, bf16)),
-              ("decode_scalar", compare_decode(cb, codes20, 3)),
-              ("decode_int8_scalar", compare_decode(cb, codes20, "int8"))) if label == "gate_ds2" else ()):
-            compared.append({"kernel": name, "shape": shape, **res})
+            ("encode_f32", compare_encode(cb, x, f32, scale_gap=True)),
+            ("encode_bf16", compare_encode(cb, x, bf16, scale_gap=True)),
+            ("stats_f32", compare_stats(cb, x, f32)),
+            ("encode_verify", compare_encode_verify(cb, x)),
+            ("stats_verify", compare_stats_verify(cb, x)),
+        ) + ((("stats_bf16", compare_stats(cb, x, bf16)),) if label.startswith(("gate", "d300")) else ()):
+            compared.append({"kernel": name + sfx, "shape": shape, **res})
+        if label == "gate_ds2":
+            for name, res in (("decode_scalar", compare_decode(cb, codes20, 3)),
+                              ("decode_int8_scalar", compare_decode(cb, codes20, "int8"))):
+                compared.append({"kernel": name, "shape": shape, **res})
         shared[label] = compare_shared_assignment(cb, x)
         exact[label] = exact_line(label, cb, x)
         torch.cuda.empty_cache()
@@ -1189,17 +1232,17 @@ def phase_wide(corpus, gen):
         torch.cuda.empty_cache()
         return out
 
-    def assign_rows(cb, x, with_bf16=True):
+    def assign_rows(cb, x, sfx="_wide", with_bf16=True):
         n, d = x.shape
         m, k, ds = cb.shape
         nbytes = 4 * n * d + 4 * m * k * ds + 4 * n * m
         ops_ = 2 * n * m * k * ds
         rows = [
-            row("encode_f32_wide", cb, x,
+            row("encode_f32" + sfx, cb, x,
                 lambda: ops.pq_encode(cb, x, dtype=torch.int32, compute_dtype=f32),
                 lambda: ops.pq_encode_reference(cb, x, dtype=torch.int32, compute_dtype=f32),
                 lambda: library_assign(cb, x, f32), nbytes, 3 * ops_, "tf32"),
-            row("encode_verify_wide", cb, x,
+            row("encode_verify" + sfx, cb, x,
                 lambda: ops.pq_encode_verified(cb, x, dtype=torch.int32),
                 lambda: ops.pq_encode_verify_reference(cb, x, dtype=torch.int32),
                 lambda: primitives.quantize_batch(cb, x, dtype=torch.int32),
@@ -1207,14 +1250,14 @@ def phase_wide(corpus, gen):
                 alone=lambda: pq_encode_verify_flags(cb, x, dtype=torch.int32)),
         ]
         if with_bf16:
-            rows.append(row("encode_bf16_wide", cb, x,
+            rows.append(row("encode_bf16" + sfx, cb, x,
                             lambda: ops.pq_encode(cb, x, dtype=torch.int32, compute_dtype=bf16),
                             lambda: ops.pq_encode_reference(cb, x, dtype=torch.int32,
                                                             compute_dtype=bf16),
                             lambda: library_assign(cb, x, bf16), nbytes, ops_, "bf16"))
         return rows
 
-    def stats_rows(cb, x, modes):
+    def stats_rows(cb, x, modes, sfx="_wide"):
         n, d = x.shape
         m, k, ds = cb.shape
         nbytes = 4 * n * d + 4 * m * k * ds + 4 * m * k * (ds + 1)
@@ -1222,7 +1265,7 @@ def phase_wide(corpus, gen):
         rows = []
         for mode in modes:
             if mode == "verify":
-                rows.append(row("stats_verify_wide", cb, x,
+                rows.append(row("stats_verify" + sfx, cb, x,
                                 lambda: ops.pq_assign_stats_verified(cb, x),
                                 lambda: ops.pq_assign_stats_verify_reference(cb, x),
                                 lambda: stats_from_codes(primitives.quantize_batch(
@@ -1231,7 +1274,7 @@ def phase_wide(corpus, gen):
                                 alone=lambda: pq_assign_stats_verify_flags(cb, x)))
             else:
                 cd = f32 if mode == "f32" else bf16
-                rows.append(row(f"stats_{mode}_wide", cb, x,
+                rows.append(row(f"stats_{mode}{sfx}", cb, x,
                                 lambda: ops.pq_assign_stats(cb, x, compute_dtype=cd),
                                 lambda: ops.pq_assign_stats_reference(cb, x, compute_dtype=cd),
                                 lambda: library_assign_stats(cb, x, cd), nbytes,
@@ -1259,28 +1302,40 @@ def phase_wide(corpus, gen):
         del idx, out
         return rows
 
+    cb_d, _ = shapes["d300_m6"]
     times = {
         "ivf10m": stats_rows(cb_a, xa, ("f32", "verify")),
         "ivf100m": assign_rows(cb_b, xb) + stats_rows(cb_b, xb, ("f32",)),
-        "gate_ds2": assign_rows(cb_c, x20) + stats_rows(cb_c, x20, ("bf16", "f32"))
+        "gate_ds2": assign_rows(cb_c, x20, "_pad") + stats_rows(cb_c, x20, ("bf16", "f32", "verify"), "_pad")
         + decode_rows(cb_c, codes20),
+        "d300_m6": assign_rows(cb_d, x300) + stats_rows(cb_d, x300, ("bf16", "f32", "verify")),
     }
     # 300-d embeddings (fastText, word2vec and GloVe publish 300-d vectors), k=256,
-    # at m = 150 (ds = 2) and m = 30 (ds = 10): the f32 table (307 KB) does not fit
-    # a block's shared memory, the int8 one (78 KB) would; timed only.
+    # at m = 150 (ds = 2) and m = 30 (ds = 10): the decode kernels (the f32 table,
+    # 307 KB, does not fit a block's shared memory, the int8 one, 78 KB, would) and
+    # the padded encode and statistics kernels, each held to its plain version;
+    # timed only.
     for m_w in (150, 30):
+        shape = f"n={N_D300} d=300 m={m_w} k=256"
         cb_w = torch.randn((m_w, 256, 300 // m_w), generator=gen, device=dev)
+        for name, res in (("encode_f32_pad", compare_encode(cb_w, x300, f32, scale_gap=True)),
+                          ("encode_bf16_pad", compare_encode(cb_w, x300, bf16, scale_gap=True)),
+                          ("stats_f32_pad", compare_stats(cb_w, x300, f32)),
+                          ("stats_bf16_pad", compare_stats(cb_w, x300, bf16))):
+            compared.append({"kernel": name, "shape": shape, **res})
         codes_w = torch.randint(0, 256, (N_D300, m_w), generator=gen, device=dev, dtype=torch.uint8)
         for name, splits in (("decode_scalar", 3), ("decode_int8_scalar", "int8")):
-            compared.append({"kernel": name, "shape": f"n={N_D300} d=300 m={m_w} k=256",
-                             **compare_decode(cb_w, codes_w, splits)})
-        times[f"d300_m{m_w}"] = decode_rows(cb_w, codes_w)
+            compared.append({"kernel": name, "shape": shape, **compare_decode(cb_w, codes_w, splits)})
+        times[f"d300_m{m_w}"] = (decode_rows(cb_w, codes_w)
+                                 + assign_rows(cb_w, x300, "_pad")
+                                 + stats_rows(cb_w, x300, ("bf16", "f32"), "_pad"))
         del cb_w, codes_w
         torch.cuda.empty_cache()
     largest = {"encode_f32_wide": "ivf100m", "encode_bf16_wide": "ivf100m",
                "encode_verify_wide": "ivf100m", "stats_f32_wide": "ivf100m",
-               "stats_verify_wide": "ivf10m", "stats_bf16_wide": "gate_ds2",
-               "decode_scalar": "gate_ds2", "decode_int8_scalar": "gate_ds2"}
+               "stats_verify_wide": "ivf10m", "stats_bf16_wide": "d300_m6",
+               "decode_scalar": "gate_ds2", "decode_int8_scalar": "gate_ds2",
+               **{name: "gate_ds2" for name in KERNELS if name.endswith("_pad")}}
     errors = collections.defaultdict(float)
     for c in compared:
         errors[c["kernel"]] = max(errors[c["kernel"]], c["max_abs_err"])
@@ -1291,18 +1346,16 @@ def phase_wide(corpus, gen):
         table.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                       "launches": launches[name], "max_abs_err": errors[name], **found})
 
-    n_blocks = {label: -(-x.shape[0] // 128) * cb.shape[0] for label, (cb, x) in shapes.items()}
-    routes = {label: wide_route(cb.shape[2], x.data_ptr() % 16 == 0) for label, (cb, x) in shapes.items()}
     emit("wide", probe=probe, seconds={"ivf10m_3_iterations": t_a, "ivf100m_path": t_b,
-                                       "gate_ds2_path": t_c},
+                                       "gate_ds2_path": t_c, "d300_m6_path": t_d},
          ivf10m_losses=losses_a, ivf100m_loss={"initial": loss_b0, "after_1": float(loss_b)},
          gate_ds2={"mse": mse20, "mse_int8": mse20_int8, "bf16_agrees_with_f32": agree20},
+         d300_m6={"bf16_agrees_with_f32": agree300},
          exact=exact, shared_assignment=shared, compared=compared, times=times,
          tiers=path_tiers,
          routes=routes,
-         assign_blocks={"blocks": n_blocks, "sms": torch.cuda.get_device_properties(dev).multi_processor_count},
          launches=launches)
-    del xa, xb, x20
+    del xa, xb, x20, x300
     torch.cuda.empty_cache()
     return probe, launches, table
 

@@ -58,6 +58,20 @@
 // very values the products saw); B, the staged 2c in bf16, from shared memory
 // in the no-swizzle layout above with 16 values a core-matrix pair, converted
 // once per block (k <= 256) or per centroid tile.
+//
+// Every width from 1 to 32 runs here.  The kernels are compiled for DS in 4,
+// 8, 16, 32; a ds outside those, or rows that do not start on 16 bytes, run
+// the instance for the padded width DSP = padded_width(ds) with PAD set: the
+// rows come at their own stride m*ds by 4- or 8-byte copies (16-byte ones
+// where ds is a multiple of 4 and x is aligned; copy_rows below) into rows of
+// DSP values whose columns ds .. DSP - 1 are zeros (zero_pad_columns, once a
+// block), and the centroids are staged from (k, ds) with zeros past ds.  A
+// zero column adds exact zeros to every product, norm and sum, so the padded
+// instance assigns as a kernel compiled for ds would, in the same depth steps
+// of 8 (16 in bf16) from zero as the wide route's shallow kernel takes at
+// ds <= 32, except at 17 <= ds <= 24: there DSP = 32 takes a fourth step of
+// zeros in f32 mode, which ops/assign.py's verify bound counts (route
+// "tf32x3_pad").  Without PAD the kernels are the instructions they were.
 
 #pragma once
 
@@ -70,6 +84,32 @@ namespace assign_tile {
 constexpr int kCentroidTile = 256;  // centroids staged in shared memory at a time
 constexpr int kQuarter = 64;        // centroids one wgmma takes
 constexpr int kSubtile = 64;        // rows one wgmma takes
+
+// The route argument of the C entries (ops/assign.py assign_route): this
+// header's kernels at any ds <= 32, or the wide route's deep or shallow
+// kernel (assign_deep.cuh, assign_wide.cuh).
+constexpr int kRouteNarrow = 0;
+constexpr int kRouteDeep = 1;
+constexpr int kRouteShallow = 2;
+
+// The width of the instance that takes subvectors of ds <= 32 values: the
+// least of 4, 8, 16, 32 that holds them (ops/assign.py padded_ds).
+__host__ __device__ constexpr int padded_width(int ds) {
+  return ds <= 4 ? 4 : ds <= 8 ? 8 : ds <= 16 ? 16 : 32;
+}
+
+// Whether x (n, m*ds) needs the padded instance: a ds outside 4, 8, 16, 32,
+// or rows that do not start on 16 bytes.
+inline bool needs_pad(const void* x, int ds) {
+  return ds != padded_width(ds) || (reinterpret_cast<uintptr_t>(x) & 15) != 0;
+}
+
+// Values a copy of the padded instance moves: 4 where ds is a multiple of 4
+// and x is on 16 bytes, 2 where ds is even and x is on 8 bytes, else 1.
+inline int row_vector(const void* x, int ds) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(x);
+  return ds % 4 == 0 && (a & 15) == 0 ? 4 : ds % 2 == 0 && (a & 7) == 0 ? 2 : 1;
+}
 
 // x = hi + lo + r with hi, lo TF32 values and |r| <= 2^-22 |x|.
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
@@ -161,21 +201,23 @@ __device__ __forceinline__ uint64_t b_descriptor(const uint32_t* part_step, int 
          ((uint64_t)(256u >> 4) << 32);
 }
 
-// Stage the centroids k0 .. k0 + kt - 1 of one subquantizer (cbj: (k, DS) f32
-// holding 2c; nj: (k,) f32 holding |c|^2): split 2c into s_w (hi part, then lo
-// part) in the layout above.  Columns from kt up to the next multiple of 128
-// get zeros and |c|^2 = +inf: they never win.  The caller synchronises around
-// it; the fence makes the writes visible to the tensor cores' reads.
+// Stage the centroids k0 .. k0 + kt - 1 of one subquantizer (cbj: (k, ds) f32
+// holding 2c, ds <= DS; nj: (k,) f32 holding |c|^2): split 2c into s_w (hi
+// part, then lo part) in the layout above, zeros past ds.  Columns from kt up
+// to the next multiple of 64 get zeros and |c|^2 = +inf: they never win.  The
+// caller synchronises around it; the fence makes the writes visible to the
+// tensor cores' reads.
 template <int DS, int THREADS>
 __device__ __forceinline__ void stage_centroids(uint32_t* s_w, float* s_n,
                                                 const float* __restrict__ cbj,
-                                                const float* __restrict__ nj, int k0, int kt) {
+                                                const float* __restrict__ nj, int k0, int kt,
+                                                int ds) {
   constexpr int DSP = Shape<DS>::DSP;
   const int padded = (kt + kQuarter - 1) / kQuarter * kQuarter;
   for (int e = threadIdx.x; e < padded * DSP; e += THREADS) {
     const int c = e / DSP;
     const int tt = e - c * DSP;
-    const float v = (c < kt && tt < DS) ? cbj[(long long)(k0 + c) * DS + tt] : 0.0f;
+    const float v = (c < kt && tt < ds) ? cbj[(long long)(k0 + c) * ds + tt] : 0.0f;
     uint32_t hi, lo;
     split_tf32(v, hi, lo);
     const int at = (tt >> 3) * Shape<DS>::kStepFloats + (c >> 3) * 64 + ((tt >> 2) & 1) * 32 +
@@ -347,21 +389,64 @@ template <int SUB, int THREADS>
 constexpr int kTileRows = THREADS / 128 * SUB * kSubtile;
 
 // Per ds, for blocks of 256 threads: the subtiles a warpgroup takes per tile
-// (tiles of 512, 512, 256 and 128 rows), and the blocks an SM should hold.
-// The two accumulator sets take 64 registers and the split rows 8 per depth
-// step: above ds = 8 a thread needs more than the 128 registers that two
-// resident blocks leave it.
+// (tiles of 1,024, 512, 256 and 128 rows), and the blocks an SM should hold.
+// At ds = 4 (and the widths padded to it) a tile of 1,024 rows shares the
+// statistics' counting sort, whose fixed work a tile does not shrink with
+// ds, over twice the rows: 2.86 -> 2.54 ms (stats) and 1.92 -> 1.87 (encode)
+// at d=20, m=10, k=128, n=4,000,000 on an H100 (C entry).  The two
+// accumulator sets take 64 registers and the split rows 8 per depth step:
+// above ds = 8 a thread needs more than the 128 registers that two resident
+// blocks leave it.
 template <int DS>
-constexpr int kSubtiles = DS <= 8 ? 4 : 32 / DS;
+constexpr int kSubtiles = DS <= 4 ? 8 : DS <= 8 ? 4 : 32 / DS;
 template <int DS>
 constexpr int kMinBlocks = DS <= 8 ? 2 : 1;
 
+// The padded instance: subquantizer j's ds values of the rows tile * ROWS ..
+// (x: (n, m * ds) f32) into the first ds columns of dst ([ROWS][DS] in shared
+// memory) by cp.async, V values (4 * V bytes) a copy; rows past n get zeros.
+// Columns ds .. DS - 1 are not written: zero_pad_columns zeroed them.
+template <int DS, int ROWS, int THREADS, int V>
+__device__ __forceinline__ void copy_rows_padded(const float* __restrict__ x, long long n, int m,
+                                                 int j, long long tile, float* dst, int ds) {
+  constexpr int U = DS / V;  // copies a staged row holds
+  const long long d = (long long)m * ds;
+  for (int e = threadIdx.x; e < ROWS * U; e += THREADS) {
+    const int r = e / U;
+    const int c = V * (e - r * U);
+    if (c >= ds) continue;  // a pad column
+    const long long row = tile * ROWS + r;
+    float* to = dst + r * DS + c;
+    if (row < n) {
+      const float* src = x + row * d + (long long)j * ds + c;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                       (uint32_t)__cvta_generic_to_shared(to)),
+                   "l"(src), "n"(4 * V)
+                   : "memory");
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) to[v] = 0.0f;
+    }
+  }
+}
+
 // Start the copy of subquantizer j's subvectors of the rows tile * ROWS ..
-// (x: (n, m * DS) f32) into dst ([ROWS][DS] in shared memory) by cp.async, 16
-// bytes a thread; rows past n get zeros.  wait_rows() waits for it.
-template <int DS, int ROWS, int THREADS>
+// into dst ([ROWS][DS] in shared memory); wait_rows() waits for it.  Without
+// PAD (x: (n, m * DS) f32 on 16 bytes) by cp.async, 16 bytes a thread, rows
+// past n zeros; with PAD (x: (n, m * ds) f32, ds <= DS, vec from row_vector)
+// copy_rows_padded.
+template <int DS, int ROWS, int THREADS, bool PAD>
 __device__ __forceinline__ void copy_rows(const float* __restrict__ x, long long n, int m, int j,
-                                          long long tile, float* dst) {
+                                          long long tile, float* dst, int ds, int vec) {
+  if constexpr (PAD) {
+    if (vec == 4)
+      copy_rows_padded<DS, ROWS, THREADS, 4>(x, n, m, j, tile, dst, ds);
+    else if (vec == 2)
+      copy_rows_padded<DS, ROWS, THREADS, 2>(x, n, m, j, tile, dst, ds);
+    else
+      copy_rows_padded<DS, ROWS, THREADS, 1>(x, n, m, j, tile, dst, ds);
+    return;
+  }
   constexpr int V = DS / 4;  // 16-byte words of a subvector
   const long long d = (long long)m * DS;
   for (int e = threadIdx.x; e < ROWS * V; e += THREADS) {
@@ -378,11 +463,20 @@ __device__ __forceinline__ void copy_rows(const float* __restrict__ x, long long
   }
 }
 
+// The padded instance's zero columns ds .. DS - 1 of both row buffers
+// (s_x2: [2][ROWS][DS]), written once at a block's start: no copy writes
+// them, and rounding a zero in place (bf16 statistics) leaves a zero.
+template <int DS, int ROWS, int THREADS>
+__device__ __forceinline__ void zero_pad_columns(float* s_x2, int ds) {
+  for (int e = threadIdx.x; e < 2 * ROWS * DS; e += THREADS)
+    if (e % DS >= ds) s_x2[e] = 0.0f;
+}
+
 __device__ __forceinline__ void wait_rows() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // Assign the rows of a tile whose subvectors lie in shared memory (s_x,
-// [kTileRows][DS]) to the k centroids of one subquantizer (cbj: (k, DS) f32
-// holding 2c; nj: (k,) f32 holding |c|^2).  Per row of the tile: the chosen
+// [kTileRows][DS]) to the k centroids of one subquantizer (cbj: (k, ds) f32
+// holding 2c, ds <= DS; nj: (k,) f32 holding |c|^2).  Per row of the tile: the chosen
 // index (s_code), its distance (s_best) and, VERIFY, the least distance over
 // all other indices (s_second).  The centroids are staged 256 at a time into
 // s_w / s_n whenever `staged` (the first centroid held there; -1 for none)
@@ -393,8 +487,9 @@ __device__ __forceinline__ void wait_rows() { asm volatile("cp.async.wait_all;\n
 template <int DS, int SUB, int THREADS, bool VERIFY>
 __device__ __forceinline__ void assign_rows(uint32_t* s_w, float* s_n, int& staged,
                                             const float* __restrict__ cbj,
-                                            const float* __restrict__ nj, int k, const float* s_x,
-                                            int* s_code, float* s_best, float* s_second) {
+                                            const float* __restrict__ nj, int k, int ds,
+                                            const float* s_x, int* s_code, float* s_best,
+                                            float* s_second) {
   constexpr int KS = Shape<DS>::KS;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -404,7 +499,7 @@ __device__ __forceinline__ void assign_rows(uint32_t* s_w, float* s_n, int& stag
     const int kt = min(kCentroidTile, k - k0);
     if (staged != k0) {  // the same for every thread
       __syncthreads();
-      stage_centroids<DS, THREADS>(s_w, s_n, cbj, nj, k0, kt);
+      stage_centroids<DS, THREADS>(s_w, s_n, cbj, nj, k0, kt, ds);
       staged = k0;
       __syncthreads();
     }
@@ -501,21 +596,28 @@ struct Bf16Tile {
         s_best(reinterpret_cast<float*>(s_code + kRows)) {}
 };
 
-// Stage the centroids k0 .. k0 + kt - 1 of one subquantizer (cbj: (k, DS) f32
-// holding 2c, already bf16 values; nj: (k,) f32 holding |c|^2) into s_c / s_n.
-// Columns from kt up to the next multiple of 64 get zeros and |c|^2 = +inf.
-// The caller synchronises around it.
+// Stage the centroids k0 .. k0 + kt - 1 of one subquantizer (cbj: (k, ds) f32
+// holding 2c, already bf16 values, ds <= DS; nj: (k,) f32 holding |c|^2) into
+// s_c / s_n, zeros past ds.  Columns from kt up to the next multiple of 64 get
+// zeros and |c|^2 = +inf.  The caller synchronises around it.
 template <int DS, int THREADS>
 __device__ __forceinline__ void stage_centroids_bf16(unsigned char* s_c, float* s_n,
                                                      const float* __restrict__ cbj,
-                                                     const float* __restrict__ nj, int k0, int kt) {
+                                                     const float* __restrict__ nj, int k0, int kt,
+                                                     int ds) {
   constexpr int kPairs = (DS + 15) / 16 * 8;  // pairs of values of a padded centroid
   const int padded = (kt + kQuarter - 1) / kQuarter * kQuarter;
   for (int e = threadIdx.x; e < padded * kPairs; e += THREADS) {
     const int c = e / kPairs;
     const int tt = 2 * (e - c * kPairs);
     float2 v = make_float2(0.0f, 0.0f);
-    if (c < kt && tt < DS) v = *reinterpret_cast<const float2*>(cbj + (long long)(k0 + c) * DS + tt);
+    if (c < kt && tt < ds) {
+      const float* at = cbj + (long long)(k0 + c) * ds + tt;
+      if (ds % 2 == 0)  // a pair on 8 bytes
+        v = *reinterpret_cast<const float2*>(at);
+      else
+        v = make_float2(at[0], tt + 1 < ds ? at[1] : 0.0f);
+    }
     *reinterpret_cast<__nv_bfloat162*>(s_c + bf16_offset(c, tt)) =
         __floats2bfloat162_rn(v.x, v.y);
   }
@@ -674,8 +776,8 @@ __device__ __forceinline__ void scan_bf16(const unsigned char* s_c, const float*
 }
 
 // Assign the rows of a tile that copy_rows landed in s_x ([kRows][DS] f32) to
-// the k centroids of one subquantizer (cbj: (k, DS) f32 holding 2c, already
-// bf16 values; nj: (k,) f32 holding |c|^2): the chosen index into s_code and
+// the k centroids of one subquantizer (cbj: (k, ds) f32 holding 2c, already
+// bf16 values, ds <= DS; nj: (k,) f32 holding |c|^2): the chosen index into s_code and
 // its distance into s_best, per row (ROUND: s_x then holds the rounded rows).
 // The centroids are staged as assign_rows stages them (`staged`: the first
 // centroid held, -1 for none), once per block for k <= 256; an earlier
@@ -684,7 +786,8 @@ __device__ __forceinline__ void scan_bf16(const unsigned char* s_c, const float*
 template <int DS, int SUB, int THREADS, bool ROUND>
 __device__ __forceinline__ void assign_rows_bf16(const Bf16Tile<DS, SUB, THREADS>& sm, int& staged,
                                                  const float* __restrict__ cbj,
-                                                 const float* __restrict__ nj, int k, float* s_x) {
+                                                 const float* __restrict__ nj, int k, int ds,
+                                                 float* s_x) {
   constexpr int KS = Bf16Tile<DS, SUB, THREADS>::KS;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -694,7 +797,7 @@ __device__ __forceinline__ void assign_rows_bf16(const Bf16Tile<DS, SUB, THREADS
     const int kt = min(kCentroidTile, k - k0);
     if (staged != k0) {  // the same for every thread
       __syncthreads();
-      stage_centroids_bf16<DS, THREADS>(sm.s_c, sm.s_n, cbj, nj, k0, kt);
+      stage_centroids_bf16<DS, THREADS>(sm.s_c, sm.s_n, cbj, nj, k0, kt, ds);
       staged = k0;
       __syncthreads();
     }

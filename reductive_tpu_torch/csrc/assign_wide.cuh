@@ -1,16 +1,18 @@
-// Nearest-centroid assignment at any subvector width outside 4, 8, 16, 32
-// ("the wide route"), as kernels that csrc/encode.cu and csrc/stats.cu both
-// reach through launch() below, so that a row gets the same code, and in
-// verified mode the same flag, from either.
+// Nearest-centroid assignment above ds = 32 ("the wide route"), as kernels
+// that csrc/encode.cu and csrc/stats.cu both reach through launch() below, so
+// that a row gets the same code, and in verified mode the same flag, from
+// either.
 //
 //   a[i] = argmin_c (|c|^2 - 2c.x_i), first index on ties
 //
-// Two kernels, chosen by launch()'s `deep` (ops/assign.py wide_route, a pure
-// function of ds and of x's alignment): at ds > 32 with ds a multiple of 4
-// and x on 16 bytes, the deep kernel of csrc/assign_deep.cuh (a TMA producer
-// warp, 128 or 256 centroids a step, the codebook converted once a call);
-// at every other ds the shallow kernel of this file, whose arithmetic the
-// deep one keeps.
+// Two kernels, chosen by launch()'s `deep` (ops/assign.py assign_route, a
+// pure function of ds and of x's alignment): with ds a multiple of 4 and x
+// on 16 bytes, the deep kernel of csrc/assign_deep.cuh (a TMA producer warp,
+// 128 or 256 centroids a step, the codebook converted once a call); at every
+// other ds above 32 the shallow kernel of this file, whose arithmetic the
+// deep one keeps.  The shallow kernel takes any ds >= 1: at ds <= 32, where
+// the wrappers run the narrow kernels' padded instances, it is what those are
+// held to, code for code (tests/test_torch_cuda_kernels.py).
 //
 // The narrow route (csrc/assign_tile.cuh) keeps a row tile's split
 // subvectors in registers and stages 256 centroids at their whole depth; at

@@ -56,6 +56,19 @@
 // accumulation, the slots and the reduction are the f32 mode's: two launches
 // still give the same bits.
 //
+// Every ds up to 32 runs these kernels: a ds outside 4, 8, 16, 32 (or rows
+// off 16 bytes) runs the instance of the padded width DSP with PAD set
+// (assign_tile.cuh: rows copied at their own stride into rows of DSP values
+// whose extra columns are zeros, the codebook staged from (k, ds)); counters
+// "*_pad" in ops/stats.py.  The accumulators, the slots (P, m, k, DSP + 1)
+// and the counting sort are the DSP instance's: the zero columns add zeros,
+// and the reduction writes sums (m, k, ds), the pad columns dropped.  Same TPU
+// kernels replaced (reductive_tpu/ops/stats.py:50 _stats_kernel, :272
+// _stats_verify_kernel); same bound on an H100 (the selection on the ALU
+// pipe); padding costs DSP / ds more shared-memory traffic a row in the
+// copies, the products and the accumulation.  Wider ds keep the wide route
+// below.
+//
 // What bounds it on an H100: f32 mode, the selection's compares and selects
 // on the half-rate ALU pipe (the products, 3 x 2*n*m*k*ds operations in TF32,
 // and the bytes of x are both below it); bf16 mode, likewise its selection.
@@ -274,12 +287,14 @@ struct F32Shape {
       assign_tile::Shape<DS>::kBytes + 4 * (2 * kTile * DS + 3 * kTile) + Scratch<kTile>::kBytes;
 };
 
-template <int DS, int SUB, bool VERIFY>
+// PAD: the padded instance (x (n, m * ds), cb2 (m, k, ds), ds <= DS; vec
+// from assign_tile::row_vector); else ds is DS and vec unused.
+template <int DS, int SUB, bool VERIFY, bool PAD>
 __global__ void __launch_bounds__(kThreads, assign_tile::kMinBlocks<DS>)
 stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
                  const float* __restrict__ csqn, float* __restrict__ partial,
                  const float* __restrict__ escale, float rho, int* __restrict__ codes_out,
-                 int* __restrict__ flags, long long n, int m, int k, int P) {
+                 int* __restrict__ flags, long long n, int m, int k, int P, int ds, int vec) {
   constexpr int kTile = F32Shape<DS, SUB>::kTile;
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* s_w = reinterpret_cast<uint32_t*>(smem);               // split 2c, both parts
@@ -292,12 +307,13 @@ stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
 
   // Neighbouring blocks take the m subquantizers of the same rows, so that the
   // sectors of a row they share meet in L2.
+  const int w = PAD ? ds : DS;  // values of a subvector in x and cb2
   const int j = blockIdx.x % m;
   const int p = blockIdx.x / m;
   const long long n_tiles = (n + kTile - 1) / kTile;
   const bool one = k <= kThreads;
   float* slot = partial + ((long long)p * m + j) * (long long)k * (DS + 1);
-  const float* cbj = cb2 + (long long)j * k * DS;
+  const float* cbj = cb2 + (long long)j * k * w;
   const float* nj = csqn + (long long)j * k;
 
   float acc[DS];
@@ -308,8 +324,9 @@ stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
 
   // The tile's subvectors come by cp.async into the buffer the previous tile
   // does not use, while that tile is assigned and accumulated.
+  if constexpr (PAD) assign_tile::zero_pad_columns<DS, kTile, kThreads>(s_x2, w);
   int buffer = 0;
-  if (p < n_tiles) assign_tile::copy_rows<DS, kTile, kThreads>(x, n, m, j, p, s_x2);
+  if (p < n_tiles) assign_tile::copy_rows<DS, kTile, kThreads, PAD>(x, n, m, j, p, s_x2, w, vec);
 
   int staged = -1;
   for (long long tile = p; tile < n_tiles; tile += P) {
@@ -319,10 +336,11 @@ stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
     __syncthreads();  // this tile has landed; the previous tile's accumulation has ended
     buffer ^= 1;
     if (tile + P < n_tiles)
-      assign_tile::copy_rows<DS, kTile, kThreads>(x, n, m, j, tile + P, s_x2 + buffer * (kTile * DS));
+      assign_tile::copy_rows<DS, kTile, kThreads, PAD>(x, n, m, j, tile + P,
+                                                       s_x2 + buffer * (kTile * DS), w, vec);
 
-    assign_tile::assign_rows<DS, SUB, kThreads, VERIFY>(s_w, s_n, staged, cbj, nj, k, s_x, s_code,
-                                                        s_best, s_second);
+    assign_tile::assign_rows<DS, SUB, kThreads, VERIFY>(s_w, s_n, staged, cbj, nj, k, w, s_x,
+                                                        s_code, s_best, s_second);
     __syncthreads();
 
     // Rows past n take no part in the statistics; the verified mode writes its
@@ -345,23 +363,24 @@ stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
 
 // ---- bf16 mode: assign_tile.cuh's bf16 routine ------------------------------
 
-template <int DS, int SUB>
+template <int DS, int SUB, bool PAD>
 __global__ void __launch_bounds__(kThreads, assign_tile::kBf16Blocks<DS>)
 stats_bf16_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
                   const float* __restrict__ csqn, float* __restrict__ partial, long long n, int m,
-                  int k, int P) {
+                  int k, int P, int ds, int vec) {
   using T = assign_tile::Bf16Tile<DS, SUB, kThreads>;
   constexpr int kTile = T::kRows;
   extern __shared__ __align__(16) unsigned char smem[];
   const T sm(smem);
   Scratch<kTile> scratch(smem + T::kBytes);
 
+  const int w = PAD ? ds : DS;
   const int j = blockIdx.x % m;
   const int p = blockIdx.x / m;
   const long long n_tiles = (n + kTile - 1) / kTile;
   const bool one = k <= kThreads;
   float* slot = partial + ((long long)p * m + j) * (long long)k * (DS + 1);
-  const float* cbj = cb2 + (long long)j * k * DS;
+  const float* cbj = cb2 + (long long)j * k * w;
   const float* nj = csqn + (long long)j * k;
 
   float acc[DS];
@@ -370,8 +389,9 @@ stats_bf16_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
   for (int e = 0; e < DS; ++e) acc[e] = 0.0f;
   if (!one) zero_slot<DS>(slot, k);
 
+  if constexpr (PAD) assign_tile::zero_pad_columns<DS, kTile, kThreads>(sm.s_x2, w);
   int buffer = 0;
-  if (p < n_tiles) assign_tile::copy_rows<DS, kTile, kThreads>(x, n, m, j, p, sm.s_x2);
+  if (p < n_tiles) assign_tile::copy_rows<DS, kTile, kThreads, PAD>(x, n, m, j, p, sm.s_x2, w, vec);
 
   int staged = -1;
   for (long long tile = p; tile < n_tiles; tile += P) {
@@ -381,10 +401,11 @@ stats_bf16_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
     __syncthreads();  // this tile has landed; the previous tile's accumulation has ended
     buffer ^= 1;
     if (tile + P < n_tiles)
-      assign_tile::copy_rows<DS, kTile, kThreads>(x, n, m, j, tile + P, sm.s_x2 + buffer * (kTile * DS));
+      assign_tile::copy_rows<DS, kTile, kThreads, PAD>(x, n, m, j, tile + P,
+                                                       sm.s_x2 + buffer * (kTile * DS), w, vec);
 
     // Rounds s_x in place: the sums are of the rounded rows.
-    assign_tile::assign_rows_bf16<DS, SUB, kThreads, true>(sm, staged, cbj, nj, k, s_x);
+    assign_tile::assign_rows_bf16<DS, SUB, kThreads, true>(sm, staged, cbj, nj, k, w, s_x);
     __syncthreads();
     for (int e = threadIdx.x; e < kTile; e += kThreads)
       if (row0 + e >= n) sm.s_code[e] = -1;  // rows past n take no part
@@ -396,57 +417,75 @@ stats_bf16_kernel(const float* __restrict__ x, const float* __restrict__ cb2,
 
 // ---- the P slots added in slot order ---------------------------------------
 
+// partial (P, cells, dsp + 1), the count last; sums (cells, ds), ds <= dsp:
+// the columns ds .. dsp - 1 of the padded instance are dropped.
 __global__ void __launch_bounds__(kThreads)
 stats_reduce_kernel(const float* __restrict__ partial, float* __restrict__ sums,
-                    float* __restrict__ counts, long long cells, int ds, int P) {
+                    float* __restrict__ counts, long long cells, int ds, int dsp, int P) {
   const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
   const int w = ds + 1;
   if (idx >= cells * w) return;
   const long long cell = idx / w;
   const int t = (int)(idx - cell * w);
-  const long long stride = cells * w;
+  const long long stride = cells * (dsp + 1);
+  const long long at = cell * (dsp + 1) + (t < ds ? t : dsp);
   if (t < ds) {
     float s = 0.0f;
-    for (int p = 0; p < P; ++p) s += partial[p * stride + idx];
+    for (int p = 0; p < P; ++p) s += partial[p * stride + at];
     sums[cell * ds + t] = s;
   } else {
     unsigned long long c = 0;
-    for (int p = 0; p < P; ++p) c += __float_as_uint(partial[p * stride + idx]);
+    for (int p = 0; p < P; ++p) c += __float_as_uint(partial[p * stride + at]);
     counts[cell] = (float)c;
   }
 }
 
 cudaError_t reduce(const float* partial, float* sums, float* counts, long long n_cells, int ds,
-                   int P, cudaStream_t stream) {
+                   int dsp, int P, cudaStream_t stream) {
   const long long blocks = (n_cells * (ds + 1) + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  stats_reduce_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(partial, sums, counts, n_cells, ds, P);
+  stats_reduce_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(partial, sums, counts, n_cells, ds,
+                                                                 dsp, P);
   return cudaGetLastError();
 }
 
 // verify: the verified mode (f32 with escale, rho, codes_out and flags).
-template <int DS>
-cudaError_t launch(const float* x, const float* cb2, const float* csqn, float* partial,
-                   float* sums, float* counts, const float* escale, float rho, int* codes_out,
-                   int* flags, long long n, int m, int k, bool verify, int P,
-                   cudaStream_t stream) {
+template <int DS, bool PAD>
+cudaError_t launch_f32(const float* x, const float* cb2, const float* csqn, float* partial,
+                       float* sums, float* counts, const float* escale, float rho, int* codes_out,
+                       int* flags, long long n, int m, int k, int ds, bool verify, int P,
+                       cudaStream_t stream) {
   const long long blocks = (long long)P * m;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   constexpr int SUB = assign_tile::kSubtiles<DS>;
   constexpr int bytes = F32Shape<DS, SUB>::kBytes;
-  auto kern = verify ? stats_f32_kernel<DS, SUB, true> : stats_f32_kernel<DS, SUB, false>;
+  auto kern = verify ? stats_f32_kernel<DS, SUB, true, PAD> : stats_f32_kernel<DS, SUB, false, PAD>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   kern<<<(unsigned)blocks, kThreads, bytes, stream>>>(x, cb2, csqn, partial, escale, rho, codes_out,
-                                                      flags, n, m, k, P);
+                                                      flags, n, m, k, P, ds,
+                                                      assign_tile::row_vector(x, ds));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return reduce(partial, sums, counts, (long long)m * k, DS, P, stream);
+  return reduce(partial, sums, counts, (long long)m * k, ds, DS, P, stream);
+}
+
+// ds <= DS: the padded instance where assign_tile::needs_pad says.
+template <int DS>
+cudaError_t launch(const float* x, const float* cb2, const float* csqn, float* partial,
+                   float* sums, float* counts, const float* escale, float rho, int* codes_out,
+                   int* flags, long long n, int m, int k, int ds, bool verify, int P,
+                   cudaStream_t stream) {
+  if (assign_tile::needs_pad(x, ds))
+    return launch_f32<DS, true>(x, cb2, csqn, partial, sums, counts, escale, rho, codes_out, flags,
+                                n, m, k, ds, verify, P, stream);
+  return launch_f32<DS, false>(x, cb2, csqn, partial, sums, counts, escale, rho, codes_out, flags,
+                               n, m, k, ds, verify, P, stream);
 }
 
 int assign_stats(const void* x, const void* cb2, const void* csqn, void* partial, void* sums,
                  void* counts, const void* escale, float rho, void* codes, void* flags,
                  long long n, int m, int k, int ds, bool verify, int P, void* stream) {
-  if (n <= 0 || m <= 0 || k <= 0 || P <= 0) return -1;
+  if (n <= 0 || m <= 0 || k <= 0 || P <= 0 || ds <= 0 || ds > 32) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   const float* xf = (const float*)x;
   const float* cf = (const float*)cb2;
@@ -457,38 +496,49 @@ int assign_stats(const void* x, const void* cb2, const void* csqn, void* partial
   float* tf = (float*)counts;
   int* co = (int*)codes;
   int* fl = (int*)flags;
-  switch (ds) {
-    case 4: return (int)launch<4>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, verify, P, s);
-    case 8: return (int)launch<8>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, verify, P, s);
-    case 16: return (int)launch<16>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, verify, P, s);
-    case 32: return (int)launch<32>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, verify, P, s);
-    default: return -1;
+  switch (assign_tile::padded_width(ds)) {
+    case 4: return (int)launch<4>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, ds, verify, P, s);
+    case 8: return (int)launch<8>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, ds, verify, P, s);
+    case 16: return (int)launch<16>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, ds, verify, P, s);
+    default: return (int)launch<32>(xf, cf, nf, pf, sf, tf, ef, rho, co, fl, n, m, k, ds, verify, P, s);
   }
 }
 
 // The plan (rows a tile, P, shared-memory bytes) is ops/assign.py
 // bf16_tile_plan's; -1 for one this build does not hold.
-template <int DS>
-int launch_bf16(const float* x, const float* cb2, const float* csqn, float* partial, float* sums,
-                float* counts, long long n, int m, int k, int rows, int P, int bytes,
-                cudaStream_t stream) {
+template <int DS, bool PAD>
+int launch_bf16_kernel(const float* x, const float* cb2, const float* csqn, float* partial,
+                       float* sums, float* counts, long long n, int m, int k, int ds, int P,
+                       int bytes, cudaStream_t stream) {
   constexpr int SUB = assign_tile::kBf16Subtiles<DS>;
-  using T = assign_tile::Bf16Tile<DS, SUB, kThreads>;
-  constexpr int kBytes = T::kBytes + Scratch<T::kRows>::kBytes;
   const long long blocks = (long long)P * m;
-  if (rows != T::kRows || bytes != kBytes || P <= 0 || blocks > 0x7fffffffLL) return -1;
-  cudaError_t err = cudaFuncSetAttribute(stats_bf16_kernel<DS, SUB>,
+  cudaError_t err = cudaFuncSetAttribute(stats_bf16_kernel<DS, SUB, PAD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  stats_bf16_kernel<DS, SUB><<<(unsigned)blocks, kThreads, bytes, stream>>>(x, cb2, csqn, partial,
-                                                                            n, m, k, P);
+  stats_bf16_kernel<DS, SUB, PAD><<<(unsigned)blocks, kThreads, bytes, stream>>>(
+      x, cb2, csqn, partial, n, m, k, P, ds, assign_tile::row_vector(x, ds));
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  return (int)reduce(partial, sums, counts, (long long)m * k, DS, P, stream);
+  return (int)reduce(partial, sums, counts, (long long)m * k, ds, DS, P, stream);
+}
+
+// ds <= DS; the plan is that of DS.
+template <int DS>
+int launch_bf16(const float* x, const float* cb2, const float* csqn, float* partial, float* sums,
+                float* counts, long long n, int m, int k, int ds, int rows, int P, int bytes,
+                cudaStream_t stream) {
+  using T = assign_tile::Bf16Tile<DS, assign_tile::kBf16Subtiles<DS>, kThreads>;
+  constexpr int kBytes = T::kBytes + Scratch<T::kRows>::kBytes;
+  if (rows != T::kRows || bytes != kBytes || P <= 0 || (long long)P * m > 0x7fffffffLL) return -1;
+  if (assign_tile::needs_pad(x, ds))
+    return launch_bf16_kernel<DS, true>(x, cb2, csqn, partial, sums, counts, n, m, k, ds, P, bytes,
+                                        stream);
+  return launch_bf16_kernel<DS, false>(x, cb2, csqn, partial, sums, counts, n, m, k, ds, P, bytes,
+                                       stream);
 }
 
 // ---- the wide route: statistics from the codes -----------------------------
 //
-// At every ds outside 4, 8, 16, 32 the assignment is assign_wide.cuh's (the
+// At every ds above 32 the assignment is assign_wide.cuh's (the
 // wide encode's, bit for bit), written as codes (m, n) int32.  The statistics
 // then come from the codes in an order fixed by the shapes and the codes
 // alone, with scratch that grows with n*m and not with the number of blocks:
@@ -739,9 +789,10 @@ int assign_stats_wide(const float* x, const void* cb2, const float* csqn, int* c
 
 }  // namespace
 
-// x (n, m*ds) f32, cb2 (m, k, ds) f32 holding 2c, csqn (m, k) f32, partial
-// (P, m, k, ds + 1) f32 scratch (need not be initialised), sums (m, k, ds)
-// f32, counts (m, k) f32; the f32 mode.
+// x (n, m*ds) f32, ds <= 32, cb2 (m, k, ds) f32 holding 2c, csqn (m, k) f32,
+// partial (P, m, k, DSP + 1) f32 scratch (need not be initialised; DSP =
+// ops/assign.py padded_ds(ds)), sums (m, k, ds) f32, counts (m, k) f32; the
+// f32 mode.
 // Returns cudaGetLastError() after the launches; -1 for a shape it does not take.
 extern "C" int rt_assign_stats(const void* x, const void* cb2, const void* csqn, void* partial,
                                void* sums, void* counts, long long n, int m, int k, int ds, int P,
@@ -765,12 +816,12 @@ extern "C" int rt_assign_stats_bf16(const void* x, const void* cb2, const void* 
   float* pf = (float*)partial;
   float* sf = (float*)sums;
   float* tf = (float*)counts;
-  switch (ds) {
-    case 4: return launch_bf16<4>(xf, cf, nf, pf, sf, tf, n, m, k, rows, P, bytes, s);
-    case 8: return launch_bf16<8>(xf, cf, nf, pf, sf, tf, n, m, k, rows, P, bytes, s);
-    case 16: return launch_bf16<16>(xf, cf, nf, pf, sf, tf, n, m, k, rows, P, bytes, s);
-    case 32: return launch_bf16<32>(xf, cf, nf, pf, sf, tf, n, m, k, rows, P, bytes, s);
-    default: return -1;
+  if (ds <= 0 || ds > 32) return -1;
+  switch (assign_tile::padded_width(ds)) {
+    case 4: return launch_bf16<4>(xf, cf, nf, pf, sf, tf, n, m, k, ds, rows, P, bytes, s);
+    case 8: return launch_bf16<8>(xf, cf, nf, pf, sf, tf, n, m, k, ds, rows, P, bytes, s);
+    case 16: return launch_bf16<16>(xf, cf, nf, pf, sf, tf, n, m, k, ds, rows, P, bytes, s);
+    default: return launch_bf16<32>(xf, cf, nf, pf, sf, tf, n, m, k, ds, rows, P, bytes, s);
   }
 }
 
@@ -793,20 +844,22 @@ extern "C" long long rt_assign_stats_wide_scratch(long long n, int m, int k) {
   return wide_scratch_words(n, m, k);
 }
 
-// The statistics at a ds the narrow kernels do not take (any ds >= 1): the
-// wide assignment into codes (m, n) int32, then the statistics from the codes
-// (see "the wide route" above).  mode: 0 f32, 1 bf16, 2 verified (escale (m,)
-// f32, rho, and flags (n,) int32 zeroed by the caller).  scratch: the int32
-// words rt_assign_stats_wide_scratch names; sums (m, k, ds), counts (m, k)
-// f32.  deep: the deep kernel of the assignment, with cb2 and csqn as
-// ops/assign.py deep_operands writes them.  Returns cudaGetLastError() after
-// the launches; -1 for a shape it does not take.
+// The statistics on the wide route (any ds >= 1; the wrappers take it above
+// ds = 32): the wide assignment into codes (m, n) int32, then the statistics
+// from the codes (see "the wide route" above).  mode: 0 f32, 1 bf16, 2
+// verified (escale (m,) f32, rho, and flags (n,) int32 zeroed by the caller).
+// scratch: the int32 words rt_assign_stats_wide_scratch names; sums (m, k,
+// ds), counts (m, k) f32.  route: kRouteDeep (cb2 and csqn as ops/assign.py
+// deep_operands writes them) or kRouteShallow.  Returns cudaGetLastError()
+// after the launches; -1 for a shape it does not take.
 extern "C" int rt_assign_stats_wide(const void* x, const void* cb2, const void* csqn, void* codes,
                                     const void* escale, float rho, void* flags, void* scratch,
                                     void* sums, void* counts, long long n, int m, int k, int ds,
-                                    int mode, int deep, void* stream) {
+                                    int mode, int route, void* stream) {
   if (mode == 2 && (escale == nullptr || flags == nullptr)) return -1;
+  if (route != assign_tile::kRouteDeep && route != assign_tile::kRouteShallow) return -1;
   return assign_stats_wide((const float*)x, cb2, (const float*)csqn, (int*)codes,
                            (const float*)escale, rho, (int*)flags, (int*)scratch, (float*)sums,
-                           (float*)counts, n, m, k, ds, mode, deep != 0, (cudaStream_t)stream);
+                           (float*)counts, n, m, k, ds, mode, route == assign_tile::kRouteDeep,
+                           (cudaStream_t)stream);
 }

@@ -339,8 +339,8 @@ def kmeans_with_centroids_chunked(
     ``"verified"`` (cell memberships equal to the exact path's).
 
     ``use_kernel=None`` means the CUDA kernel when ``x`` lies on a GPU (at
-    any ``d``: ``d`` in 4, 8, 16, 32 takes the narrow kernel, every other
-    ``d`` the wide route) and the plain tensor route on the CPU.
+    any ``d``: ``d`` up to 32 takes the narrow kernel, every wider ``d`` the
+    wide route) and the plain tensor route on the CPU.
     """
     from .pq.train import _check_compute_dtype, _streamed_sumsq, lloyd_iteration_chunked
 

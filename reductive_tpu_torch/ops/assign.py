@@ -15,21 +15,25 @@ Two modes, chosen by ``compute_dtype``:
   two give a row the same code bit for bit.  The JAX package's f32 mode is a
   split product too, in three bf16 passes, "used identically by the encode
   and assign+stats kernels"; the port keeps that property with TF32 parts.
-  That is at ``ds`` in 4, 8, 16, 32; every other ``ds`` takes the wide route
+  That is at every ``ds`` up to 32 (:func:`assign_route` ``"narrow"``): the
+  kernels are compiled for 4, 8, 16 and 32, and another ``ds`` runs the
+  instance of the padded width :func:`padded_ds` with zeros past ``ds``
+  (counters ``*_pad``).  Every wider ``ds`` takes the wide route
   (``csrc/assign_wide.cuh``, route :data:`WIDE_ROUTE`): the same split,
   walked over the depth in chunks, each chunk's products from zero and the
   chunks added in f32, shared by the encode and the statistics kernel in the
-  same way.  Where the depth spans more than one 32-value chunk and TMA can
-  describe the rows (:func:`wide_route`), the wide route runs its deep
-  kernel (``csrc/assign_deep.cuh``), on a codebook converted once a call
-  (:func:`deep_operands`), with the same arithmetic.
+  same way.  Where TMA can describe the rows (:func:`wide_route`), the wide
+  route runs its deep kernel (``csrc/assign_deep.cuh``), on a codebook
+  converted once a call (:func:`deep_operands`), with the same arithmetic;
+  else its shallow kernel.
 * ``torch.bfloat16`` (default): ``x`` and ``2c`` each rounded to bfloat16
   (nearest even), products and sums in f32, ``|c|^2`` in f32 from the
   unrounded codebook.  Every kernel sums the products on the tensor cores from
   zero and subtracts the sum from ``|c|^2`` in f32, as the plain version does.
-  At ``ds`` in 4, 8, 16, 32 the encode and the statistics kernel run one bf16
-  routine (``csrc/assign_tile.cuh``), so the two give a row the same code bit
-  for bit, with the launch plan of :func:`bf16_tile_plan`.
+  At every ``ds`` up to 32 the encode and the statistics kernel run one bf16
+  routine (``csrc/assign_tile.cuh``, padded as in f32 mode), so the two give
+  a row the same code bit for bit, with the launch plan of
+  :func:`bf16_tile_plan`.
 
 The minimum is the true ``(distance, index)`` minimum; the JAX kernel's
 packed sortable key, which coarsens ties, is not part of the contract.  The
@@ -118,10 +122,32 @@ The ``0.25`` set aside covers the lower-order terms while ``ceil(ds/8) <= 12``
 (they grow by ``2^-6`` a depth step); the narrow kernels, the only ones on
 this route, take ``ds <= 32``.
 
+The padded widths (route ``"tf32x3_pad"``)
+-----------------------------------------
+
+A ``ds`` outside 4, 8, 16, 32 runs the narrow kernels' instance for
+``dsp = padded_ds(ds)``, its rows and centroids padded with zeros.  A zero
+column adds an exact zero product, so the evaluation is the one above with
+``dsp / 8`` instructions of each product, each from zero in the same order.
+At ``ds <= 16`` and ``25 <= ds <= 32`` that is ``ceil(ds/8)`` instructions:
+the same count and order as the shallow wide kernel's one chunk
+(``wide_chunking(ds) == (ceil(ds/8), 1)``), so those widths keep
+:data:`WIDE_ROUTE`, whose bound is the larger (``3.5 + (5 + 2^-6) kc + 0.26``
+against ``3.25 + 5 kc``).  At ``17 <= ds <= 24``, ``dsp = 32`` takes a fourth
+instruction of each product whose addends are all zero.  Its alignment and
+truncation are not assumed to leave the accumulator's bits alone: it meets
+the same magnitudes as a real fourth step (the running sum, at most
+``(1 + 2^-9) |w| |x|`` in ``x_hi.w_hi``), so the narrow route's count holds
+with four instructions, ``(3.25 + 5 * 4) 2^-22``.  Those widths take the
+larger of that and the wide route's three-step bound (``(3.5 + (5 + 2^-6) * 3
++ 0.26) 2^-22``, smaller): ``23.25 * 2^-22``, and the flag limit's scale is
+``2 (23.25 * 2^-22 + ds 2^-24)``.  A wider limit flags more rows and stays
+sound for either kernel.
+
 The bound for the wide route (route ``"tf32x3_wide"``)
 -----------------------------------------------------
 
-At every other ``ds`` the f32 kernels run ``csrc/assign_wide.cuh``, which
+Above ``ds = 32`` the f32 kernels run ``csrc/assign_wide.cuh``, which
 walks the depth in ``chunks`` chunks of ``kc`` instructions (``kc =
 min(4, ceil(ds/8))``; the last chunk is padded with zeros, and its
 instructions are counted).  Each chunk's products start from zero in the
@@ -148,7 +174,8 @@ chunks) 2^-22 + ds 2^-24) max_c|2c_jc|``.  At ``ds = 768`` that is ``(29.8 +
 accumulator over the whole depth would meet magnitudes near ``|w| |x|`` in
 every one of its ``3 ceil(ds/8)`` instructions: ``15 ceil(ds/8) * 2^-22``.)
 Both verify kernels take the route of their ``ds`` (:func:`f32_route`), and
-so do the plain versions by default.
+so do the plain versions by default: :data:`F32_ROUTE` at 4, 8, 16, 32,
+:data:`PAD_ROUTE` at 17 to 24, :data:`WIDE_ROUTE` at every other ``ds``.
 
 What the derivations assume of the hardware (24 kept bits, truncation, at
 most ``10 * 2^-23 M`` an instruction) is measured on the card by
@@ -172,12 +199,13 @@ __all__ = [
     "pq_encode_verified", "pq_encode_verify_reference", "pq_encode_verify_flags",
     "verify_scale", "VERIFY_RHO", "F32_ROUTE", "WIDE_ROUTE", "f32_route", "wide_chunking",
     "flagged_rows", "verify_caps", "verify_tiers", "reset_verify_tiers", "VERIFY_ENCODE_CHUNK",
-    "wide_route", "split_tf32", "deep_operands", "DEEP_STEP",
-    "TilePlan", "bf16_tile_plan",
+    "assign_route", "wide_route", "padded_ds", "PAD_ROUTE", "split_tf32", "deep_operands",
+    "DEEP_STEP", "TilePlan", "bf16_tile_plan",
 ]
 
-# The widths of the narrow kernels (csrc/assign_tile.cuh); every other ds >= 1
-# takes the wide route (csrc/assign_wide.cuh).
+# The widths the narrow kernels (csrc/assign_tile.cuh) are compiled for; every
+# other ds up to 32 runs the instance of padded_ds(ds), every wider ds the
+# wide route (csrc/assign_wide.cuh).
 _NARROW_DS = (4, 8, 16, 32)
 _KERNEL_MAX_K = 65536
 # Share of |best| in the flag limit: four roundings of the final subtraction
@@ -185,15 +213,27 @@ _KERNEL_MAX_K = 65536
 VERIFY_RHO = 2.0 ** -21
 # How the f32 kernels (encode and assign+statistics, one routine at each ds)
 # evaluate the cross term: names the flag limit of the verified modes (see
-# verify_scale).  F32_ROUTE at the narrow widths, WIDE_ROUTE at every other.
+# verify_scale): f32_route(ds).
 F32_ROUTE = "tf32x3"
 WIDE_ROUTE = "tf32x3_wide"
-_ROUTES = ("fma", F32_ROUTE, WIDE_ROUTE)
+PAD_ROUTE = "tf32x3_pad"
+_ROUTES = ("fma", F32_ROUTE, WIDE_ROUTE, PAD_ROUTE)
 
 
 def f32_route(ds: int) -> str:
-    """The route of the f32 kernels at subvector width ``ds``."""
-    return F32_ROUTE if ds in _NARROW_DS else WIDE_ROUTE
+    """The route of the f32 kernels at subvector width ``ds`` (the name of
+    their flag limit, :func:`verify_scale`)."""
+    if ds in _NARROW_DS:
+        return F32_ROUTE
+    return PAD_ROUTE if 17 <= ds <= 24 else WIDE_ROUTE
+
+
+def padded_ds(ds: int) -> int:
+    """The width of the narrow instance that takes ``ds`` (1 to 32): the
+    least of 4, 8, 16, 32 that is at least ``ds``."""
+    if not 1 <= ds <= 32:
+        raise ValueError(f"the narrow kernels take ds from 1 to 32, got {ds}")
+    return next(w for w in _NARROW_DS if w >= ds)
 
 
 def wide_chunking(ds: int) -> tuple[int, int]:
@@ -211,14 +251,45 @@ DEEP_STEP = {torch.float32: (128, 32), torch.bfloat16: (256, 64)}
 
 
 def wide_route(ds: int, aligned: bool) -> str:
-    """The kernel of the wide route (``ds`` outside 4, 8, 16, 32) for width
-    ``ds``: ``"deep"`` (``csrc/assign_deep.cuh``) where the depth spans more
-    than one 32-value chunk and TMA can describe the rows (its global strides
-    are multiples of 16 bytes, so ``ds`` a multiple of 4, and ``aligned``:
-    ``x``'s first element on 16 bytes); ``"shallow"`` (the cp.async kernel of
+    """Which kernel of the wide route would take width ``ds``: ``"deep"``
+    (``csrc/assign_deep.cuh``) where the depth spans more than one 32-value
+    chunk and TMA can describe the rows (its global strides are multiples of
+    16 bytes, so ``ds`` a multiple of 4, and ``aligned``: ``x``'s first
+    element on 16 bytes); ``"shallow"`` (the cp.async kernel of
     ``csrc/assign_wide.cuh``, any ``ds`` and alignment) otherwise.  Both run
-    the same arithmetic (route :data:`WIDE_ROUTE`)."""
+    the same arithmetic (route :data:`WIDE_ROUTE`).  The wrappers ask
+    :func:`assign_route`, which sends ``ds <= 32`` to the narrow kernels."""
     return "deep" if ds > 32 and ds % 4 == 0 and aligned else "shallow"
+
+
+def assign_route(ds: int, aligned: bool) -> str:
+    """The kernel family that assigns at width ``ds``, a pure function of
+    the shapes: ``"narrow"`` (``csrc/assign_tile.cuh``, the instance of
+    :func:`padded_ds`) at every ``ds`` up to 32, else :func:`wide_route`'s
+    ``"deep"`` or ``"shallow"``.  The encode, the statistics and the verified
+    wrappers all follow it, so a row gets one code from all of them."""
+    return "narrow" if ds <= 32 else wide_route(ds, aligned)
+
+
+# The C entries' route argument (csrc/assign_tile.cuh kRouteNarrow, ...).
+_ROUTE_CODES = {"narrow": 0, "deep": 1, "shallow": 2}
+
+
+def _route_of(ds: int, x: Tensor) -> str:
+    """:func:`assign_route` for ``x`` (its own address decides the
+    alignment)."""
+    return assign_route(ds, x.data_ptr() % 16 == 0)
+
+
+def _counter(name: str, route: str, ds: int, x: Tensor) -> str:
+    """The launch count a kernel adds to: ``name`` for the narrow kernels,
+    ``name_pad`` for their padded instance (the C entries' rule,
+    ``assign_tile::needs_pad``: a ``ds`` outside 4, 8, 16, 32, or rows off
+    16 bytes), ``name_wide`` for the deep and the shallow kernel."""
+    if route != "narrow":
+        return name + "_wide"
+    padded = ds not in _NARROW_DS or x.data_ptr() % 16 != 0
+    return name + ("_pad" if padded else "")
 
 
 # The statistics kernels' grid is P blocks per subquantizer; P comes from the
@@ -227,10 +298,12 @@ def wide_route(ds: int, aligned: bool) -> str:
 # four waves of two blocks on each of an H100's 132 SMs.
 _TARGET_BLOCKS = 1056
 _MAX_PARTIAL_ELEMS = 1 << 26  # 256 MB of float32 scratch
-_MIN_ROWS_PER_TILE = 256  # no more blocks than 256-row tiles (the kernels' hold 128 to 512)
+_MIN_ROWS_PER_TILE = 256  # no more blocks than 256-row tiles (the kernels' hold 128 to 1,024)
 
 
 def _blocks_per_subquantizer(n: int, m: int, k: int, ds: int, target: int = _TARGET_BLOCKS) -> int:
+    """P for the statistics kernels; ``ds`` is the width of the instance
+    (:func:`padded_ds`), whose slots of ``(m, k, ds + 1)`` the scratch holds."""
     tiles = -(-n // _MIN_ROWS_PER_TILE)  # a block without a tile only writes zeros
     by_fill = -(-target // m)
     by_scratch = _MAX_PARTIAL_ELEMS // (m * k * (ds + 1))
@@ -255,7 +328,8 @@ _ENCODE_WAVES = 4
 def bf16_tile_plan(n: int, m: int, k: int, ds: int, *, sms: int | None = None) -> TilePlan:
     """The launch plan of the narrow bf16 kernels (``csrc/encode.cu``
     ``encode_bf16_kernel``, ``csrc/stats.cu`` ``stats_bf16_kernel``; ``ds``
-    in 4, 8, 16, 32): tiles of 512 rows (256 at ``ds = 32``); shared memory
+    from 1 to 32, planned at its padded width :func:`padded_ds`, the
+    instance that runs it): tiles of 512 rows (256 at a width of 32); shared memory
     for the staged centroids (``2c`` in bf16, a depth of 16 per step, and
     ``|c|^2``), two f32 buffers of the rows, a code and a distance per row,
     and for the statistics (``sms=None``) the counting sort's scratch; three
@@ -267,8 +341,9 @@ def bf16_tile_plan(n: int, m: int, k: int, ds: int, *, sms: int | None = None) -
     waves of what the card holds, at most one block per tile.  The C entries
     refuse a plan whose rows or bytes are not the ones they were compiled
     for.  ``k`` and the data never change the rows or the bytes."""
-    if ds not in _NARROW_DS:
-        raise ValueError(f"the narrow bf16 kernels take ds in {_NARROW_DS}, got {ds}")
+    if not 1 <= ds <= 32:
+        raise ValueError(f"the narrow bf16 kernels take ds from 1 to 32, got {ds}")
+    ds = padded_ds(ds)
     rows = 256 if ds == 32 else 512
     steps = -(-ds // 16)
     smem = steps * _CENTROID_TILE * 32 + 4 * (_CENTROID_TILE + 2 * rows * ds + 2 * rows)
@@ -320,13 +395,14 @@ def deep_operands(cb2: Tensor, c_sqn: Tensor, compute_dtype) -> tuple[Tensor, Te
     return w, norms
 
 
-def _wide_operands(cb2: Tensor, c_sqn: Tensor, x: Tensor, compute_dtype):
-    """``(cb2, c_sqn, deep)`` as the C entries take them for ``x``: the deep
-    kernel's converted operands where :func:`wide_route` picks it."""
-    ds = cb2.shape[2]
-    if ds in _NARROW_DS or wide_route(ds, x.data_ptr() % 16 == 0) != "deep":
-        return cb2, c_sqn, False
-    return (*deep_operands(cb2, c_sqn, compute_dtype), True)
+def _route_operands(cb2: Tensor, c_sqn: Tensor, x: Tensor, compute_dtype):
+    """``(cb2, c_sqn, route)`` as the C entries take them for ``x``:
+    :func:`assign_route`'s answer, with the deep kernel's converted operands
+    where it is ``"deep"``."""
+    route = _route_of(cb2.shape[2], x)
+    if route != "deep":
+        return cb2, c_sqn, route
+    return (*deep_operands(cb2, c_sqn, compute_dtype), route)
 
 
 def _check_k(m: int, k: int, ds: int, what: str,
@@ -380,9 +456,9 @@ def pq_encode(
     """Encode ``(n, d)`` vectors to ``(n, m)`` codes of ``dtype``.
 
     CUDA tensors go through the kernel (any ``ds``, ``k <= 65536``; a larger
-    ``k`` raises): the narrow kernels at ``ds`` in 4, 8, 16, 32, the wide
-    route (``csrc/assign_wide.cuh``, its deep kernel where
-    :func:`wide_route` says) at every other ``ds``.  CPU tensors go
+    ``k`` raises) that :func:`assign_route` names: the narrow kernels at every
+    ``ds`` up to 32, the wide route (``csrc/assign_wide.cuh``, its deep
+    kernel where :func:`wide_route` says) above.  CPU tensors go
     through :func:`pq_encode_reference`.  The kernel writes ``uint8`` or ``int32``
     codes; other integer dtypes are cast from ``int32`` at the end.  ``out``,
     an ``(n, m)`` tensor of ``dtype`` on the same device, receives the codes
@@ -409,23 +485,23 @@ def pq_encode(
         raw = torch.empty((n, m), dtype=dtype if direct else torch.int32, device=x.device)
     bf16 = compute_dtype == torch.bfloat16
     out_u8 = int(raw.dtype == torch.uint8)
+    cb2, c_sqn, route = _route_operands(cb2, c_sqn, x, compute_dtype)
+    counter = _counter("encode_bf16" if bf16 else "encode_f32", route, ds, x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if bf16 and ds in _NARROW_DS:
+        if bf16 and route == "narrow":
             sms = torch.cuda.get_device_properties(x.device).multi_processor_count
             plan = bf16_tile_plan(n, m, k, ds, sms=sms)
             _build.launch(
-                "rt_encode_bf16", "encode_bf16",
+                "rt_encode_bf16", counter,
                 x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), raw.data_ptr(),
                 n, m, k, ds, out_u8, plan.rows, plan.blocks, plan.smem_bytes, stream,
             )
         else:
-            counter = ("encode_bf16" if bf16 else "encode_f32") + ("" if ds in _NARROW_DS else "_wide")
-            cb2, c_sqn, deep = _wide_operands(cb2, c_sqn, x, compute_dtype)
             _build.launch(
                 "rt_encode", counter,
                 x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), raw.data_ptr(),
-                n, m, k, ds, int(bf16), out_u8, int(deep), stream,
+                n, m, k, ds, int(bf16), out_u8, _ROUTE_CODES[route], stream,
             )
     if out is None:
         return raw if direct else raw.to(dtype)
@@ -451,7 +527,10 @@ def verify_scale(
     :data:`F32_ROUTE`),
     ``2 * ((3.5 + (5 + 2^-6) * kc + 0.26 * chunks) * 2^-22 + ds * 2^-24)``
     with ``kc, chunks = wide_chunking(ds)`` for ``route="tf32x3_wide"`` (the
-    wide route's, :data:`WIDE_ROUTE`),
+    wide route's, :data:`WIDE_ROUTE`), the larger of the ``"tf32x3"`` count
+    at ``padded_ds(ds) / 8`` instructions and the ``"tf32x3_wide"`` one for
+    ``route="tf32x3_pad"`` (the padded narrow kernels at 17 to 24,
+    :data:`PAD_ROUTE`; ``ds <= 32``),
     ``4 * ds * 2^-24`` for ``route="fma"`` (a chain of f32 FMAs, the first
     step of the derivation).  ``route=None`` is the route the f32 kernels
     take at this ``ds`` (:func:`f32_route`)."""
@@ -461,14 +540,17 @@ def verify_scale(
     if route not in _ROUTES:
         raise ValueError(f"route must be one of {_ROUTES}, got {route!r}")
     if scale is None:
+        kc, chunks = wide_chunking(ds)
+        wide = 3.5 + (5.0 + 2.0 ** -6) * kc + 0.26 * chunks
         if route == "fma":
             scale = 4.0 * ds * 2.0 ** -24
         elif route == F32_ROUTE:
             scale = 2.0 * ((3.25 + 5.0 * -(-ds // 8)) * 2.0 ** -22 + ds * 2.0 ** -24)
+        elif route == PAD_ROUTE:
+            tile = 3.25 + 5.0 * (padded_ds(ds) // 8)
+            scale = 2.0 * (max(tile, wide) * 2.0 ** -22 + ds * 2.0 ** -24)
         else:
-            kc, chunks = wide_chunking(ds)
-            scale = 2.0 * ((3.5 + (5.0 + 2.0 ** -6) * kc + 0.26 * chunks) * 2.0 ** -22
-                           + ds * 2.0 ** -24)
+            scale = 2.0 * (wide * 2.0 ** -22 + ds * 2.0 ** -24)
     cn = torch.sqrt(torch.einsum("mkd,mkd->mk", codebooks, codebooks))
     return (scale * 2.0 * cn.amax(dim=1)).to(torch.float32).contiguous()
 
@@ -577,13 +659,13 @@ def pq_encode_verify_flags(
     direct = dtype in (torch.uint8, torch.int32)
     raw = torch.empty((n, m), dtype=dtype if direct else torch.int32, device=x.device)
     flags = torch.zeros((n,), dtype=torch.int32, device=x.device)  # the kernel ORs into it
-    cb2, c_sqn, deep = _wide_operands(cb2, c_sqn, x, torch.float32)
+    cb2, c_sqn, route = _route_operands(cb2, c_sqn, x, torch.float32)
     with torch.cuda.device(x.device):
         _build.launch(
-            "rt_encode_verify", "encode_verify" + ("" if ds in _NARROW_DS else "_wide"),
+            "rt_encode_verify", _counter("encode_verify", route, ds, x),
             x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), raw.data_ptr(),
             escale.data_ptr(), float(rho), flags.data_ptr(),
-            n, m, k, ds, int(raw.dtype == torch.uint8), int(deep),
+            n, m, k, ds, int(raw.dtype == torch.uint8), _ROUTE_CODES[route],
             torch.cuda.current_stream().cuda_stream,
         )
     return (raw if direct else raw.to(dtype)), flags

@@ -16,11 +16,13 @@ assigns with ``x`` and ``2c`` rounded to bfloat16 and sums the **rounded**
 ``x`` in f32 (one rounded copy of ``x`` feeds both halves, as in the
 reference).  Counts are exact integers in both modes.
 
-At ``ds`` in 4, 8, 16, 32 the kernel is the narrow one (``csrc/stats.cu``:
-a tile's rows accumulated as they are assigned); at every other ``ds`` the
-wide route: the assignment of ``csrc/assign_wide.cuh`` (the wide encode's,
-bit for bit) writes its codes, a stable radix sort orders the rows by cell
-and one block per cell adds its rows in row order.  Neither uses float
+At every ``ds`` up to 32 the kernel is the narrow one (``csrc/stats.cu``: a
+tile's rows accumulated as they are assigned; at a ``ds`` outside 4, 8, 16,
+32 the instance of ``ops.assign.padded_ds(ds)``, rows and centroids padded
+with zeros, counters ``*_pad``); above, the wide route: the assignment of
+``csrc/assign_wide.cuh`` (the wide encode's, bit for bit) writes its codes,
+a stable radix sort orders the rows by cell and one block per cell adds its
+rows in row order (counters ``*_wide``).  Neither uses float
 atomics: every sum is taken in an order fixed by the shapes (and, on the
 wide route, the codes), so two launches on the same inputs give the same
 bits.  The plain version and the verified wrapper's corrections add by a
@@ -45,9 +47,9 @@ cores (``csrc/assign_tile.cuh``, or ``csrc/assign_wide.cuh`` on the wide
 route), the routine the f32 encode runs too at the same ``ds``, so its codes
 are the encode's bit for bit and its flag limit is the one that
 :mod:`reductive_tpu_torch.ops.assign` derives for the route
-(:data:`STATS_ROUTE`, ``"tf32x3"``, at the narrow widths; ``"tf32x3_wide"``
-at every other, ``ops.assign.f32_route``); the plain version flags with the
-same limit.
+(:data:`STATS_ROUTE`, ``"tf32x3"``, at 4, 8, 16, 32; ``"tf32x3_pad"`` at 17
+to 24; ``"tf32x3_wide"`` at every other ``ds``, ``ops.assign.f32_route``);
+the plain version flags with the same limit.
 """
 
 from __future__ import annotations
@@ -59,8 +61,9 @@ from ..linalg import one_hot_sums
 from ..pq.primitives import nearest_centroids, quantize_batch
 from . import _build
 from .assign import (
-    _NARROW_DS, F32_ROUTE, VERIFY_RHO, _blocks_per_subquantizer, _check_k, _prepare,
-    _wide_operands, bf16_tile_plan, flagged_rows, pq_encode_verify_reference, verify_scale,
+    _ROUTE_CODES, F32_ROUTE, VERIFY_RHO, _blocks_per_subquantizer, _check_k, _counter, _prepare,
+    _route_operands, bf16_tile_plan, flagged_rows, padded_ds, pq_encode_verify_reference,
+    verify_scale,
 )
 
 __all__ = [
@@ -113,32 +116,33 @@ def _launch_stats(codebooks: Tensor, x: Tensor, compute_dtype, verify=None):
     sums = torch.empty((m, k, ds), dtype=torch.float32, device=dev)
     counts = torch.empty((m, k), dtype=torch.float32, device=dev)
     codes = flags = None
-    wide = ds not in _NARROW_DS
-    if verify is not None or wide:
+    x = x.contiguous()
+    cb2, c_sqn, route = _route_operands(cb2, c_sqn, x, compute_dtype)
+    if verify is not None or route != "narrow":
         codes = torch.empty((m, n), dtype=torch.int32, device=dev).T
     if verify is not None:
         flags = torch.zeros((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return sums.zero_(), counts.zero_(), codes, flags
-    x = x.contiguous()
-    if wide:
-        _launch_wide(cb2, c_sqn, x, codes, sums, counts, compute_dtype, verify, flags)
+    if route != "narrow":
+        _launch_wide(cb2, c_sqn, x, codes, sums, counts, compute_dtype, verify, flags, route)
         return sums, counts, (codes if verify is not None else None), flags
+    dsp = padded_ds(ds)
     plan = bf16_tile_plan(n, m, k, ds) if verify is None and compute_dtype == torch.bfloat16 else None
-    blocks = _blocks_per_subquantizer(n, m, k, ds) if plan is None else plan.blocks
-    partial = torch.empty((blocks, m, k, ds + 1), dtype=torch.float32, device=dev)
+    blocks = _blocks_per_subquantizer(n, m, k, dsp) if plan is None else plan.blocks
+    partial = torch.empty((blocks, m, k, dsp + 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if plan is not None:
             _build.launch(
-                "rt_assign_stats_bf16", "stats_bf16",
+                "rt_assign_stats_bf16", _counter("stats_bf16", route, ds, x),
                 x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), partial.data_ptr(),
                 sums.data_ptr(), counts.data_ptr(), n, m, k, ds, plan.rows, plan.blocks,
                 plan.smem_bytes, stream,
             )
         elif verify is None:
             _build.launch(
-                "rt_assign_stats", "stats_f32",
+                "rt_assign_stats", _counter("stats_f32", route, ds, x),
                 x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), partial.data_ptr(),
                 sums.data_ptr(), counts.data_ptr(), n, m, k, ds, blocks, stream,
             )
@@ -146,7 +150,7 @@ def _launch_stats(codebooks: Tensor, x: Tensor, compute_dtype, verify=None):
             escale, rho = verify
             escale = escale.contiguous()
             _build.launch(
-                "rt_assign_stats_verify", "stats_verify",
+                "rt_assign_stats_verify", _counter("stats_verify", route, ds, x),
                 x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), partial.data_ptr(),
                 sums.data_ptr(), counts.data_ptr(), escale.data_ptr(), float(rho),
                 codes.data_ptr(), flags.data_ptr(), n, m, k, ds, blocks, stream,
@@ -154,14 +158,15 @@ def _launch_stats(codebooks: Tensor, x: Tensor, compute_dtype, verify=None):
     return sums, counts, codes, flags
 
 
-def _launch_wide(cb2, c_sqn, x, codes, sums, counts, compute_dtype, verify, flags) -> None:
-    """The wide route (any ``ds`` outside 4, 8, 16, 32): one C entry launches
-    the assignment of ``csrc/assign_wide.cuh`` (its deep kernel where
-    ``ops.assign.wide_route`` says), the radix sort by cell and
-    the per-cell sums (``csrc/stats.cu``), into ``codes`` (an ``(n, m)``
-    view of an ``(m, n)`` tensor), ``sums`` and ``counts``."""
-    n, m = codes.shape
-    k, ds = cb2.shape[1], cb2.shape[2]
+def _launch_wide(cb2, c_sqn, x, codes, sums, counts, compute_dtype, verify, flags, route) -> None:
+    """The wide route (``route`` ``"deep"`` or ``"shallow"``, from
+    ``ops.assign.assign_route``; ``cb2`` and ``c_sqn`` converted for the deep
+    kernel): one C entry launches the assignment of ``csrc/assign_wide.cuh``,
+    the radix sort by cell and the per-cell sums (``csrc/stats.cu``), into
+    ``codes`` (an ``(n, m)`` view of an ``(m, n)`` tensor), ``sums`` and
+    ``counts``."""
+    n = codes.shape[0]
+    m, k, ds = sums.shape
     words = _build.query("rt_assign_stats_wide_scratch", n, m, k)
     scratch = torch.empty((words,), dtype=torch.int32, device=x.device)
     if verify is None:
@@ -171,14 +176,13 @@ def _launch_wide(cb2, c_sqn, x, codes, sums, counts, compute_dtype, verify, flag
     else:
         (escale, rho), mode, name = verify, 2, "stats_verify_wide"
         escale = escale.contiguous()
-    cb2, c_sqn, deep = _wide_operands(cb2, c_sqn, x, compute_dtype)
     with torch.cuda.device(x.device):
         _build.launch(
             "rt_assign_stats_wide", name,
             x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), codes.data_ptr(),
             None if escale is None else escale.data_ptr(), float(rho),
             None if flags is None else flags.data_ptr(), scratch.data_ptr(),
-            sums.data_ptr(), counts.data_ptr(), n, m, k, ds, mode, int(deep),
+            sums.data_ptr(), counts.data_ptr(), n, m, k, ds, mode, _ROUTE_CODES[route],
             torch.cuda.current_stream().cuda_stream,
         )
 
@@ -192,8 +196,9 @@ def pq_assign_stats(
 
     CUDA tensors go through the kernel (any ``ds``, ``k <= 65536``; a larger
     ``k`` raises a ``ValueError``: the trainers take ``use_kernel=False`` for
-    it), the narrow one at ``ds`` in 4, 8, 16, 32 and the wide route at every
-    other ``ds``; CPU tensors through :func:`pq_assign_stats_reference`.
+    it) that ``ops.assign.assign_route`` names, the narrow one at every ``ds``
+    up to 32 and the wide route above; CPU tensors through
+    :func:`pq_assign_stats_reference`.
     """
     if not x.is_cuda:
         return pq_assign_stats_reference(codebooks, x, compute_dtype=compute_dtype)

@@ -76,8 +76,10 @@ def test_the_bf16_tile_plan_at_the_flagship_shape():
     assert bf16_tile_plan(4_000_000, 16, 256, 32) == TilePlan(256, 66, 94_752, 2)
     assert bf16_tile_plan(4_000_000, 16, 256, 16).blocks == _blocks_per_subquantizer(
         4_000_000, 16, 256, 16)
+    # Every ds up to 32 is planned at its padded width; a wider one is not.
+    assert bf16_tile_plan(4_000_000, 16, 256, 12) == bf16_tile_plan(4_000_000, 16, 256, 16)
     with pytest.raises(ValueError, match="narrow bf16"):
-        bf16_tile_plan(1000, 4, 256, 12)
+        bf16_tile_plan(1000, 4, 256, 48)
 
 
 # -- the selection ---------------------------------------------------------------

@@ -20,11 +20,13 @@ so do the bf16 ones (the encode's codes counted per cell are the statistics
 kernel's counts), and where the bf16 products are exact the bf16 encode is
 the plain version bit for bit, first index among duplicated centroids
 included.
-The wide route (every ds outside 4, 8, 16, 32: 1, 2, 3, 12, 20, 36, 40, 48,
-64, 68, 96, 100, 128 and 768 here, its deep kernel from ds = 36 on, the
-shallow one for an x TMA cannot describe) is held to the same: each kernel
-against its plain version, encode against statistics, two launches
-bit-equal, the deep kernel against the shallow one; decode at any ds, in
+Every other width is held to the same: ds 1, 2, 3, 12 and 20 on the narrow
+kernels' padded instances, ds 36, 40, 48, 64, 68, 96, 100, 128 and 768 on the
+wide route (its deep kernel, the shallow one for an x TMA cannot describe):
+each kernel against its plain version, encode against statistics, two
+launches bit-equal, the deep kernel against the shallow one, and the padded
+instances against the shallow kernel (forced) bit for bit at thirteen widths
+up to 32, on rows off 16 bytes and at k from 1 to 257; decode at any ds, in
 every table regime of the row-tile kernels (tiles of 1 to 64 rows), into an
 ``out`` off 16 bytes and from codes that start off a word, its tables bit for
 bit the plain versions' on adversarial bit patterns, and at d=300, k=256.
@@ -167,8 +169,8 @@ def test_stats_kernel_feeds_the_trainers(dev):
     eye = torch.eye(32, device=dev)
     assert float((opq.projection.T @ opq.projection - eye).abs().max()) < 1e-4
     ops.reset_launch_counts()
-    wide = train_pq_chunked(gen, x[:, :24], 2, 6, 2)  # ds = 12: the wide route
-    assert ops.launch_counts() == {"stats_f32_wide": 2}
+    wide = train_pq_chunked(gen, x[:, :24], 2, 6, 2)  # ds = 12: the padded instance of ds = 16
+    assert ops.launch_counts() == {"stats_f32_pad": 2}
     assert bool(torch.isfinite(wide.codebooks).all())
 
 
@@ -763,6 +765,12 @@ WIDE_SHAPES = [
 ]
 
 
+def _suffix(ds):
+    """The counters' suffix at width ds: the narrow kernels' padded instance
+    up to 32, the wide route above."""
+    return "_pad" if ds <= 32 else "_wide"
+
+
 def _chosen_dist(cb, x, codes):
     n = x.shape[0]
     m, _, ds = cb.shape
@@ -777,7 +785,7 @@ def test_wide_encode_kernel_equals_plain(dev, n, m, k, ds, compute_dtype):
     f32 = compute_dtype == torch.float32
     ops.reset_launch_counts()
     got = ops.pq_encode(cb, x, dtype=torch.int32, compute_dtype=compute_dtype)
-    assert ops.launch_counts() == {("encode_f32" if f32 else "encode_bf16") + "_wide": 1}
+    assert ops.launch_counts() == {("encode_f32" if f32 else "encode_bf16") + _suffix(ds): 1}
     assert got.dtype == torch.int32 and tuple(got.shape) == (n, m)
     assert int(got.min()) >= 0 and int(got.max()) < k
     want = ops.pq_encode_reference(cb, x, dtype=torch.int32, compute_dtype=compute_dtype)
@@ -811,7 +819,7 @@ def test_wide_stats_kernel_equals_plain_and_itself(dev, n, m, k, ds, compute_dty
     ops.reset_launch_counts()
     sums, counts = ops.pq_assign_stats(cb, x, compute_dtype=compute_dtype)
     again = ops.pq_assign_stats(cb, x, compute_dtype=compute_dtype)
-    assert ops.launch_counts() == {("stats_f32" if f32 else "stats_bf16") + "_wide": 2}
+    assert ops.launch_counts() == {("stats_f32" if f32 else "stats_bf16") + _suffix(ds): 2}
     # No float atomics: two launches give the same bits.
     assert torch.equal(sums, again[0]) and torch.equal(counts, again[1])
     assert float(counts.double().sum()) == n * m
@@ -841,7 +849,7 @@ def test_wide_verify_kernels(dev, n, m, k, ds, adversarial):
     again = pq_assign_stats_verify_flags(cb, x)
     assert all(torch.equal(a, b) for a, b in zip((sums, counts, codes, flags), again))
     enc_codes, enc_flags = pq_encode_verify_flags(cb, x, dtype=torch.int32)
-    assert ops.launch_counts() == {"stats_verify_wide": 2, "encode_verify_wide": 1}
+    assert ops.launch_counts() == {"stats_verify" + _suffix(ds): 2, "encode_verify" + _suffix(ds): 1}
     assert torch.equal(codes, enc_codes) and torch.equal(flags, enc_flags)
     oracle = primitives.quantize_batch(cb, x, dtype=torch.int32)
     assert not bool(((codes != oracle).any(dim=1) & (flags == 0)).any())
@@ -879,6 +887,125 @@ def test_the_deep_kernel_assigns_as_the_shallow_one(dev, n, m, k, ds):
     assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
+# -- the narrow kernels' padded instances -------------------------------------------
+
+# The 300-d widths (m = 150, 100, 60, 50, 30, 25, 20, 15, 12, 10), d = 768 at
+# m = 32, and the odd ones between.
+PAD_WIDTHS = [1, 2, 3, 5, 6, 7, 10, 12, 15, 20, 24, 25, 30]
+
+
+def _forced_shallow(monkeypatch):
+    """Make the wrappers take the wide route's shallow kernel at every width,
+    as they would if assign_route answered "shallow"."""
+    from reductive_tpu_torch.ops import assign
+    monkeypatch.setattr(assign, "assign_route", lambda ds, aligned: "shallow")
+
+
+def _all_modes(cb, x):
+    """Codes of the f32 and bf16 encode, the verify encode's codes and flags,
+    and the f32, bf16 and verified statistics (sums, counts[, codes, flags])."""
+    f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
+    return {
+        "encode_f32": ops.pq_encode(cb, x, dtype=i32, compute_dtype=f32),
+        "encode_bf16": ops.pq_encode(cb, x, dtype=i32, compute_dtype=bf16),
+        "encode_verify": pq_encode_verify_flags(cb, x, dtype=i32),
+        "stats_f32": ops.pq_assign_stats(cb, x, compute_dtype=f32),
+        "stats_bf16": ops.pq_assign_stats(cb, x, compute_dtype=bf16),
+        "stats_verify": pq_assign_stats_verify_flags(cb, x),
+    }
+
+
+@pytest.mark.parametrize("ds", PAD_WIDTHS)
+def test_the_padded_kernels_assign_as_the_shallow_one(dev, ds, monkeypatch):
+    # Up to ds = 32 the shallow kernel walks its depth in one chunk of
+    # ceil(ds/8) steps from zero (16 in bf16), in the narrow kernels' order;
+    # the padded instance adds steps of zeros only at 17 <= ds <= 24 (f32).
+    # The codes must be the same bits in every mode.
+    n, m, k = 3001, 3, 300
+    cb, x = _data(dev, n, m, k, ds, seed=12)
+    ops.reset_launch_counts()
+    pad = _all_modes(cb, x)
+    assert ops.launch_counts() == {name + "_pad": 1 for name in pad}
+    _forced_shallow(monkeypatch)
+    ops.reset_launch_counts()
+    shallow = _all_modes(cb, x)
+    assert ops.launch_counts() == {name + "_wide": 1 for name in shallow}
+    for name in ("encode_f32", "encode_bf16"):
+        assert torch.equal(pad[name], shallow[name]), (name, int((pad[name] != shallow[name]).sum()))
+    assert torch.equal(pad["encode_verify"][0], shallow["encode_verify"][0])
+    assert torch.equal(pad["stats_verify"][2], shallow["stats_verify"][2])
+    # The same codes, so the same cells; the sums in another order.
+    for name in ("stats_f32", "stats_bf16", "stats_verify"):
+        assert torch.equal(pad[name][1], shallow[name][1]), name
+        want = shallow[name][0]
+        tol = 1e-5 * want.abs() + 1e-4 * float(want.abs().max())
+        assert bool(((pad[name][0] - want).abs() <= tol).all()), name
+    # |x_j| is summed in another order: a flag may differ where a margin sits on
+    # the limit, and each kernel's own encode and statistics flag alike.
+    assert int((pad["encode_verify"][1] != shallow["encode_verify"][1]).sum()) <= max(2, n // 1000)
+    assert torch.equal(pad["encode_verify"][1], pad["stats_verify"][3])
+    assert torch.equal(shallow["encode_verify"][1], shallow["stats_verify"][3])
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+@pytest.mark.parametrize("ds", [2, 3, 8, 10])
+def test_the_padded_kernels_take_rows_off_16_bytes(dev, ds, off):
+    # x one, two or three floats past 16 bytes (a view into a larger buffer):
+    # 4- or 8-byte copies where the aligned rows take 8 or 16; at ds = 8 the
+    # padded instance of the unpadded one.  The same bits in every mode.
+    n, m, k = 1500, 4, 64
+    cb, x = _data(dev, n, m, k, ds, seed=14)
+    view = torch.empty((n * m * ds + off,), device=dev)[off:].view(n, m * ds)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * off
+    ops.reset_launch_counts()
+    aligned = _all_modes(cb, x)
+    names = {name + ("" if ds == 8 else "_pad"): 1 for name in aligned}
+    assert ops.launch_counts() == names
+    ops.reset_launch_counts()
+    shifted = _all_modes(cb, view)
+    assert ops.launch_counts() == {name + "_pad": 1 for name in aligned}
+    for name in aligned:
+        a, b = aligned[name], shifted[name]
+        a, b = (a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b
+        assert all(torch.equal(u, v) for u, v in zip(a, b)), name
+
+
+@pytest.mark.parametrize("k", [1, 8, 128, 257])
+@pytest.mark.parametrize("ds", [2, 10, 20])
+def test_the_padded_kernels_at_every_k(dev, ds, k):
+    n, m = 2049, 5
+    cb, x = _data(dev, n, m, k, ds, seed=13)
+    ops.reset_launch_counts()
+    got = _all_modes(cb, x)
+    again = _all_modes(cb, x)
+    assert ops.launch_counts() == {name + "_pad": 2 for name in got}
+    for name in ("stats_f32", "stats_bf16", "stats_verify"):  # two launches, the same bits
+        assert all(torch.equal(u, v) for u, v in zip(got[name], again[name])), name
+    # Encode and statistics share their assignment: codes, cells and flags.
+    codes, flags = got["encode_verify"]
+    assert torch.equal(codes, got["encode_f32"]) and torch.equal(codes, got["stats_verify"][2])
+    assert torch.equal(flags, got["stats_verify"][3])
+    for name, enc in (("stats_f32", got["encode_f32"]), ("stats_bf16", got["encode_bf16"])):
+        by_code = torch.stack([torch.bincount(enc[:, j].long(), minlength=k) for j in range(m)])
+        assert torch.equal(by_code.to(torch.float32), got[name][1]), name
+    # Against the plain versions: codes off only on flagged rows (f32), near
+    # ties (bf16); the verified wrappers equal the exact path.
+    want = ops.pq_encode_reference(cb, x, dtype=torch.int32, compute_dtype=torch.float32)
+    assert not bool(((got["encode_f32"] != want).any(dim=1) & (flags == 0)).any())
+    want_bf16 = ops.pq_encode_reference(cb, x, dtype=torch.int32, compute_dtype=torch.bfloat16)
+    assert int((got["encode_bf16"] != want_bf16).sum()) <= max(2, n * m // 100)
+    oracle = primitives.quantize_batch(cb, x, dtype=torch.int32)
+    assert torch.equal(ops.pq_encode_verified(cb, x, dtype=torch.int32), oracle)
+    want_sums, want_counts = ops.stats.stats_from_codes(oracle, x, k)
+    got_sums, got_counts = ops.pq_assign_stats_verified(cb, x)
+    assert torch.equal(got_counts, want_counts)
+    tol = 1e-5 * want_sums.abs() + 1e-4 * float(want_sums.abs().max())
+    assert bool(((got_sums - want_sums).abs() <= tol).all())
+    if k == 1:
+        assert int(got["encode_f32"].max()) == 0 and int(flags.sum()) == 0
+
+
 @pytest.mark.parametrize("n,m,k,ds", [(50000, 16, 256, 8), (20000, 1, 1000, 128), (30000, 10, 128, 2)],
                          ids=["narrow", "wide", "ds2"])
 def test_verified_statistics_and_the_plain_route_repeat_bit_for_bit(dev, n, m, k, ds):
@@ -909,7 +1036,7 @@ def test_kmeans_chunked_takes_the_kernel_at_full_width(dev, d, k):
     ops.reset_launch_counts()
     c_f32, loss_f32 = kmeans.kmeans_with_centroids_chunked(x, init, 2)
     c_ver, loss_ver = kmeans.kmeans_with_centroids_chunked(x, init, 2, compute_dtype="verified")
-    assert ops.launch_counts() == {"stats_f32_wide": 2, "stats_verify_wide": 2}
+    assert ops.launch_counts() == {"stats_f32" + _suffix(d): 2, "stats_verify" + _suffix(d): 2}
     # The verified memberships are the exact path's: the plain route on the CPU.
     c_cpu, loss_cpu = kmeans.kmeans_with_centroids_chunked(x.cpu(), init.cpu(), 2, use_kernel=False)
     assert float((c_ver.cpu() - c_cpu).abs().max()) < 1e-4

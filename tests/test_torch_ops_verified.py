@@ -480,17 +480,24 @@ def test_every_row_whose_argmin_a_rounding_could_change_is_flagged(ds, seed, rou
 
 
 @pytest.mark.parametrize("seed", range(3))
-@pytest.mark.parametrize("ds", [1, 2, 3, 12, 48, 128])
+@pytest.mark.parametrize("ds", [1, 2, 3, 12, 20, 24, 48, 128])
 def test_every_row_the_wide_route_could_change_is_flagged(ds, seed):
     """The same soundness at the odd and wide widths, for the wide route's
     evaluation (``"tf32x3_wide"``): ``B_w = (3.5 + (5 + 2^-6) kc + 0.26
     chunks) 2^-22 max|2c| |x|`` for the kernel's chunks of ``kc``
-    instructions.  At ds = 128 the limit is wide enough that rows 1e-3 from a
-    midpoint are flagged too, so the flags are held not to be vacuous by the
-    rows no perturbation can change."""
+    instructions; at ds = 20 and 24, where the narrow kernels' padded
+    instance takes a fourth step of zeros (``"tf32x3_pad"``), the larger of
+    that and the narrow route's ``(3.25 + 5 * 4) 2^-22``.  At ds = 128 the
+    limit is wide enough that rows 1e-3 from a midpoint are flagged too, so
+    the flags are held not to be vacuous by the rows no perturbation can
+    change."""
     kc, chunks = tassign.wide_chunking(ds)
     g_kernel = (3.5 + (5 + 2.0 ** -6) * kc + 0.26 * chunks) * 2.0 ** -22
-    changed_any, flagged, too_few, _, _ = _perturbed(ds, seed, "tf32x3_wide", g_kernel)
+    route = tassign.f32_route(ds)
+    assert route == ("tf32x3_pad" if ds in (20, 24) else "tf32x3_wide")
+    if route == "tf32x3_pad":
+        g_kernel = max(g_kernel, (3.25 + 5 * 4) * 2.0 ** -22)
+    changed_any, flagged, too_few, _, _ = _perturbed(ds, seed, route, g_kernel)
     assert changed_any.any(), "the data reaches no near-tie: the property tests nothing"
     assert not (changed_any & ~flagged).any()
     assert (changed_any & ~too_few).any()

@@ -1,9 +1,11 @@
 """The port at every subvector width, against the JAX package on the CPU.
 
-The JAX kernels take any ``ds``; the port's narrow kernels take 4, 8, 16 and
-32, and every other ``ds`` takes the wide route (``csrc/assign_wide.cuh`` for
-the assignment, the radix sort and segment sums of ``csrc/stats.cu`` for the
-statistics, the scalar decode of ``csrc/decode.cu``).  Those kernels run only
+The JAX kernels take any ``ds``; the port's narrow kernels are compiled for
+4, 8, 16 and 32 and take every other ``ds`` up to 32 through their padded
+instances, and every wider ``ds`` takes the wide route
+(``csrc/assign_wide.cuh`` for the assignment, the radix sort and segment sums
+of ``csrc/stats.cu`` for the statistics); decode at a ``ds`` that is no
+multiple of 4 takes the scalar decode of ``csrc/decode.cu``.  Those kernels run only
 on the card (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``); here
 the wrappers take their plain versions, held against the JAX kernels in the
 Pallas interpreter at the odd and wide widths: ``ds`` 2 (the reference's own
@@ -39,7 +41,7 @@ from reductive_tpu_torch.ops import probe as tprobe
 from reductive_tpu_torch.ops import stats as tstats
 from reductive_tpu_torch.pq import primitives as tprim
 
-from torch_port_util import all_distances, assert_codes_near_optimal, j, make_pq_data, t
+from torch_port_util import assert_codes_near_optimal, j, make_pq_data, near_tie_rows, t
 
 # (n, m, k, ds): odd and wide widths; m = 1 at k-means' widths.
 F32_SHAPES = [(700, 10, 16, 2), (500, 3, 20, 3), (400, 4, 37, 12), (300, 2, 16, 48),
@@ -67,24 +69,6 @@ def test_pq_encode_bf16_at_wide_widths_matches_jax(n, m, k, ds):
     assert_codes_near_optimal(cb, x, got, want, min_equal=0.99, rel_tol=2.0 ** -7)
 
 
-def _near_tie_rows(cb, x, a, b, rel):
-    """Rows where codes ``a`` and ``b`` differ, each checked to be a near-tie:
-    the two distances within ``rel`` of ``|x_j| max|2c_j| + max|c_j|^2``, the
-    scale of a split product's error (at ds = 2 with many centroids the
-    distances themselves are far smaller)."""
-    differ = np.flatnonzero((a != b).any(axis=1))
-    if len(differ):
-        m, k, ds = cb.shape
-        dist = all_distances(cb, x)
-        da = np.take_along_axis(dist, a[:, :, None].astype(np.int64), axis=2)[:, :, 0]
-        db = np.take_along_axis(dist, b[:, :, None].astype(np.int64), axis=2)[:, :, 0]
-        cn = np.sqrt((cb.astype(np.float64) ** 2).sum(axis=2)).max(axis=1)
-        xn = np.sqrt((x.reshape(-1, m, ds).astype(np.float64) ** 2).sum(axis=2))
-        scale = 2 * xn * cn[None] + cn[None] ** 2
-        assert (np.abs(da - db) / scale)[differ].max() <= rel
-    return differ
-
-
 @pytest.mark.parametrize("compute", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", F32_SHAPES[:4] + BF16_SHAPES[:1], ids=str)
 def test_pq_assign_stats_at_wide_widths_matches_jax(shape, compute):
@@ -101,7 +85,7 @@ def test_pq_assign_stats_at_wide_widths_matches_jax(shape, compute):
     got_codes = pq_encode_reference(t(cb), t(x), dtype=torch.int32, compute_dtype=tcd).numpy()
     want_codes = np.asarray(j_pq_encode(j(cb), j(x), dtype=jnp.int32, compute_dtype=jcd,
                                         interpret=True))
-    differ = _near_tie_rows(cb, x, got_codes, want_codes, rel)
+    differ = near_tie_rows(cb, x, got_codes, want_codes, rel)
     assert len(differ) <= max(1, n // 100)
     # Both sides sum the rows as the mode rounds them; take the differing rows
     # out of both, then counts equal and sums within rtol 1e-5, atol 1e-4.
@@ -192,9 +176,11 @@ def test_verify_scale_of_the_wide_route_is_the_docstrings(ds):
     formula = 2 * ((3.5 + (5 + 2.0 ** -6) * kc + 0.26 * chunks) * 2.0 ** -22 + ds * 2.0 ** -24)
     e = tassign.verify_scale(t(cb), route="tf32x3_wide")
     np.testing.assert_allclose(e.numpy(), formula * 2 * cn, rtol=1e-6)
-    # The default is the route the kernels take at this width.
+    # The default is the route the kernels take at this width: the padded
+    # narrow instance's own limit at 17 to 24 (a fourth step of zeros).
     narrow = ds in (4, 8, 16, 32)
-    assert tassign.f32_route(ds) == ("tf32x3" if narrow else "tf32x3_wide")
+    assert tassign.f32_route(ds) == ("tf32x3" if narrow else "tf32x3_pad" if 17 <= ds <= 24
+                                     else "tf32x3_wide")
     np.testing.assert_array_equal(tassign.verify_scale(t(cb)).numpy(),
                                   tassign.verify_scale(t(cb), route=tassign.f32_route(ds)).numpy())
     # In one chunk, wider than the narrow route's by the reserve and the
@@ -393,21 +379,27 @@ def test_deep_operands_are_the_layout_the_deep_kernel_loads(compute, m, k, ds):
 
 
 def test_the_wide_route_is_a_pure_function_of_the_width_and_the_alignment():
+    # Every width up to 32 on the narrow kernels (padded where need be), the
+    # deep kernel above where TMA can describe the rows, else the shallow one.
     for ds in range(1, 800):
         for aligned in (False, True):
-            want = "deep" if ds > 32 and ds % 4 == 0 and aligned else "shallow"
-            assert tassign.wide_route(ds, aligned) == want
+            want = ("narrow" if ds <= 32 else
+                    "deep" if ds % 4 == 0 and aligned else "shallow")
+            assert tassign.assign_route(ds, aligned) == want
+            assert tassign.wide_route(ds, aligned) == ("shallow" if want == "narrow" else want)
     # What the wrappers hand the C entries: the converted operands only where
     # the route is deep (x's own address decides the alignment).
-    for ds, deep in ((128, True), (36, True), (33, False), (12, False), (2, False)):
+    for ds, route in ((128, "deep"), (36, "deep"), (33, "shallow"), (50, "shallow"),
+                      (12, "narrow"), (2, "narrow")):
         cb = torch.randn((2, 7, ds), generator=torch.Generator().manual_seed(ds))
         cb2, c_sqn = cb + cb, (cb * cb).sum(2)
         buf = torch.zeros((5 * 2 * ds + 1,))
-        for x, ok in ((buf[:-1].view(5, 2 * ds), deep), (buf[1:].view(5, 2 * ds), False)):
+        for x, want in ((buf[:-1].view(5, 2 * ds), route),
+                        (buf[1:].view(5, 2 * ds), "narrow" if ds <= 32 else "shallow")):
             assert x.data_ptr() % 16 == (0 if x.storage_offset() == 0 else 4)
-            got = tassign._wide_operands(cb2, c_sqn, x, torch.float32)
-            assert got[2] is ok
-            if ok:
+            got = tassign._route_operands(cb2, c_sqn, x, torch.float32)
+            assert got[2] == want
+            if want == "deep":
                 assert tuple(got[0].shape) == (2, 2, 7, -(-ds // 32) * 32)
             else:
                 assert got[0] is cb2 and got[1] is c_sqn

@@ -56,3 +56,21 @@ def assert_codes_near_optimal(cb, x, codes, other, min_equal, rel_tol):
     if differ.any():
         rel = (chosen[differ] - best[differ]) / best[differ]
         assert rel.max() <= rel_tol, f"a differing code is {rel.max():.3e} relative off the best"
+
+
+def near_tie_rows(cb, x, a, b, rel):
+    """Rows where codes ``a`` and ``b`` differ, each checked to be a near-tie:
+    the two distances within ``rel`` of ``|x_j| max|2c_j| + max|c_j|^2``, the
+    scale of a split product's error (at ds = 2 with many centroids the
+    distances themselves are far smaller)."""
+    differ = np.flatnonzero((a != b).any(axis=1))
+    if len(differ):
+        m, k, ds = cb.shape
+        dist = all_distances(cb, x)
+        da = np.take_along_axis(dist, a[:, :, None].astype(np.int64), axis=2)[:, :, 0]
+        db = np.take_along_axis(dist, b[:, :, None].astype(np.int64), axis=2)[:, :, 0]
+        cn = np.sqrt((cb.astype(np.float64) ** 2).sum(axis=2)).max(axis=1)
+        xn = np.sqrt((x.reshape(-1, m, ds).astype(np.float64) ** 2).sum(axis=2))
+        scale = 2 * xn * cn[None] + cn[None] ** 2
+        assert (np.abs(da - db) / scale)[differ].max() <= rel
+    return differ

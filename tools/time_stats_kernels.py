@@ -18,10 +18,12 @@ milliseconds) and, first, the card's name and power limit:
   accumulation;
 * builds of ``csrc/stats.cu`` and ``csrc/encode.cu`` with a part compiled out
   (made in a temporary copy of ``csrc/``, never in the package), timed
-  through the C entries of both modes at the flagship shape: without the
+  through the C entries of both modes at the flagship shape and at the
+  reference's quality-gate width (d=20, m=10, k=128, ds=2: the padded
+  instance of ds = 4) over the same rows: without the
   accumulation, without the encode's code writes, with the selection cut to
   its running minimum, with one of the split's three products, with one
-  block on an SM and with smaller tiles (f32); without the selection, with
+  block on an SM and with smaller tiles at ds = 8 and at ds <= 4 (f32); without the selection, with
   the selection cut to its running minimum, without the row copies after a
   block's first two tiles and without the products (bf16).  The differences
   are those parts' shares.
@@ -48,6 +50,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 FLAGSHIP = (16, 256, 8)
+GATE = (10, 128, 2)  # (m, k, ds) of the reference's quality gate, d = 20
 # (n, m, k, ds): the flagship shape comes first and takes --n.
 COMPARED_SHAPES = [(None, *FLAGSHIP), (65_536, *FLAGSHIP), (50_001, *FLAGSHIP), (65_536, 24, 256, 32)]
 SWEEP_SHAPES = [(None, 16, k, 8) for k in (8, 64, 128, 1024)] + [
@@ -177,10 +180,17 @@ ABLATIONS = {
     "encode_one_wave": [
         ("encode.cu", "constexpr int kWaves = 4;", "constexpr int kWaves = 1;"),
     ],
-    # f32 mode only: tiles of 256 rows in place of 512.
+    # f32 mode only: tiles of 256 rows in place of 512 at ds = 8.
     "two_subtiles_per_warpgroup": [
-        ("assign_tile.cuh", "constexpr int kSubtiles = DS <= 8 ? 4 : 32 / DS;",
-         "constexpr int kSubtiles = DS < 8 ? 4 : (DS == 8 ? 2 : 32 / DS);"),
+        ("assign_tile.cuh", "constexpr int kSubtiles = DS <= 4 ? 8 : DS <= 8 ? 4 : 32 / DS;",
+         "constexpr int kSubtiles = DS <= 4 ? 8 : DS < 8 ? 4 : (DS == 8 ? 2 : 32 / DS);"),
+    ],
+    # f32 mode only: tiles of 512 rows in place of 1,024 at ds <= 4 (the gate's
+    # padded instance), where the counting sort's fixed work a tile is shared
+    # by half the rows.
+    "four_subtiles_at_ds4": [
+        ("assign_tile.cuh", "constexpr int kSubtiles = DS <= 4 ? 8 : DS <= 8 ? 4 : 32 / DS;",
+         "constexpr int kSubtiles = DS <= 8 ? 4 : 32 / DS;"),
     ],
     # f32 mode only: the running minimum stays, the compare and the three selects go.
     "selection_is_min_only": [
@@ -198,14 +208,11 @@ ABLATIONS = {
     # bf16 mode: a block copies the rows of its first two tiles only and then
     # assigns those again (both buffers hold real rows; no global loads).
     "bf16_no_row_copies": [
-        ("encode.cu", "    if (tile + P < n_tiles)\n      assign_tile::copy_rows<DS, kTile, kThreads>"
-                      "(x, n, m, j, tile + P, sm.s_x2",
-         "    if (tile == p && tile + P < n_tiles)\n      assign_tile::copy_rows<DS, kTile, kThreads>"
-         "(x, n, m, j, tile + P, sm.s_x2"),
-        ("stats.cu", "    if (tile + P < n_tiles)\n      assign_tile::copy_rows<DS, kTile, kThreads>"
-                     "(x, n, m, j, tile + P, sm.s_x2",
-         "    if (tile == p && tile + P < n_tiles)\n      assign_tile::copy_rows<DS, kTile, kThreads>"
-         "(x, n, m, j, tile + P, sm.s_x2"),
+        (src, "    if (tile + P < n_tiles)\n      assign_tile::copy_rows<DS, kTile, kThreads, PAD>"
+              "(x, n, m, j, tile + P,\n" + " " * 55 + "sm.s_x2",
+         "    if (tile == p && tile + P < n_tiles)\n      assign_tile::copy_rows<DS, kTile, kThreads, PAD>"
+         "(x, n, m, j, tile + P,\n" + " " * 55 + "sm.s_x2")
+        for src in ("encode.cu", "stats.cu")
     ],
     # bf16 mode: the accumulators are zeroed where the products would fill them.
     "bf16_no_products": [
@@ -241,26 +248,39 @@ ABLATIONS = {
 }
 
 
+def operands(n_rows: int, m: int, k: int, ds: int) -> dict:
+    """What the C entries take at one shape, prepared outside the timed calls."""
+    import torch
+    from reductive_tpu_torch.ops.assign import (
+        _blocks_per_subquantizer, _prepare, bf16_tile_plan, padded_ds,
+    )
+
+    cb, x = make(n_rows, m, k, ds)
+    dsp = padded_ds(ds)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    op = {"x": x, "cb2": _prepare(cb, x, torch.int32, torch.float32)[0],
+          "cb2_bf16": _prepare(cb, x, torch.int32, torch.bfloat16)[0],
+          "c_sqn": _prepare(cb, x, torch.int32, torch.float32)[1],
+          "blocks": _blocks_per_subquantizer(n_rows, m, k, dsp),
+          "enc_plan": bf16_tile_plan(n_rows, m, k, ds, sms=sms),
+          "stats_plan": bf16_tile_plan(n_rows, m, k, ds),
+          "sums": torch.empty((m, k, ds), device="cuda"), "counts": torch.empty((m, k), device="cuda"),
+          "codes": torch.empty((n_rows, m), dtype=torch.uint8, device="cuda")}
+    op["partial"] = torch.empty((max(op["blocks"], op["stats_plan"].blocks), m, k, dsp + 1),
+                                device="cuda")
+    return op
+
+
 def ablated(n_rows: int) -> None:
     """Builds of stats.cu (and of encode.cu where the part is in it or in the
     shared header) with a part compiled out, timed through the C entries at
-    the flagship shape.  The results of such a build are wrong by design; only
-    its time is read."""
+    the flagship shape and at the gate width.  The results of such a build
+    are wrong by design; only its time is read."""
     sys.path.insert(0, str(ROOT))
     import torch
     from reductive_tpu_torch.ops import _build
-    from reductive_tpu_torch.ops.assign import _blocks_per_subquantizer, _prepare, bf16_tile_plan
 
-    m, k, ds = FLAGSHIP
-    cb, x = make(n_rows, m, k, ds)
-    cb2, c_sqn = _prepare(cb, x, torch.int32, torch.float32)
-    cb2_bf16, _ = _prepare(cb, x, torch.int32, torch.bfloat16)
-    blocks = _blocks_per_subquantizer(n_rows, m, k, ds)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    enc_plan, stats_plan = bf16_tile_plan(n_rows, m, k, ds, sms=sms), bf16_tile_plan(n_rows, m, k, ds)
-    partial = torch.empty((max(blocks, stats_plan.blocks), m, k, ds + 1), device="cuda")
-    sums, counts = torch.empty((m, k, ds), device="cuda"), torch.empty((m, k), device="cuda")
-    codes = torch.empty((n_rows, m), dtype=torch.uint8, device="cuda")
+    shapes = {shape: operands(n_rows, *shape) for shape in (FLAGSHIP, GATE)}
     stream = torch.cuda.current_stream().cuda_stream
     csrc = ROOT / "reductive_tpu_torch" / "csrc"
     with tempfile.TemporaryDirectory() as tmp:
@@ -303,33 +323,38 @@ def ablated(n_rows: int) -> None:
                 fn.argtypes = list(_build._ENTRIES[entry][1])
                 return fn
 
-            stats_out = (partial.data_ptr(), sums.data_ptr(), counts.data_ptr(), n_rows, m, k, ds)
-            calls = [
-                ("stats_f32", "rt_assign_stats", (x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(),
-                                                  *stats_out, blocks, stream)),
-                ("stats_bf16", "rt_assign_stats_bf16",
-                 (x.data_ptr(), cb2_bf16.data_ptr(), c_sqn.data_ptr(), *stats_out, stats_plan.rows,
-                  stats_plan.blocks, stats_plan.smem_bytes, stream)),
-            ]
-            if "encode" in sources:
-                calls += [
-                    ("encode_f32", "rt_encode", (x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(),
-                                                 codes.data_ptr(), n_rows, m, k, ds, 0, 1, 0, stream)),
-                    ("encode_bf16", "rt_encode_bf16",
-                     (x.data_ptr(), cb2_bf16.data_ptr(), c_sqn.data_ptr(), codes.data_ptr(), n_rows,
-                      m, k, ds, 1, enc_plan.rows, enc_plan.blocks, enc_plan.smem_bytes, stream)),
+            for (m, k, ds), op in shapes.items():
+                x, cb2, cb2_bf16, c_sqn = op["x"], op["cb2"], op["cb2_bf16"], op["c_sqn"]
+                enc_plan, stats_plan = op["enc_plan"], op["stats_plan"]
+                stats_out = (op["partial"].data_ptr(), op["sums"].data_ptr(), op["counts"].data_ptr(),
+                             n_rows, m, k, ds)
+                calls = [
+                    ("stats_f32", "rt_assign_stats", (x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(),
+                                                      *stats_out, op["blocks"], stream)),
+                    ("stats_bf16", "rt_assign_stats_bf16",
+                     (x.data_ptr(), cb2_bf16.data_ptr(), c_sqn.data_ptr(), *stats_out,
+                      stats_plan.rows, stats_plan.blocks, stats_plan.smem_bytes, stream)),
                 ]
-            for mode, entry, args in calls:
-                fn = entry_fn(entry)
-                fn.restype = ctypes.c_int
+                if "encode" in sources:
+                    codes = op["codes"].data_ptr()
+                    calls += [
+                        ("encode_f32", "rt_encode", (x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(),
+                                                     codes, n_rows, m, k, ds, 0, 1, 0, stream)),
+                        ("encode_bf16", "rt_encode_bf16",
+                         (x.data_ptr(), cb2_bf16.data_ptr(), c_sqn.data_ptr(), codes, n_rows, m, k,
+                          ds, 1, enc_plan.rows, enc_plan.blocks, enc_plan.smem_bytes, stream)),
+                    ]
+                for mode, entry, args in calls:
+                    fn = entry_fn(entry)
+                    fn.restype = ctypes.c_int
 
-                def call():
-                    rc = fn(*args)
-                    if rc != 0:
-                        raise SystemExit(f"{name}: {entry} returned {rc}")
+                    def call():
+                        rc = fn(*args)
+                        if rc != 0:
+                            raise SystemExit(f"{name}: {entry} returned {rc}")
 
-                emit(build=name, kernel=mode, shape=f"n={n_rows} d={m * ds} m={m} k={k} ds={ds}",
-                     ms=time_ms(call))
+                    emit(build=name, kernel=mode, shape=f"n={n_rows} d={m * ds} m={m} k={k} ds={ds}",
+                         ms=time_ms(call))
 
 
 def main() -> int:

@@ -1,16 +1,19 @@
-"""Times of the wide route of ``reductive_tpu_torch`` (every subvector width
-outside 4, 8, 16, 32) on one GPU.
+"""Times of ``reductive_tpu_torch``'s assignment at the widths other than 4, 8,
+16 and 32 on one GPU: the wide route above ds = 32, the narrow kernels'
+padded instances below.
 
     python3 tools/time_wide_kernels.py [--against DIR]
 
 Prints the card's name and power limit, then one JSON line per measurement
 (CUDA-event medians of three after a warm-up, milliseconds):
 
-* the f32, bf16 and verify encode kernels and the f32 and verified
+* the f32, bf16 and verify encode kernels and the f32, bf16 and verified
   statistics at the shapes of ``chip_smoke.py``'s wide phase: k-means at
   d=128, k=4,096 over 2^20 rows and at d=768, k=16,384 over 2^19 rows
-  (m = 1; the deep kernel, ``csrc/assign_deep.cuh``), and d=20, m=10, k=128
-  (ds=2; the shallow kernel) over 4,000,000 rows;
+  (m = 1; the deep kernel, ``csrc/assign_deep.cuh``), d=20, m=10, k=128
+  (ds=2) over 4,000,000 rows, and d=300, k=256 over 2^21 rows at m = 150
+  (ds = 2) and 30 (ds = 10) (the narrow kernels' padded instances; the
+  shallow kernel before them) and at m = 6 (ds = 50: the shallow kernel);
 * builds of ``csrc/encode.cu`` with a part of the deep kernel compiled out
   (made in a temporary copy of ``csrc/``, never in the package), timed
   through the C entry at the two deep shapes: without the products, without
@@ -38,7 +41,8 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-SHAPES = [(1 << 20, 1, 4096, 128), (1 << 19, 1, 16384, 768), (4_000_000, 10, 128, 2)]
+SHAPES = [(1 << 20, 1, 4096, 128), (1 << 19, 1, 16384, 768), (4_000_000, 10, 128, 2),
+          (1 << 21, 150, 256, 2), (1 << 21, 30, 256, 10), (1 << 21, 6, 256, 50)]
 ABLATED_SHAPES = SHAPES[:2]
 
 H = "assign_deep.cuh"
@@ -127,13 +131,16 @@ def worker(label: str) -> None:
     f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
     for n, m, k, ds in SHAPES:
         cb, x = make(n, m, k, ds)
+        ops.reset_launch_counts()
         emit(checkout=label, shape=f"n={n} d={m * ds} m={m} k={k} ds={ds}",
-             encode_f32_wide=time_ms(lambda: ops.pq_encode(cb, x, dtype=i32, compute_dtype=f32)),
-             encode_bf16_wide=time_ms(lambda: ops.pq_encode(cb, x, dtype=i32, compute_dtype=bf16)),
-             encode_verify_wide_kernel=time_ms(lambda: pq_encode_verify_flags(cb, x, dtype=i32)),
-             stats_f32_wide=time_ms(lambda: ops.pq_assign_stats(cb, x)),
-             stats_verify_wide_kernel=time_ms(lambda: pq_assign_stats_verify_flags(cb, x)),
-             flag_rate=float(pq_encode_verify_flags(cb, x, dtype=i32)[1].float().mean()))
+             encode_f32=time_ms(lambda: ops.pq_encode(cb, x, dtype=i32, compute_dtype=f32)),
+             encode_bf16=time_ms(lambda: ops.pq_encode(cb, x, dtype=i32, compute_dtype=bf16)),
+             encode_verify_kernel=time_ms(lambda: pq_encode_verify_flags(cb, x, dtype=i32)),
+             stats_f32=time_ms(lambda: ops.pq_assign_stats(cb, x)),
+             stats_bf16=time_ms(lambda: ops.pq_assign_stats(cb, x, compute_dtype=bf16)),
+             stats_verify_kernel=time_ms(lambda: pq_assign_stats_verify_flags(cb, x)),
+             flag_rate=float(pq_encode_verify_flags(cb, x, dtype=i32)[1].float().mean()),
+             kernels=sorted(ops.launch_counts()))
         del cb, x
         torch.cuda.empty_cache()
 
