@@ -12,12 +12,16 @@ d=128, m=16, ds=8 (k=256; k=16 for the packed path) over a corpus of
 4,000,000 rows, and checks what comes out.  The wide phase drives every
 other subvector width: k-means at IVF's coarse shapes (d=128, k=4,096 over
 2^20 rows; d=768, k=16,384 over 2^19 rows; m = 1, ds = d: the deep kernel),
-a quantizer at the reference's quality-gate width (d=20, m=10, k=128, ds=2:
-the narrow kernels' padded instances) over the corpus's first 20 columns and
-one at d=300, m=6, k=256 (ds=50: the shallow kernel) over 2^21 rows, after a
-probe of the tensor cores' accumulation that the verify bound rests on; it
-also times the any-width decode kernels and the padded encode and statistics
-kernels at d=300, k=256 (m = 150 and 30) over 2^21 rows.  The serving phase also searches
+GloVe-50's coarse stage (d=50, k=4,096 over 2^20 rows, m = 1: the deep
+kernel, its rows by cp.async), a quantizer at the reference's quality-gate
+width (d=20, m=10, k=128, ds=2: the narrow kernels' padded instances) over
+the corpus's first 20 columns and one at d=300, m=6, k=256 (ds=50: the deep
+kernel, its rows by TMA) over 2^21 rows, after a probe of the tensor cores'
+accumulation that the verify bound rests on; it fails if any path launched
+the shallow wide kernel, which no route takes.  It also times the any-width
+decode kernels and the padded encode and statistics kernels at d=300, k=256
+(m = 150 and 30), and the deep ones at m = 4 and 2 (ds = 75 and 150), over
+2^21 rows.  The serving phase also searches
 a corpus whose k-th place is always tied and holds the ids to a stable sort's.
 Every phase prints one JSON line.  The run fails (non-zero exit, no result
 line) without a CUDA device, when a kernel does not build, does not launch
@@ -57,7 +61,7 @@ from reductive_tpu_torch.ops import _build
 from reductive_tpu_torch.ops.adc import quantize_tables_int8
 from reductive_tpu_torch.ops.assign import (
     VERIFY_ENCODE_CHUNK, _prepare, bf16_tile_plan, pq_encode_verify_flags, reset_verify_tiers,
-    assign_route, verify_caps, verify_scale, verify_tiers,
+    assign_route, deep_producer, verify_caps, verify_scale, verify_tiers,
 )
 from reductive_tpu_torch.ops.decode import decode_table, launch_decode, quantize_codebook_int8
 from reductive_tpu_torch.ops.probe import probe_wgmma_tf32
@@ -132,12 +136,16 @@ WIDE_KERNELS = tuple(name for name in KERNELS if name.endswith(("_wide", "_scala
 # its 2^19-row training sample); the reference's quality-gate width, d=20,
 # m=10, k=128 (ds=2), over the corpus's first 20 columns; 300-d vectors
 # (fastText, word2vec and GloVe publish 300-d ones) at m=6, k=256 (ds=50,
-# not a multiple of 4: the shallow kernel), over 2^21 rows.
+# not a multiple of 4), over 2^21 rows; GloVe's 50-d vectors in the coarse
+# stage of benches/ivf10m.py (4,096 cells over 2^20 rows; a row of 50 floats
+# is not a multiple of 16 bytes: the deep kernel's cp.async rows).
 IVF10M = (1 << 20, 128, 4096)
 IVF100M = (1 << 19, 768, 16384)
+GLOVE50 = (1 << 20, 50, 4096)
 GATE_M, GATE_BITS = 10, 7
 N_D300 = 1 << 21                # rows of the wide phase's 300-d shapes
-D300_SHALLOW_M = 6              # ds = 50
+D300_M = 6                      # ds = 50
+D300_TIMED_DEEP_M = (4, 2)      # ds = 75 and 150, timed only
 
 
 class SmokeFailure(RuntimeError):
@@ -1036,6 +1044,13 @@ def phase_packed(corpus, gen):
 # -- the wide phase: every subvector width -------------------------------------------
 
 
+def require_no_shallow(phase, launches):
+    """No route takes the shallow wide kernel (``csrc/assign_wide.cuh``,
+    counters ``*_shallow``): only tests and tools force it."""
+    shallow = sorted(name for name in launches if name.endswith("_shallow"))
+    require(not shallow, f"{phase}: the shallow wide kernel was launched: {shallow}")
+
+
 def library_assign(codebooks, x, compute_dtype=torch.float32):
     """The yardstick of the encode kernels: per chunk of rows one PyTorch
     product, ``baddbmm(|c|^2, x_j, (2c_j)^T, alpha=-1)`` (``addmm`` at m = 1;
@@ -1093,17 +1108,18 @@ def train_quantizer(gen, x, m, bits):
 def phase_wide(corpus, gen):
     """Every subvector width on the card: the probe of the tensor cores'
     accumulation; then, with every count at 0, k-means at IVF's two coarse
-    shapes (the deep kernel), a ds = 2 quantizer (the narrow kernels' padded
-    instances) and a ds = 50 one (the shallow kernel) through their entry
-    points; then each kernel of those paths against its plain version, encode
-    against statistics, two statistics launches bit-equal, the verified paths
-    against the exact one, and the times, with the padded kernels also at
-    the 300-d widths m = 150 (ds = 2) and m = 30 (ds = 10).  Returns the
-    probe, the path's launches and the rows of the kernels line."""
+    shapes and at GloVe-50's (the deep kernel, TMA and cp.async rows), a ds = 2
+    quantizer (the narrow kernels' padded instances) and a ds = 50 one (the
+    deep kernel) through their entry points; then each kernel of those paths
+    against its plain version, encode against statistics, two statistics
+    launches bit-equal, the verified paths against the exact one, and the
+    times, with the padded kernels also at the 300-d widths m = 150 (ds = 2)
+    and m = 30 (ds = 10) and the deep ones at m = 4 and 2 (ds = 75 and 150).
+    Returns the probe, the path's launches and the rows of the kernels line."""
     dev = corpus.device
     f32, bf16 = torch.float32, torch.bfloat16
-    # The TF32 instructions of the narrow route and the shallow kernel (N = 64)
-    # and of the deep kernel (N = 128, A from registers, B swizzled).
+    # The TF32 instructions of the narrow route (N = 64) and of the deep
+    # kernel (N = 128, A from registers, B swizzled).
     probe = {f"m64n{n}k8": probe_wgmma_tf32(dev, n=n) for n in (64, 128)}
     for name, report in probe.items():
         require(report["ok"], f"wide: the tensor cores do not accumulate as the verify bound assumes "
@@ -1113,10 +1129,13 @@ def phase_wide(corpus, gen):
     n_b, d_b, k_b = IVF100M
     xa = torch.randn((n_a, d_a), generator=gen, device=dev)
     xb = torch.randn((n_b, d_b), generator=gen, device=dev)
+    n_g, d_g, k_g = GLOVE50
+    xg = torch.randn((n_g, d_g), generator=gen, device=dev)
     x20 = corpus[:, :20].contiguous()
     x300 = torch.randn((N_D300, 300), generator=gen, device=dev)
     ca = xa[kmeans.random_distinct_indices(gen, n_a, k_a)]
     cb0 = xb[kmeans.random_distinct_indices(gen, n_b, k_b)]
+    cg = xg[kmeans.random_distinct_indices(gen, n_g, k_g)]
     torch.cuda.synchronize()
 
     ops.reset_launch_counts()
@@ -1137,6 +1156,14 @@ def phase_wide(corpus, gen):
     torch.cuda.synchronize()
     t_b = time.perf_counter() - t0
     t0 = time.perf_counter()
+    losses_g = []
+    for cd in (f32, "verified"):
+        cg, loss = kmeans.kmeans_with_centroids_chunked(xg, cg, 1, compute_dtype=cd)
+        losses_g.append(float(loss))
+    near_g = ops.assign_nearest(cg, xg, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    t_g = time.perf_counter() - t0
+    t0 = time.perf_counter()
     pq20 = train_quantizer(gen, x20, GATE_M, GATE_BITS)
     codes20_bf16 = pq20.quantize_batch(x20, method="kernel")
     codes20 = pq20.quantize_batch(x20, method="kernel-f32")
@@ -1146,7 +1173,7 @@ def phase_wide(corpus, gen):
     torch.cuda.synchronize()
     t_c = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pq300 = train_quantizer(gen, x300, D300_SHALLOW_M, 8)
+    pq300 = train_quantizer(gen, x300, D300_M, 8)
     codes300_bf16 = pq300.quantize_batch(x300, method="kernel")
     codes300 = pq300.quantize_batch(x300, method="kernel-f32")
     verified300 = ops.pq_encode_verified(pq300.codebooks, x300)
@@ -1156,14 +1183,18 @@ def phase_wide(corpus, gen):
     path_tiers = tier_names()
     for name in WIDE_KERNELS:
         require(launches.get(name, 0) > 0, f"wide: kernel {name} was never launched")
+    require_no_shallow("wide", launches)
 
     # What came out: finite centroids, falling losses, codes in range.
     loss_b0 = float((xb - cb0[start_b.long()]).pow(2).mean())
     require(all(b <= a * (1 + 1e-6) for a, b in zip(losses_a, losses_a[1:])),
             f"wide: the d={d_a} k-means loss rose: {losses_a}")
     require(float(loss_b) < loss_b0, f"wide: the d={d_b} loss {float(loss_b)} is not below {loss_b0}")
-    require(bool(torch.isfinite(ca).all()) and bool(torch.isfinite(cb1).all()), "wide: centroids")
-    for codes, k in ((near_bf16, k_b), (near_f32, k_b), (verified_b, k_b), (codes300_bf16, 256),
+    require(losses_g[1] <= losses_g[0] * (1 + 1e-6), f"wide: the d={d_g} k-means loss rose: {losses_g}")
+    require(bool(torch.isfinite(ca).all()) and bool(torch.isfinite(cb1).all())
+            and bool(torch.isfinite(cg).all()), "wide: centroids")
+    for codes, k in ((near_bf16, k_b), (near_f32, k_b), (verified_b, k_b), (near_g, k_g),
+                     (codes300_bf16, 256),
                      (codes300, 256), (verified300, 256), (verified20, 1 << GATE_BITS)):
         require(int(codes.long().min()) >= 0 and int(codes.long().max()) < k,
                 "wide: a code out of range")
@@ -1176,20 +1207,25 @@ def phase_wide(corpus, gen):
             "wide: the ds=2 decode is not bit-equal to the gather")
     agree20 = float((codes20_bf16 == codes20).float().mean())
     agree300 = float((codes300_bf16 == codes300).float().mean())
-    del rec20, rec20_int8, start_b, codes300_bf16, codes300, verified300
+    del rec20, rec20_int8, start_b, codes300_bf16, codes300, verified300, near_g
 
     # Each kernel against its plain version, shape by shape; encode against
     # statistics; the verified paths against the exact one.
     shapes = {
         "ivf10m": (ca[None].contiguous(), xa),
         "ivf100m": (cb1[None].contiguous(), xb),
+        "glove50": (cg[None].contiguous(), xg),
         "gate_ds2": (pq20.codebooks, x20),
         "d300_m6": (pq300.codebooks, x300),
     }
     routes = {label: assign_route(cb.shape[2], x.data_ptr() % 16 == 0)
               for label, (cb, x) in shapes.items()}
-    require(routes == {"ivf10m": "deep", "ivf100m": "deep", "gate_ds2": "narrow",
-                       "d300_m6": "shallow"}, f"wide: the shapes take other routes: {routes}")
+    require(routes == {"ivf10m": "deep", "ivf100m": "deep", "glove50": "deep", "gate_ds2": "narrow",
+                       "d300_m6": "deep"}, f"wide: the shapes take other routes: {routes}")
+    producers = {label: deep_producer(cb.shape[0], cb.shape[2])
+                 for label, (cb, _) in shapes.items() if routes[label] == "deep"}
+    require(producers == {"ivf10m": "tma", "ivf100m": "tma", "glove50": "cp.async", "d300_m6": "tma"},
+            f"wide: the deep kernel's rows come otherwise: {producers}")
     suffix = {label: "_pad" if route == "narrow" else "_wide" for label, route in routes.items()}
     compared, exact, shared = [], {}, {}
     for label, (cb, x) in shapes.items():
@@ -1201,7 +1237,8 @@ def phase_wide(corpus, gen):
             ("stats_f32", compare_stats(cb, x, f32)),
             ("encode_verify", compare_encode_verify(cb, x)),
             ("stats_verify", compare_stats_verify(cb, x)),
-        ) + ((("stats_bf16", compare_stats(cb, x, bf16)),) if label.startswith(("gate", "d300")) else ()):
+        ) + ((("stats_bf16", compare_stats(cb, x, bf16)),)
+             if label.startswith(("gate", "d300", "glove")) else ()):
             compared.append({"kernel": name + sfx, "shape": shape, **res})
         if label == "gate_ds2":
             for name, res in (("decode_scalar", compare_decode(cb, codes20, 3)),
@@ -1309,6 +1346,8 @@ def phase_wide(corpus, gen):
         "gate_ds2": assign_rows(cb_c, x20, "_pad") + stats_rows(cb_c, x20, ("bf16", "f32", "verify"), "_pad")
         + decode_rows(cb_c, codes20),
         "d300_m6": assign_rows(cb_d, x300) + stats_rows(cb_d, x300, ("bf16", "f32", "verify")),
+        "glove50": assign_rows(shapes["glove50"][0], xg)
+        + stats_rows(shapes["glove50"][0], xg, ("bf16", "f32", "verify")),
     }
     # 300-d embeddings (fastText, word2vec and GloVe publish 300-d vectors), k=256,
     # at m = 150 (ds = 2) and m = 30 (ds = 10): the decode kernels (the f32 table,
@@ -1331,6 +1370,22 @@ def phase_wide(corpus, gen):
                                  + stats_rows(cb_w, x300, ("bf16", "f32"), "_pad"))
         del cb_w, codes_w
         torch.cuda.empty_cache()
+    # The same vectors at m = 4 and 2 (ds = 75 and 150): the deep kernel, its
+    # rows by TMA; each kernel held to its plain version, timed only.
+    for m_w in D300_TIMED_DEEP_M:
+        shape = f"n={N_D300} d=300 m={m_w} k=256"
+        cb_w = torch.randn((m_w, 256, 300 // m_w), generator=gen, device=dev)
+        ops.reset_launch_counts()
+        for name, res in (("encode_f32_wide", compare_encode(cb_w, x300, f32, scale_gap=True)),
+                          ("encode_bf16_wide", compare_encode(cb_w, x300, bf16, scale_gap=True)),
+                          ("stats_f32_wide", compare_stats(cb_w, x300, f32)),
+                          ("stats_bf16_wide", compare_stats(cb_w, x300, bf16))):
+            compared.append({"kernel": name, "shape": shape, **res})
+        require_no_shallow(f"d300_m{m_w}", ops.launch_counts())
+        times[f"d300_m{m_w}"] = (assign_rows(cb_w, x300)
+                                 + stats_rows(cb_w, x300, ("bf16", "f32", "verify")))
+        del cb_w
+        torch.cuda.empty_cache()
     largest = {"encode_f32_wide": "ivf100m", "encode_bf16_wide": "ivf100m",
                "encode_verify_wide": "ivf100m", "stats_f32_wide": "ivf100m",
                "stats_verify_wide": "ivf10m", "stats_bf16_wide": "d300_m6",
@@ -1347,15 +1402,17 @@ def phase_wide(corpus, gen):
                       "launches": launches[name], "max_abs_err": errors[name], **found})
 
     emit("wide", probe=probe, seconds={"ivf10m_3_iterations": t_a, "ivf100m_path": t_b,
-                                       "gate_ds2_path": t_c, "d300_m6_path": t_d},
+                                       "glove50_2_iterations": t_g, "gate_ds2_path": t_c,
+                                       "d300_m6_path": t_d},
          ivf10m_losses=losses_a, ivf100m_loss={"initial": loss_b0, "after_1": float(loss_b)},
+         glove50_losses=losses_g,
          gate_ds2={"mse": mse20, "mse_int8": mse20_int8, "bf16_agrees_with_f32": agree20},
          d300_m6={"bf16_agrees_with_f32": agree300},
          exact=exact, shared_assignment=shared, compared=compared, times=times,
          tiers=path_tiers,
-         routes=routes,
+         routes=routes, producers=producers,
          launches=launches)
-    del xa, xb, x20, x300
+    del xa, xb, xg, x20, x300
     torch.cuda.empty_cache()
     return probe, launches, table
 
@@ -1562,6 +1619,7 @@ def main() -> int:
         launches.update(counts)
     for name in KERNELS:
         require(launches[name] > 0, f"kernel {name} was launched on no path")
+    require_no_shallow("main paths", launches)
     rows = kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4)
     for row in wide_rows:
         row["launches"] = launches[row["name"]]

@@ -86,8 +86,8 @@ constexpr int kQuarter = 64;        // centroids one wgmma takes
 constexpr int kSubtile = 64;        // rows one wgmma takes
 
 // The route argument of the C entries (ops/assign.py assign_route): this
-// header's kernels at any ds <= 32, or the wide route's deep or shallow
-// kernel (assign_deep.cuh, assign_wide.cuh).
+// header's kernels at any ds <= 32, the deep kernel (assign_deep.cuh) above,
+// or the shallow one (assign_wide.cuh), which only a forced route takes.
 constexpr int kRouteNarrow = 0;
 constexpr int kRouteDeep = 1;
 constexpr int kRouteShallow = 2;

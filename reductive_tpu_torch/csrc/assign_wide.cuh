@@ -5,14 +5,16 @@
 //
 //   a[i] = argmin_c (|c|^2 - 2c.x_i), first index on ties
 //
-// Two kernels, chosen by launch()'s `deep` (ops/assign.py assign_route, a
-// pure function of ds and of x's alignment): with ds a multiple of 4 and x
-// on 16 bytes, the deep kernel of csrc/assign_deep.cuh (a TMA producer warp,
-// 128 or 256 centroids a step, the codebook converted once a call); at every
-// other ds above 32 the shallow kernel of this file, whose arithmetic the
-// deep one keeps.  The shallow kernel takes any ds >= 1: at ds <= 32, where
-// the wrappers run the narrow kernels' padded instances, it is what those are
-// held to, code for code (tests/test_torch_cuda_kernels.py).
+// Two kernels, chosen by launch()'s `deep` (the C entries' route argument):
+// every path runs the deep kernel of csrc/assign_deep.cuh (ops/assign.py
+// assign_route answers "deep" at every ds above 32, whatever x's alignment).
+// The shallow kernel of this file is reached only when a caller forces the
+// route ("shallow", route 2): it is the yardstick the deep kernel is held to,
+// code for code, by tests/test_torch_cuda_kernels.py and
+// tools/time_wide_kernels.py, and it takes any ds >= 1 (at ds <= 32 the
+// narrow kernels' padded instances are held to it too).  Its arithmetic is the
+// deep kernel's: at every ds above 32 its f32 chunks are kc = 4 instructions
+// of depth 8, the deep kernel's 32-value chunks.
 //
 // The narrow route (csrc/assign_tile.cuh) keeps a row tile's split
 // subvectors in registers and stages 256 centroids at their whole depth; at
@@ -54,10 +56,13 @@
 // the row in a fixed order.
 //
 // What bounds the shallow kernel on an H100: the products, 3 x 2 n k ds
-// operations in TF32 (2 n k ds in bf16).  What the design pays beyond that: every block streams
+// operations in TF32 (2 n k ds in bf16).  What the design pays beyond that:
+// a block per 128 rows and subquantizer, one block an SM (about 198 KB of
+// shared memory), so nothing hides a block's prologue; every block streams
 // its subquantizer's whole codebook through shared memory (n/128 passes over
 // k ds values, from L2), splits each value as it is staged, and waits for
-// each chunk's products before it overwrites the buffer they read.
+// each chunk's products before it overwrites the buffer they read (9 to 31
+// times its bound at d = 300, m = 6, k = 256 on an H100, PERF.md).
 
 #pragma once
 
@@ -496,7 +501,8 @@ cudaError_t launch_kc(const float* x, const float* cb2, const float* csqn, Codes
   return cudaGetLastError();
 }
 
-// The wide assignment of x (n, m*ds) f32.  Shallow kernel (deep = false):
+// The wide assignment of x (n, m*ds) f32.  Shallow kernel (deep = false, a
+// forced route only):
 // cb2 (m, k, ds) f32 holding 2c (rounded to bf16 values by the caller in
 // bf16 mode) and csqn (m, k) |c|^2.  Deep kernel: cb2 and csqn as
 // assign_deep::launch takes them (ops/assign.py deep_operands).  verify needs

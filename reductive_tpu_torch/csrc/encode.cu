@@ -8,9 +8,9 @@
 // minimum (no packed sortable key).
 //
 // At every ds up to 32, two kernels, one for each mode (below); at every
-// wider ds (36, 50, 128, 768, ...) the wide route of assign_wide.cuh (its
-// deep kernel, csrc/assign_deep.cuh, where ds is a multiple of 4 and x on 16
-// bytes), in f32, bf16 and verified mode, which csrc/stats.cu runs too.
+// wider ds (33, 36, 50, 75, 128, 768, ...) and any x the deep kernel of
+// csrc/assign_deep.cuh (through assign_wide.cuh), in f32, bf16 and verified
+// mode, which csrc/stats.cu runs too.
 //
 // ds outside 4, 8, 16, 32 (and rows off 16 bytes) run the instance of the
 // padded width (assign_tile.cuh padded_width: 4, 8, 16 or 32) with PAD set;
@@ -24,8 +24,8 @@
 // products are not the limit).  At ds = 2 the bytes of x fall by ds / 8 from
 // the flagship width while the selection's work a row stays; the tile of 512
 // rows a block (a few KB of x) and the codebook staged once a block keep the
-// rows' prologue off the path, where the shallow kernel paid a whole launch's
-// ring and codebook staging for every 128 rows.
+// rows' prologue off the path, where the shallow wide kernel paid a whole
+// launch's ring and codebook staging for every 128 rows.
 //
 // * f32 (encode_f32_kernel): the assignment of csrc/assign_tile.cuh, the one
 //   the f32 assign+statistics kernel (csrc/stats.cu) runs: a 3xTF32 split
@@ -298,9 +298,10 @@ int launch_bf16(const float* x, const float* cb2, const float* csqn, void* codes
 // x (n, m*ds) f32, cb2 (m, k, ds) f32 holding 2c (already rounded to bf16
 // values in bf16 mode), csqn (m, k) f32, codes (n, m) uint8 or int32.  route
 // (ops/assign.py assign_route): kRouteNarrow at ds <= 32, f32 mode only (bf16
-// there: rt_encode_bf16); kRouteDeep / kRouteShallow, either mode, the wide
-// route's deep kernel (cb2 and csqn as ops/assign.py deep_operands writes
-// them) or its shallow one.
+// there: rt_encode_bf16); kRouteDeep, either mode, the deep kernel (cb2 and
+// csqn as ops/assign.py deep_operands writes them); kRouteShallow, the
+// shallow kernel, which only a caller that forces it takes (the yardstick of
+// the tests and tools).
 // Returns cudaGetLastError() after the launch; -1 for a shape it does not take.
 extern "C" int rt_encode(const void* x, const void* cb2, const void* csqn, void* codes,
                          long long n, int m, int k, int ds, int bf16, int out_u8, int route,

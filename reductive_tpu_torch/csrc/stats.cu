@@ -538,8 +538,10 @@ int launch_bf16(const float* x, const float* cb2, const float* csqn, float* part
 
 // ---- the wide route: statistics from the codes -----------------------------
 //
-// At every ds above 32 the assignment is assign_wide.cuh's (the
-// wide encode's, bit for bit), written as codes (m, n) int32.  The statistics
+// At every ds above 32 the assignment is assign_wide.cuh's deep kernel
+// (csrc/assign_deep.cuh, the wide encode's, bit for bit; the shallow kernel
+// only where a caller forces route 2), written as codes (m, n) int32.  The
+// statistics
 // then come from the codes in an order fixed by the shapes and the codes
 // alone, with scratch that grows with n*m and not with the number of blocks:
 //   1. a stable LSD radix sort of the n*m cell ids j*k + code (8-bit digits;
@@ -850,7 +852,8 @@ extern "C" long long rt_assign_stats_wide_scratch(long long n, int m, int k) {
 // verified (escale (m,) f32, rho, and flags (n,) int32 zeroed by the caller).
 // scratch: the int32 words rt_assign_stats_wide_scratch names; sums (m, k,
 // ds), counts (m, k) f32.  route: kRouteDeep (cb2 and csqn as ops/assign.py
-// deep_operands writes them) or kRouteShallow.  Returns cudaGetLastError()
+// deep_operands writes them), or kRouteShallow, which only a caller that
+// forces it takes (the yardstick of the tests and tools).  Returns cudaGetLastError()
 // after the launches; -1 for a shape it does not take.
 extern "C" int rt_assign_stats_wide(const void* x, const void* cb2, const void* csqn, void* codes,
                                     const void* escale, float rho, void* flags, void* scratch,

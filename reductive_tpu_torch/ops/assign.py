@@ -18,14 +18,17 @@ Two modes, chosen by ``compute_dtype``:
   That is at every ``ds`` up to 32 (:func:`assign_route` ``"narrow"``): the
   kernels are compiled for 4, 8, 16 and 32, and another ``ds`` runs the
   instance of the padded width :func:`padded_ds` with zeros past ``ds``
-  (counters ``*_pad``).  Every wider ``ds`` takes the wide route
-  (``csrc/assign_wide.cuh``, route :data:`WIDE_ROUTE`): the same split,
-  walked over the depth in chunks, each chunk's products from zero and the
-  chunks added in f32, shared by the encode and the statistics kernel in the
-  same way.  Where TMA can describe the rows (:func:`wide_route`), the wide
-  route runs its deep kernel (``csrc/assign_deep.cuh``), on a codebook
-  converted once a call (:func:`deep_operands`), with the same arithmetic;
-  else its shallow kernel.
+  (counters ``*_pad``).  Every wider ``ds``, at any alignment of ``x``,
+  takes the deep kernel (``csrc/assign_deep.cuh``, route :data:`WIDE_ROUTE`,
+  counters ``*_wide``): the same split, walked over the depth in chunks of 32
+  values, each chunk's products from zero and the chunks added in f32, on a
+  codebook converted once a call (:func:`deep_operands`), shared by the
+  encode and the statistics kernel in the same way.  Its rows come by TMA
+  where ``m * ds`` is a multiple of 4, at any alignment of ``x``
+  (:func:`deep_row_map`), else by ``cp.async`` (:func:`deep_producer`).  The shallow kernel of
+  ``csrc/assign_wide.cuh`` has the same arithmetic and is no route of the
+  wrappers: tests and tools force it (``assign_route`` patched to answer
+  ``"shallow"``, counters ``*_shallow``) to hold the deep kernel to it.
 * ``torch.bfloat16`` (default): ``x`` and ``2c`` each rounded to bfloat16
   (nearest even), products and sums in f32, ``|c|^2`` in f32 from the
   unrounded codebook.  Every kernel sums the products on the tensor cores from
@@ -147,10 +150,13 @@ sound for either kernel.
 The bound for the wide route (route ``"tf32x3_wide"``)
 -----------------------------------------------------
 
-Above ``ds = 32`` the f32 kernels run ``csrc/assign_wide.cuh``, which
-walks the depth in ``chunks`` chunks of ``kc`` instructions (``kc =
-min(4, ceil(ds/8))``; the last chunk is padded with zeros, and its
-instructions are counted).  Each chunk's products start from zero in the
+Above ``ds = 32`` the f32 kernels run the deep kernel
+(``csrc/assign_deep.cuh``), which walks the depth in ``chunks`` chunks of
+``kc`` instructions (32 values: ``kc = 4``, which :func:`wide_chunking`
+gives at every ``ds`` above 24; the last chunk is padded with zeros, and its
+instructions are counted).  The shallow kernel of ``csrc/assign_wide.cuh``
+walks the same chunks (``kc = min(4, ceil(ds/8))``, one chunk at ``ds <=
+32``), so the bound below is either kernel's.  Each chunk's products start from zero in the
 order above (``x_lo.w_hi``, ``x_hi.w_lo``, then ``x_hi.w_hi``) and the chunk's
 sum is added to the running sum in one f32 addition.  With ``P_c =
 sum_{i in c} |x_i| |w_i|``, every addend and partial sum of chunk ``c`` is at
@@ -199,8 +205,8 @@ __all__ = [
     "pq_encode_verified", "pq_encode_verify_reference", "pq_encode_verify_flags",
     "verify_scale", "VERIFY_RHO", "F32_ROUTE", "WIDE_ROUTE", "f32_route", "wide_chunking",
     "flagged_rows", "verify_caps", "verify_tiers", "reset_verify_tiers", "VERIFY_ENCODE_CHUNK",
-    "assign_route", "wide_route", "padded_ds", "PAD_ROUTE", "split_tf32", "deep_operands",
-    "DEEP_STEP", "TilePlan", "bf16_tile_plan",
+    "assign_route", "padded_ds", "PAD_ROUTE", "split_tf32", "deep_operands",
+    "DEEP_STEP", "deep_producer", "RowMap", "deep_row_map", "TilePlan", "bf16_tile_plan",
 ]
 
 # The widths the narrow kernels (csrc/assign_tile.cuh) are compiled for; every
@@ -237,9 +243,11 @@ def padded_ds(ds: int) -> int:
 
 
 def wide_chunking(ds: int) -> tuple[int, int]:
-    """``(kc, chunks)``: how ``csrc/assign_wide.cuh`` walks depth ``ds`` in f32
-    mode, ``chunks`` chunks of ``kc`` instructions of depth 8 (the last chunk
-    padded with zeros)."""
+    """``(kc, chunks)``: how the wide route walks depth ``ds`` in f32 mode,
+    ``chunks`` chunks of ``kc`` instructions of depth 8 (the last chunk
+    padded with zeros): the shallow kernel's rule, ``kc = min(4,
+    ceil(ds/8))``, which above ``ds = 24`` is the deep kernel's 32-value
+    chunk."""
     steps = -(-ds // 8)
     kc = min(4, steps)
     return kc, -(-steps // kc)
@@ -250,25 +258,73 @@ def wide_chunking(ds: int) -> tuple[int, int]:
 DEEP_STEP = {torch.float32: (128, 32), torch.bfloat16: (256, 64)}
 
 
-def wide_route(ds: int, aligned: bool) -> str:
-    """Which kernel of the wide route would take width ``ds``: ``"deep"``
-    (``csrc/assign_deep.cuh``) where the depth spans more than one 32-value
-    chunk and TMA can describe the rows (its global strides are multiples of
-    16 bytes, so ``ds`` a multiple of 4, and ``aligned``: ``x``'s first
-    element on 16 bytes); ``"shallow"`` (the cp.async kernel of
-    ``csrc/assign_wide.cuh``, any ``ds`` and alignment) otherwise.  Both run
-    the same arithmetic (route :data:`WIDE_ROUTE`).  The wrappers ask
-    :func:`assign_route`, which sends ``ds <= 32`` to the narrow kernels."""
-    return "deep" if ds > 32 and ds % 4 == 0 and aligned else "shallow"
+def deep_producer(m: int, ds: int) -> str:
+    """What brings the deep kernel's rows (``csrc/assign_deep.cuh``
+    ``tma_rows``): ``"tma"`` where a row of ``d = m * ds`` f32 values is a
+    multiple of 16 bytes (TMA's row stride; :func:`deep_row_map`), else
+    ``"cp.async"``, 8-byte copies by the producer warpgroup into the same
+    row boxes where every pair of values lies on 8 bytes, else 4-byte ones."""
+    return "tma" if m * ds % 4 == 0 else "cp.async"
+
+
+class RowMap(NamedTuple):
+    """The deep kernel's TMA map of ``x`` (``csrc/assign_deep.cuh``
+    ``row_map``), 2-D, innermost dimension first."""
+
+    base: int              # x's address rounded down to 16 bytes
+    off: int               # floats from base to x's first element
+    dims: tuple[int, int]  # (d + off, n)
+    stride: int            # bytes from a row to the next: 4 d
+    box: tuple[int, int]   # (values, rows): 32 with the 128-byte swizzle, or 36 without
+    ds: int
+
+    def column(self, j: int, c: int) -> int:
+        """The map's column where the box of subvector ``j``'s chunk ``c``
+        (a multiple of 32) starts: rounded down to 4, so on 16 bytes."""
+        return (self.off + j * self.ds + c) & ~3
+
+    def shift(self, j: int) -> int:
+        """Where subvector ``j``'s chunks start in their boxes (0 to 3; 0
+        in boxes of 32)."""
+        return (self.off + j * self.ds) & 3
+
+
+def deep_row_map(address: int, n: int, m: int, ds: int) -> RowMap:
+    """The map the deep kernel's TMA producer reads ``x`` through, ``x`` an
+    ``(n, m * ds)`` f32 tensor at ``address`` (any multiple of 4): based at
+    the address rounded down to 16 bytes, every column shifted by the floats
+    in between, so that a row stride of ``4 d`` (a multiple of 16 bytes)
+    describes ``x`` at any alignment.  On an H100 a TMA box must start on 16
+    bytes, so the box of a chunk starts at the chunk's column rounded down to
+    4: where that is every chunk's own column (``off = 0``, ``ds`` a
+    multiple of 4) a box is 32 values with the 128-byte swizzle, else 36
+    values (no swizzle) holding the chunk at :meth:`RowMap.shift`.  Past
+    ``d + off`` and past ``n`` TMA fills zeros;
+    the only values a box holds outside ``x`` are the up to 3 floats before
+    ``x`` in its storage, at row 0, never read.  The kernel reads a box's
+    columns past ``ds`` (the next subvector's) as zero.  Raises
+    ``ValueError`` where :func:`deep_producer` is ``"cp.async"``."""
+    if deep_producer(m, ds) != "tma" or address % 4:
+        raise ValueError(f"TMA takes rows of m*ds = {m * ds} floats at address {address} only "
+                         "where both are multiples of 4 (floats, bytes)")
+    off = address % 16 // 4
+    box = (32 if off == 0 and ds % 4 == 0 else 36, 128)
+    return RowMap(address - 4 * off, off, (m * ds + off, n), 4 * m * ds, box, ds)
 
 
 def assign_route(ds: int, aligned: bool) -> str:
     """The kernel family that assigns at width ``ds``, a pure function of
-    the shapes: ``"narrow"`` (``csrc/assign_tile.cuh``, the instance of
-    :func:`padded_ds`) at every ``ds`` up to 32, else :func:`wide_route`'s
-    ``"deep"`` or ``"shallow"``.  The encode, the statistics and the verified
-    wrappers all follow it, so a row gets one code from all of them."""
-    return "narrow" if ds <= 32 else wide_route(ds, aligned)
+    ``ds``: ``"narrow"`` (``csrc/assign_tile.cuh``, the instance of
+    :func:`padded_ds`) at every ``ds`` up to 32, ``"deep"``
+    (``csrc/assign_deep.cuh``) above.  ``aligned`` (``x``'s first element
+    on 16 bytes) does not change the answer: the deep kernel takes its rows
+    at any alignment (:func:`deep_row_map`), and the C entries pick a narrow
+    instance, padded or not, themselves (:func:`_counter` names it).  The
+    encode, the statistics and the verified
+    wrappers all follow it, so a row gets one code from all of them.  No
+    answer is ``"shallow"``: that kernel is taken only where a caller patches
+    this function (the tests and ``tools/time_wide_kernels.py``)."""
+    return "narrow" if ds <= 32 else "deep"
 
 
 # The C entries' route argument (csrc/assign_tile.cuh kRouteNarrow, ...).
@@ -276,8 +332,7 @@ _ROUTE_CODES = {"narrow": 0, "deep": 1, "shallow": 2}
 
 
 def _route_of(ds: int, x: Tensor) -> str:
-    """:func:`assign_route` for ``x`` (its own address decides the
-    alignment)."""
+    """:func:`assign_route` for ``x`` (its own address gives ``aligned``)."""
     return assign_route(ds, x.data_ptr() % 16 == 0)
 
 
@@ -285,9 +340,10 @@ def _counter(name: str, route: str, ds: int, x: Tensor) -> str:
     """The launch count a kernel adds to: ``name`` for the narrow kernels,
     ``name_pad`` for their padded instance (the C entries' rule,
     ``assign_tile::needs_pad``: a ``ds`` outside 4, 8, 16, 32, or rows off
-    16 bytes), ``name_wide`` for the deep and the shallow kernel."""
+    16 bytes), ``name_wide`` for the deep kernel, ``name_shallow`` for the
+    shallow one (a forced route)."""
     if route != "narrow":
-        return name + "_wide"
+        return name + ("_wide" if route == "deep" else "_shallow")
     padded = ds not in _NARROW_DS or x.data_ptr() % 16 != 0
     return name + ("_pad" if padded else "")
 
@@ -457,8 +513,8 @@ def pq_encode(
 
     CUDA tensors go through the kernel (any ``ds``, ``k <= 65536``; a larger
     ``k`` raises) that :func:`assign_route` names: the narrow kernels at every
-    ``ds`` up to 32, the wide route (``csrc/assign_wide.cuh``, its deep
-    kernel where :func:`wide_route` says) above.  CPU tensors go
+    ``ds`` up to 32, the deep kernel (``csrc/assign_deep.cuh``) above.  CPU
+    tensors go
     through :func:`pq_encode_reference`.  The kernel writes ``uint8`` or ``int32``
     codes; other integer dtypes are cast from ``int32`` at the end.  ``out``,
     an ``(n, m)`` tensor of ``dtype`` on the same device, receives the codes

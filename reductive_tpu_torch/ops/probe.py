@@ -7,8 +7,8 @@ the accumulator) to the largest exponent, keeps at least 24 bits of each and
 truncates: at most ``10 * 2^-23 * M`` an instruction, ``M`` the largest
 magnitude among the addends and the exact sum.  :func:`probe_wgmma_tf32`
 runs the instructions the routes issue (``csrc/probe.cu``):
-``wgmma.m64n64k8.f32.tf32.tf32`` (``n=64``: the narrow route and the wide
-route's shallow kernel) and ``wgmma.m64n128k8.f32.tf32.tf32`` with A from
+``wgmma.m64n64k8.f32.tf32.tf32`` (``n=64``: the narrow route, and the
+shallow wide kernel the tests force) and ``wgmma.m64n128k8.f32.tf32.tf32`` with A from
 registers and B in the swizzled layout TMA writes (``n=128``: the deep
 kernel), on cases built to measure this:
 

@@ -19,8 +19,8 @@ reference).  Counts are exact integers in both modes.
 At every ``ds`` up to 32 the kernel is the narrow one (``csrc/stats.cu``: a
 tile's rows accumulated as they are assigned; at a ``ds`` outside 4, 8, 16,
 32 the instance of ``ops.assign.padded_ds(ds)``, rows and centroids padded
-with zeros, counters ``*_pad``); above, the wide route: the assignment of
-``csrc/assign_wide.cuh`` (the wide encode's, bit for bit) writes its codes,
+with zeros, counters ``*_pad``); above, the wide route: the deep kernel of
+``csrc/assign_deep.cuh`` (the wide encode's, bit for bit) writes its codes,
 a stable radix sort orders the rows by cell and one block per cell adds its
 rows in row order (counters ``*_wide``).  Neither uses float
 atomics: every sum is taken in an order fixed by the shapes (and, on the
@@ -43,7 +43,7 @@ again by the exact path, and a row whose code changed is moved from its old
 cell to its new one.
 
 The f32 kernel takes its cross terms as a 3xTF32 split product on the tensor
-cores (``csrc/assign_tile.cuh``, or ``csrc/assign_wide.cuh`` on the wide
+cores (``csrc/assign_tile.cuh``, or ``csrc/assign_deep.cuh`` on the wide
 route), the routine the f32 encode runs too at the same ``ds``, so its codes
 are the encode's bit for bit and its flag limit is the one that
 :mod:`reductive_tpu_torch.ops.assign` derives for the route
@@ -159,26 +159,25 @@ def _launch_stats(codebooks: Tensor, x: Tensor, compute_dtype, verify=None):
 
 
 def _launch_wide(cb2, c_sqn, x, codes, sums, counts, compute_dtype, verify, flags, route) -> None:
-    """The wide route (``route`` ``"deep"`` or ``"shallow"``, from
-    ``ops.assign.assign_route``; ``cb2`` and ``c_sqn`` converted for the deep
-    kernel): one C entry launches the assignment of ``csrc/assign_wide.cuh``,
-    the radix sort by cell and the per-cell sums (``csrc/stats.cu``), into
-    ``codes`` (an ``(n, m)`` view of an ``(m, n)`` tensor), ``sums`` and
-    ``counts``."""
+    """The wide route (``route`` ``"deep"``, from
+    ``ops.assign.assign_route``, with ``cb2`` and ``c_sqn`` converted for
+    the deep kernel; ``"shallow"`` where a caller forces it): one C entry
+    launches the assignment (``csrc/assign_wide.cuh`` ``launch``), the radix
+    sort by cell and the per-cell sums (``csrc/stats.cu``), into ``codes``
+    (an ``(n, m)`` view of an ``(m, n)`` tensor), ``sums`` and ``counts``."""
     n = codes.shape[0]
     m, k, ds = sums.shape
     words = _build.query("rt_assign_stats_wide_scratch", n, m, k)
     scratch = torch.empty((words,), dtype=torch.int32, device=x.device)
     if verify is None:
-        mode, name = (1, "stats_bf16_wide") if compute_dtype == torch.bfloat16 else \
-            (0, "stats_f32_wide")
+        mode, name = (1, "stats_bf16") if compute_dtype == torch.bfloat16 else (0, "stats_f32")
         escale, rho = None, 0.0
     else:
-        (escale, rho), mode, name = verify, 2, "stats_verify_wide"
+        (escale, rho), mode, name = verify, 2, "stats_verify"
         escale = escale.contiguous()
     with torch.cuda.device(x.device):
         _build.launch(
-            "rt_assign_stats_wide", name,
+            "rt_assign_stats_wide", _counter(name, route, ds, x),
             x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), codes.data_ptr(),
             None if escale is None else escale.data_ptr(), float(rho),
             None if flags is None else flags.data_ptr(), scratch.data_ptr(),

@@ -21,12 +21,14 @@ kernel's counts), and where the bf16 products are exact the bf16 encode is
 the plain version bit for bit, first index among duplicated centroids
 included.
 Every other width is held to the same: ds 1, 2, 3, 12 and 20 on the narrow
-kernels' padded instances, ds 36, 40, 48, 64, 68, 96, 100, 128 and 768 on the
-wide route (its deep kernel, the shallow one for an x TMA cannot describe):
-each kernel against its plain version, encode against statistics, two
-launches bit-equal, the deep kernel against the shallow one, and the padded
-instances against the shallow kernel (forced) bit for bit at thirteen widths
-up to 32, on rows off 16 bytes and at k from 1 to 257; decode at any ds, in
+kernels' padded instances, ds 36, 37, 40, 48, 50, 64, 68, 75, 96, 100, 128 and
+768 on the deep kernel (its rows by TMA where m ds is a multiple of 4, else
+by cp.async): each kernel against its plain version, encode against
+statistics, two launches bit-equal; the deep kernel against the shallow one
+(forced) bit for bit at fifteen widths from 33 to 768, k from 1 to 4,096 and x
+on 16 bytes or 1 to 3 floats off, with inf and NaN in the next subvector;
+and the padded instances against the shallow kernel bit for bit at thirteen
+widths up to 32, on rows off 16 bytes and at k from 1 to 257; decode at any ds, in
 every table regime of the row-tile kernels (tiles of 1 to 64 rows), into an
 ``out`` off 16 bytes and from codes that start off a word, its tables bit for
 bit the plain versions' on adversarial bit patterns, and at d=300, k=256.
@@ -762,6 +764,8 @@ WIDE_SHAPES = [
     (777, 16, 256, 48), (513, 1, 1000, 64), (3000, 1, 4096, 128), (700, 1, 2000, 768),
     (129, 3, 127, 36), (128, 2, 128, 40), (127, 4, 129, 100), (1000, 2, 255, 64),
     (300, 1, 256, 128), (257, 3, 257, 68), (200, 1, 65536, 96),
+    # d = m ds not a multiple of 4: the deep kernel's rows by cp.async.
+    (1000, 1, 4096, 50), (777, 3, 100, 37), (500, 3, 256, 50), (300, 1, 1000, 75),
 ]
 
 
@@ -866,25 +870,82 @@ def test_wide_verify_kernels(dev, n, m, k, ds, adversarial):
         assert bool(((got_sums - want_sums).abs() <= tol).all())
 
 
-@pytest.mark.parametrize("n,m,k,ds", [(300, 1, 300, 128), (1000, 3, 257, 36), (513, 2, 1000, 768)])
-def test_the_deep_kernel_assigns_as_the_shallow_one(dev, n, m, k, ds):
-    # x one float off 16 bytes: TMA cannot describe it, so the shallow kernel
-    # takes it (wide_route).  The two kernels run the same arithmetic, so
-    # their codes and flags are the same bits.
-    from reductive_tpu_torch.ops.assign import wide_route
+# Widths above 32 with d = m ds a multiple of 4 (the deep kernel's TMA rows)
+# and not (its cp.async rows: 33 at m = 1, 37 at m = 2, 50 at m = 3 and 1, ...).
+DEEP_WIDTHS = [(33, 4), (33, 1), (36, 3), (37, 2), (50, 6), (50, 3), (50, 1), (75, 4), (75, 1),
+               (128, 1), (150, 2), (150, 1), (301, 4), (301, 1), (768, 1)]
+
+
+def _off(x, off):
+    """A copy of ``x`` whose first element lies ``off`` floats past 16 bytes."""
+    n, d = x.shape
+    view = torch.empty((n * d + 4,), device=x.device)[off:off + n * d].view(n, d)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * off
+    return view
+
+
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+@pytest.mark.parametrize("k", [1, 8, 256, 1000, 4096])
+@pytest.mark.parametrize("ds,m", DEEP_WIDTHS)
+def test_the_deep_kernel_assigns_as_the_shallow_one(dev, ds, m, k, off, monkeypatch):
+    # Every width above 32 and every x on 4 bytes take the deep kernel; the
+    # shallow one, forced, runs the same arithmetic, so the codes, flags and
+    # counts are the same bits in every mode, and so are the sums (the same
+    # codes, sorted and added alike).
+    n = 1500 if k < 4096 else 600
     cb, x = _data(dev, n, m, k, ds, seed=11)
-    off = torch.empty((n * m * ds + 1,), device=dev)[1:].view(n, m * ds)
-    off.copy_(x)
-    assert wide_route(ds, x.data_ptr() % 16 == 0) == "deep"
-    assert wide_route(ds, off.data_ptr() % 16 == 0) == "shallow"
-    for cd in (torch.float32, torch.bfloat16):
-        assert torch.equal(ops.pq_encode(cb, x, dtype=torch.int32, compute_dtype=cd),
-                           ops.pq_encode(cb, off, dtype=torch.int32, compute_dtype=cd))
-    deep, shallow = pq_encode_verify_flags(cb, x, dtype=torch.int32), \
-        pq_encode_verify_flags(cb, off, dtype=torch.int32)
-    assert torch.equal(deep[0], shallow[0]) and torch.equal(deep[1], shallow[1])
-    a, b = pq_assign_stats_verify_flags(cb, x), pq_assign_stats_verify_flags(cb, off)
-    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    x = _off(x, off)
+    ops.reset_launch_counts()
+    deep = _all_modes(cb, x)
+    assert ops.launch_counts() == {name + "_wide": 1 for name in deep}
+    _forced_shallow(monkeypatch)
+    ops.reset_launch_counts()
+    shallow = _all_modes(cb, x)
+    assert ops.launch_counts() == {name + "_shallow": 1 for name in shallow}
+    for name in ("encode_f32", "encode_bf16"):
+        assert torch.equal(deep[name], shallow[name]), (name, int((deep[name] != shallow[name]).sum()))
+    for name in ("encode_verify", "stats_f32", "stats_bf16", "stats_verify"):
+        for i, (a, b) in enumerate(zip(deep[name], shallow[name])):
+            assert torch.equal(a, b), (name, i)
+    if k == 1:
+        assert int(deep["encode_f32"].max()) == 0
+
+
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("ds,m", [(50, 3), (50, 2), (75, 4), (37, 2)])
+def test_a_non_finite_neighbour_leaves_the_code_alone(dev, ds, m, off):
+    # A box of the deep kernel's rows holds 32 (64 in bf16) values from its
+    # chunk's start, so past ds it holds subvector j + 1's.  inf or NaN there
+    # times the codebook's zero padding would be NaN and could move code j:
+    # the kernel reads those columns as zero.  Subvector 1 holds inf, -inf and
+    # NaN; every other subvector's code is the one the same rows get with
+    # subvector 1 zeroed, bit for bit, in every mode, and that code is the
+    # plain version's but on flagged rows (f32) and near-ties (bf16).
+    n, k = 1200, 256
+    cb, x = _data(dev, n, m, k, ds, seed=15)
+    finite = x.clone().reshape(n, m, ds)
+    finite[:, 1] = 0.0
+    bad = x.clone().reshape(n, m, ds)
+    bad[:n // 3, 1] = float("inf")
+    bad[n // 3:2 * n // 3, 1] = float("nan")
+    bad[2 * n // 3:, 1, ::3] = -float("inf")
+    finite, bad = _off(finite.reshape(n, m * ds), off), _off(bad.reshape(n, m * ds), off)
+    ops.reset_launch_counts()
+    want, got = _all_modes(cb, finite), _all_modes(cb, bad)
+    assert ops.launch_counts() == {name + "_wide": 2 for name in got}
+    keep = [j for j in range(m) if j != 1]
+    for name, codes in (("encode_f32", None), ("encode_bf16", None), ("encode_verify", 0),
+                        ("stats_verify", 2)):
+        a, b = (want[name], got[name]) if codes is None else (want[name][codes], got[name][codes])
+        assert torch.equal(a[:, keep], b[:, keep]), name
+    for name in ("stats_f32", "stats_bf16", "stats_verify"):
+        assert torch.equal(want[name][1][keep], got[name][1][keep]), name
+    flags = want["encode_verify"][1]
+    plain = ops.pq_encode_reference(cb, finite, dtype=torch.int32, compute_dtype=torch.float32)
+    assert not bool(((want["encode_f32"] != plain)[:, keep].any(dim=1) & (flags == 0)).any())
+    plain = ops.pq_encode_reference(cb, finite, dtype=torch.int32, compute_dtype=torch.bfloat16)
+    assert int((want["encode_bf16"] != plain)[:, keep].sum()) <= max(2, n * m // 100)
 
 
 # -- the narrow kernels' padded instances -------------------------------------------
@@ -895,8 +956,9 @@ PAD_WIDTHS = [1, 2, 3, 5, 6, 7, 10, 12, 15, 20, 24, 25, 30]
 
 
 def _forced_shallow(monkeypatch):
-    """Make the wrappers take the wide route's shallow kernel at every width,
-    as they would if assign_route answered "shallow"."""
+    """Make the wrappers take the shallow kernel at every width (counters
+    ``*_shallow``): no route of theirs does, but the deep kernel and the
+    padded narrow instances are held to it."""
     from reductive_tpu_torch.ops import assign
     monkeypatch.setattr(assign, "assign_route", lambda ds, aligned: "shallow")
 
@@ -929,7 +991,7 @@ def test_the_padded_kernels_assign_as_the_shallow_one(dev, ds, monkeypatch):
     _forced_shallow(monkeypatch)
     ops.reset_launch_counts()
     shallow = _all_modes(cb, x)
-    assert ops.launch_counts() == {name + "_wide": 1 for name in shallow}
+    assert ops.launch_counts() == {name + "_shallow": 1 for name in shallow}
     for name in ("encode_f32", "encode_bf16"):
         assert torch.equal(pad[name], shallow[name]), (name, int((pad[name] != shallow[name]).sum()))
     assert torch.equal(pad["encode_verify"][0], shallow["encode_verify"][0])

@@ -50,12 +50,11 @@ PARTIAL_ELEMS = 1 << 26  # the statistics' slots: 256 MB of f32 at most
 def test_the_route_is_a_pure_function_of_the_width_and_the_alignment():
     for ds in range(1, 41):
         for aligned in (False, True):
-            want = ("narrow" if ds <= 32 else
-                    "deep" if ds % 4 == 0 and aligned else "shallow")
-            assert tassign.assign_route(ds, aligned) == want
+            assert tassign.assign_route(ds, aligned) == ("narrow" if ds <= 32 else "deep")
     # The counter a launch adds to, from x's own address: the narrow kernels'
     # own name at 4, 8, 16, 32 on 16 bytes, their padded instance ("_pad") at
-    # every other width up to 32 and off 16 bytes, the wide route ("_wide") above.
+    # every other width up to 32 and off 16 bytes, the deep kernel ("_wide")
+    # above; the shallow kernel, which only a forced route takes, "_shallow".
     for ds in range(1, 41):
         buf = torch.zeros((3 * 2 * ds + 3,))
         for off in range(4):
@@ -69,6 +68,7 @@ def test_the_route_is_a_pure_function_of_the_width_and_the_alignment():
             else:
                 want = "encode_f32_pad"
             assert got == want, (ds, off)
+            assert tassign._counter("encode_f32", "shallow", ds, x) == "encode_f32_shallow"
 
 
 @pytest.mark.parametrize("ds", range(1, 33))

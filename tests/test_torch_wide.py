@@ -45,9 +45,13 @@ from torch_port_util import assert_codes_near_optimal, j, make_pq_data, near_tie
 
 # (n, m, k, ds): odd and wide widths; m = 1 at k-means' widths.
 F32_SHAPES = [(700, 10, 16, 2), (500, 3, 20, 3), (400, 4, 37, 12), (300, 2, 16, 48),
-              (300, 1, 40, 64), (257, 1, 24, 128)]
+              (300, 1, 40, 64), (257, 1, 24, 128), (300, 3, 16, 50), (257, 1, 24, 75)]
 # bf16 in the interpreter needs m*k >= 1024 (ROADMAP, queue 3).
-BF16_SHAPES = [(500, 8, 128, 2), (300, 4, 256, 12), (200, 1, 1024, 64)]
+BF16_SHAPES = [(500, 8, 128, 2), (300, 4, 256, 12), (200, 1, 1024, 64), (200, 4, 256, 50),
+               (200, 2, 512, 75)]
+# ds = 50 and 75: 300-d vectors at m = 6 and 4, GloVe-50 at m = 1 (the deep
+# kernel on the card, its rows by cp.async where m ds is not a multiple of 4).
+DEEP_ODD = [(300, 3, 16, 50), (257, 1, 24, 75)]
 
 
 @pytest.mark.parametrize("n,m,k,ds", F32_SHAPES)
@@ -70,7 +74,7 @@ def test_pq_encode_bf16_at_wide_widths_matches_jax(n, m, k, ds):
 
 
 @pytest.mark.parametrize("compute", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", F32_SHAPES[:4] + BF16_SHAPES[:1], ids=str)
+@pytest.mark.parametrize("shape", F32_SHAPES[:4] + BF16_SHAPES[:1] + DEEP_ODD, ids=str)
 def test_pq_assign_stats_at_wide_widths_matches_jax(shape, compute):
     n, m, k, ds = shape
     if compute == "bf16" and m * k < 1024:
@@ -137,7 +141,8 @@ def test_kmeans_chunked_at_d128_matches_jax():
         np.testing.assert_allclose(float(got_l), float(want_l), rtol=1e-4)
 
 
-@pytest.mark.parametrize("n,m,k,ds", [(600, 10, 16, 2), (300, 3, 20, 3), (257, 1, 24, 128)])
+@pytest.mark.parametrize("n,m,k,ds", [(600, 10, 16, 2), (300, 3, 20, 3), (257, 1, 24, 128)]
+                         + DEEP_ODD)
 def test_verified_modes_at_wide_widths_match_jax_and_the_exact_path(n, m, k, ds):
     cb, x = make_pq_data(98 + ds, n, m, k, ds)
     cb[:, k - 1] = cb[:, 0]  # exact ties: flagged, re-encoded, first index kept
@@ -348,7 +353,10 @@ def _bf16_oracle(v: np.ndarray) -> np.ndarray:
 
 
 @pytest.mark.parametrize("compute", ["f32", "bf16"])
-@pytest.mark.parametrize("m,k,ds", [(1, 300, 128), (3, 129, 36), (2, 257, 100), (1, 5, 768)])
+@pytest.mark.parametrize("m,k,ds", [(1, 300, 128), (3, 129, 36), (2, 257, 100), (1, 5, 768),
+                                   # every width above 32 takes the deep kernel
+                                   (4, 7, 33), (2, 129, 37), (6, 256, 50), (1, 300, 50),
+                                   (3, 257, 75), (2, 40, 150), (1, 9, 151)])
 def test_deep_operands_are_the_layout_the_deep_kernel_loads(compute, m, k, ds):
     rng = np.random.default_rng(97)
     cb = rng.standard_normal((m, k, ds)).astype(np.float32)
@@ -379,27 +387,72 @@ def test_deep_operands_are_the_layout_the_deep_kernel_loads(compute, m, k, ds):
 
 
 def test_the_wide_route_is_a_pure_function_of_the_width_and_the_alignment():
-    # Every width up to 32 on the narrow kernels (padded where need be), the
-    # deep kernel above where TMA can describe the rows, else the shallow one.
+    # Every width up to 32 on the narrow kernels (padded where need be), every
+    # wider one on the deep kernel at either alignment; its rows by TMA where
+    # a row of m ds floats is a multiple of 16 bytes, else by cp.async.
     for ds in range(1, 800):
         for aligned in (False, True):
-            want = ("narrow" if ds <= 32 else
-                    "deep" if ds % 4 == 0 and aligned else "shallow")
-            assert tassign.assign_route(ds, aligned) == want
-            assert tassign.wide_route(ds, aligned) == ("shallow" if want == "narrow" else want)
-    # What the wrappers hand the C entries: the converted operands only where
-    # the route is deep (x's own address decides the alignment).
-    for ds, route in ((128, "deep"), (36, "deep"), (33, "shallow"), (50, "shallow"),
+            assert tassign.assign_route(ds, aligned) == ("narrow" if ds <= 32 else "deep")
+        for m in (1, 2, 3, 4, 6):
+            assert tassign.deep_producer(m, ds) == ("tma" if m * ds % 4 == 0 else "cp.async")
+    # What the wrappers hand the C entries: the converted operands wherever the
+    # route is deep, whatever x's address.
+    for ds, route in ((128, "deep"), (36, "deep"), (33, "deep"), (50, "deep"),
                       (12, "narrow"), (2, "narrow")):
         cb = torch.randn((2, 7, ds), generator=torch.Generator().manual_seed(ds))
         cb2, c_sqn = cb + cb, (cb * cb).sum(2)
         buf = torch.zeros((5 * 2 * ds + 1,))
-        for x, want in ((buf[:-1].view(5, 2 * ds), route),
-                        (buf[1:].view(5, 2 * ds), "narrow" if ds <= 32 else "shallow")):
+        for x in (buf[:-1].view(5, 2 * ds), buf[1:].view(5, 2 * ds)):
             assert x.data_ptr() % 16 == (0 if x.storage_offset() == 0 else 4)
             got = tassign._route_operands(cb2, c_sqn, x, torch.float32)
-            assert got[2] == want
-            if want == "deep":
+            assert got[2] == route
+            if route == "deep":
                 assert tuple(got[0].shape) == (2, 2, 7, -(-ds // 32) * 32)
             else:
                 assert got[0] is cb2 and got[1] is c_sqn
+
+
+@pytest.mark.parametrize("m,ds", [(1, 36), (6, 50), (4, 75), (2, 150), (1, 128), (3, 68), (1, 768),
+                                  (4, 33), (1, 50), (3, 37), (10, 2)])
+def test_the_deep_row_map_reads_x_and_nothing_else(m, ds):
+    # Over addresses at every 4-byte offset from 16: the map's base is on 16
+    # bytes and off floats before x; every box the kernel asks for (subvector
+    # j, chunks of 32 values from 0, 128 rows from 0) starts on 16 bytes and
+    # holds its chunk at the shift (0 in the swizzled boxes of 32 values,
+    # where every chunk starts on 16 bytes); each of its elements lies in x, is
+    # zero-filled (past d + off, past n) or is one of the up to 3 floats
+    # before x at row 0, which the chunk never covers; column c < ds of
+    # subvector j's chunk is x[row, j ds + c].  Where d is no multiple of 4
+    # the cp.async producer takes the rows and no map is made.
+    d = m * ds
+    for n in (1, 129, 300):
+        for address in (1 << 20, (1 << 20) + 4, (1 << 20) + 8, (1 << 20) + 12, (1 << 32) + 4 * 1001):
+            if tassign.deep_producer(m, ds) == "cp.async":
+                with pytest.raises(ValueError, match="multiples of 4"):
+                    tassign.deep_row_map(address, n, m, ds)
+                continue
+            rm = tassign.deep_row_map(address, n, m, ds)
+            assert rm.base % 16 == 0 and rm.base + 4 * rm.off == address and 0 <= rm.off < 4
+            assert rm.dims == (d + rm.off, n) and rm.stride == 4 * d and rm.stride % 16 == 0
+            width, height = rm.box
+            assert height == 128 and width == (32 if rm.off == 0 and ds % 4 == 0 else 36)
+            for j in range(m):
+                sh = rm.shift(j)
+                for c0 in range(0, ds, 32):
+                    col0 = rm.column(j, c0)
+                    assert (4 * col0) % 16 == 0 and col0 + sh == rm.off + j * ds + c0
+                    assert sh + 32 <= width  # the chunk fits its box
+                    cols = np.arange(col0, col0 + width)[None, :]
+                    rows = np.arange(0, min(n, height))[:, None]
+                    inside = cols < rm.dims[0]  # else TMA fills zeros
+                    at = rm.base + rows * rm.stride + 4 * cols
+                    in_x = (at >= address) & (at < address + 4 * n * d)
+                    before = (rows == 0) & (at >= address - 12) & (at < address)
+                    assert (in_x | before | ~inside).all()
+                    c = np.arange(width)[None, :] - sh  # the chunk's column of each box column
+                    real = (c >= 0) & (c < 32) & (c0 + c < ds)
+                    assert not (real & before).any()  # never read
+                    want = address + 4 * (rows * d + j * ds + c0 + c)
+                    used = np.broadcast_to(real & inside, at.shape)
+                    assert (at[used] == want[used]).all()
+                    assert (real <= inside).all()  # never zero-filled
