@@ -21,7 +21,9 @@ accumulation that the verify bound rests on; it fails if any path launched
 the shallow wide kernel, which no route takes.  It also times the any-width
 decode kernels and the padded encode and statistics kernels at d=300, k=256
 (m = 150 and 30), and the deep ones at m = 4 and 2 (ds = 75 and 150), over
-2^21 rows.  The serving phase also searches
+2^21 rows, and holds the wide statistics' accumulation from the codes
+(``cell_stats``) bit for bit to its plain version on the assignment's f32 and
+bf16 codes at every deep shape.  The serving phase also searches
 a corpus whose k-th place is always tied and holds the ids to a stable sort's.
 Every phase prints one JSON line.  The run fails (non-zero exit, no result
 line) without a CUDA device, when a kernel does not build, does not launch
@@ -65,7 +67,9 @@ from reductive_tpu_torch.ops.assign import (
 )
 from reductive_tpu_torch.ops.decode import decode_table, launch_decode, quantize_codebook_int8
 from reductive_tpu_torch.ops.probe import probe_wgmma_tf32
-from reductive_tpu_torch.ops.stats import pq_assign_stats_verify_flags, stats_from_codes
+from reductive_tpu_torch.ops.stats import (
+    cell_stats, cell_stats_reference, pq_assign_stats_verify_flags, stats_from_codes,
+)
 from reductive_tpu_torch.pq import primitives
 from reductive_tpu_torch.pq.opq import create_projection_matrix
 from reductive_tpu_torch.pq.train import init_codebooks_random
@@ -127,10 +131,14 @@ KERNELS = {
     "stats_f32_pad": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:50"),
     "stats_bf16_pad": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:50"),
     "stats_verify_pad": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:272"),
+    "cell_stats": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:50"),
 }
 SERVE_KERNELS = ("encode_f32", "encode_bf16", "decode", "decode_int8", "adc", "adc_int8")
 PACKED_KERNELS = ("decode_u4", "decode_int8_u4", "adc_u4", "adc_int8_u4")
-WIDE_KERNELS = tuple(name for name in KERNELS if name.endswith(("_wide", "_scalar", "_pad")))
+# cell_stats: the accumulation from the codes, which every wide statistics
+# launch runs in its C entry after the assignment.
+WIDE_KERNELS = tuple(name for name in KERNELS
+                     if name.endswith(("_wide", "_scalar", "_pad")) or name == "cell_stats")
 # The wide phase's shapes: IVF's coarse stage in benches/ivf10m.py (d=128,
 # 4,096 cells, over 2^20 rows) and benches/ivf100m.py (d=768, 16,384 cells,
 # its 2^19-row training sample); the reference's quality-gate width, d=20,
@@ -295,6 +303,30 @@ def compare_stats(codebooks, x, compute_dtype):
     require(n_bad == 0, f"{name}: {n_bad} sums beyond tolerance")
     return {"n_mismatch": int(moved.sum()), "max_abs_err": float(err[same].max()),
             "bit_equal_launches": True}
+
+
+def compare_cell_stats(codebooks, x, compute_dtype):
+    """The wide statistics' accumulation alone (``cell_stats``) on the codes
+    the assignment gives in ``compute_dtype``, against its plain version, which
+    adds in the kernels' order: bit for bit, and two launches bit-equal.  Also
+    the largest cell's share of the rows (the skew the chunks spread)."""
+    k = codebooks.shape[1]
+    bf16 = compute_dtype == torch.bfloat16
+    codes = ops.pq_encode(codebooks, x, dtype=torch.int32, compute_dtype=compute_dtype)
+    got = cell_stats(codes, x, k, round_bf16=bf16)
+    again = cell_stats(codes, x, k, round_bf16=bf16)
+    want = cell_stats_reference(codes, x, k, round_bf16=bf16)
+    torch.cuda.synchronize()
+    name = f"cell_stats {compute_dtype}"
+    require(all(a.shape == b.shape for a, b in zip(got, want)), f"{name}: shape")
+    require(bits_differ(got[0], again[0]) == 0 and bool(torch.equal(got[1], again[1])),
+            f"{name}: two launches on the same inputs differ")
+    n_bits = bits_differ(got[0], want[0]) + bits_differ(got[1], want[1])
+    require(n_bits == 0, f"{name}: {n_bits} sums or counts differ from the plain version in a bit")
+    require(float(got[1].double().sum()) == x.shape[0] * codebooks.shape[0], f"{name}: counts")
+    return {"n_mismatch": n_bits, "max_abs_err": float((got[0] - want[0]).abs().max()),
+            "bit_equal_launches": True,
+            "largest_cell_share": float(got[1].max()) / x.shape[0]}
 
 
 def stress_inputs(gen, dev):
@@ -1112,9 +1144,11 @@ def phase_wide(corpus, gen):
     quantizer (the narrow kernels' padded instances) and a ds = 50 one (the
     deep kernel) through their entry points; then each kernel of those paths
     against its plain version, encode against statistics, two statistics
-    launches bit-equal, the verified paths against the exact one, and the
-    times, with the padded kernels also at the 300-d widths m = 150 (ds = 2)
-    and m = 30 (ds = 10) and the deep ones at m = 4 and 2 (ds = 75 and 150).
+    launches bit-equal, the verified paths against the exact one, the
+    accumulation from the codes (``cell_stats``) bit for bit its plain
+    version on the f32 and bf16 codes at every deep shape, and the times,
+    with the padded kernels also at the 300-d widths m = 150 (ds = 2) and
+    m = 30 (ds = 10) and the deep ones at m = 4 and 2 (ds = 75 and 150).
     Returns the probe, the path's launches and the rows of the kernels line."""
     dev = corpus.device
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1244,6 +1278,11 @@ def phase_wide(corpus, gen):
             for name, res in (("decode_scalar", compare_decode(cb, codes20, 3)),
                               ("decode_int8_scalar", compare_decode(cb, codes20, "int8"))):
                 compared.append({"kernel": name, "shape": shape, **res})
+        if routes[label] == "deep":
+            for cd in (f32, bf16):
+                compared.append({"kernel": "cell_stats", "shape": shape,
+                                 "codes": str(cd).removeprefix("torch."),
+                                 **compare_cell_stats(cb, x, cd)})
         shared[label] = compare_shared_assignment(cb, x)
         exact[label] = exact_line(label, cb, x)
         torch.cuda.empty_cache()
@@ -1319,6 +1358,35 @@ def phase_wide(corpus, gen):
                                 "tf32" if mode == "f32" else "bf16"))
         return rows
 
+    def cell_rows(cb, x):
+        """The accumulation alone (``cell_stats``, the wrapper) on the
+        assignment's f32 codes (``cell_stats``) and bf16 codes
+        (``cell_stats_bf16``, the rows rounded): its plain version, and the
+        library's ``index_add_`` (float atomics) and ``bincount`` on the same
+        cells.  Its bound: the codes and x read, the sums and counts written."""
+        n, d = x.shape
+        m, k, ds = cb.shape
+        nbytes = 4 * n * m + 4 * n * d + 4 * m * k * (ds + 1)
+        out = []
+        for cd in (f32, bf16):
+            rb = cd == bf16
+            codes = ops.pq_encode(cb, x, dtype=torch.int32, compute_dtype=cd).T.contiguous().T
+            cells = (codes.to(torch.int64) + torch.arange(m, device=dev)[None, :] * k).reshape(-1)
+            xr = (x.to(bf16).to(f32) if rb else x).reshape(-1, ds)
+
+            def library():
+                sums = torch.zeros((m * k, ds), device=dev).index_add_(0, cells, xr)
+                return sums, torch.bincount(cells, minlength=m * k)
+
+            r = row("cell_stats" + ("_bf16" if rb else ""), cb, x,
+                    lambda: cell_stats(codes, x, k, round_bf16=rb),
+                    lambda: cell_stats_reference(codes, x, k, round_bf16=rb), library,
+                    nbytes, 0, "f32")
+            r["largest_cell_share"] = float(torch.bincount(cells, minlength=m * k).max()) / n
+            out.append(r)
+            del codes, cells, xr
+        return out
+
     def decode_rows(cb, codes):
         """The two any-width decode kernels: wrapper, C entry alone (the table
         built outside the timed call), plain version, ``F.embedding``."""
@@ -1341,13 +1409,15 @@ def phase_wide(corpus, gen):
 
     cb_d, _ = shapes["d300_m6"]
     times = {
-        "ivf10m": stats_rows(cb_a, xa, ("f32", "verify")),
+        "ivf10m": stats_rows(cb_a, xa, ("f32", "verify")) + cell_rows(cb_a, xa),
         "ivf100m": assign_rows(cb_b, xb) + stats_rows(cb_b, xb, ("f32",)),
         "gate_ds2": assign_rows(cb_c, x20, "_pad") + stats_rows(cb_c, x20, ("bf16", "f32", "verify"), "_pad")
         + decode_rows(cb_c, codes20),
-        "d300_m6": assign_rows(cb_d, x300) + stats_rows(cb_d, x300, ("bf16", "f32", "verify")),
+        "d300_m6": assign_rows(cb_d, x300) + stats_rows(cb_d, x300, ("bf16", "f32", "verify"))
+        + cell_rows(cb_d, x300),
         "glove50": assign_rows(shapes["glove50"][0], xg)
-        + stats_rows(shapes["glove50"][0], xg, ("bf16", "f32", "verify")),
+        + stats_rows(shapes["glove50"][0], xg, ("bf16", "f32", "verify"))
+        + cell_rows(shapes["glove50"][0], xg),
     }
     # 300-d embeddings (fastText, word2vec and GloVe publish 300-d vectors), k=256,
     # at m = 150 (ds = 2) and m = 30 (ds = 10): the decode kernels (the f32 table,
@@ -1381,15 +1451,20 @@ def phase_wide(corpus, gen):
                           ("stats_f32_wide", compare_stats(cb_w, x300, f32)),
                           ("stats_bf16_wide", compare_stats(cb_w, x300, bf16))):
             compared.append({"kernel": name, "shape": shape, **res})
+        for cd in (f32, bf16):
+            compared.append({"kernel": "cell_stats", "shape": shape,
+                             "codes": str(cd).removeprefix("torch."),
+                             **compare_cell_stats(cb_w, x300, cd)})
         require_no_shallow(f"d300_m{m_w}", ops.launch_counts())
         times[f"d300_m{m_w}"] = (assign_rows(cb_w, x300)
-                                 + stats_rows(cb_w, x300, ("bf16", "f32", "verify")))
+                                 + stats_rows(cb_w, x300, ("bf16", "f32", "verify"))
+                                 + cell_rows(cb_w, x300))
         del cb_w
         torch.cuda.empty_cache()
     largest = {"encode_f32_wide": "ivf100m", "encode_bf16_wide": "ivf100m",
                "encode_verify_wide": "ivf100m", "stats_f32_wide": "ivf100m",
                "stats_verify_wide": "ivf10m", "stats_bf16_wide": "d300_m6",
-               "decode_scalar": "gate_ds2", "decode_int8_scalar": "gate_ds2",
+               "decode_scalar": "gate_ds2", "decode_int8_scalar": "gate_ds2", "cell_stats": "d300_m6",
                **{name: "gate_ds2" for name in KERNELS if name.endswith("_pad")}}
     errors = collections.defaultdict(float)
     for c in compared:

@@ -541,62 +541,45 @@ int launch_bf16(const float* x, const float* cb2, const float* csqn, float* part
 // At every ds above 32 the assignment is assign_wide.cuh's deep kernel
 // (csrc/assign_deep.cuh, the wide encode's, bit for bit; the shallow kernel
 // only where a caller forces route 2), written as codes (m, n) int32.  The
-// statistics
-// then come from the codes in an order fixed by the shapes and the codes
-// alone, with scratch that grows with n*m and not with the number of blocks:
-//   1. a stable LSD radix sort of the n*m cell ids j*k + code (8-bit digits;
-//      per sort tile an integer histogram, an exclusive scan over (digit,
-//      tile) in that order, a stable placement ranked by __match_any_sync),
-//      carrying the row index, so each cell's rows come out in row order;
-//   2. the cells' counts (integer atomics) and their exclusive scan, the
-//      start of each cell's segment;
-//   3. one block per cell adds its segment's subvectors: lanes across the
-//      columns (and across rows where ds < 32), each a strided walk of the
-//      rows in order, then the partials in a fixed order.
-// No float atomics: two launches give the same bits.  In bf16 mode the sums
-// are of the bf16-rounded x.
-
-constexpr int kSortTile = 8192;  // keys a block ranks, 256 at a time
-
-int radix_passes(long long cells) {
-  int bits = 0;
-  while ((1LL << bits) < cells) ++bits;
-  return bits <= 8 ? 1 : (bits + 7) / 8;
-}
-
-// Key and row of key slot g: codes (m, n) in the first pass, else the last
-// pass's output.
-__device__ __forceinline__ void key_at(const int* __restrict__ codes, const int* __restrict__ keys,
-                                       const int* __restrict__ rows, long long g, long long n, int k,
-                                       int& key, int& row) {
-  if (codes != nullptr) {
-    const long long jj = g / n;
-    key = (int)(jj * k) + codes[g];
-    row = (int)(g - jj * n);
-  } else {
-    key = keys[g];
-    row = rows[g];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-digit_hist_kernel(const int* __restrict__ codes, const int* __restrict__ keys, long long N,
-                  long long n, int k, int shift, int T, int* __restrict__ hist) {
-  __shared__ int h[256];
-  h[threadIdx.x] = 0;
-  __syncthreads();
-  const long long base = (long long)blockIdx.x * kSortTile;
-  for (int i = threadIdx.x; i < kSortTile; i += kThreads) {
-    const long long g = base + i;
-    if (g < N) {
-      int key, row;
-      key_at(codes, keys, keys, g, n, k, key, row);
-      atomicAdd(&h[(key >> shift) & 255], 1);  // integers: the count is the same in any order
-    }
-  }
-  __syncthreads();
-  hist[(long long)threadIdx.x * T + blockIdx.x] = h[threadIdx.x];  // digit-major
-}
+// statistics then come from the codes (cell_stats below, also a C entry of
+// its own, rt_cell_stats): a segmented reduction whose time follows the bytes
+// it reads, not the size of the largest cell.
+//   1. A stable LSD radix sort of each subquantizer's codes, carrying the row.
+//      The codes are laid out (m, n), already ordered by j, so sort tiles of
+//      kSortTile keys never cross a j and the key is the code alone: one
+//      8-bit pass at k <= 256, two at k <= 65,536.  A pass is a digit
+//      histogram per tile (laid out (j, digit, tile)), its exclusive scan in
+//      that order (reduce, scan of the block totals, scan again: any number
+//      of blocks), and a placement: each tile ranks its keys in shared memory
+//      (per-warp counts from __match_any_sync, warps in order), then writes
+//      each digit's run to the place the scan gives it.  Each cell's rows come
+//      out in row order.
+//   2. The cells' starts and counts from the sort, not from atomics: with one
+//      pass the scanned histogram at (j, code, tile 0); with two, a lower
+//      bound of the code in j's sorted keys.  Each cell's segment is cut into
+//      chunks of R sorted rows (R = cell_chunk_rows(ds), a function of ds
+//      alone); the chunks' starts are the exclusive scan of ceil(count / R).
+//   3. One warp a chunk (and a column block of at most 32 * L vectors): its
+//      lanes cover the subvector's columns with the widest load the address
+//      allows (float4, float2 or float); it reads ahead the chunk's row
+//      indices, starts U rows' loads before their adds, and adds the rows in
+//      row order from +0.  A cell of one chunk writes its sum directly; a
+//      cell of more writes each chunk's partial to its slot, and a second
+//      launch adds the slots in chunk order from +0 (a cell of no chunk gets
+//      a zero sum).  The largest cell is spread over ceil(count / R) warps.
+// The contract: no float atomics (the only atomics are integer ones in shared
+// memory, one per digit group of a warp); every sum is taken in an order
+// fixed by the shapes and the codes (per column the chunk's rows in row
+// order, then the chunks in order: ops/stats.py cell_stats_reference follows
+// it and the kernels equal it bit for bit), so two launches give the same
+// bits; in bf16 mode the sums are of the bf16-rounded x (a template argument,
+// not a branch in the loop), accumulated in f32; counts are exact integers;
+// an empty cell gets a zero sum and a zero count.  The codes and flags are
+// the assignment's, untouched.  What bounds it on an H100: the bytes of x,
+// read once (each (row, j) subvector in one chunk), plus the codes; the sort
+// moves 4 to 16 bytes a key.  Replaces, with the assignment, the TPU kernels
+// reductive_tpu/ops/stats.py::_stats_kernel (:50) and _stats_verify_kernel
+// (:272) on the wide route.
 
 // Exclusive scan of v[0 .. len) in place, by one block of 1024 threads, 8
 // values a thread at a time.
@@ -647,146 +630,504 @@ __global__ void __launch_bounds__(1024) exclusive_scan_kernel(int* __restrict__ 
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-digit_scatter_kernel(const int* __restrict__ codes, const int* __restrict__ keys_in,
-                     const int* __restrict__ rows_in, long long N, long long n, int k, int shift,
-                     int T, const int* __restrict__ offsets, int* __restrict__ keys_out,
-                     int* __restrict__ rows_out) {
-  __shared__ int running[256];
-  __shared__ int warp_cnt[kWarps][256];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  running[threadIdx.x] = offsets[(long long)threadIdx.x * T + blockIdx.x];
+namespace cells {
+
+constexpr int kSortTile = 4096;                     // keys a sort block ranks
+constexpr int kWarpKeys = kSortTile / kWarps;       // of them, each warp's, in order
+constexpr int kScanBlock = kThreads * 16;           // values a scan block takes
+constexpr int kScatterBytes = 4 * (3 * kSortTile + kWarps * 256 + 2 * 256 + kWarps);
+
+// Sorted rows a chunk holds: the largest power of two R with R * ds <= 16384,
+// within [32, 256] (ops/stats.py cell_chunk_rows).
+int chunk_rows(int ds) {
+  int r = 1;
+  while (r < 256 && 2LL * r * ds <= 16384) r *= 2;
+  return r < 32 ? 32 : r;
+}
+
+// Keys N = n m, cells C = m k, sort tiles a subquantizer Tj, histogram
+// entries H, chunks at most Q, scan blocks nb; rows a chunk R, sort passes.
+struct Layout {
+  long long N, C, Tj, H, Q, nb;
+  int R, passes;
+};
+
+Layout layout(long long n, int m, int k, int ds) {
+  Layout l;
+  l.N = n * m;
+  l.C = (long long)m * k;
+  l.R = chunk_rows(ds);
+  l.passes = k <= 256 ? 1 : 2;  // 8-bit digits of the code
+  l.Tj = (n + kSortTile - 1) / kSortTile;
+  l.H = (long long)m * 256 * l.Tj;
+  l.Q = l.N / l.R + l.C;  // chunks at most: sum ceil(count / R) <= N / R + C
+  const long long longest = l.H > l.C + 1 ? l.H : l.C + 1;
+  l.nb = (longest + kScanBlock - 1) / kScanBlock;
+  return l;
+}
+
+// int32 words of rt_cell_stats's scratch: the chunks' partial sums (Q, ds)
+// f32, the sorted rows (and, with two passes, the keys, double-buffered), the
+// digit histogram and its scan, the scan's block totals, the cells' starts
+// and the chunks' starts.
+long long scratch_words(long long n, int m, int k, int ds) {
+  const Layout l = layout(n, m, k, ds);
+  return l.Q * ds + (l.passes == 1 ? 1 : 4) * l.N + 2 * l.H + l.nb + 2 * (l.C + 1);
+}
+
+// ---- scans of int32 over any number of blocks ----
+
+__device__ __forceinline__ int block_reduce(int v, int* warp_sum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) warp_cnt[w][threadIdx.x] = 0;
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (lane == 0) warp_sum[warp] = v;
   __syncthreads();
-  const long long base = (long long)blockIdx.x * kSortTile;
-  for (int c0 = 0; c0 < kSortTile; c0 += kThreads) {
-    const long long g = base + c0 + threadIdx.x;
-    const bool valid = g < N;
-    int key = 0, row = 0;
-    if (valid) key_at(codes, keys_in, rows_in, g, n, k, key, row);
-    const int digit = valid ? (key >> shift) & 255 : 256;
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) total += warp_sum[w];
+  return total;
+}
+
+// Exclusive scan of v over the block's threads (in thread order); total out.
+__device__ __forceinline__ int block_exclusive(int v, int* warp_sum, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? warp_sum[w] : 0;
+    total += warp_sum[w];
+  }
+  return before + incl - v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+scan_reduce_kernel(const int* __restrict__ in, long long len, int* __restrict__ parts) {
+  __shared__ int warp_sum[kWarps];
+  const long long base = (long long)blockIdx.x * kScanBlock;
+  int v = 0;
+  for (int i = threadIdx.x; i < kScanBlock; i += kThreads)
+    if (base + i < len) v += in[base + i];
+  const int total = block_reduce(v, warp_sum);
+  if (threadIdx.x == 0) parts[blockIdx.x] = total;
+}
+
+// out = exclusive scan of in (out may be in), given parts = the exclusive
+// scan of the blocks' totals.
+__global__ void __launch_bounds__(kThreads)
+scan_down_kernel(const int* in, int* out, long long len, const int* __restrict__ parts) {
+  constexpr int kItems = kScanBlock / kThreads;
+  __shared__ int warp_sum[kWarps];
+  const long long at = (long long)blockIdx.x * kScanBlock + (long long)threadIdx.x * kItems;
+  int item[kItems];
+  int own = 0;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    item[i] = at + i < len ? in[at + i] : 0;
+    own += item[i];
+  }
+  int total;
+  int run = parts[blockIdx.x] + block_exclusive(own, warp_sum, total);
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    if (at + i < len) out[at + i] = run;
+    run += item[i];
+  }
+}
+
+cudaError_t scan(const int* in, int* out, long long len, int* parts, cudaStream_t s) {
+  const long long nb = (len + kScanBlock - 1) / kScanBlock;
+  scan_reduce_kernel<<<(unsigned)nb, kThreads, 0, s>>>(in, len, parts);
+  exclusive_scan_kernel<<<1, 1024, 0, s>>>(parts, nb);
+  scan_down_kernel<<<(unsigned)nb, kThreads, 0, s>>>(in, out, len, parts);
+  return cudaGetLastError();
+}
+
+// ---- the radix sort by code within each subquantizer ----
+
+// Block b = j * Tj + t: the digit counts of tile t of subquantizer j's keys,
+// written at hist[(j * 256 + digit) * Tj + t].
+__global__ void __launch_bounds__(kThreads)
+sort_hist_kernel(const int* __restrict__ keys, long long n, int shift, int Tj,
+                 int* __restrict__ hist) {
+  __shared__ int h[256];
+  const int j = blockIdx.x / Tj, t = blockIdx.x - j * Tj;
+  const int lane = threadIdx.x & 31;
+  const int* seg = keys + (long long)j * n + (long long)t * kSortTile;
+  const int len = (int)min((long long)kSortTile, n - (long long)t * kSortTile);
+  h[threadIdx.x] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < kSortTile; i += kThreads) {
+    const int digit = i < len ? (seg[i] >> shift) & 255 : 256;
     const unsigned int peers = __match_any_sync(0xffffffffu, digit);
-    const int before = __popc(peers & ((1u << lane) - 1u));
-    if (valid && before == 0) warp_cnt[warp][digit] = __popc(peers);
-    __syncthreads();
-    if (valid) {
-      int pos = running[digit] + before;
-      for (int w = 0; w < warp; ++w) pos += warp_cnt[w][digit];
-      keys_out[pos] = key;
-      rows_out[pos] = row;
-    }
-    __syncthreads();
-    int add = 0;
+    // integers, one add a digit group of a warp: the count is the same in any order
+    if (digit < 256 && lane == __ffs(peers) - 1) atomicAdd(&h[digit], __popc(peers));
+  }
+  __syncthreads();
+  hist[((long long)j * 256 + threadIdx.x) * Tj + t] = h[threadIdx.x];
+}
+
+// Block b = j * Tj + t places tile t of subquantizer j: ranks its keys in
+// shared memory (stable: warps in order, each its keys in order), then writes
+// each digit's run from offs[(j * 256 + digit) * Tj + t], the scanned
+// histogram.  FIRST: the keys are the codes and the row of key i is its index;
+// else the rows come from rows_in.  KEYS_OUT: the keys are written too.
+template <bool FIRST, bool KEYS_OUT>
+__global__ void __launch_bounds__(kThreads)
+sort_scatter_kernel(const int* __restrict__ keys_in, const int* __restrict__ rows_in, long long n,
+                    int shift, int Tj, const int* __restrict__ offs, int* __restrict__ keys_out,
+                    int* __restrict__ rows_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_keys = reinterpret_cast<int*>(smem);  // [kSortTile] in tile order
+  int* s_rows = s_keys + kSortTile;            // [kSortTile] in sorted order
+  int* s_out = s_rows + kSortTile;             // [kSortTile] keys (KEYS_OUT) or digits, sorted
+  int* wpos = s_out + kSortTile;               // [kWarps][256]
+  int* lstart = wpos + kWarps * 256;           // [256] each digit's start in the tile
+  int* gbase = lstart + 256;                   // [256] and in the output
+  int* warp_sum = gbase + 256;                 // [kWarps]
+  const int j = blockIdx.x / Tj, t = blockIdx.x - j * Tj;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long at = (long long)j * n + (long long)t * kSortTile;
+  const int len = (int)min((long long)kSortTile, n - (long long)t * kSortTile);
+  for (int i = threadIdx.x; i < len; i += kThreads) s_keys[i] = keys_in[at + i];
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) wpos[w * 256 + threadIdx.x] = 0;
+  __syncthreads();
+  const int w0 = warp * kWarpKeys;
+  for (int r = 0; r < kWarpKeys; r += 32) {
+    const int i = w0 + r + lane;
+    const int digit = i < len ? (s_keys[i] >> shift) & 255 : 256;
+    const unsigned int peers = __match_any_sync(0xffffffffu, digit);
+    if (digit < 256 && lane == __ffs(peers) - 1) wpos[warp * 256 + digit] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  {  // thread d: digit d's start in the tile, and each warp's start within it
+    const int d = threadIdx.x;
+    int count = 0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      add += warp_cnt[w][threadIdx.x];
-      warp_cnt[w][threadIdx.x] = 0;
+      const int c = wpos[w * 256 + d];
+      wpos[w * 256 + d] = count;
+      count += c;
     }
-    running[threadIdx.x] += add;
-    __syncthreads();
+    int total;
+    const int start = block_exclusive(count, warp_sum, total);
+    lstart[d] = start;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) wpos[w * 256 + d] += start;
+    gbase[d] = offs[((long long)j * 256 + d) * Tj + t];
+  }
+  __syncthreads();
+  for (int r = 0; r < kWarpKeys; r += 32) {
+    const int i = w0 + r + lane;
+    const bool valid = i < len;
+    const int key = valid ? s_keys[i] : 0;
+    const int digit = valid ? (key >> shift) & 255 : 256;
+    const unsigned int peers = __match_any_sync(0xffffffffu, digit);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    const int pos = valid ? wpos[warp * 256 + digit] + rank : 0;
+    __syncwarp();
+    if (valid) {
+      if (rank == 0) wpos[warp * 256 + digit] += __popc(peers);
+      s_rows[pos] = FIRST ? t * kSortTile + i : rows_in[at + i];
+      s_out[pos] = KEYS_OUT ? key : digit;
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < len; i += kThreads) {
+    const int v = s_out[i];
+    const int digit = KEYS_OUT ? (v >> shift) & 255 : v;
+    const long long to = gbase[digit] + (i - lstart[digit]);
+    rows_out[to] = s_rows[i];
+    if constexpr (KEYS_OUT) keys_out[to] = v;
   }
 }
 
+template <bool FIRST, bool KEYS_OUT>
+cudaError_t place(const int* keys_in, const int* rows_in, long long n, int m, int shift, int Tj,
+                  const int* offs, int* keys_out, int* rows_out, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(sort_scatter_kernel<FIRST, KEYS_OUT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kScatterBytes);
+  if (err != cudaSuccess) return err;
+  sort_scatter_kernel<FIRST, KEYS_OUT><<<(unsigned)((long long)m * Tj), kThreads, kScatterBytes, s>>>(
+      keys_in, rows_in, n, shift, Tj, offs, keys_out, rows_out);
+  return cudaGetLastError();
+}
+
+// ---- cells and chunks ----
+
+// First position p in [0, len) with keys[p] >= v (len if none).
+__device__ __forceinline__ long long lower_bound(const int* keys, long long len, int v) {
+  long long lo = 0, hi = len;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (keys[mid] < v) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// Thread per cell (j, c), and one for the end: the cell's first sorted
+// position, its count (as f32) and its number of chunks (0 at index C).
+// keys == nullptr: one pass, the starts read off the scanned histogram; else
+// the sorted keys of the last pass.
 __global__ void __launch_bounds__(kThreads)
-cell_count_kernel(const int* __restrict__ codes, long long N, long long n, int k,
-                  int* __restrict__ count) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long g = (long long)blockIdx.x * kThreads + threadIdx.x; g < N; g += stride) {
-    const long long jj = g / n;
-    atomicAdd(count + jj * k + codes[g], 1);
+cell_bounds_kernel(const int* __restrict__ offs, const int* __restrict__ keys, long long n, int k,
+                   int Tj, long long C, int R, int* __restrict__ cell_start,
+                   int* __restrict__ nchunks, float* __restrict__ counts) {
+  const long long cell = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (cell > C) return;
+  if (cell == C) {
+    cell_start[C] = (int)(C / k * n);
+    nchunks[C] = 0;
+    return;
+  }
+  const long long j = cell / k;
+  const int c = (int)(cell - j * k);
+  long long start, end;
+  if (keys == nullptr) {
+    start = offs[(j * 256 + c) * Tj];
+    end = c + 1 < 256 ? offs[(j * 256 + c + 1) * Tj] : (j + 1) * n;
+  } else {
+    start = j * n + lower_bound(keys + j * n, n, c);
+    end = j * n + lower_bound(keys + j * n, n, c + 1);
+  }
+  const long long count = end - start;
+  cell_start[cell] = (int)start;
+  nchunks[cell] = (int)((count + R - 1) / R);
+  counts[cell] = (float)count;
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = __ldg(p);
   }
 }
 
-// One block per cell: sums[cell, :] over the rows of its segment, in order.
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (V == 2) *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else *p = v[0];
+}
+
+// Warp q: chunk q, columns (vectors of V floats) blockIdx.y * 32 L + lane +
+// 32 i, i < L.  Its rows are added in row order from +0, U rows' loads started
+// before their adds.  A cell of one chunk writes its sums; else the chunk's
+// partial goes to partial[q].
+template <int V, int L, bool BF16>
 __global__ void __launch_bounds__(kThreads)
-segment_sums_kernel(const float* __restrict__ x, const int* __restrict__ rows,
-                    const int* __restrict__ start, float* __restrict__ sums,
-                    float* __restrict__ counts, int m, int k, int ds, int bf16) {
-  __shared__ float part[kThreads];
-  const long long cell = blockIdx.x;
-  const int j = (int)(cell / k);
-  const int s0 = start[cell], s1 = start[cell + 1];
-  if (threadIdx.x == 0) counts[cell] = (float)(s1 - s0);
+chunk_sums_kernel(const float* __restrict__ x, const int* __restrict__ rows,
+                  const int* __restrict__ cell_start, const int* __restrict__ chunk_start,
+                  float* __restrict__ partial, float* __restrict__ sums, long long C, int k, int ds,
+                  long long d, int R) {
+  constexpr int U = L == 1 ? 8 : (L == 2 ? 4 : (L == 3 ? 3 : 2));
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int cw = ds < 32 ? ds : 32;  // columns a warp takes at once
-  const int rpw = 32 / cw;           // rows a warp takes at once
-  const int groups = kWarps * rpw;   // rows the block takes at once
-  const bool active = lane < rpw * cw;
-  const int col = lane % cw;
-  const int rs = warp * rpw + lane / cw;
-  const long long d = (long long)m * ds;
-  const float* xj = x + (long long)j * ds;
-  for (int t0 = 0; t0 < ds; t0 += cw) {
-    if (active) {
-      float acc = 0.0f;
-      if (t0 + col < ds) {
-        for (int p = s0 + rs; p < s1; p += groups) {
-          float v = xj[(long long)rows[p] * d + t0 + col];
-          if (bf16) v = __bfloat162float(__float2bfloat16_rn(v));
-          acc += v;
+  const long long q = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (q >= chunk_start[C]) return;
+  long long lo = 0, hi = C;  // chunk_start[lo] <= q < chunk_start[hi]
+  while (hi - lo > 1) {
+    const long long mid = (lo + hi) >> 1;
+    if (chunk_start[mid] <= q) lo = mid;
+    else hi = mid;
+  }
+  const long long cell = lo;
+  const int first = chunk_start[cell];
+  const bool alone = chunk_start[cell + 1] - first == 1;
+  const int p0 = cell_start[cell] + ((int)q - first) * R;
+  const int p1 = min(p0 + R, cell_start[cell + 1]);
+  const int W = ds / V;
+  const int v0 = blockIdx.y * 32 * L + lane;
+  const float* xj = x + (cell / k) * ds;
+  float acc[L][V];
+#pragma unroll
+  for (int i = 0; i < L; ++i)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[i][e] = 0.0f;
+  int idx = p0 + lane < p1 ? rows[p0 + lane] : 0;
+  for (int base = p0; base < p1; base += 32) {
+    const int cnt = min(32, p1 - base);
+    const int ahead = base + 32 + lane < p1 ? rows[base + 32 + lane] : 0;  // the next 32 rows
+    for (int u0 = 0; u0 < cnt; u0 += U) {
+      float v[U][L][V];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = __shfl_sync(0xffffffffu, idx, (u0 + u) & 31);
+        const float* xr = xj + (long long)r * d;
+#pragma unroll
+        for (int i = 0; i < L; ++i) {
+          if (u0 + u < cnt && v0 + 32 * i < W) {
+            load_vec<V>(xr + (v0 + 32 * i) * V, v[u][i]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < V; ++e) v[u][i][e] = 0.0f;
+          }
         }
       }
-      part[rs * cw + col] = acc;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (u0 + u < cnt) {
+#pragma unroll
+          for (int i = 0; i < L; ++i)
+#pragma unroll
+            for (int e = 0; e < V; ++e) {
+              float t = v[u][i][e];
+              if constexpr (BF16) t = __bfloat162float(__float2bfloat16_rn(t));
+              acc[i][e] += t;
+            }
+        }
+      }
     }
-    __syncthreads();
-    if (threadIdx.x < cw && t0 + threadIdx.x < ds) {
-      float total = 0.0f;
-      for (int r = 0; r < groups; ++r) total += part[r * cw + threadIdx.x];
-      sums[cell * ds + t0 + threadIdx.x] = total;
-    }
-    __syncthreads();
+    idx = ahead;
+  }
+  float* out = alone ? sums + cell * ds : partial + q * ds;
+#pragma unroll
+  for (int i = 0; i < L; ++i)
+    if (v0 + 32 * i < W) store_vec<V>(out + (v0 + 32 * i) * V, acc[i]);
+}
+
+// Thread per (cell, column) of a cell of no chunk or of several: the chunks'
+// partials added in chunk order from +0.
+__global__ void __launch_bounds__(kThreads)
+cell_sums_kernel(const float* __restrict__ partial, const int* __restrict__ chunk_start,
+                 float* __restrict__ sums, long long total, int ds) {
+  constexpr int kAhead = 16;
+  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (g >= total) return;
+  const long long cell = g / ds;
+  const int col = (int)(g - cell * ds);
+  const int q0 = chunk_start[cell], q1 = chunk_start[cell + 1];
+  if (q1 - q0 == 1) return;  // the chunk kernel wrote it
+  float acc = 0.0f;
+  for (int q = q0; q < q1; q += kAhead) {
+    float v[kAhead];
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) v[i] = q + i < q1 ? partial[(long long)(q + i) * ds + col] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i)
+      if (q + i < q1) acc += v[i];
+  }
+  sums[g] = acc;
+}
+
+template <int V, int L>
+cudaError_t launch_chunks(bool bf16, dim3 grid, const float* x, const int* rows,
+                          const int* cell_start, const int* chunk_start, float* partial,
+                          float* sums, long long C, int k, int ds, long long d, int R,
+                          cudaStream_t s) {
+  if (bf16)
+    chunk_sums_kernel<V, L, true><<<grid, kThreads, 0, s>>>(x, rows, cell_start, chunk_start,
+                                                            partial, sums, C, k, ds, d, R);
+  else
+    chunk_sums_kernel<V, L, false><<<grid, kThreads, 0, s>>>(x, rows, cell_start, chunk_start,
+                                                             partial, sums, C, k, ds, d, R);
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t launch_chunks_v(int L, bool bf16, dim3 grid, const float* x, const int* rows,
+                            const int* cell_start, const int* chunk_start, float* partial,
+                            float* sums, long long C, int k, int ds, long long d, int R,
+                            cudaStream_t s) {
+  switch (L) {
+    case 1: return launch_chunks<V, 1>(bf16, grid, x, rows, cell_start, chunk_start, partial, sums, C, k, ds, d, R, s);
+    case 2: return launch_chunks<V, 2>(bf16, grid, x, rows, cell_start, chunk_start, partial, sums, C, k, ds, d, R, s);
+    case 3: return launch_chunks<V, 3>(bf16, grid, x, rows, cell_start, chunk_start, partial, sums, C, k, ds, d, R, s);
+    default: return launch_chunks<V, 4>(bf16, grid, x, rows, cell_start, chunk_start, partial, sums, C, k, ds, d, R, s);
   }
 }
 
-// int32 words of the scratch of rt_assign_stats_wide: two key and two row
-// buffers of n*m, the digit histogram, the cells' starts.
-long long wide_scratch_words(long long n, int m, int k) {
-  const long long N = n * m;
-  const long long T = (N + kSortTile - 1) / kSortTile;
-  return 4 * N + 256 * T + (long long)m * k + 1;
+// The statistics of codes (m, n) int32, each in [0, k), over x (n, m*ds) f32
+// on 4 bytes: sums (m, k, ds) and counts (m, k) f32, on 16 bytes.  -1 for a
+// shape it does not take.
+int cell_stats(const int* codes, const float* x, int* scratch, float* sums, float* counts,
+               long long n, int m, int k, int ds, bool bf16, cudaStream_t s) {
+  if (n <= 0 || m <= 0 || k <= 0 || k > 65536 || ds <= 0) return -1;
+  const Layout l = layout(n, m, k, ds);
+  if (l.N > 0x7fffffffLL || l.C > 0x7fffffffLL || l.Q > 0x7fffffffLL || l.H > 0x7fffffffLL) return -1;
+  float* partial = reinterpret_cast<float*>(scratch);
+  int* rows[2] = {scratch + l.Q * ds, nullptr};
+  int* keys[2] = {nullptr, nullptr};
+  int* p = rows[0] + l.N;
+  if (l.passes == 2) {
+    rows[1] = p;
+    keys[0] = p + l.N;
+    keys[1] = p + 2 * l.N;
+    p += 3 * l.N;
+  }
+  int* hist = p;
+  int* offs = hist + l.H;
+  int* parts = offs + l.H;
+  int* cell_start = parts + l.nb;
+  int* chunk_start = cell_start + l.C + 1;
+  const int Tj = (int)l.Tj;
+  cudaError_t err;
+
+  for (int pass = 0; pass < l.passes; ++pass) {
+    const int* kin = pass == 0 ? codes : keys[0];
+    sort_hist_kernel<<<(unsigned)((long long)m * Tj), kThreads, 0, s>>>(kin, n, 8 * pass, Tj, hist);
+    if ((err = scan(hist, offs, l.H, parts, s)) != cudaSuccess) return (int)err;
+    if (l.passes == 1)
+      err = place<true, false>(codes, nullptr, n, m, 0, Tj, offs, nullptr, rows[0], s);
+    else if (pass == 0)
+      err = place<true, true>(codes, nullptr, n, m, 0, Tj, offs, keys[0], rows[0], s);
+    else
+      err = place<false, true>(keys[0], rows[0], n, m, 8, Tj, offs, keys[1], rows[1], s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int* sorted = rows[l.passes - 1];
+  cell_bounds_kernel<<<(unsigned)((l.C + kThreads) / kThreads), kThreads, 0, s>>>(
+      offs, l.passes == 2 ? keys[1] : nullptr, n, k, Tj, l.C, l.R, cell_start, chunk_start, counts);
+  if ((err = scan(chunk_start, chunk_start, l.C + 1, parts, s)) != cudaSuccess) return (int)err;
+
+  const uintptr_t a = reinterpret_cast<uintptr_t>(x);
+  const int V = ds % 4 == 0 && a % 16 == 0 ? 4 : (ds % 2 == 0 && a % 8 == 0 ? 2 : 1);
+  const int W = ds / V;
+  const int L = W > 96 ? 4 : (W + 31) / 32;
+  const dim3 grid((unsigned)((l.Q + kWarps - 1) / kWarps), (unsigned)((W + 32 * L - 1) / (32 * L)));
+  const long long d = (long long)m * ds;
+  switch (V) {
+    case 4: err = launch_chunks_v<4>(L, bf16, grid, x, sorted, cell_start, chunk_start, partial, sums, l.C, k, ds, d, l.R, s); break;
+    case 2: err = launch_chunks_v<2>(L, bf16, grid, x, sorted, cell_start, chunk_start, partial, sums, l.C, k, ds, d, l.R, s); break;
+    default: err = launch_chunks_v<1>(L, bf16, grid, x, sorted, cell_start, chunk_start, partial, sums, l.C, k, ds, d, l.R, s);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const long long total = l.C * ds;
+  cell_sums_kernel<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      partial, chunk_start, sums, total, ds);
+  return (int)cudaGetLastError();
 }
+
+}  // namespace cells
 
 int assign_stats_wide(const float* x, const void* cb2, const float* csqn, int* codes,
                       const float* escale, float rho, int* flags, int* scratch, float* sums,
                       float* counts, long long n, int m, int k, int ds, int mode, bool deep,
                       cudaStream_t s) {
   if (n <= 0 || m <= 0 || k <= 0 || ds <= 0) return -1;
-  const long long N = n * m, C = (long long)m * k;
-  if (N > 0x7fffffffLL || C > 0x7fffffffLL) return -1;
-  cudaError_t err = assign_wide::launch(x, cb2, csqn, {codes, 1, n, 0}, mode == 1, mode == 2,
-                                        escale, rho, flags, n, m, k, ds, deep, s);
+  if (n * m > 0x7fffffffLL || (long long)m * k > 0x7fffffffLL) return -1;
+  const cudaError_t err = assign_wide::launch(x, cb2, csqn, {codes, 1, n, 0}, mode == 1, mode == 2,
+                                              escale, rho, flags, n, m, k, ds, deep, s);
   if (err != cudaSuccess) return (int)err;
-  const long long T = (N + kSortTile - 1) / kSortTile;
-  if (T > 0x7fffffffLL / 256) return -1;
-  int* keys[2] = {scratch, scratch + N};
-  int* rows[2] = {scratch + 2 * N, scratch + 3 * N};
-  int* hist = scratch + 4 * N;
-  int* start = hist + 256 * T;
-
-  if ((err = cudaMemsetAsync(start, 0, (C + 1) * sizeof(int), s)) != cudaSuccess) return (int)err;
-  const long long count_blocks = (N + kThreads - 1) / kThreads;
-  cell_count_kernel<<<(unsigned)(count_blocks < 65536 ? count_blocks : 65536), kThreads, 0, s>>>(
-      codes, N, n, k, start);
-  exclusive_scan_kernel<<<1, 1024, 0, s>>>(start, C + 1);
-
-  const int passes = radix_passes(C);
-  for (int p = 0; p < passes; ++p) {
-    const int* in_codes = p == 0 ? codes : nullptr;
-    const int* in_keys = p == 0 ? nullptr : keys[(p - 1) & 1];
-    const int* in_rows = p == 0 ? nullptr : rows[(p - 1) & 1];
-    digit_hist_kernel<<<(unsigned)T, kThreads, 0, s>>>(in_codes, in_keys, N, n, k, 8 * p, (int)T,
-                                                       hist);
-    exclusive_scan_kernel<<<1, 1024, 0, s>>>(hist, 256 * T);
-    digit_scatter_kernel<<<(unsigned)T, kThreads, 0, s>>>(in_codes, in_keys, in_rows, N, n, k,
-                                                          8 * p, (int)T, hist, keys[p & 1],
-                                                          rows[p & 1]);
-  }
-  segment_sums_kernel<<<(unsigned)C, kThreads, 0, s>>>(x, rows[(passes - 1) & 1], start, sums,
-                                                       counts, m, k, ds, mode == 1);
-  return (int)cudaGetLastError();
+  return cells::cell_stats(codes, x, scratch, sums, counts, n, m, k, ds, mode == 1, s);
 }
 
 }  // namespace
@@ -841,20 +1182,20 @@ extern "C" int rt_assign_stats_verify(const void* x, const void* cb2, const void
                       true, P, stream);
 }
 
-// Scratch of rt_assign_stats_wide, in int32 words.
-extern "C" long long rt_assign_stats_wide_scratch(long long n, int m, int k) {
-  return wide_scratch_words(n, m, k);
+// Scratch of rt_assign_stats_wide, in int32 words: rt_cell_stats's.
+extern "C" long long rt_assign_stats_wide_scratch(long long n, int m, int k, int ds) {
+  return cells::scratch_words(n, m, k, ds);
 }
 
 // The statistics on the wide route (any ds >= 1; the wrappers take it above
 // ds = 32): the wide assignment into codes (m, n) int32, then the statistics
-// from the codes (see "the wide route" above).  mode: 0 f32, 1 bf16, 2
-// verified (escale (m,) f32, rho, and flags (n,) int32 zeroed by the caller).
-// scratch: the int32 words rt_assign_stats_wide_scratch names; sums (m, k,
-// ds), counts (m, k) f32.  route: kRouteDeep (cb2 and csqn as ops/assign.py
-// deep_operands writes them), or kRouteShallow, which only a caller that
-// forces it takes (the yardstick of the tests and tools).  Returns cudaGetLastError()
-// after the launches; -1 for a shape it does not take.
+// from the codes (cells::cell_stats, see "the wide route" above).  mode: 0
+// f32, 1 bf16, 2 verified (escale (m,) f32, rho, and flags (n,) int32 zeroed
+// by the caller).  scratch: the int32 words rt_assign_stats_wide_scratch
+// names; sums (m, k, ds), counts (m, k) f32.  route: kRouteDeep (cb2 and csqn
+// as ops/assign.py deep_operands writes them), or kRouteShallow, which only a
+// caller that forces it takes (the yardstick of the tests and tools).  Returns
+// cudaGetLastError() after the launches; -1 for a shape it does not take.
 extern "C" int rt_assign_stats_wide(const void* x, const void* cb2, const void* csqn, void* codes,
                                     const void* escale, float rho, void* flags, void* scratch,
                                     void* sums, void* counts, long long n, int m, int k, int ds,
@@ -865,4 +1206,21 @@ extern "C" int rt_assign_stats_wide(const void* x, const void* cb2, const void* 
                            (const float*)escale, rho, (int*)flags, (int*)scratch, (float*)sums,
                            (float*)counts, n, m, k, ds, mode, route == assign_tile::kRouteDeep,
                            (cudaStream_t)stream);
+}
+
+// Scratch of rt_cell_stats, in int32 words.
+extern "C" long long rt_cell_stats_scratch(long long n, int m, int k, int ds) {
+  return cells::scratch_words(n, m, k, ds);
+}
+
+// The wide route's statistics from given codes: codes (m, n) int32, each in
+// [0, k), k <= 65536; x (n, m*ds) f32 (any address on 4 bytes); scratch the
+// int32 words rt_cell_stats_scratch names; sums (m, k, ds) and counts (m, k)
+// f32, on 16 bytes.  bf16: the sums are of the bf16-rounded x.  Returns
+// cudaGetLastError() after the launches; -1 for a shape it does not take.
+extern "C" int rt_cell_stats(const void* codes, const void* x, void* scratch, void* sums,
+                             void* counts, long long n, int m, int k, int ds, int bf16,
+                             void* stream) {
+  return cells::cell_stats((const int*)codes, (const float*)x, (int*)scratch, (float*)sums,
+                           (float*)counts, n, m, k, ds, bf16 != 0, (cudaStream_t)stream);
 }

@@ -55,7 +55,9 @@ _ENTRIES = {
         "stats", (_P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _L, _I, _I, _I, _I, _P)),
     "rt_assign_stats_wide": (
         "stats", (_P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P)),
-    "rt_assign_stats_wide_scratch": ("stats", (_L, _I, _I), _L),
+    "rt_assign_stats_wide_scratch": ("stats", (_L, _I, _I, _I), _L),
+    "rt_cell_stats": ("stats", (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P)),
+    "rt_cell_stats_scratch": ("stats", (_L, _I, _I, _I), _L),
     "rt_probe_wgmma_tf32": ("probe", (_P, _P, _P, _P, _I, _I, _P)),
 }
 
@@ -151,20 +153,21 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(entry: str, counter: str | None, *args) -> None:
+def launch(entry: str, counter: str | tuple[str, ...] | None, *args) -> None:
     """Call one C entry (which launches its kernel on the stream it is given
     and returns ``cudaGetLastError()``), raise if that is not 0, and add one
-    to the kernel's launch count (``counter=None``: a probe, or the table a
-    kernel gathers from, built by its own launch; nothing is counted).  This
-    is the only place a count grows."""
+    to the kernel's launch count (a tuple: to each kernel the entry launches;
+    ``counter=None``: a probe, or the table a kernel gathers from, built by
+    its own launch; nothing is counted).  This is the only place a count
+    grows."""
     rc = query(entry, *args)
     if rc != 0:
         raise RuntimeError(
             f"{entry} failed to launch: "
             + ("shape not taken by the kernel" if rc < 0 else f"CUDA error {rc}")
         )
-    if counter is not None:
-        _counts[counter] += 1
+    for name in (counter,) if isinstance(counter, str) else counter or ():
+        _counts[name] += 1
 
 
 def query(entry: str, *args):

@@ -21,8 +21,11 @@ tile's rows accumulated as they are assigned; at a ``ds`` outside 4, 8, 16,
 32 the instance of ``ops.assign.padded_ds(ds)``, rows and centroids padded
 with zeros, counters ``*_pad``); above, the wide route: the deep kernel of
 ``csrc/assign_deep.cuh`` (the wide encode's, bit for bit) writes its codes,
-a stable radix sort orders the rows by cell and one block per cell adds its
-rows in row order (counters ``*_wide``).  Neither uses float
+then the statistics of those codes, :func:`cell_stats`'s kernels in the same
+C call (counters ``*_wide`` and ``cell_stats``): a stable radix sort of each
+subquantizer's rows by code, each cell cut into chunks of
+:func:`cell_chunk_rows` sorted rows, one warp a chunk adding its rows in row
+order, then each cell's chunks in order.  Neither uses float
 atomics: every sum is taken in an order fixed by the shapes (and, on the
 wide route, the codes), so two launches on the same inputs give the same
 bits.  The plain version and the verified wrapper's corrections add by a
@@ -68,6 +71,7 @@ from .assign import (
 
 __all__ = [
     "pq_assign_stats", "pq_assign_stats_reference",
+    "cell_stats", "cell_stats_reference", "cell_chunk_rows", "cell_chunks",
     "pq_assign_stats_verified", "pq_assign_stats_verify_reference", "pq_assign_stats_verify_flags",
     "STATS_ROUTE", "stats_from_codes", "move_between_cells", "exact_stats_chunked",
 ]
@@ -162,12 +166,13 @@ def _launch_wide(cb2, c_sqn, x, codes, sums, counts, compute_dtype, verify, flag
     """The wide route (``route`` ``"deep"``, from
     ``ops.assign.assign_route``, with ``cb2`` and ``c_sqn`` converted for
     the deep kernel; ``"shallow"`` where a caller forces it): one C entry
-    launches the assignment (``csrc/assign_wide.cuh`` ``launch``), the radix
-    sort by cell and the per-cell sums (``csrc/stats.cu``), into ``codes``
-    (an ``(n, m)`` view of an ``(m, n)`` tensor), ``sums`` and ``counts``."""
+    launches the assignment (``csrc/assign_wide.cuh`` ``launch``) and the
+    statistics of its codes (:func:`cell_stats`'s kernels), into ``codes``
+    (an ``(n, m)`` view of an ``(m, n)`` tensor), ``sums`` and ``counts``;
+    both kernels' counts grow."""
     n = codes.shape[0]
     m, k, ds = sums.shape
-    words = _build.query("rt_assign_stats_wide_scratch", n, m, k)
+    words = _build.query("rt_assign_stats_wide_scratch", n, m, k, ds)
     scratch = torch.empty((words,), dtype=torch.int32, device=x.device)
     if verify is None:
         mode, name = (1, "stats_bf16") if compute_dtype == torch.bfloat16 else (0, "stats_f32")
@@ -177,7 +182,7 @@ def _launch_wide(cb2, c_sqn, x, codes, sums, counts, compute_dtype, verify, flag
         escale = escale.contiguous()
     with torch.cuda.device(x.device):
         _build.launch(
-            "rt_assign_stats_wide", _counter(name, route, ds, x),
+            "rt_assign_stats_wide", (_counter(name, route, ds, x), "cell_stats"),
             x.data_ptr(), cb2.data_ptr(), c_sqn.data_ptr(), codes.data_ptr(),
             None if escale is None else escale.data_ptr(), float(rho),
             None if flags is None else flags.data_ptr(), scratch.data_ptr(),
@@ -202,6 +207,114 @@ def pq_assign_stats(
     if not x.is_cuda:
         return pq_assign_stats_reference(codebooks, x, compute_dtype=compute_dtype)
     sums, counts, _, _ = _launch_stats(codebooks, x, compute_dtype)
+    return sums, counts
+
+
+# -- the wide route's statistics from the codes ------------------------------------
+
+
+def cell_chunk_rows(ds: int) -> int:
+    """Sorted rows a work item of :func:`cell_stats` adds (``R``): the largest
+    power of two with ``R * ds <= 16384``, within [32, 256]; a function of
+    ``ds`` alone (``csrc/stats.cu`` ``cells::chunk_rows``)."""
+    r = 1
+    while r < 256 and 2 * r * ds <= 16384:
+        r *= 2
+    return max(r, 32)
+
+
+def cell_chunks(counts: Tensor, rows: int) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The work items of :func:`cell_stats` from the cells' counts ``(C,)``
+    (int64, cells in sorted order): each cell's segment of the sorted rows
+    cut into chunks of ``rows`` (the last one shorter).  Returns
+    ``chunk_start`` ``(C + 1,)``, the exclusive scan of ``ceil(count /
+    rows)`` (cell ``c``'s chunks are ``chunk_start[c] ..
+    chunk_start[c + 1]``), and for each chunk its cell, its first sorted
+    position and its length, ``(Q,)`` each."""
+    counts = counts.to(torch.int64)
+    dev = counts.device
+    first_row = torch.cumsum(counts, 0) - counts
+    per_cell = (counts + rows - 1) // rows
+    chunk_start = torch.zeros((counts.shape[0] + 1,), dtype=torch.int64, device=dev)
+    torch.cumsum(per_cell, 0, out=chunk_start[1:])
+    cell = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev), per_cell)
+    s = torch.arange(cell.shape[0], device=dev) - chunk_start[cell]
+    first = first_row[cell] + s * rows
+    return chunk_start, cell, first, torch.clamp(counts[cell] - s * rows, max=rows)
+
+
+def cell_stats_reference(
+    codes: Tensor, x: Tensor, k: int, *, round_bf16: bool = False
+) -> tuple[Tensor, Tensor]:
+    """Plain PyTorch version of :func:`cell_stats`, in the kernel's order of
+    addition: a stable sort of each subquantizer's rows by code; each cell's
+    rows cut into chunks (:func:`cell_chunks`, :func:`cell_chunk_rows`);
+    per column, each chunk's rows added in row order from zero (``R`` steps
+    of one gather and one add over all chunks), then each cell's chunks in
+    chunk order from zero.  The kernel equals it bit for bit."""
+    n, m = codes.shape
+    ds = x.shape[1] // m
+    dev = x.device
+    keys = (codes.T.to(torch.int64) + torch.arange(m, device=dev)[:, None] * k).reshape(-1)
+    rows = torch.argsort(keys, stable=True) % n
+    counts = torch.bincount(keys, minlength=m * k)
+    r = cell_chunk_rows(ds)
+    chunk_start, cell, first, length = cell_chunks(counts, r)
+    xs = x.to(torch.float32)
+    if round_bf16:
+        xs = xs.to(torch.bfloat16).to(torch.float32)
+    xs = xs.reshape(n, m, ds)
+    j = cell // k
+    partial = torch.zeros((cell.shape[0], ds), dtype=torch.float32, device=dev)
+    for step in range(r):
+        live = (step < length)[:, None]
+        at = torch.clamp(first + step, max=max(n * m - 1, 0))
+        partial = torch.where(live, partial + xs[rows[at], j], partial)
+    sums = torch.zeros((m * k, ds), dtype=torch.float32, device=dev)
+    per_cell = chunk_start[1:] - chunk_start[:-1]
+    for step in range(int(per_cell.max()) if per_cell.numel() else 0):
+        live = (step < per_cell)[:, None]
+        at = torch.clamp(chunk_start[:-1] + step, max=max(cell.shape[0] - 1, 0))
+        sums = torch.where(live, sums + partial[at], sums)
+    return sums.reshape(m, k, ds), counts.reshape(m, k).to(torch.float32)
+
+
+def cell_stats(codes: Tensor, x: Tensor, k: int, *, round_bf16: bool = False) -> tuple[Tensor, Tensor]:
+    """Sums ``(m, k, ds)`` and counts ``(m, k)`` (float32) of the rows of
+    ``x`` ``(n, m*ds)`` f32 in the cells their ``codes`` ``(n, m)`` name
+    (each in ``[0, k)``): the accumulation half of the wide route's
+    statistics, which :func:`pq_assign_stats` runs after its assignment.
+    ``round_bf16``: the sums are of the bfloat16-rounded ``x``, in f32.
+
+    CUDA tensors go through the kernels of ``csrc/stats.cu`` (``cells``:
+    radix sort by code, chunk sums, chunk partials added per cell; no float
+    atomics, so two launches give the same bits, and the bits of
+    :func:`cell_stats_reference`; ``k <= 65536``); CPU tensors through
+    :func:`cell_stats_reference`.  ``codes`` given as the transposed view of
+    an ``(m, n)`` tensor (the verify kernel's) is read without a copy."""
+    if not x.is_cuda:
+        return cell_stats_reference(codes, x, k, round_bf16=round_bf16)
+    n, m = codes.shape
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != n or x.shape[1] % m:
+        raise ValueError(f"cell_stats: x {tuple(x.shape)} {x.dtype} does not fit codes {(n, m)}")
+    if not 1 <= k <= 65536:
+        raise ValueError(f"cell_stats: k = {k} is outside 1 .. 65536")
+    ds = x.shape[1] // m
+    dev = x.device
+    sums = torch.empty((m, k, ds), dtype=torch.float32, device=dev)
+    counts = torch.empty((m, k), dtype=torch.float32, device=dev)
+    if n == 0:
+        return sums.zero_(), counts.zero_()
+    codes_mn = codes.T.to(torch.int32).contiguous()
+    x = x.contiguous()
+    words = _build.query("rt_cell_stats_scratch", n, m, k, ds)
+    scratch = torch.empty((words,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _build.launch(
+            "rt_cell_stats", "cell_stats", codes_mn.data_ptr(), x.data_ptr(), scratch.data_ptr(),
+            sums.data_ptr(), counts.data_ptr(), n, m, k, ds, int(round_bf16),
+            torch.cuda.current_stream().cuda_stream,
+        )
     return sums, counts
 
 

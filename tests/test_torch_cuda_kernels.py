@@ -35,7 +35,12 @@ bit the plain versions' on adversarial bit patterns, and at d=300, k=256.
 Search keeps the lowest ids among scores tied at the k-th place.  The verified
 statistics give the same bits twice on an adversarial corpus, narrow and
 wide, and so does the plain route on the card.  The probe of the tensor
-cores' accumulation must find what the verify bound assumes.
+cores' accumulation must find what the verify bound assumes.  The wide
+statistics' accumulation from the codes (``ops.stats.cell_stats``) equals its
+plain version bit for bit, twice, on every row in one cell, on half the
+cells empty and on random codes, at ds 3 to 768, k 1 to 65,536, on rows off
+16 bytes and at d not a multiple of 4, and the wide statistics are the
+accumulation of their own codes bit for bit.
 """
 
 import pytest
@@ -198,6 +203,11 @@ STRESS_SHAPES = [
     # every ds the kernel takes, k no multiple of 8, and above one centroid tile
     (2049, 5, 37, 4), (2049, 3, 300, 4), (2049, 5, 37, 16), (2049, 3, 300, 16), (2049, 5, 37, 32),
     (2049, 3, 300, 32),
+    # the wide route (the deep assignment, then the accumulation from its codes:
+    # radix sort by code, chunks of sorted rows) at ds 36, 50, 75 and 150, k = 1,
+    # 256 and 4,096 (two sort passes)
+    (2049, 3, 256, 36), (2049, 3, 256, 50), (2049, 3, 256, 75), (2049, 2, 256, 150),
+    (3000, 2, 1, 50), (3000, 1, 1, 150), (5000, 2, 4096, 36), (5000, 1, 4096, 75),
 ]
 
 
@@ -769,6 +779,14 @@ WIDE_SHAPES = [
 ]
 
 
+def _with_cell_stats(counts):
+    """``counts`` and the launches of ``cell_stats``: every wide statistics
+    launch runs the accumulation from its codes in its C entry."""
+    wide = sum(v for name, v in counts.items()
+               if name.startswith("stats_") and name.endswith(("_wide", "_shallow")))
+    return {**counts, "cell_stats": wide} if wide else counts
+
+
 def _suffix(ds):
     """The counters' suffix at width ds: the narrow kernels' padded instance
     up to 32, the wide route above."""
@@ -823,7 +841,7 @@ def test_wide_stats_kernel_equals_plain_and_itself(dev, n, m, k, ds, compute_dty
     ops.reset_launch_counts()
     sums, counts = ops.pq_assign_stats(cb, x, compute_dtype=compute_dtype)
     again = ops.pq_assign_stats(cb, x, compute_dtype=compute_dtype)
-    assert ops.launch_counts() == {("stats_f32" if f32 else "stats_bf16") + _suffix(ds): 2}
+    assert ops.launch_counts() == _with_cell_stats({("stats_f32" if f32 else "stats_bf16") + _suffix(ds): 2})
     # No float atomics: two launches give the same bits.
     assert torch.equal(sums, again[0]) and torch.equal(counts, again[1])
     assert float(counts.double().sum()) == n * m
@@ -853,7 +871,8 @@ def test_wide_verify_kernels(dev, n, m, k, ds, adversarial):
     again = pq_assign_stats_verify_flags(cb, x)
     assert all(torch.equal(a, b) for a, b in zip((sums, counts, codes, flags), again))
     enc_codes, enc_flags = pq_encode_verify_flags(cb, x, dtype=torch.int32)
-    assert ops.launch_counts() == {"stats_verify" + _suffix(ds): 2, "encode_verify" + _suffix(ds): 1}
+    assert ops.launch_counts() == _with_cell_stats({"stats_verify" + _suffix(ds): 2,
+                                                    "encode_verify" + _suffix(ds): 1})
     assert torch.equal(codes, enc_codes) and torch.equal(flags, enc_flags)
     oracle = primitives.quantize_batch(cb, x, dtype=torch.int32)
     assert not bool(((codes != oracle).any(dim=1) & (flags == 0)).any())
@@ -898,11 +917,11 @@ def test_the_deep_kernel_assigns_as_the_shallow_one(dev, ds, m, k, off, monkeypa
     x = _off(x, off)
     ops.reset_launch_counts()
     deep = _all_modes(cb, x)
-    assert ops.launch_counts() == {name + "_wide": 1 for name in deep}
+    assert ops.launch_counts() == _with_cell_stats({name + "_wide": 1 for name in deep})
     _forced_shallow(monkeypatch)
     ops.reset_launch_counts()
     shallow = _all_modes(cb, x)
-    assert ops.launch_counts() == {name + "_shallow": 1 for name in shallow}
+    assert ops.launch_counts() == _with_cell_stats({name + "_shallow": 1 for name in shallow})
     for name in ("encode_f32", "encode_bf16"):
         assert torch.equal(deep[name], shallow[name]), (name, int((deep[name] != shallow[name]).sum()))
     for name in ("encode_verify", "stats_f32", "stats_bf16", "stats_verify"):
@@ -933,7 +952,7 @@ def test_a_non_finite_neighbour_leaves_the_code_alone(dev, ds, m, off):
     finite, bad = _off(finite.reshape(n, m * ds), off), _off(bad.reshape(n, m * ds), off)
     ops.reset_launch_counts()
     want, got = _all_modes(cb, finite), _all_modes(cb, bad)
-    assert ops.launch_counts() == {name + "_wide": 2 for name in got}
+    assert ops.launch_counts() == _with_cell_stats({name + "_wide": 2 for name in got})
     keep = [j for j in range(m) if j != 1]
     for name, codes in (("encode_f32", None), ("encode_bf16", None), ("encode_verify", 0),
                         ("stats_verify", 2)):
@@ -991,7 +1010,7 @@ def test_the_padded_kernels_assign_as_the_shallow_one(dev, ds, monkeypatch):
     _forced_shallow(monkeypatch)
     ops.reset_launch_counts()
     shallow = _all_modes(cb, x)
-    assert ops.launch_counts() == {name + "_shallow": 1 for name in shallow}
+    assert ops.launch_counts() == _with_cell_stats({name + "_shallow": 1 for name in shallow})
     for name in ("encode_f32", "encode_bf16"):
         assert torch.equal(pad[name], shallow[name]), (name, int((pad[name] != shallow[name]).sum()))
     assert torch.equal(pad["encode_verify"][0], shallow["encode_verify"][0])
@@ -1098,7 +1117,8 @@ def test_kmeans_chunked_takes_the_kernel_at_full_width(dev, d, k):
     ops.reset_launch_counts()
     c_f32, loss_f32 = kmeans.kmeans_with_centroids_chunked(x, init, 2)
     c_ver, loss_ver = kmeans.kmeans_with_centroids_chunked(x, init, 2, compute_dtype="verified")
-    assert ops.launch_counts() == {"stats_f32" + _suffix(d): 2, "stats_verify" + _suffix(d): 2}
+    assert ops.launch_counts() == _with_cell_stats({"stats_f32" + _suffix(d): 2,
+                                                    "stats_verify" + _suffix(d): 2})
     # The verified memberships are the exact path's: the plain route on the CPU.
     c_cpu, loss_cpu = kmeans.kmeans_with_centroids_chunked(x.cpu(), init.cpu(), 2, use_kernel=False)
     assert float((c_ver.cpu() - c_cpu).abs().max()) < 1e-4
@@ -1125,3 +1145,88 @@ def test_the_deep_kernels_instruction_accumulates_as_the_verify_bound_assumes(de
     assert report["kept_bits"] >= 24, report
     assert report["mode"] == "truncate", report
     assert report["max_err_ulps"] <= MODEL_ULPS, report
+
+
+# -- the wide route's accumulation from the codes, alone ---------------------------
+
+
+def _chosen_codes(dev, kind, n, m, k, seed):
+    """Codes (n, m) int32: every row in cell k // 2 (``one_cell``: a cell of
+    many chunks), only even codes (``half_empty``: every odd cell empty), or
+    uniform (``random``)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "one_cell":
+        return torch.full((n, m), k // 2, dtype=torch.int32, device=dev)
+    codes = torch.randint(0, k, (n, m), generator=gen, device=dev, dtype=torch.int32)
+    return codes - codes % 2 if kind == "half_empty" else codes
+
+
+# (n, m, k, ds): the smoke's widths (36 to 768), several sort tiles and scan
+# blocks, k = 1, 4,096 and 65,536 (two sort passes), a narrow ds.
+CELL_SHAPES = [
+    (3000, 3, 256, 36), (20000, 6, 256, 50), (9000, 4, 256, 75), (9000, 2, 256, 150),
+    (5000, 1, 4096, 128), (700, 1, 2000, 768), (4097, 2, 1, 50), (3001, 3, 65536, 40),
+    (1000, 5, 37, 3),
+]
+
+
+@pytest.mark.parametrize("round_bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["one_cell", "half_empty", "random"])
+@pytest.mark.parametrize("n,m,k,ds", CELL_SHAPES)
+def test_cell_stats_kernel_is_the_plain_version_bit_for_bit(dev, n, m, k, ds, kind, round_bf16):
+    # The kernels add in the plain version's order (each chunk's rows in row
+    # order, then the chunks in order): the same bits, twice, and exact counts.
+    codes = _chosen_codes(dev, kind, n, m, k, seed=16)
+    _, x = _data(dev, n, m, 1, ds, seed=17)
+    ops.reset_launch_counts()
+    got = ops.stats.cell_stats(codes, x, k, round_bf16=round_bf16)
+    again = ops.stats.cell_stats(codes, x, k, round_bf16=round_bf16)
+    assert ops.launch_counts() == {"cell_stats": 2}
+    want = ops.stats.cell_stats_reference(codes, x, k, round_bf16=round_bf16)
+    for a, b, c in zip(got, again, want):
+        assert a.shape == c.shape and _same_bits(a, b) and _same_bits(a, c)
+    xr = x.to(torch.bfloat16).to(torch.float32) if round_bf16 else x
+    one_hot = ops.stats.stats_from_codes(codes, xr, k)
+    assert torch.equal(got[1], one_hot[1])
+    tol = 1e-5 * one_hot[0].abs() + 1e-4 * float(one_hot[0].abs().max())
+    assert bool(((got[0] - one_hot[0]).abs() <= tol).all())
+    if kind == "one_cell":
+        assert float(got[1][:, k // 2].min()) == n and float(got[1].sum()) == n * m
+    if kind == "half_empty" and k > 1:
+        assert float(got[1][:, 1::2].abs().sum()) == 0 and float(got[0][:, 1::2].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+@pytest.mark.parametrize("ds,m", [(36, 3), (50, 3), (50, 1), (75, 4), (150, 2), (37, 2)])
+def test_cell_stats_kernel_on_rows_off_16_bytes(dev, ds, m, off):
+    # x one to three floats past 16 bytes, and d = m ds not a multiple of 4:
+    # narrower loads, the same order, so the same bits as the plain version and
+    # as the aligned rows.
+    n, k = 6000, 256
+    codes = _chosen_codes(dev, "random", n, m, k, seed=18)
+    _, x = _data(dev, n, m, 1, ds, seed=19)
+    shifted = _off(x, off)
+    for round_bf16 in (False, True):
+        got = ops.stats.cell_stats(codes, shifted, k, round_bf16=round_bf16)
+        aligned = ops.stats.cell_stats(codes, x, k, round_bf16=round_bf16)
+        want = ops.stats.cell_stats_reference(codes, x, k, round_bf16=round_bf16)
+        for a, b, c in zip(got, aligned, want):
+            assert _same_bits(a, b) and _same_bits(a, c)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,k,ds", [(20000, 6, 256, 50), (5000, 1, 4096, 128), (3000, 2, 300, 75)])
+def test_the_wide_statistics_are_the_accumulation_of_their_codes(dev, n, m, k, ds, compute_dtype):
+    # The wide route runs the assignment and then the accumulation from its
+    # codes in one C call: its sums are cell_stats of the encode's codes (the
+    # same routine assigns both), bit for bit, in every mode.
+    cb, x = _data(dev, n, m, k, ds, seed=20)
+    bf16 = compute_dtype == torch.bfloat16
+    sums, counts = ops.pq_assign_stats(cb, x, compute_dtype=compute_dtype)
+    codes = ops.pq_encode(cb, x, dtype=torch.int32, compute_dtype=compute_dtype)
+    want = ops.stats.cell_stats_reference(codes, x, k, round_bf16=bf16)
+    assert _same_bits(sums, want[0]) and torch.equal(counts, want[1])
+    if not bf16:
+        v_sums, v_counts, v_codes, _ = pq_assign_stats_verify_flags(cb, x)
+        want = ops.stats.cell_stats_reference(v_codes, x, k)
+        assert _same_bits(v_sums, want[0]) and torch.equal(v_counts, want[1])

@@ -3,8 +3,8 @@
 The JAX kernels take any ``ds``; the port's narrow kernels are compiled for
 4, 8, 16 and 32 and take every other ``ds`` up to 32 through their padded
 instances, and every wider ``ds`` takes the wide route
-(``csrc/assign_wide.cuh`` for the assignment, the radix sort and segment sums
-of ``csrc/stats.cu`` for the statistics); decode at a ``ds`` that is no
+(``csrc/assign_deep.cuh`` for the assignment, the accumulation from the codes
+of ``csrc/stats.cu``, ``ops.stats.cell_stats``, for the statistics); decode at a ``ds`` that is no
 multiple of 4 takes the scalar decode of ``csrc/decode.cu``.  Those kernels run only
 on the card (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``); here
 the wrappers take their plain versions, held against the JAX kernels in the

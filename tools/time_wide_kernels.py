@@ -23,10 +23,19 @@ Prints the card's name and power limit, then one JSON line per measurement
   products, without the TMA loads (the producer still arrives on the
   barriers), without the reading and conversion of the rows in registers,
   without the selection, and with one row tile a block instead of the
-  persistent grid; ``csrc/stats.cu``'s ``assign_stats_wide`` at d300_m6
-  without the segment sums, and without the radix sort and the segment sums.
+  persistent grid; ``csrc/stats.cu``'s ``assign_stats_wide`` at every wide
+  statistics shape without the chunk sums (the accumulation's sums of the
+  rows and of the chunks), without the radix sort and the chunk sums, and
+  with twice and half the rows a warp of the chunk kernel has in flight.
   Such a build's results are wrong by design; only its time is read, and the
-  differences are those parts' shares (they overlap).
+  differences are those parts' shares (they overlap).  The text each build
+  replaces must occur exactly once in its file, or the tool stops;
+* the accumulation from the codes alone (``rt_cell_stats``) at every wide
+  statistics shape, on the f32 and on the bf16 assignment's codes, with its
+  byte bound and the largest cell's share of the rows; with ``--against``
+  also the other checkout's accumulation on the same codes (its
+  ``rt_assign_stats_wide`` built with the assignment compiled out), in the
+  order other, this, this, other.
 
 With ``--against DIR`` (another checkout of the repository, for example the
 parent commit unpacked by ``git archive``) the first group is also timed
@@ -39,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -51,7 +61,7 @@ SHAPES = [(1 << 20, 1, 4096, 128), (1 << 19, 1, 16384, 768), (1 << 20, 1, 4096, 
           (4_000_000, 10, 128, 2), (1 << 21, 150, 256, 2), (1 << 21, 30, 256, 10),
           (1 << 21, 6, 256, 50), (1 << 21, 4, 256, 75), (1 << 21, 2, 256, 150)]
 ABLATED_SHAPES = [SHAPES[i] for i in (0, 1, 2, 6)]
-STATS_SHAPES = [SHAPES[6]]
+STATS_SHAPES = [shape for shape in SHAPES if shape[3] > 32]  # the wide route's
 
 H = "assign_deep.cuh"
 _TMA = ("          tma_load(stage, &wmap, full + st, c0, n0, j);\n"
@@ -62,8 +72,20 @@ _TMA = ("          tma_load(stage, &wmap, full + st, c0, n0, j);\n"
         "              tma_load(rows + b * R_::kRowBox, &xmap, full + st, (off + j * ds + c0 + 32 * b) & ~3,\n"
         "                       (int)row0);\n"
         "          }\n")
-_SUMS = ("  segment_sums_kernel<<<(unsigned)C, kThreads, 0, s>>>(x, rows[(passes - 1) & 1], start, sums,\n"
-         "                                                       counts, m, k, ds, mode == 1);\n")
+# The accumulation's sums (csrc/stats.cu cells::cell_stats): the chunk sums
+# and the chunks' partials added per cell.
+_SUMS = [("stats.cu", "  switch (V) {\n", "  if (V == 0x7fffffff) switch (V) {\n"),
+         ("stats.cu", "  cell_sums_kernel<<<", "  if (total < 0) cell_sums_kernel<<<")]
+_SORT = ("stats.cu", "  for (int pass = 0; pass < l.passes; ++pass) {\n",
+         "  for (int pass = 0; pass < 0 * l.passes; ++pass) {\n")
+# The chunk kernel's rows in flight a warp (U, by column vectors a lane L).
+_U = "  constexpr int U = L == 1 ? 8 : (L == 2 ? 4 : (L == 3 ? 3 : 2));\n"
+# Another checkout's wide statistics with the assignment compiled out: its
+# accumulation alone, on codes given.
+_NO_ASSIGN = ("stats.cu",
+              "  cudaError_t err = assign_wide::launch(x, cb2, csqn, {codes, 1, n, 0}, mode == 1, mode == 2,\n"
+              "                                        escale, rho, flags, n, m, k, ds, deep, s);\n",
+              "  cudaError_t err = cudaSuccess;\n")
 # name -> (source, [(file under csrc, text that must occur exactly once, its replacement)])
 ABLATIONS = {
     "whole": ("encode", []),
@@ -106,11 +128,12 @@ ABLATIONS = {
          "  P = (n + kRows - 1) / kRows;\n"),
     ]),
     "stats_whole": ("stats", []),
-    "stats_no_sums": ("stats", [("stats.cu", _SUMS, "")]),
-    "stats_no_sort_sums": ("stats", [
-        ("stats.cu", _SUMS, ""),
-        ("stats.cu", "  for (int p = 0; p < passes; ++p) {\n", "  for (int p = 0; p < 0 * passes; ++p) {\n"),
-    ]),
+    "stats_no_sums": ("stats", _SUMS),
+    "stats_no_sort_sums": ("stats", [*_SUMS, _SORT]),
+    "stats_twice_the_rows_in_flight": ("stats", [
+        ("stats.cu", _U, "  constexpr int U = L == 1 ? 16 : (L == 2 ? 8 : (L == 3 ? 5 : 4));\n")]),
+    "stats_half_the_rows_in_flight": ("stats", [
+        ("stats.cu", _U, "  constexpr int U = L == 1 ? 4 : (L == 2 ? 2 : (L == 3 ? 2 : 1));\n")]),
 }
 
 
@@ -188,18 +211,32 @@ def worker(label: str) -> None:
         torch.cuda.empty_cache()
 
 
-def ablated() -> None:
+def _entries(checkout: Path) -> dict:
+    """The C entries' signatures as ``checkout``'s ``ops/_build.py`` declares
+    them (a file of the standard library's imports only)."""
+    spec = importlib.util.spec_from_file_location(
+        "_other_build", checkout / "reductive_tpu_torch" / "ops" / "_build.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module._ENTRIES
+
+
+def ablated(other: Path | None) -> None:
     sys.path.insert(0, str(ROOT))
     import torch
+    from reductive_tpu_torch import ops
     from reductive_tpu_torch.ops import _build
     from reductive_tpu_torch.ops.assign import _prepare, deep_operands
 
-    csrc = ROOT / "reductive_tpu_torch" / "csrc"
+    builds = {name: (source, swaps, ROOT) for name, (source, swaps) in ABLATIONS.items()}
+    if other is not None:
+        builds["other_accumulation"] = ("stats", [_NO_ASSIGN], other)
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
-        for name, (source, swaps) in ABLATIONS.items():
+        for name, (source, swaps, checkout) in builds.items():
             work = Path(tmp) / name
             work.mkdir()
+            csrc = checkout / "reductive_tpu_torch" / "csrc"
             for src in list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")):
                 text = src.read_text()
                 for file, old, new in swaps:
@@ -212,17 +249,18 @@ def ablated() -> None:
                                             str(work / f"lib{source}.so"), str(work / f"{source}.cu")])
         for name, proc in procs.items():
             if proc.wait() != 0:
-                raise SystemExit(f"{name}: nvcc failed for {ABLATIONS[name][0]}.cu")
+                raise SystemExit(f"{name}: nvcc failed for {builds[name][0]}.cu")
 
-        def entry(name, fn_name):
-            fn = getattr(ctypes.CDLL(str(Path(tmp) / name / f"lib{ABLATIONS[name][0]}.so")), fn_name)
-            fn.argtypes = list(_build._ENTRIES[fn_name][1])
-            fn.restype = _build._ENTRIES[fn_name][2] if len(_build._ENTRIES[fn_name]) > 2 else ctypes.c_int
+        def entry(name, fn_name, entries=_build._ENTRIES, check=True):
+            fn = getattr(ctypes.CDLL(str(Path(tmp) / name / f"lib{builds[name][0]}.so")), fn_name)
+            fn.argtypes = list(entries[fn_name][1])
+            fn.restype = entries[fn_name][2] if len(entries[fn_name]) > 2 else ctypes.c_int
 
             def call(*args):
                 rc = fn(*args)
-                if rc != 0:
+                if check and rc != 0:
                     raise SystemExit(f"{name}: {fn_name} returned {rc}")
+                return rc
             return call
 
         stream = torch.cuda.current_stream().cuda_stream
@@ -244,10 +282,15 @@ def ablated() -> None:
             torch.cuda.empty_cache()
         stats_builds = [name for name, (source, _) in ABLATIONS.items() if source == "stats"]
         stats = {name: entry(name, "rt_assign_stats_wide") for name in stats_builds}
+        if other is not None:
+            theirs = _entries(other)
+            their_stage = entry("other_accumulation", "rt_assign_stats_wide", theirs)
+            their_words = entry("other_accumulation", "rt_assign_stats_wide_scratch", theirs, False)
         for n, m, k, ds in STATS_SHAPES:
+            shape = f"n={n} d={m * ds} m={m} k={k} ds={ds}"
             cb, x = make(n, m, k, ds)
-            words = _build.query("rt_assign_stats_wide_scratch", n, m, k)
-            scratch = torch.empty((words,), dtype=torch.int32, device="cuda")
+            scratch = torch.empty((_build.query("rt_assign_stats_wide_scratch", n, m, k, ds),),
+                                  dtype=torch.int32, device="cuda")
             codes = torch.empty((m, n), dtype=torch.int32, device="cuda")
             sums = torch.empty((m, k, ds), device="cuda")
             counts = torch.empty((m, k), device="cuda")
@@ -258,9 +301,34 @@ def ablated() -> None:
                         None, scratch.data_ptr(), sums.data_ptr(), counts.data_ptr(), n, m, k, ds,
                         mode, 1, stream)
                 times = {name: time_ms(lambda: stats[name](*args)) for name in stats_builds}
-                emit(shape=f"n={n} d={m * ds} m={m} k={k} ds={ds}",
-                     kernel="stats_bf16_wide" if mode else "stats_f32_wide", ablated_ms=times)
+                emit(shape=shape, kernel="stats_bf16_wide" if mode else "stats_f32_wide",
+                     ablated_ms=times)
                 del w, norms
+                # The accumulation alone on this assignment's codes: this checkout's
+                # C entry, and with --against the other's, in turns.
+                mine = ops.pq_encode(cb, x, dtype=torch.int32, compute_dtype=cd).T.contiguous()
+                alone = {"this": lambda: _build.launch(
+                    "rt_cell_stats", None, mine.data_ptr(), x.data_ptr(), scratch.data_ptr(),
+                    sums.data_ptr(), counts.data_ptr(), n, m, k, ds, mode, stream)}
+                if other is not None:
+                    arity = len(theirs["rt_assign_stats_wide_scratch"][1])  # (n, m, k[, ds])
+                    other_scratch = torch.empty((their_words(*(n, m, k, ds)[:arity]),),
+                                                dtype=torch.int32, device="cuda")
+                    alone["other"] = lambda: their_stage(
+                        x.data_ptr(), None, None, mine.data_ptr(), None, 0.0, None,
+                        other_scratch.data_ptr(), sums.data_ptr(), counts.data_ptr(), n, m, k, ds,
+                        mode, 1, stream)
+                turns = ("other", "this", "this", "other") if other is not None else ("this", "this")
+                stage = {label: [] for label in alone}
+                for label in turns:
+                    stage[label].append(time_ms(alone[label]))
+                share = float(torch.stack([torch.bincount(row, minlength=k) for row in mine]).max()) / n
+                emit(shape=shape, kernel="cell_stats", codes="bf16" if mode else "f32",
+                     accumulation_ms=stage, largest_cell_share=share,
+                     bound_ms=(4 * n * m + 4 * n * m * ds + 4 * m * k * (ds + 1)) / 3.35e9)
+                del mine, alone
+                if other is not None:
+                    del other_scratch
             del cb, x, scratch, codes, sums, counts
             torch.cuda.empty_cache()
 
@@ -283,7 +351,7 @@ def main() -> int:
         turns = [("other", other), ("this", ROOT), ("this", ROOT), ("other", other)]
     for label, cwd in turns:
         subprocess.run([*me, "--worker", label], cwd=cwd, check=True)
-    ablated()
+    ablated(args.against.resolve() if args.against else None)
     return 0
 
 
