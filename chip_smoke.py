@@ -25,6 +25,9 @@ decode kernels and the padded encode and statistics kernels at d=300, k=256
 (``cell_stats``) bit for bit to its plain version on the assignment's f32 and
 bf16 codes at every deep shape.  The serving phase also searches
 a corpus whose k-th place is always tied and holds the ids to a stable sort's.
+Every ADC kernel, the int8 ones included, is held to its plain version bit
+for bit, and so are the ADC tables the wrappers build on the card (the int8
+tables, scales and offsets, and the f32 tables of the bf16 splits).
 Every phase prints one JSON line.  The run fails (non-zero exit, no result
 line) without a CUDA device, when a kernel does not build, does not launch
 or disagrees, or when a path did not go through its kernels.  The last line
@@ -60,12 +63,14 @@ import torch
 
 from reductive_tpu_torch import Pq, io, kmeans, ops, train_opq_chunked, train_pq, train_pq_chunked
 from reductive_tpu_torch.ops import _build
-from reductive_tpu_torch.ops.adc import quantize_tables_int8
+from reductive_tpu_torch.ops.adc import adc_launcher, adc_table_int8, quantize_tables_int8
 from reductive_tpu_torch.ops.assign import (
     VERIFY_ENCODE_CHUNK, _prepare, bf16_tile_plan, pq_encode_verify_flags, reset_verify_tiers,
     assign_route, deep_producer, verify_caps, verify_scale, verify_tiers,
 )
-from reductive_tpu_torch.ops.decode import decode_table, launch_decode, quantize_codebook_int8
+from reductive_tpu_torch.ops.decode import (
+    decode_table, effective_codebook, launch_decode, quantize_codebook_int8,
+)
 from reductive_tpu_torch.ops.probe import probe_wgmma_tf32
 from reductive_tpu_torch.ops.stats import (
     cell_stats, cell_stats_reference, pq_assign_stats_verify_flags, stats_from_codes,
@@ -99,7 +104,7 @@ PEAK_OPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
 BEFORE_MS = {"stats_f32": 13.04, "stats_bf16": 6.02, "stats_verify": 17.37,
              "stats_verify_kernel": 16.86, "encode_f32": 8.70, "encode_bf16": 5.29,
              "encode_verify": 12.72, "encode_verify_kernel": 11.29, "adc": 0.698,
-             "adc_u4": 0.557}
+             "adc_u4": 0.557, "adc_int8": 0.921, "adc_int8_u4": 0.604}
 
 KERNELS = {
     "encode_f32": ("reductive_tpu_torch/csrc/encode.cu", "reductive_tpu/ops/assign.py:138"),
@@ -258,22 +263,40 @@ def bits_differ(got, want) -> int:
 
 
 def compare_adc(tables, codes, splits):
-    """Kernel against plain version: for splits 1 to 3 bit for bit (both add
-    the m entries in the order j = 0..m-1); for ``"int8"`` rtol 1e-5 with atol
-    1e-5 * max|score|, the scores that differ in any bit counted beside."""
+    """Kernel against plain version, bit for bit: for splits 1 to 3 both add
+    the m entries in the order j = 0..m-1; for ``"int8"`` both take the exact
+    int32 sum (the kernel's order does not change it), then one rounded
+    multiply and one rounded add."""
     got = ops.adc_scores_kernel(tables, codes, splits=splits)
     want = ops.adc_scores_reference(tables, codes, splits=splits)
     torch.cuda.synchronize()
     require(got.shape == want.shape, "adc: shape")
-    err = (got - want).abs()
     n_bits = bits_differ(got, want)
-    if splits == "int8":
-        tol = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
-        n_mismatch = int((err > tol).sum())
-    else:
-        n_mismatch = n_bits
-    require(n_mismatch == 0, f"adc splits={splits}: {n_mismatch} scores differ")
-    return {"n_mismatch": n_mismatch, "n_bits_differ": n_bits, "max_abs_err": float(err.max())}
+    require(n_bits == 0, f"adc splits={splits}: {n_bits} scores differ in some bit")
+    return {"n_mismatch": n_bits, "n_bits_differ": n_bits,
+            "max_abs_err": float((got - want).abs().max())}
+
+
+def compare_adc_tables(tables):
+    """The tables the ADC wrappers build on the card in one launch each
+    against their plain versions, bit for bit: ``adc_table_int8`` against
+    ``quantize_tables_int8`` (int8 entries, scales, offsets) and the f32
+    kernel's table (``decode_table``'s one launch) against
+    ``effective_codebook`` at splits 1, 2, 3."""
+    nq, m, k = tables.shape
+    got, want = adc_table_int8(tables), quantize_tables_int8(tables)
+    torch.cuda.synchronize()
+    n_int8 = int((got[0] != want[0]).sum()) + bits_differ(got[1], want[1]) + \
+        bits_differ(got[2], want[2])
+    n_f32 = 0
+    for splits in (1, 2, 3):
+        table = decode_table(tables.reshape(nq, m * k, 1), splits)[0].view(nq, m, k)
+        n_f32 += bits_differ(table, effective_codebook(tables, splits))
+    require(n_int8 == 0, f"adc_table_int8: {n_int8} entries, scales or offsets differ")
+    require(n_f32 == 0, f"the f32 ADC table: {n_f32} entries differ from effective_codebook")
+    return {"int8_bits_differ": n_int8, "f32_bits_differ": n_f32,
+            "int8_prep_ms": time_ms(lambda: adc_table_int8(tables)),
+            "int8_prep_plain_ms": time_ms(lambda: quantize_tables_int8(tables), 3)}
 
 
 def compare_stats(codebooks, x, compute_dtype):
@@ -527,6 +550,16 @@ def phase_kernels(pq, corpus, gen):
             require(int((counts > 0).sum()) == M and float(counts[:, K // 2].min()) == x_s.shape[0],
                     "stats: the skewed rows did not all fall in one cell")
 
+    # The ADC tables built on the card, at the serving shape (16 and 128
+    # queries, k=256) and the packed one (k=16).
+    pq4 = Pq(codebooks=pq.codebooks[:, :K4].contiguous())
+    tables_rows = [
+        {"shape": f"d={D} m={M} k={K} nq={nq}", **compare_adc_tables(adc_tables(pq, corpus[:nq]))}
+        for nq in (16, 128)]
+    tables_rows += [
+        {"shape": f"d={D} m={M} k={K4} nq={nq}", **compare_adc_tables(adc_tables(pq4, corpus[:nq]))}
+        for nq in (16, 128)]
+
     m2, k2, ds2 = 24, 256, 32
     cb2 = torch.randn((m2, k2, ds2), generator=gen, device=dev)
     pq2 = Pq(codebooks=cb2)
@@ -551,7 +584,7 @@ def phase_kernels(pq, corpus, gen):
             rows.append({"kernel": "adc_int8" if splits == "int8" else "adc_splits2",
                          "shape": f"{shape2} nq={nq}", **res,
                          "kernel_ms": ms, "plain_ms": plain_ms})
-    emit("kernels", compared=rows, shared_assignment=shared)
+    emit("kernels", compared=rows, adc_tables=tables_rows, shared_assignment=shared)
 
 
 # -- the serving path ----------------------------------------------------------
@@ -1515,6 +1548,18 @@ def bf16_entries(cb, x):
     )
 
 
+def adc_entry(tables, codes, splits, packed=False):
+    """The C entry of the f32 or the int8 ADC kernel alone (not counted), its
+    table built once outside the call, under the wrapper's plan."""
+    nq, m, k = tables.shape
+    out = torch.empty((nq, codes.shape[0]), device=codes.device)
+    if splits == "int8":
+        held = adc_table_int8(tables)
+    else:
+        held = (decode_table(tables.reshape(nq, m * k, 1), splits)[0].view(nq, m, k),)
+    return adc_launcher(held, codes, out, packed=packed, counted=False)
+
+
 def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
     """Each kernel at the shape the main paths give it (n = 4,000,000 rows;
     ADC with 16 queries, the dense search; k=16 for the packed kernels): time,
@@ -1522,7 +1567,8 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
     verified kernels ``ms`` is the whole wrapper (kernel, ``nonzero``, exact
     re-encode of the flagged rows) and ``kernel_ms`` the kernel alone; their
     library call is the exact path itself.  The bf16 encode and statistics
-    rows carry ``kernel_ms`` too: their C entries alone."""
+    rows and the ADC rows carry ``kernel_ms`` too: their C entries alone (ADC:
+    the table built outside the call)."""
     cb = pq.codebooks
     encode_bf16_alone, stats_bf16_alone = bf16_entries(cb, corpus)
     n = corpus.shape[0]
@@ -1590,11 +1636,13 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
          bound(n * M + cb_bytes + 4 * n * D, n * D, "f32")),
         ("adc", lambda: ops.adc_scores_kernel(tables, codes, splits=2),
          lambda: ops.adc_scores_reference(tables, codes, splits=2), library_adc,
-         lambda: compare_adc(tables, codes, 2), bound(adc_bytes, nq * n * M, "f32")),
+         lambda: compare_adc(tables, codes, 2), bound(adc_bytes, nq * n * M, "f32"),
+         adc_entry(tables, codes, 2)),
         ("adc_int8", lambda: ops.adc_scores_kernel(tables, codes, splits="int8"),
          lambda: ops.adc_scores_reference(tables, codes, splits="int8"),
          library_adc_int8(tables, idx_flat),
-         lambda: compare_adc(tables, codes, "int8"), bound(adc_bytes, nq * n * M, "int8")),
+         lambda: compare_adc(tables, codes, "int8"),
+         bound(adc_bytes, nq * n * M, "int8"), adc_entry(tables, codes, "int8")),
         ("stats_f32", lambda: ops.pq_assign_stats(cb, corpus, compute_dtype=f32),
          lambda: ops.pq_assign_stats_reference(cb, corpus, compute_dtype=f32),
          lambda: library_assign_stats(cb, corpus, f32),
@@ -1627,12 +1675,12 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
          lambda: ops.adc_scores_reference(tables4, packed4, splits=2, packed=True),
          lambda: torch.nn.functional.embedding_bag(idx4_flat, tables4_t, mode="sum"),
          lambda: compare_packed_adc(tables4, codes4, packed4, 2),
-         bound(adc4_bytes, nq * n * M, "f32")),
+         bound(adc4_bytes, nq * n * M, "f32"), adc_entry(tables4, packed4, 2, True)),
         ("adc_int8_u4", lambda: ops.adc_scores_kernel(tables4, packed4, splits="int8", packed=True),
          lambda: ops.adc_scores_reference(tables4, packed4, splits="int8", packed=True),
          library_adc_int8(tables4, idx4_flat),
          lambda: compare_packed_adc(tables4, codes4, packed4, "int8"),
-         bound(adc4_bytes, nq * n * M, "int8")),
+         bound(adc4_bytes, nq * n * M, "int8"), adc_entry(tables4, packed4, "int8", True)),
     ]
     rows = []
     for name, kernel, plain, library, compare, (bound_ms, bound_by), *alone in specs:
@@ -1704,7 +1752,8 @@ def main() -> int:
     by_name = {row["name"]: row for row in rows}
     ms = {name: by_name[name]["ms"] for name in BEFORE_MS if name in by_name}
     ms.update({f"{name}_kernel": by_name[name]["kernel_ms"]
-               for name in ("stats_verify", "encode_verify", "stats_bf16", "encode_bf16")})
+               for name in ("stats_verify", "encode_verify", "stats_bf16", "encode_bf16", "adc",
+                            "adc_u4", "adc_int8", "adc_int8_u4")})
     emit("redesigned", shape=by_name["stats_f32"]["shape"], before_ms=BEFORE_MS, ms=ms,
          stats_verify_flag_rate={name: exact_out[name]["stats_flag_rate"]
                                  for name in ("gaussian", "adversarial")},

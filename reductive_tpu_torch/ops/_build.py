@@ -48,7 +48,8 @@ _ENTRIES = {
     "rt_decode": ("decode", (_P, _I, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P)),
     "rt_decode_int8": ("decode", (_P, _I, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P)),
     "rt_adc": ("adc", (_P, _P, _I, _I, _P, _L, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I, _P)),
-    "rt_adc_int8": ("adc", (_P, _P, _P, _P, _I, _I, _P, _L, _I, _I, _I, _I, _I, _P)),
+    "rt_adc_i8": ("adc", (_P, _P, _P, _P, _I, _I, _P, _L, _I, _I, _I, _I, _I, _I, _L, _I, _I, _P)),
+    "rt_adc_prepare_int8": ("adc", (_P, _P, _P, _P, _I, _I, _I, _P)),
     "rt_assign_stats": ("stats", (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P)),
     "rt_assign_stats_bf16": ("stats", (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P)),
     "rt_assign_stats_verify": (

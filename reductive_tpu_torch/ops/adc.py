@@ -23,11 +23,18 @@ The f32 kernel's launch plan is :func:`adc_plan`, a function of the shapes:
 lanes over queries; each table entry stored once for each row of a load's
 phase where 32 copies of the tables fit, or else once, with each lane lagging
 its rows' codes by its row's place in the phase (both: no bank conflicts);
-and a persistent grid that fills each block's tables once.
+and a persistent grid that fills each block's tables once.  The int8
+kernel's is :func:`adc_int8_plan`: one byte an entry, so up to 32 queries a
+block, copies where 128 bytes of them fit (no bank conflicts), else each
+entry once.  On the card the tables are built by one launch each:
+:func:`adc_table_int8`, and for the f32 kernel
+:func:`reductive_tpu_torch.ops.decode.decode_table`; :func:`adc_launcher`
+launches either kernel on them.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -35,12 +42,12 @@ import torch
 from torch import Tensor
 
 from . import _build
-from .decode import effective_codebook
+from .decode import decode_table, effective_codebook
 from .packing import check_packed, unpack_u4_codes
 
 __all__ = [
-    "adc_scores_kernel", "adc_scores_reference", "quantize_tables_int8",
-    "max_query_batch", "query_tile", "AdcPlan", "adc_plan",
+    "adc_scores_kernel", "adc_scores_reference", "quantize_tables_int8", "adc_table_int8",
+    "max_query_batch", "query_tile", "AdcPlan", "adc_plan", "adc_int8_plan", "adc_launcher",
 ]
 
 # Shared memory one block may use on Hopper (232,448 bytes of the SM's 256 KB).
@@ -57,15 +64,22 @@ _F32_MAX_BLOCKS_PER_SM = 2
 _F32_ROW_ALIGN = 64
 _F32_MAX_QUERIES = 32
 _H100_SMS = 132
+# The int8 kernel (csrc/adc.cu adc_i8_kernel): one byte an entry, 128 bytes of
+# copies an entry where they fit (one for each row of a load's phase), at
+# least 4 and at most 32 queries a block where it can (1 and 2 only where 4
+# queries' tables do not fit), 256 bytes of scales and offsets after the tables.
+_I8_COPY_BYTES = 128
+_I8_MIN_QUERIES = 4
+_I8_TAIL_BYTES = 256
 
 
 class AdcPlan(NamedTuple):
-    """How the f32 ADC kernel is launched (:func:`adc_plan`)."""
+    """How an ADC kernel is launched (:func:`adc_plan`, :func:`adc_int8_plan`)."""
 
     queries: int          # QT: queries whose tables a block holds
-    replicas: int         # copies of each entry: 1, or 32 // queries (no bank conflicts)
-    skew: bool            # lanes lag their rows' codes (no bank conflicts at R = 1)
-    rows_per_load: int    # rows one warp load serves: QT / min(QT, 4) lanes a row
+    replicas: int         # copies of each entry: 1, or one for each row of a load's phase
+    skew: bool            # f32: lanes lag their rows' codes (no bank conflicts at R = 1)
+    rows_per_load: int    # rows one warp load serves: 32 // (lanes a row)
     query_tiles: int      # the grid's second axis
     blocks: int           # blocks per query tile, each over one range of rows
     rows_per_block: int
@@ -78,6 +92,7 @@ def _pow2_at_least(x: int) -> int:
     return 1 << max(0, (x - 1).bit_length())
 
 
+@functools.lru_cache(maxsize=256)
 def adc_plan(n: int, nq: int, m: int, k: int, packed: bool = False, *,
              sms: int = _H100_SMS) -> AdcPlan:
     """The launch plan of the f32 ADC kernel (``csrc/adc.cu``
@@ -115,7 +130,17 @@ def adc_plan(n: int, nq: int, m: int, k: int, packed: bool = False, *,
         qt, replicas = cover, 1
         while qt * entry > _SMEM_BYTES:
             qt //= 2
-    smem = replicas * qt * entry
+    skew = replicas == 1 and qt in (8, 16) and m % 4 == 0 and not packed
+    return _grid_plan(n, nq, qt, replicas, skew, 32 // (qt // min(qt, 4)),
+                      replicas * qt * entry, sms)
+
+
+def _grid_plan(n: int, nq: int, qt: int, replicas: int, skew: bool, rows_per_load: int,
+               smem: int, sms: int) -> AdcPlan:
+    """The persistent grid both ADC kernels take: as many blocks as are
+    resident at once (two of 512 threads an SM where their shared memory
+    allows, else one of 1,024), shared among the query tiles, each over a
+    range of rows that is a multiple of 64 (none empty)."""
     per_sm = max(1, min(_F32_MAX_BLOCKS_PER_SM,
                         _SM_SMEM_BYTES // (smem + _BLOCK_RESERVED_BYTES)))
     tiles = -(-nq // qt)
@@ -123,24 +148,66 @@ def adc_plan(n: int, nq: int, m: int, k: int, packed: bool = False, *,
     per_block = -(-n // blocks)
     rows = max(_F32_ROW_ALIGN, -(-per_block // _F32_ROW_ALIGN) * _F32_ROW_ALIGN)
     blocks = max(1, -(-n // rows))
-    skew = replicas == 1 and qt in (8, 16) and m % 4 == 0 and not packed
     threads = 1024 if per_sm == 1 else 512
-    return AdcPlan(qt, replicas, skew, 32 // (qt // min(qt, 4)), tiles, blocks, rows, threads,
-                   smem, per_sm)
+    return AdcPlan(qt, replicas, skew, rows_per_load, tiles, blocks, rows, threads, smem, per_sm)
+
+
+def _int8_smem(qt: int, replicas: int, m: int, k: int) -> int:
+    """Shared memory of the int8 kernel (the C entry's ``i8_smem``): the
+    tables, QT bytes an entry and ``replicas`` copies, on 16 bytes, then the
+    scales and offsets."""
+    return -(-(replicas * qt * m * k) // 16) * 16 + _I8_TAIL_BYTES
+
+
+@functools.lru_cache(maxsize=256)
+def adc_int8_plan(n: int, nq: int, m: int, k: int, packed: bool = False, *,
+                  sms: int = _H100_SMS) -> AdcPlan:
+    """The launch plan of the int8 ADC kernel (``csrc/adc.cu``
+    ``adc_i8_kernel``) for ``nq`` queries over ``n`` rows of ``m`` codes below
+    ``k`` (``packed``: two u4 codes a byte, ``k <= 16``, even ``m``).
+
+    A block holds ``QT`` = the least power of two that covers ``nq``, at least
+    4 and at most 32, queries' tables, one byte an entry.  Where
+    ``128*m*k`` bytes fit (every ``k <= 16`` up to m = 113) each entry is
+    stored ``128 // QT`` times, one copy for each row of a load's phase: no
+    bank conflicts.  Elsewhere (k = 256) each entry is stored once, laid out
+    ``[j][c][q]``, and QT is the largest power of two up to that cover whose
+    tables fit (down to 1); the rows of a phase then land where their codes
+    put them (a conflict-free skewed walk measured slower on an H100:
+    ``PERF.md``).  The grid is :func:`adc_plan`'s.  ``sms`` is the
+    card's multiprocessors; no score depends on the plan.  Raises
+    ``ValueError`` when one query's tables outgrow a block."""
+    if packed and (k > 16 or m % 2):
+        raise ValueError(f"packed codes need k <= 16 and an even m, got m={m}, k={k}")
+    if nq <= 0 or m <= 0 or k <= 0 or n < 0:
+        raise ValueError(f"no ADC plan for n={n}, nq={nq}, m={m}, k={k}")
+    if _int8_smem(1, 1, m, k) > _SMEM_BYTES:
+        raise ValueError(
+            f"no shared-memory tiling for m={m}, k={k}, splits=int8: one query's tables exceed "
+            "a block's shared memory; use the einsum scorer (reductive_tpu_torch.search.adc_scores)"
+        )
+    cover = min(_F32_MAX_QUERIES, max(_I8_MIN_QUERIES, _pow2_at_least(nq)))
+    qt, replicas = cover, _I8_COPY_BYTES // cover
+    if _int8_smem(qt, replicas, m, k) > _SMEM_BYTES:
+        replicas = 1
+        while _int8_smem(qt, 1, m, k) > _SMEM_BYTES:
+            qt //= 2
+    lanes = max(1, qt // 16)
+    return _grid_plan(n, nq, qt, replicas, False, 32 // lanes,
+                      _int8_smem(qt, replicas, m, k), sms)
 
 
 def query_tile(m: int, k: int, splits=2) -> int:
     """Queries whose tables one block holds in shared memory, at most: for
     f32 tables :func:`adc_plan`'s ``queries`` for a large batch (32 where
     every entry's 32 copies fit, else the largest power of two whose tables
-    fit: 8 at m=16, k=256, 16 KB a query); for ``"int8"`` the largest of 8,
-    4, 2, 1 that fits (1 byte an entry).  0 when not even one query's tables
-    fit."""
+    fit: 8 at m=16, k=256, 16 KB a query); for ``"int8"``
+    :func:`adc_int8_plan`'s for a large batch (1 byte an entry: 32 at m=16,
+    k=256 and at k=16).  0 when not even one query's tables fit."""
     if splits == "int8":
-        for qt in (8, 4, 2, 1):
-            if qt * m * k <= _SMEM_BYTES:
-                return qt
-        return 0
+        if _int8_smem(1, 1, m, k) > _SMEM_BYTES:
+            return 0
+        return adc_int8_plan(1, _F32_MAX_QUERIES, m, k).queries
     if m * k * 4 > _SMEM_BYTES:
         return 0
     return adc_plan(1, _F32_MAX_QUERIES, m, k).queries
@@ -174,6 +241,33 @@ def quantize_tables_int8(tables: Tensor) -> tuple[Tensor, Tensor, Tensor]:
         min_sum = min_sum + t_min[:, j, 0]
     offset = min_sum + 128.0 * m * scale
     return t8.contiguous(), scale.contiguous(), offset.contiguous()
+
+
+def adc_table_int8(tables: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """The int8 tables the int8 ADC kernel reads: ``(T8, scale, offset)`` of
+    :func:`quantize_tables_int8`.  On the card one launch builds them
+    (``rt_adc_prepare_int8``, a block a query), bit for bit the plain
+    version, which CPU tensors take."""
+    if tables.ndim != 3:
+        raise ValueError(f"tables must be (nq, m, k), got {tuple(tables.shape)}")
+    tables = tables.to(torch.float32).contiguous()
+    if not tables.is_cuda:
+        return quantize_tables_int8(tables)
+    nq, m, k = tables.shape
+    t8 = torch.empty((nq, m, k), dtype=torch.int8, device=tables.device)
+    scale = torch.empty((nq,), dtype=torch.float32, device=tables.device)
+    offset = torch.empty((nq,), dtype=torch.float32, device=tables.device)
+    if nq:
+        with torch.cuda.device(tables.device):
+            _build.launch("rt_adc_prepare_int8", None, tables.data_ptr(), t8.data_ptr(),
+                          scale.data_ptr(), offset.data_ptr(), nq, m, k,
+                          torch.cuda.current_stream().cuda_stream)
+    return t8, scale, offset
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(tables: Tensor, codes: Tensor, packed: bool) -> None:
@@ -236,41 +330,64 @@ def adc_scores_kernel(
 
     nq, m, k = tables.shape
     n = codes.shape[0]
-    qt = query_tile(m, k, splits)
-    if qt == 0:
-        raise ValueError(
-            f"no shared-memory tiling for m={m}, k={k}, splits={splits}: one query's tables "
-            "exceed a block's shared memory; use the einsum scorer "
-            "(reductive_tpu_torch.search.adc_scores)"
-        )
-    if nq > _GRID_Y_MAX * qt:
-        raise ValueError(f"nq={nq} exceeds max_query_batch={_GRID_Y_MAX * qt}; batch the queries")
+    if splits != "int8" and splits not in (1, 2, 3):
+        raise ValueError(f"splits must be 1, 2, 3 or 'int8', got {splits!r}")
     if nq == 0:
         raise ValueError("tables hold no query")
-    tables = tables.to(torch.float32)
+    sms = _sms(codes.device)
+    int8 = splits == "int8"
+    plan = (adc_int8_plan if int8 else adc_plan)(n, nq, m, k, packed, sms=sms)
+    if plan.query_tiles > _GRID_Y_MAX:
+        raise ValueError(f"nq={nq} exceeds max_query_batch={_GRID_Y_MAX * plan.queries}; "
+                         "batch the queries")
     if codes.dtype != torch.uint8:
         codes = codes.to(torch.uint8 if packed else torch.int32)
     codes = codes.contiguous()
-    suffix = "_u4" if packed else ""
     out = torch.empty((nq, n), dtype=torch.float32, device=codes.device)
-    sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
+    if int8:
+        table = adc_table_int8(tables)
+    else:
+        table = (decode_table(tables.reshape(nq, m * k, 1), splits)[0].view(nq, m, k),)
+    with torch.cuda.device(codes.device):
+        adc_launcher(table, codes, out, packed=packed, plan=plan)()
+    return out
+
+
+def adc_launcher(table: tuple[Tensor, ...], codes: Tensor, out: Tensor, *, packed: bool = False,
+                 plan: AdcPlan | None = None, counted: bool = True, lib=None):
+    """A callable that launches an ADC kernel once each time it is called,
+    into ``out`` (``(nq, n)`` f32) from ``(n, m)`` uint8 or int32 codes
+    (``(n, m/2)`` bytes packed), all contiguous on one card: the f32 kernel
+    (``rt_adc``) from ``table = (T,)``, ``T`` the ``(nq, m, k)`` f32 table,
+    or the int8 kernel (``rt_adc_i8``) from ``table = (t8, scale, offset)``
+    of :func:`adc_table_int8`.  Its arguments, and the current stream, are
+    bound here.  ``plan`` replaces :func:`adc_plan`'s or
+    :func:`adc_int8_plan`'s.  Counted under ``adc`` / ``adc_int8`` (``_u4``
+    packed) unless ``counted`` is false.  ``lib``: a ``ctypes`` library
+    built from a variant of ``csrc/adc.cu`` (a timing tool's), whose entry is
+    called in place of the package's and not counted.  A call raises when
+    the entry does not launch."""
+    int8 = len(table) == 3
+    nq, m, k = table[0].shape
+    n = codes.shape[0]
+    if plan is None:
+        plan = (adc_int8_plan if int8 else adc_plan)(n, nq, m, k, packed, sms=_sms(codes.device))
+    entry = "rt_adc_i8" if int8 else "rt_adc"
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if splits == "int8":
-            t8, scale, offset = quantize_tables_int8(tables)
-            row_blocks = max(1, min(-(-n // 1024), sms))
-            _build.launch(
-                "rt_adc_int8", "adc_int8" + suffix,
-                t8.data_ptr(), scale.data_ptr(), offset.data_ptr(), codes.data_ptr(),
-                codes.element_size(), int(packed), out.data_ptr(), n, nq, m, k, qt, row_blocks, stream,
-            )
-        else:
-            table = effective_codebook(tables, splits)
-            plan = adc_plan(n, nq, m, k, packed, sms=sms)
-            _build.launch(
-                "rt_adc", "adc" + suffix,
-                table.data_ptr(), codes.data_ptr(), codes.element_size(), int(packed),
-                out.data_ptr(), n, nq, m, k, plan.queries, plan.replicas, int(plan.skew),
-                plan.blocks, plan.rows_per_block, plan.threads, plan.smem_bytes, stream,
-            )
-    return out
+    args = (*(t.data_ptr() for t in table), codes.data_ptr(), codes.element_size(), int(packed),
+            out.data_ptr(), n, nq, m, k, plan.queries, plan.replicas,
+            *(() if int8 else (int(plan.skew),)), plan.blocks, plan.rows_per_block,
+            plan.threads, plan.smem_bytes, stream)
+    counter = ("adc_int8" if int8 else "adc") + ("_u4" if packed else "") if counted else None
+    if lib is not None:
+        fn = getattr(lib, entry)
+        fn.argtypes = list(_build._ENTRIES[entry][1])
+
+    def call() -> None:
+        if lib is None:
+            _build.launch(entry, counter, *args)
+        elif (rc := fn(*args)) != 0:
+            raise RuntimeError(f"{entry} of {lib} failed to launch (returned {rc})")
+    call.tensors = (*table, codes, out)  # alive as long as the callable
+    return call

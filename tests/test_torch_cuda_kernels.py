@@ -40,7 +40,11 @@ statistics' accumulation from the codes (``ops.stats.cell_stats``) equals its
 plain version bit for bit, twice, on every row in one cell, on half the
 cells empty and on random codes, at ds 3 to 768, k 1 to 65,536, on rows off
 16 bytes and at d not a multiple of 4, and the wide statistics are the
-accumulation of their own codes bit for bit.
+accumulation of their own codes bit for bit.  The int8 ADC kernel equals its
+plain version bit for bit on every plan (1 to 130 queries, copies, each
+entry once, every query tile its C entry takes, m past 256, uint8, int32 and
+packed codes, views off a word), and the ADC tables built on the card equal their
+plain versions bit for bit.
 """
 
 import pytest
@@ -544,6 +548,151 @@ def test_adc_kernel_takes_no_rows(dev, packed):
     codes = torch.zeros((0, 2 if packed else 4), dtype=torch.uint8, device=dev)
     got = ops.adc_scores_kernel(tables, codes, packed=packed)
     assert got.shape == (3, 0) and got.dtype == torch.float32
+
+
+# -- the int8 ADC kernel (adc_i8_kernel) and the tables built on the card -----------
+
+
+def _int8_tables(dev, nq, m, k, seed, kind="gauss"):
+    """Tables of queries: Gaussian (l2-like, scaled), negative (dot-like),
+    constant (every entry of a query equal: the 1e-30 scale), or halfway
+    (entries on the midpoints of the int8 levels of their query)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.randn((nq, m, k), generator=gen, device=dev) * 10
+    if kind == "negative":
+        t = -t.abs() - 3.0
+    elif kind == "constant":
+        t = torch.full((nq, m, k), 2.5, device=dev)
+    elif kind == "halfway":
+        # Every table spans [0, 255]: the scale is 1 (255 * f32(1/255) rounds
+        # to 1), and entries at i + 0.5 round half to even.
+        levels = torch.randint(0, 255, (nq, m, k), generator=gen, device=dev).float()
+        t = levels + 0.5
+        t[:, :, 0], t[:, :, -1] = 0.0, 255.0
+    return t
+
+
+_INT8_SHAPES = [(4097, 16, 256, 1), (4097, 16, 256, 3), (4097, 16, 256, 17), (3001, 16, 256, 130),
+                (70001, 16, 16, 16), (2500, 24, 256, 16), (2500, 12, 256, 33), (999, 18, 256, 9),
+                (999, 31, 256, 20), (777, 7, 255, 5), (500, 300, 4, 5), (500, 300, 16, 16),
+                (333, 10, 16, 130), (65, 36, 200, 32), (3, 5, 16, 33)]
+
+
+@pytest.mark.parametrize("n,m,k,nq,codes_as", [
+    (*shape, codes_as) for shape in _INT8_SHAPES for codes_as in ("uint8", "int32", "packed")
+    if codes_as != "packed" or (shape[2] <= 16 and shape[1] % 2 == 0)])
+def test_adc_int8_kernel_is_the_plain_version_bit_for_bit(dev, n, m, k, nq, codes_as):
+    # Every plan of ops.adc.adc_int8_plan: four queries a block (one and three
+    # queries) and 16 and 32 with each entry once (k = 256, 200), copies at 8
+    # to 32 queries a block (k <= 16; k = 255 at m = 7), m past 256 (the
+    # flush), k below 256 with codes at k - 1, rows that end mid-block; packed
+    # codes where k <= 16 and m is even.
+    tables = _int8_tables(dev, nq, m, k, n + m)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    codes = torch.randint(0, k, (n, m), generator=gen, device=dev, dtype=torch.int32)
+    codes[::7, ::3] = k - 1
+    packed = codes_as == "packed"
+    given = (ops.pack_u4_codes(codes.to(torch.uint8)) if packed
+             else codes if codes_as == "int32" else codes.to(torch.uint8))
+    ops.reset_launch_counts()
+    got = ops.adc_scores_kernel(tables, given, splits="int8", packed=packed)
+    assert ops.launch_counts() == {("adc_int8_u4" if packed else "adc_int8"): 1}
+    want = ops.adc_scores_reference(tables, given, splits="int8", packed=packed)
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("offset", [1, 4, 16])
+@pytest.mark.parametrize("m,nq", [(16, 16), (24, 16), (16, 128), (8, 40)])
+def test_adc_int8_kernel_on_codes_off_a_word(dev, m, nq, offset):
+    n, k = 3001, 256
+    tables = _int8_tables(dev, nq, m, k, m + nq)
+    gen = torch.Generator(device=dev).manual_seed(offset)
+    flat = torch.randint(0, k, (n * m + offset,), generator=gen, device=dev).to(torch.uint8)
+    codes = flat[offset:].view(n, m)
+    got = ops.adc_scores_kernel(tables, codes, splits="int8")
+    assert _same_bits(got, ops.adc_scores_reference(tables, codes, splits="int8"))
+    assert _same_bits(got, ops.adc_scores_kernel(tables, codes.clone(), splits="int8"))
+
+
+@pytest.mark.parametrize("n,m,k,nq,codes_as", [
+    (4097, 16, 256, 16, "uint8"), (2500, 24, 256, 16, "uint8"), (999, 18, 256, 9, "uint8"),
+    (3001, 16, 256, 40, "uint8"), (3001, 12, 256, 33, "uint8"), (999, 16, 256, 17, "int32"),
+    (500, 300, 16, 16, "uint8"), (777, 16, 200, 16, "off4"), (777, 16, 256, 16, "off1"),
+    (4097, 16, 16, 16, "packed")])
+def test_the_int8_kernel_under_every_plan_it_takes(dev, n, m, k, nq, codes_as):
+    # The C entry under each plan it takes, not only the one adc_int8_plan
+    # chooses: 1 to 32 queries a block, each entry once and (4 queries or
+    # more) 128 / QT copies where they fit, 512 and 1,024 threads; views off
+    # a word, int32 and packed codes, the flush past m = 256, codes at k - 1.
+    from reductive_tpu_torch.ops import adc as adc_mod
+    tables = _int8_tables(dev, nq, m, k, n + k)
+    gen = torch.Generator(device=dev).manual_seed(m)
+    off = {"off4": 4, "off1": 1}.get(codes_as, 0)
+    flat = torch.randint(0, k, (n * m + off,), generator=gen, device=dev, dtype=torch.int32)
+    flat[::11] = k - 1
+    if codes_as == "int32":
+        codes = flat.view(n, m)
+    else:
+        codes = flat.to(torch.uint8)[off:].view(n, m)
+    packed = codes_as == "packed"
+    given = ops.pack_u4_codes(codes) if packed else codes
+    want = ops.adc_scores_reference(tables, given, splits="int8", packed=packed)
+    held = adc_mod.adc_table_int8(tables)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    taken = 0
+    for qt in (1, 2, 4, 8, 16, 32):
+        for r in sorted({1, 128 // qt if qt >= 4 else 1}):
+            smem = adc_mod._int8_smem(qt, r, m, k)
+            if smem > adc_mod._SMEM_BYTES:
+                continue
+            plan = adc_mod._grid_plan(n, nq, qt, r, False, 32 // max(1, qt // 16), smem, sms)
+            for threads in (512, 1024):
+                out = torch.full((nq, n), float("nan"), device=dev)
+                adc_mod.adc_launcher(held, given, out, packed=packed, counted=False,
+                                     plan=plan._replace(threads=threads))()
+                assert _same_bits(out, want), (qt, r, threads)
+                taken += 1
+    assert taken >= 12
+
+
+@pytest.mark.parametrize("kind", ["gauss", "negative", "constant", "halfway"])
+@pytest.mark.parametrize("nq,m,k", [(1, 16, 256), (17, 16, 16), (130, 24, 256), (3, 300, 4),
+                                    (5, 7, 255), (2, 1, 1)])
+def test_the_int8_adc_tables_are_the_quantizers_bit_for_bit(dev, nq, m, k, kind):
+    from reductive_tpu_torch.ops.adc import adc_table_int8, quantize_tables_int8
+    tables = _int8_tables(dev, nq, m, k, nq + m + k, kind)
+    got = adc_table_int8(tables)
+    want = quantize_tables_int8(tables)
+    assert torch.equal(got[0], want[0]) and _same_bits(got[1], want[1]) and _same_bits(got[2], want[2])
+    cpu = quantize_tables_int8(tables.cpu())
+    assert torch.equal(got[0].cpu(), cpu[0]) and _same_bits(got[1].cpu(), cpu[1])
+    assert _same_bits(got[2].cpu(), cpu[2])
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("nq,m,k", [(16, 16, 256), (130, 24, 16), (1, 3, 7)])
+def test_the_f32_adc_table_is_the_effective_codebook_bit_for_bit(dev, nq, m, k, splits):
+    # The f32 ADC wrapper builds its table by decode's one launch.
+    from reductive_tpu_torch.ops.decode import decode_table, effective_codebook
+    tables = _float_patterns(dev, nq * m * k, nq + m, finite=True).reshape(nq, m, k)
+    got = decode_table(tables.reshape(nq, m * k, 1), splits)[0].view(nq, m, k)
+    assert _same_bits(got, effective_codebook(tables, splits))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_the_streamed_int8_search_is_the_dense_one(dev, packed):
+    from reductive_tpu_torch import Pq
+    from reductive_tpu_torch.search import search
+    gen = torch.Generator(device=dev).manual_seed(9)
+    m, k, ds, n = 16, 16 if packed else 256, 8, 200_000
+    pq = Pq(codebooks=torch.randn((m, k, ds), generator=gen, device=dev))
+    codes = torch.randint(0, k, (n, m), generator=gen, device=dev, dtype=torch.uint8)
+    given = ops.pack_u4_codes(codes) if packed else codes
+    q = torch.randn((20, m * ds), generator=gen, device=dev)
+    d0, i0 = search(pq, q, given, 10, method="kernel", splits="int8", packed=packed)
+    d1, i1 = search(pq, q, given, 10, method="kernel", splits="int8", packed=packed,
+                    stream_chunk=30_000)
+    assert torch.equal(i1, i0) and _same_bits(d1, d0)
 
 
 # -- decode: the row-tile kernel, its tables, and views off 16 bytes ------------------

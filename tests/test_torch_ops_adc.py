@@ -131,14 +131,15 @@ def test_query_tiling_by_shared_memory():
     assert query_tile(24, 256) == 8          # 24 KB a query: 8 make 192 KB
     assert query_tile(64, 256) == 2          # 64 KB a query
     assert query_tile(24, 65536) == 0        # 6 MB: no tiling
-    assert query_tile(64, 256, "int8") == 8  # 16 KB a query in int8
+    assert query_tile(64, 256, "int8") == 8  # 16 KB a query in int8: 16 queries make 256 KB
     assert max_query_batch(24, 256) == 65535 * 8
     assert max_query_batch(24, 65536) == 0
     # Where 32 copies of every entry fit (128*m*k bytes), the f32 kernel holds
-    # 32 queries a block; int8 tables keep their rule.
+    # 32 queries a block; so does the int8 kernel where 128 bytes of copies of
+    # every entry fit (ops.adc.adc_int8_plan).
     assert query_tile(16, 16) == 32 and query_tile(113, 16) == 32
     assert query_tile(114, 16) == 16         # 7.1 KB a query: 32 copies do not fit, 16 queries do
-    assert query_tile(16, 16, "int8") == 8
+    assert query_tile(16, 16, "int8") == 32
     assert max_query_batch(16, 16) == 65535 * 32
 
 
