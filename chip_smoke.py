@@ -23,7 +23,12 @@ decode kernels and the padded encode and statistics kernels at d=300, k=256
 (m = 150 and 30), and the deep ones at m = 4 and 2 (ds = 75 and 150), over
 2^21 rows, and holds the wide statistics' accumulation from the codes
 (``cell_stats``) bit for bit to its plain version on the assignment's f32 and
-bf16 codes at every deep shape.  The serving phase also searches
+bf16 codes at every deep shape.  The ivf phase serves IVF-PQ at
+benches/ivf10m.py's shape (10,000,000 clustered rows of d=128, 4,096 cells,
+a residual PQ of m=16 at 8 bits): ``train_ivf_pq``, ``build_ivf`` on the
+host path and ``ivf_search`` at nprobe 8 and 32 by both probes, every row
+placed once, the planted rows found, the probes held to each other, to the
+plain route and packed cells to unpacked.  The serving phase also searches
 a corpus whose k-th place is always tied and holds the ids to a stable sort's.
 Every ADC kernel, the int8 ones included, is held to its plain version bit
 for bit, and so are the ADC tables the wrappers build on the card (the int8
@@ -61,7 +66,9 @@ import time
 
 import torch
 
-from reductive_tpu_torch import Pq, io, kmeans, ops, train_opq_chunked, train_pq, train_pq_chunked
+from reductive_tpu_torch import (
+    Pq, io, ivf, kmeans, ops, train_opq_chunked, train_pq, train_pq_chunked,
+)
 from reductive_tpu_torch.ops import _build
 from reductive_tpu_torch.ops.adc import adc_launcher, adc_table_int8, quantize_tables_int8
 from reductive_tpu_torch.ops.assign import (
@@ -159,6 +166,17 @@ GATE_M, GATE_BITS = 10, 7
 N_D300 = 1 << 21                # rows of the wide phase's 300-d shapes
 D300_M = 6                      # ds = 50
 D300_TIMED_DEEP_M = (4, 2)      # ds = 75 and 150, timed only
+# The ivf phase: benches/ivf10m.py's shape (10,000,000 clustered rows of
+# d=128 around 4,096 centres x 3.0 plus 0.3 noise; 4,096 cells, a residual PQ
+# of m=16 at 8 bits; 16 queries, each a corpus row plus 0.05 noise), its 8
+# coarse and PQ iterations cut to 4; the probes held to each other on a
+# 2^20-row prefix index, and the packed cells at 4 bits there.
+IVF_N, IVF_D, IVF_C, IVF_M, IVF_BITS = 10_000_000, 128, 4096, 16, 8
+IVF_ITERATIONS = 4
+IVF_PREFIX = 1 << 20
+IVF_NPROBE = (8, 32)
+IVF_KERNELS = ("stats_f32_wide", "encode_bf16_wide", "stats_f32", "encode_bf16", "adc", "adc_u4",
+               "decode")
 
 
 class SmokeFailure(RuntimeError):
@@ -740,32 +758,43 @@ def tie_check(pq, codes, q16, q128):
 # -- the training path ---------------------------------------------------------
 
 
-class LossLog(logging.Handler):
-    """Collects the per-iteration losses the trainers log at INFO."""
+class SyncedLog(logging.Handler):
+    """Collects the package's INFO records, each with the host clock read
+    after waiting for the card, so that a record marks where the device work
+    queued before it ended."""
 
     def __init__(self):
         super().__init__(level=logging.INFO)
-        self.losses = []
+        self.records = []
 
     def emit(self, record):
-        if isinstance(record.msg, str) and "iteration %d" in record.msg:
-            self.losses.append(float(record.args[1]))
+        torch.cuda.synchronize()
+        self.records.append((record.msg, record.args, time.perf_counter()))
+
+    def find(self, text):
+        return [(args, t) for msg, args, t in self.records if isinstance(msg, str) and text in msg]
 
 
-def logged_losses(train):
-    """Runs ``train()`` with the trainers' logger at INFO and returns its
-    result and the per-iteration losses it logged."""
-    log = LossLog()
+def with_log(fn):
+    """``fn()`` with the package's logger at INFO into a :class:`SyncedLog`;
+    returns its result and the log."""
+    log = SyncedLog()
     logger = logging.getLogger("reductive_tpu")
     level = logger.level
     logger.addHandler(log)
     logger.setLevel(logging.INFO)
     try:
-        out = train()
+        return fn(), log
     finally:
         logger.removeHandler(log)
         logger.setLevel(level)
-    return out, log.losses
+
+
+def logged_losses(train):
+    """Runs ``train()`` with the trainers' logger at INFO and returns its
+    result and the per-iteration losses it logged."""
+    out, log = with_log(train)
+    return out, [float(args[1]) for args, _ in log.find("iteration %d")]
 
 
 def reconstruction_mse(pq, corpus):
@@ -1525,6 +1554,158 @@ def phase_wide(corpus, gen):
     return probe, launches, table
 
 
+# -- the IVF-PQ serving path ---------------------------------------------------------
+
+
+def clustered_corpus(gen, n, d, centres):
+    """``n`` rows around ``centres`` random centres x 3.0 plus 0.3 Gaussian
+    noise, made on the card (benches/ivf10m.py's corpus), in place."""
+    dev = gen.device
+    c = 3.0 * torch.randn((centres, d), generator=gen, device=dev)
+    x = c[torch.randint(0, centres, (n,), generator=gen, device=dev)]
+    for off in range(0, n, 1 << 22):
+        rows = x[off:off + (1 << 22)]
+        rows.add_(torch.randn(rows.shape, generator=gen, device=dev), alpha=0.3)
+    return x
+
+
+def apart_ids_equal(d_ref, i_ref, i_got, tol, top_k=TOP_K):
+    """Whether ``i_got`` equals ``i_ref`` at every rank (of ``top_k``) whose
+    reference score lies more than ``tol`` from its neighbours' (``d_ref``
+    holds ``top_k + 1`` columns), and how many ranks that held."""
+    gap = torch.diff(d_ref, dim=1)
+    apart = torch.ones_like(i_ref[:, :top_k], dtype=torch.bool)
+    apart[:, 1:] &= gap[:, :top_k - 1] > tol
+    apart &= gap[:, :top_k] > tol
+    same = torch.equal(i_got[:, :top_k][apart], i_ref[:, :top_k][apart])
+    return same, int(apart.sum())
+
+
+def phase_ivf(gen):
+    """IVF-PQ serving at benches/ivf10m.py's shape through the entry points,
+    every count at 0 before: ``train_ivf_pq`` (k-means++ and the coarse
+    Lloyd's steps on the deep statistics kernel, the residual assignment on
+    the deep bf16 encode, the residual PQ on the narrow statistics kernel),
+    ``build_ivf(capacity="auto")`` on the host path (the residual encode on
+    the narrow bf16 kernel), and ``ivf_search`` at nprobe 8 and 32 (the
+    ADC-table probe on the ADC kernel); the decode probe with the decode
+    kernel; an exhaustive search over a flat PQ of the same corpus; on a
+    2^20-row prefix, the ADC-table probe against the decode probe and a
+    4-bit index packed against unpacked (``adc_u4``).  Requires every row
+    placed once, 1-recall@10 of the planted rows >= 0.9 at nprobe 8, the two
+    probes' ids equal and distances within 2e-5 (relative, and absolute of
+    the largest ``|q|^2``: the terms ``|q|^2 + g - 2 q.c - 2 q.rec`` cancel
+    into a near row's distance), the kernel route's ids the plain route's
+    wherever the plain scores lie more than 1e-5 of that size apart, packed
+    scores bit for bit the unpacked ones, and each of ``IVF_KERNELS``
+    launched with no ``*_shallow`` launch.  Returns the launches."""
+    dev = gen.device
+    n, d, C = IVF_N, IVF_D, IVF_C
+    x = clustered_corpus(gen, n, d, C)
+    planted = torch.arange(0, n, n // 16, device=dev)[:16]
+    q = x[planted] + 0.05 * torch.randn((16, d), generator=gen, device=dev)
+    scale = float((q * q).sum(1).max())  # the size of the IVFADC terms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    (coarse, rpq), log = with_log(lambda: ivf.train_ivf_pq(
+        gen, x, C, IVF_M, IVF_BITS, coarse_iterations=IVF_ITERATIONS,
+        pq_iterations=IVF_ITERATIONS))
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    residual_start = log.find("PQ subquantizers chunked")[0][1]
+    train = {"coarse": residual_start - t0, "residual": t0 + t_train - residual_start,
+             "total": t_train}
+
+    t0 = time.perf_counter()
+    index, log = with_log(lambda: ivf.build_ivf(coarse, rpq, x, capacity="auto"))
+    torch.cuda.synchronize()
+    build = {args[0]: args[1] for args, _ in log.find("IVF build pass")}
+    build["total"] = time.perf_counter() - t0
+    spilled = sum(args[0] for args, _ in log.find("spilled to the nearest cell"))
+    moved = log.find("rows in secondary cells")[0][0][-1]
+    ids = index.cell_ids[index.cell_ids >= 0].long()
+    require(ids.numel() == n and bool((torch.bincount(ids, minlength=n) == 1).all())
+            and index.dropped_ids.size == 0, "ivf: a corpus row is not in exactly one slot")
+    require(index.cell_codes.shape == (C, index.capacity, IVF_M)
+            and index.capacity == -(-5 * n // (4 * C)), "ivf: cells shape")
+    del ids
+
+    # Search: the kernel route (the ADC-table probe) at nprobe 8 and 32, the
+    # decode probe with the decode kernel, and the plain route.
+    recall, search_ms = {}, {}
+    args = (index.coarse_centroids, index.cell_codes, index.cell_ids, index.cell_norms, rpq)
+    for nprobe in IVF_NPROBE:
+        _, i_lut = ivf.ivf_search(index, q, TOP_K, nprobe=nprobe)
+        _, i_dec = ivf._padded_topk(*ivf._probe_and_score(q, *args, nprobe, True, 2), TOP_K)
+        recall[f"lut_nprobe{nprobe}"] = float((i_lut == planted[:, None]).any(1).float().mean())
+        recall[f"decode_nprobe{nprobe}"] = float(
+            (i_dec.long() == planted[:, None]).any(1).float().mean())
+        search_ms[f"lut_nprobe{nprobe}"] = time_ms(lambda: ivf.ivf_search(index, q, TOP_K,
+                                                                          nprobe=nprobe))
+        search_ms[f"decode_nprobe{nprobe}"] = time_ms(lambda: ivf._padded_topk(
+            *ivf._probe_and_score(q, *args, nprobe, True, 2), TOP_K))
+    require(recall["lut_nprobe8"] >= 0.9, f"ivf: 1-recall@10 at nprobe 8 is {recall['lut_nprobe8']}")
+    d_k, i_k = ivf.ivf_search(index, q, TOP_K + 1, nprobe=8)
+    d_p, i_p = ivf.ivf_search(index, q, TOP_K + 1, nprobe=8, use_kernel=False)
+    same, ranks = apart_ids_equal(d_p, i_p, i_k, 1e-5 * scale)
+    require(same, "ivf: the kernel route's ids differ from the plain route's on well-separated ranks")
+    kernel_vs_plain = {"ranks_compared": ranks, "ids_equal_share": float((i_k == i_p).float().mean()),
+                       "max_abs_diff": float((d_k - d_p).abs().max())}
+    search_ms["plain_nprobe8"] = time_ms(lambda: ivf.ivf_search(index, q, TOP_K, nprobe=8,
+                                                                use_kernel=False))
+    # An exhaustive search over a flat PQ of the same corpus, for scale.
+    flat = train_pq_chunked(gen, x[:N_PREFIX], IVF_M, IVF_BITS, IVF_ITERATIONS)
+    codes = flat.quantize_batch(x, method="kernel")
+    _, i_ex = search(flat, q, codes, TOP_K)
+    recall["exhaustive"] = float((i_ex == planted[:, None]).any(1).float().mean())
+    search_ms["exhaustive"] = time_ms(lambda: search(flat, q, codes, TOP_K))
+    del codes, flat
+
+    # On a 2^20-row prefix: the ADC-table probe (splits=3) against the decode
+    # probe with the kernel, and a 4-bit index packed against unpacked.
+    xp = x[:IVF_PREFIX]
+    sub = ivf.build_ivf(coarse, rpq, xp, capacity="auto")
+    pargs = (sub.coarse_centroids, sub.cell_codes, sub.cell_ids, sub.cell_norms, rpq, 8)
+    d_l, i_l = ivf._probe_and_score_lut(q, *pargs, TOP_K + 1, 3)
+    d_d, i_d = ivf._padded_topk(*ivf._probe_and_score(q, *pargs, True, 3), TOP_K + 1)
+    tol = 2e-5 * scale
+    same, ranks = apart_ids_equal(d_d, i_d, i_l, tol)
+    require(same and bool(torch.allclose(d_l, d_d, rtol=2e-5, atol=tol)),
+            "ivf: the ADC-table probe and the decode probe disagree")
+    lut_vs_decode = {"ranks_compared": ranks, "ids_equal_share": float((i_l == i_d).float().mean()),
+                     "max_abs_diff": float((d_l - d_d).abs().max()), "tol": tol}
+    coarse4, pq4 = ivf.train_ivf_pq(gen, xp, C, IVF_M, 4, coarse_iterations=IVF_ITERATIONS,
+                                    pq_iterations=IVF_ITERATIONS)
+    unpacked = ivf.build_ivf(coarse4, pq4, xp, capacity="auto")
+    packed = ivf.build_ivf(coarse4, pq4, xp, capacity="auto", packed=True)
+    differ = 0
+    for use_kernel in (True, False):
+        a = ivf.ivf_search(unpacked, q, TOP_K, nprobe=8, use_kernel=use_kernel)
+        b = ivf.ivf_search(packed, q, TOP_K, nprobe=8, use_kernel=use_kernel)
+        differ += bits_differ(a[0], b[0]) + int((a[1] != b[1]).sum())
+    require(differ == 0, f"ivf: packed cells score otherwise than unpacked ({differ} differ)")
+    search_ms["lut_nprobe8_packed"] = time_ms(lambda: ivf.ivf_search(packed, q, TOP_K, nprobe=8))
+    del xp, sub, unpacked, packed
+
+    launches = ops.launch_counts()
+    for name in IVF_KERNELS:
+        require(launches.get(name, 0) > 0, f"ivf: kernel {name} was never launched")
+    require_no_shallow("ivf", launches)
+    emit("ivf", n=n, d=d, n_cells=C, m=IVF_M, bits=IVF_BITS, iterations=IVF_ITERATIONS,
+         queries=16, train_s=train, build_s=build, capacity=index.capacity,
+         rows_outside_nearest_cell=moved, rows_spilled=spilled, dropped=int(index.dropped_ids.size),
+         search_ms=search_ms, recall_at_10=recall,
+         kernel_vs_plain=kernel_vs_plain, lut_vs_decode_prefix=lut_vs_decode,
+         packed_bits_differ=differ, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         launches=launches)
+    del x, index
+    torch.cuda.empty_cache()
+    return launches
+
+
 def bf16_entries(cb, x):
     """The C entries of the bf16 encode (uint8 codes) and statistics kernels
     alone, as two callables, the operands prepared outside (``_prepare``'s
@@ -1735,10 +1916,12 @@ def main() -> int:
     exact_launches, exact_out = phase_exact(pq, corpus, train_out)
     pq4, codes4, packed4, packed_launches = phase_packed(corpus, gen)
     probe, wide_launches, wide_rows = phase_wide(corpus, gen)
+    ivf_launches = phase_ivf(gen)
     # Launches of each kernel on the main paths together; every count was set
     # to 0 just before its path was driven and read just after.
     launches = collections.Counter()
-    for counts in (serve_launches, train_launches, exact_launches, packed_launches, wide_launches):
+    for counts in (serve_launches, train_launches, exact_launches, packed_launches, wide_launches,
+                   ivf_launches):
         launches.update(counts)
     for name in KERNELS:
         require(launches[name] > 0, f"kernel {name} was launched on no path")

@@ -3,7 +3,7 @@
 The product-quantization engine on an NVIDIA Hopper GPU: train a quantizer
 (k-means, PQ, OPQ, Gaussian OPQ, in memory and at corpus scale), encode
 vectors to codes, decode codes back, and answer queries by ADC search over
-the encoded corpus.  Plain tensor code is PyTorch; the hot loops are CUDA
+the encoded corpus, exhaustively or through an IVF-PQ index (``ivf``).  Plain tensor code is PyTorch; the hot loops are CUDA
 kernels written for ``sm_90a`` under ``csrc/``, compiled at first use, each
 beside a plain PyTorch version of the same function.
 
@@ -16,10 +16,12 @@ Top-level surface::
     from reductive_tpu_torch import (
         Pq, train_pq, train_opq, train_gaussian_opq,
         kmeans, linalg, search, io, convert, ops, errors,
+        ivf, IvfPq,
     )
 """
 
-from . import convert, errors, io, kmeans, linalg, ops, pq, search
+from . import convert, errors, io, ivf, kmeans, linalg, ops, pq, search
+from .ivf import IvfPq
 from .pq import (
     GaussianOpq,
     Opq,
@@ -39,6 +41,7 @@ __version__ = "0.9.0"
 
 __all__ = [
     "Pq",
+    "IvfPq",
     "PqTrainer",
     "Opq",
     "GaussianOpq",
@@ -53,6 +56,7 @@ __all__ = [
     "convert",
     "errors",
     "io",
+    "ivf",
     "kmeans",
     "linalg",
     "ops",

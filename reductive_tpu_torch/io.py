@@ -1,8 +1,10 @@
-"""Codebook artifact persistence.
+"""Artifact persistence for quantizers and IVF-PQ indexes.
 
-A single ``.npz`` holding the codebooks, the optional projection, a format
-tag and a version: the same keys and values as ``reductive_tpu.io`` writes,
-so a file saved by either package loads in the other.
+A single ``.npz`` holding a format tag, a version, the codebooks and the
+optional projection, and for an IVF-PQ index also the coarse centroids, the
+cells (codes, ids, norms) and the ids the build dropped: the same keys and
+values as ``reductive_tpu.io`` writes, so a file saved by either package
+loads in the other.
 """
 
 from __future__ import annotations
@@ -13,6 +15,10 @@ from typing import Union
 
 import numpy as np
 
+import torch
+
+from ._device import resolve_device
+from .ivf import IvfPq
 from .pq.model import Pq
 
 __all__ = ["save", "load"]
@@ -20,11 +26,6 @@ __all__ = ["save", "load"]
 _FORMAT = "reductive-tpu-pq"
 _FORMAT_IVF = "reductive-tpu-ivfpq"
 _VERSION = 1
-
-_IVF_MSG = (
-    "IVF-PQ index artifacts ('reductive-tpu-ivfpq') are not ported yet: "
-    "see ROADMAP.md, 'ivf.py' under 'Modules to port'"
-)
 
 
 def _atomic_savez(path, arrays) -> None:
@@ -38,25 +39,50 @@ def _atomic_savez(path, arrays) -> None:
     os.replace(tmp, os.fspath(path))
 
 
-def save(path: Union[str, os.PathLike], pq: Pq) -> None:
-    """Write a quantizer to ``path`` as a ``.npz`` artifact."""
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def save(path: Union[str, os.PathLike], pq: Union[Pq, IvfPq]) -> None:
+    """Write a quantizer (:class:`Pq`) or an IVF-PQ index (:class:`IvfPq`)
+    to ``path`` as a ``.npz`` artifact."""
+    if isinstance(pq, IvfPq):
+        index = pq
+        arrays = {
+            "format": np.array(_FORMAT_IVF),
+            "version": np.array(_VERSION),
+            "coarse_centroids": _host(index.coarse_centroids),
+            "codebooks": _host(index.pq.codebooks),
+            "cell_codes": _host(index.cell_codes),
+            "cell_ids": _host(index.cell_ids),
+            "cell_norms": _host(index.cell_norms),
+        }
+        if index.pq.projection is not None:
+            arrays["projection"] = _host(index.pq.projection)
+        # Rows dropped under on_overflow="drop", so that a reloaded index
+        # still reports that it is incomplete.
+        if index.dropped_ids.size:
+            arrays["dropped_ids"] = np.asarray(index.dropped_ids, np.int64)
+        _atomic_savez(path, arrays)
+        return
     if not isinstance(pq, Pq):
-        raise NotImplementedError(_IVF_MSG)
+        raise TypeError(f"save takes a Pq or an IvfPq, got {type(pq).__name__}")
     arrays = {
         "format": np.array(_FORMAT),
         "version": np.array(_VERSION),
-        "codebooks": pq.codebooks.detach().cpu().numpy(),
+        "codebooks": _host(pq.codebooks),
     }
     if pq.projection is not None:
-        arrays["projection"] = pq.projection.detach().cpu().numpy()
+        arrays["projection"] = _host(pq.projection)
     _atomic_savez(path, arrays)
 
 
-def load(path: Union[str, os.PathLike], device=None) -> Pq:
-    """Load a quantizer artifact written by :func:`save` (of this package or
-    of ``reductive_tpu``) onto ``device``; ``None`` means ``cuda`` and raises
-    where there is none.  The restored ``Pq`` passes the constructor's
-    validation.  An IVF-PQ index artifact raises ``NotImplementedError``."""
+def load(path: Union[str, os.PathLike], device=None) -> Union[Pq, IvfPq]:
+    """Load an artifact written by :func:`save` (of this package or of
+    ``reductive_tpu``) onto ``device``; ``None`` means ``cuda`` and raises
+    where there is none.  A quantizer artifact gives a :class:`Pq` (which
+    passes the constructor's validation), an IVF-PQ index artifact an
+    :class:`IvfPq` with its ``dropped_ids``."""
     with np.load(os.fspath(path), allow_pickle=False) as data:
         fmt = str(data["format"]) if "format" in data else ""
         if fmt not in (_FORMAT, _FORMAT_IVF):
@@ -66,8 +92,18 @@ def load(path: Union[str, os.PathLike], device=None) -> Pq:
             raise ValueError(
                 f"artifact version {version} is newer than supported {_VERSION}"
             )
-        if fmt == _FORMAT_IVF:
-            raise NotImplementedError(_IVF_MSG)
         codebooks = data["codebooks"]
         projection = data["projection"] if "projection" in data.files else None
-    return Pq.from_numpy(codebooks, projection, device=device)
+        pq = Pq.from_numpy(codebooks, projection, device=device)
+        if fmt == _FORMAT:
+            return pq
+        dev = resolve_device(device)
+        return IvfPq(
+            coarse_centroids=torch.tensor(data["coarse_centroids"], device=dev),
+            pq=pq,
+            cell_codes=torch.tensor(data["cell_codes"], device=dev),
+            cell_ids=torch.tensor(data["cell_ids"], device=dev),
+            cell_norms=torch.tensor(data["cell_norms"], device=dev),
+            dropped_ids=(np.asarray(data["dropped_ids"], np.int64) if "dropped_ids" in data.files
+                         else np.empty(0, np.int64)),
+        )

@@ -1,0 +1,741 @@
+"""IVF-PQ: inverted-file search with residual product quantization.
+
+Counterpart of ``reductive_tpu.ivf``.  A **coarse quantizer** buckets the
+corpus by nearest coarse centroid; each row is PQ-encoded as the
+**residual** against its cell's centroid (Jégou et al., 2011, §V), and a
+query scores only the ``nprobe`` nearest cells.
+
+* **Dense cells.**  Every cell is a fixed-capacity block of one ``(C, L, m)``
+  code tensor plus ``(C, L)`` ids (``-1`` = empty slot, masked when scored)
+  and ``(C, L)`` norms ``||centroid + rec||^2``, so a probe is a gather of
+  whole blocks.
+* **Build** (:func:`build_ivf`, host placement): pass 1 takes each row's
+  nearest coarse cells on the card and moves the candidate matrix to the
+  host once; the host places rows into cells; pass 2 residual-encodes on the
+  card and moves codes and norms to the host once; the host scatters them
+  into the cells, which go back to the device.
+* **Search** (:func:`ivf_search`) scores by the IVFADC decomposition
+  ``||q - c - rec||^2 = ||q||^2 + g - 2 q.c - 2 q.rec`` (Jégou et al.,
+  2011, Eq. 13) with ``g`` from the build.  With the kernels
+  (``use_kernel=None`` on CUDA tensors) it scores the union of the probed
+  cells once against every query by the ADC kernel
+  (:func:`reductive_tpu_torch.ops.adc_scores_kernel`) over ``-q.rec``
+  tables; where one query's tables do not fit a block's shared memory it
+  decodes the probed candidates instead (the decode kernel), and says so at
+  INFO level.  Without the kernels (CPU tensors) it decodes by a gather.
+
+Random draws take a ``torch.Generator`` on the instances' device where the
+JAX package takes a key.  Not ported yet: ``ivf_add`` / ``ivf_remove``,
+the device build (``placement="device"``), ``ivf_search_sharded``, and
+readers in place of in-memory tensors (ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from . import kmeans, linalg, ops
+from ._device import check_generator
+from .ops.adc import max_query_batch, query_tile
+from .pq import primitives
+from .pq.model import Pq
+from .search import _READER_MSG, _check_metric, _refine, _smallest, adc_tables
+
+logger = logging.getLogger("reductive_tpu")
+
+__all__ = ["IvfPq", "train_ivf_pq", "build_ivf", "ivf_search"]
+
+# Bytes of transient (nq, probes, L, d) f32 reconstruction one step of the
+# decode probe may hold: it takes the probes in chunks, and the cell rows too
+# when one probe alone exceeds it.  Module-level so that tests can shrink it.
+_PROBE_RECON_BUDGET = 1 << 30
+# Bytes of transient (nq, cells * L) f32 scores one chunk of the ADC-table
+# probe may hold.  Module-level so that tests can shrink it.
+_PROBE_LUT_BUDGET = 1 << 28
+
+_DEVICE_BUILD_MSG = (
+    'placement="device" is not ported yet: see ROADMAP.md, queue 1, item 1, '
+    'sub-slice 5 (the device build and respill); use placement="host"'
+)
+
+
+@dataclasses.dataclass
+class IvfPq:
+    """An IVF-PQ index: coarse centroids, the residual quantizer and the
+    dense cells, as tensors on one device (a dataclass, as :class:`Pq` is).
+
+    ``cell_codes[c, l]`` is the PQ code of the ``l``-th row stored in cell
+    ``c`` (encoded from the residual ``x - coarse_centroids[c]``),
+    ``cell_ids[c, l]`` its corpus row (int32, ``-1`` for an empty slot) and
+    ``cell_norms[c, l]`` the f32 ``||centroid + rec||^2``.  ``dropped_ids``
+    is build metadata, not a tensor: the corpus rows :func:`build_ivf`
+    dropped under ``on_overflow="drop"``, empty otherwise.
+    """
+
+    coarse_centroids: Tensor  # (C, d)
+    pq: Pq                    # residual quantizer, codebooks (m, k, ds)
+    cell_codes: Tensor        # (C, L, m), or (C, L, m/2) packed
+    cell_ids: Tensor          # (C, L) int32, -1 = empty
+    cell_norms: Tensor        # (C, L) f32
+    dropped_ids: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.empty(0, np.int64), repr=False
+    )
+
+    def __post_init__(self) -> None:
+        C = self.coarse_centroids.shape[0]
+        if (self.cell_codes.ndim != 3 or tuple(self.cell_ids.shape) != (C, self.cell_codes.shape[1])
+                or self.cell_norms.shape != self.cell_ids.shape):
+            raise ValueError(
+                f"cells do not match {C} coarse centroids: codes {tuple(self.cell_codes.shape)}, "
+                f"ids {tuple(self.cell_ids.shape)}, norms {tuple(self.cell_norms.shape)}"
+            )
+
+    @property
+    def n_cells(self) -> int:
+        return self.coarse_centroids.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.cell_codes.shape[1]
+
+    @property
+    def packed(self) -> bool:
+        """True when the cell codes are two u4 codes a byte (``build_ivf(
+        packed=True)``, k <= 16): ``(C, L, m/2)`` bytes in the
+        :func:`reductive_tpu_torch.ops.pack_u4_codes` layout.  Inferred from
+        the shape."""
+        return self.cell_codes.shape[2] != self.pq.quantized_len
+
+
+def _is_reader(instances) -> bool:
+    """A corpus given as a reader (anything with ``read`` and no ``shape``)
+    rather than an array, as the JAX package defines it."""
+    return not hasattr(instances, "shape") and hasattr(instances, "read")
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def train_ivf_pq(
+    generator: torch.Generator,
+    instances: Tensor,
+    n_cells: int,
+    n_subquantizers: int,
+    n_subquantizer_bits: int,
+    *,
+    coarse_iterations: int = 10,
+    pq_iterations: int = 10,
+    train_sample: Optional[int] = 262_144,
+    chunk: int = 32768,
+    use_kernel: Optional[bool] = None,
+    residual_quantizer: str = "pq",
+    coarse_metric: str = "l2",
+) -> Tuple[Tensor, Pq]:
+    """Train the two quantization stages: ``n_cells`` coarse k-means
+    centroids, and a PQ over the **residuals** ``x - centroid[assign(x)]``.
+    Returns ``(coarse (C, d), pq)``.
+
+    ``train_sample`` caps the rows both stages train on (a quarter-million
+    rows train 4,096 cells well); the full corpus is only touched by
+    :func:`build_ivf`.  The coarse stage is seeded by k-means++ and runs the
+    chunked Lloyd's driver (:func:`_coarse_stage`); the residual stage runs
+    :func:`~reductive_tpu_torch.pq.train.train_pq_chunked`, or with
+    ``residual_quantizer="gaussian_opq"`` the closed-form OPQ rotation and
+    then that (:func:`_residual_stage`).  ``coarse_metric="spherical"``
+    re-normalizes the centroids to the unit sphere after every Lloyd's
+    update (spherical k-means, for ``ivf_search(metric="dot")`` on an
+    L2-normalized corpus; an empty cell stays the zero vector).
+
+    ``generator`` lives on the instances' device.  It is drawn from in this
+    order: the ``train_sample`` rows
+    (:func:`~reductive_tpu_torch.kmeans.random_distinct_indices`, only when
+    the corpus has more rows), the k-means++ seeds, then the residual
+    quantizer's initial codebooks.  ``use_kernel=None`` means the CUDA
+    kernels when the instances lie on a GPU.  A reader in place of a tensor
+    raises ``NotImplementedError``.
+    """
+    if _is_reader(instances):
+        raise NotImplementedError(_READER_MSG)
+    if coarse_metric not in ("l2", "spherical"):
+        raise ValueError(f'unknown coarse_metric {coarse_metric!r} (use "l2" or "spherical")')
+    if residual_quantizer not in ("pq", "gaussian_opq"):
+        raise ValueError(
+            f'unknown residual_quantizer {residual_quantizer!r} (use "pq" or "gaussian_opq")'
+        )
+    check_generator(generator, instances.device)
+    if use_kernel is None:
+        use_kernel = instances.is_cuda
+    n = instances.shape[0]
+    x_train = instances
+    if train_sample is not None and n > train_sample:
+        x_train = instances[kmeans.random_distinct_indices(generator, n, train_sample)]
+    logger.info(
+        "IVF-PQ training: %d coarse cells (%d iters) + residual PQ m=%d k=%d",
+        n_cells, coarse_iterations, n_subquantizers, 2 ** n_subquantizer_bits,
+    )
+    # k-means++ seeding: random seeds leave dead or merged cells, and the
+    # dense cells' capacity (so the probe cost) follows the largest cell.
+    init = kmeans.KMeansPlusPlusCentroids()(generator, x_train, n_cells)
+    coarse = _coarse_stage(x_train, init, coarse_iterations, coarse_metric=coarse_metric,
+                           chunk=chunk, use_kernel=use_kernel)
+    pq = _residual_stage(generator, x_train, coarse, n_subquantizers, n_subquantizer_bits,
+                         pq_iterations, residual_quantizer=residual_quantizer, chunk=chunk,
+                         use_kernel=use_kernel)
+    return coarse, pq
+
+
+def _coarse_stage(
+    x: Tensor, init: Tensor, iterations: int, *, coarse_metric: str = "l2",
+    chunk: int = 32768, use_kernel: bool = False,
+) -> Tensor:
+    """The coarse centroids after ``iterations`` Lloyd's steps from
+    ``init`` (the chunked driver: the fused statistics kernel with
+    ``use_kernel``).  ``"spherical"`` normalizes ``init`` and every update to
+    unit norm (Dhillon & Modha, 2001); zero rows stay zero."""
+    if coarse_metric == "l2":
+        coarse, _ = kmeans.kmeans_with_centroids_chunked(
+            x, init, iterations, chunk=chunk, use_kernel=use_kernel)
+        return coarse
+    coarse = init / torch.linalg.vector_norm(init, dim=1, keepdim=True).clamp_min(1e-30)
+    for _ in range(iterations):
+        coarse, _ = kmeans.kmeans_with_centroids_chunked(
+            x, coarse, 1, chunk=chunk, use_kernel=use_kernel)
+        norm = torch.linalg.vector_norm(coarse, dim=1, keepdim=True)
+        coarse = torch.where(norm > 0, coarse / norm.clamp_min(1e-30), coarse)
+    return coarse
+
+
+def _residual_stage(
+    generator: torch.Generator, x: Tensor, coarse: Tensor, n_subquantizers: int,
+    n_subquantizer_bits: int, iterations: int, *, residual_quantizer: str = "pq",
+    chunk: int = 32768, use_kernel: bool = False, initial_model: Optional[Pq] = None,
+) -> Pq:
+    """The residual quantizer trained on ``x - coarse[nearest]``.
+    ``initial_model`` (``"pq"`` only) starts from given codebooks, as
+    ``train_pq_chunked`` takes them."""
+    from .pq.opq import train_gaussian_opq_chunked
+    from .pq.train import train_pq_chunked
+
+    residuals = x - coarse[_assign_coarse(coarse, x, use_kernel).long()]
+    if residual_quantizer == "pq":
+        return train_pq_chunked(generator, residuals, n_subquantizers, n_subquantizer_bits,
+                                iterations, chunk=chunk, use_kernel=use_kernel,
+                                initial_model=initial_model)
+    if initial_model is not None:
+        raise ValueError('initial_model is taken with residual_quantizer="pq" only')
+    return train_gaussian_opq_chunked(generator, residuals, n_subquantizers,
+                                      n_subquantizer_bits, iterations, chunk=chunk,
+                                      use_kernel=use_kernel)
+
+
+def _assign_coarse(coarse: Tensor, x: Tensor, use_kernel: bool) -> Tensor:
+    """Nearest coarse cell of each row, int32.  With the kernel:
+    :func:`reductive_tpu_torch.ops.assign_nearest` (bf16 products, as the
+    JAX package's TPU path).  Without: the f32 distances in chunks of rows
+    whose ``(rows, C)`` block stays about 256 MB."""
+    if use_kernel:
+        return ops.assign_nearest(coarse, x)
+    n = x.shape[0]
+    b = max(8192, (1 << 26) // max(1, coarse.shape[0]))
+    if n <= b:
+        return kmeans.cluster_assignments(coarse, x)
+    out = torch.empty((n,), dtype=torch.int32, device=x.device)
+    for off in range(0, n, b):
+        out[off:off + b] = _coarse_topk(x[off:off + b], coarse, 1)[:, 0]
+    return out
+
+
+def _coarse_topk(xb: Tensor, coarse: Tensor, A: int) -> Tensor:
+    """Indices ``(rows, A)`` of the ``A`` nearest coarse centroids of each
+    row, nearest first and the lowest index among equal distances, as
+    ``jax.lax.top_k`` orders them; ``A == 1`` is the argmin (int32)."""
+    d2 = linalg.squared_euclidean_distance(xb, coarse)
+    if A == 1:
+        return torch.argmin(d2, dim=1).to(torch.int32)[:, None]
+    return _smallest(d2, None, A)[1]
+
+
+# ---------------------------------------------------------------------------
+# Build
+# ---------------------------------------------------------------------------
+
+
+def _greedy_place(
+    cands: np.ndarray, C: int, L: int, fill: Optional[np.ndarray] = None
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """First-come greedy placement of each row into the first of its
+    candidate cells (``cands`` ``(n, A)``, in preference order) with free
+    space, rows in corpus order.  Returns ``(cell, slot, fill)`` per row,
+    ``-1`` where no candidate had space; ``fill`` (occupancy per cell,
+    updated in place where passed) lets a later pass continue where an
+    earlier one stopped.  One stable grouping pass per candidate rank."""
+    n, A = cands.shape
+    cell = np.full(n, -1, np.int64)
+    slot = np.full(n, -1, np.int64)
+    if fill is None:
+        fill = np.zeros(C, np.int64)
+    for r in range(A):
+        unplaced = np.flatnonzero(cell < 0)
+        if len(unplaced) == 0:
+            break
+        cand_r = cands[unplaced, r]
+        order = np.argsort(cand_r, kind="stable")  # corpus order within a cell
+        grouped = cand_r[order]
+        group_start = np.concatenate([[0], np.flatnonzero(np.diff(grouped)) + 1])
+        starts_of = np.zeros(len(grouped), np.int64)
+        starts_of[group_start] = group_start
+        np.maximum.accumulate(starts_of, out=starts_of)
+        rank_in_group = np.arange(len(grouped)) - starts_of
+        accept = rank_in_group < L - fill[grouped]
+        rows = unplaced[order[accept]]
+        cell[rows] = grouped[accept]
+        slot[rows] = fill[grouped[accept]] + rank_in_group[accept]
+        fill += np.bincount(grouped[accept], minlength=C)
+    return cell, slot, fill
+
+
+def _spill_place(
+    remaining: np.ndarray, coarse: Tensor, fetch_rows, C: int, L: int, fill: np.ndarray,
+    cell_of: np.ndarray, slot_of: np.ndarray,
+) -> None:
+    """Places each row of ``remaining`` (rows that fit none of their
+    candidate cells) in the nearest cell *anywhere* with free space.  Ranks
+    only the cells that still have space; rows whose ranked cells fill up
+    meanwhile retry against the smaller set, and every pass places at least
+    the earliest row, so it ends.  Updates ``fill``, ``cell_of`` and
+    ``slot_of``."""
+    while len(remaining):
+        space_cells = np.flatnonzero(fill < L)
+        sub = coarse[torch.from_numpy(space_cells).to(coarse.device)]
+        a_sp = int(min(len(space_cells), 16))
+        bf = max(8192, (1 << 26) // max(1, len(space_cells)))
+        csp = np.empty((len(remaining), a_sp), np.int64)
+        for off in range(0, len(remaining), bf):
+            rows = remaining[off:off + bf]
+            csp[off:off + bf] = _coarse_topk(fetch_rows(rows), sub, a_sp).cpu().numpy()
+        cell_sp, slot_sp, fill = _greedy_place(space_cells[csp], C, L, fill)
+        ok = cell_sp >= 0
+        cell_of[remaining[ok]] = cell_sp[ok]
+        slot_of[remaining[ok]] = slot_sp[ok]
+        remaining = remaining[~ok]
+
+
+def _residual_encode_batch(
+    coarse: Tensor, pq: Pq, xb: Tensor, cc: Tensor, use_kernel: bool, out_dtype: torch.dtype,
+) -> Tuple[Tensor, Tensor]:
+    """Codes of the residuals of ``xb`` against the centroids ``cc`` names,
+    and the f32 norms ``g = ||centroid + rec||^2``, on the device of the
+    rows.  With the kernel: :func:`reductive_tpu_torch.ops.pq_encode` (bf16
+    products, as the JAX package's TPU path) after the projection; without:
+    ``pq.quantize_batch``."""
+    c = coarse[cc]
+    rb = xb - c
+    if use_kernel:
+        if pq.projection is not None:
+            rb = torch.matmul(rb, pq.projection)
+        codes = ops.pq_encode(pq.codebooks, rb, dtype=out_dtype)
+    else:
+        codes = pq.quantize_batch(rb, dtype=out_dtype)
+    full = c + pq.reconstruct_batch(codes)
+    return codes, torch.einsum("nd,nd->n", full, full)
+
+
+def _mark(stage: str, t0: float) -> float:
+    """Logs a build pass's seconds at INFO; each pass ends where the host
+    waits for the card (a transfer), so the clock covers its device work."""
+    t = time.perf_counter()
+    logger.info("IVF build pass %s: %.6f s", stage, t - t0)
+    return t
+
+
+def build_ivf(
+    coarse: Tensor,
+    pq: Pq,
+    instances: Tensor,
+    *,
+    capacity=None,
+    overflow_candidates: int = 4,
+    on_overflow: str = "spill",
+    dtype: torch.dtype = torch.uint8,
+    batch: int = 262_144,
+    use_kernel: Optional[bool] = None,
+    packed: bool = False,
+    placement: str = "auto",
+) -> IvfPq:
+    """Assign, residual-encode and scatter the ``(n, d)`` corpus into dense
+    cells on the instances' device.
+
+    Pass 1 takes each row's nearest coarse cells (``batch`` rows at a time,
+    fewer where the ``(rows, C)`` distance block would pass 1 GB) into one
+    candidate matrix on the card, moved to the host in one transfer (int16
+    when ``C <= 32767``).  The host places the rows.  Pass 2 residual-encodes
+    the placed rows against their storage cell on the card
+    (:func:`_residual_encode_batch`), moves codes and norms to the host in
+    one transfer each, and the host scatters them into the cells.  Each
+    pass's seconds are logged at INFO (``"IVF build pass ..."``).
+
+    ``capacity`` sets the cell size ``L``, and with it memory and probe cost:
+
+    * ``None``: ``L`` = the largest cell; nothing moves or drops.
+    * ``"auto"``: ``L = ceil(1.25 * n / C)``; a row that overflows its nearest
+      cell goes to the first of its ``overflow_candidates`` nearest cells with
+      space, encoded against that centroid.
+    * an int: that ``L``, with the same overflow placement.
+
+    ``on_overflow`` decides the rows that fit none of those cells:
+    ``"spill"`` (default) places each in the nearest cell anywhere with
+    space (``ValueError`` only when ``C * L < n``), ``"error"`` raises, and
+    ``"drop"`` warns and records their ids on ``index.dropped_ids``.
+
+    ``packed=True`` (``k <= 16``, even ``m``, ``dtype=torch.uint8``) stores
+    two u4 codes a byte; search scores such cells bit for bit as the
+    unpacked ones.  ``placement="host"`` is this path, and ``"auto"`` takes
+    it (the JAX package picks the device build only on a TPU);
+    ``"device"`` and a reader in place of a tensor raise
+    ``NotImplementedError``.  ``use_kernel=None`` means the encode kernel
+    when the instances lie on a GPU.
+    """
+    if placement not in ("auto", "host", "device"):
+        raise ValueError(f'placement must be "auto", "host", or "device", got {placement!r}')
+    if on_overflow not in ("spill", "error", "drop"):
+        raise ValueError(f'on_overflow must be "spill", "error", or "drop", got {on_overflow!r}')
+    if _is_reader(instances):
+        raise NotImplementedError(_READER_MSG)
+    if use_kernel is None:
+        use_kernel = instances.is_cuda
+    n = instances.shape[0]
+    C = coarse.shape[0]
+    m = pq.quantized_len
+    if packed:
+        if pq.n_quantizer_centroids > 16:
+            raise ValueError(
+                f"packed=True requires 4-bit codes (k <= 16), got k={pq.n_quantizer_centroids}"
+            )
+        if m % 2 != 0:
+            raise ValueError(f"packed=True requires even m, got {m}")
+        if dtype != torch.uint8:
+            raise ValueError("packed=True requires dtype=uint8")
+    if placement == "device":
+        raise NotImplementedError(_DEVICE_BUILD_MSG)
+    dev = instances.device
+
+    def fetch_rows(rows: np.ndarray) -> Tensor:
+        return instances[torch.from_numpy(rows).to(dev)]
+
+    bounded = capacity is not None
+    A = min(overflow_candidates, C) if bounded else 1
+
+    # Pass 1: the A nearest cells of every row, held on the card and moved
+    # to the host in one transfer.
+    t0 = time.perf_counter()
+    b1 = max(8192, min(batch, (1 << 28) // max(1, C)))
+    cands_dev = torch.empty((n, A), dtype=torch.int16 if C <= 32767 else torch.int32, device=dev)
+    for off in range(0, n, b1):
+        cands_dev[off:off + b1] = _coarse_topk(instances[off:off + b1], coarse, A)
+    cands = cands_dev.cpu().numpy()
+    del cands_dev
+    t0 = _mark("candidates", t0)
+
+    counts0 = np.bincount(cands[:, 0], minlength=C)
+    if capacity is None:
+        L = int(counts0.max())
+    elif capacity == "auto":
+        L = int(np.ceil(1.25 * n / C))
+    else:
+        L = int(capacity)
+
+    cell_of, slot_of, fill = _greedy_place(cands, C, L)
+    overflowed = np.flatnonzero(cell_of < 0)
+    dropped_ids = np.empty(0, np.int64)
+    if len(overflowed):
+        if on_overflow == "error":
+            raise ValueError(
+                f"IVF build: {len(overflowed)} rows fit none of their {A} "
+                f"candidate cells at capacity {L}; raise capacity/n_cells, "
+                f'or use on_overflow="spill"'
+            )
+        if on_overflow == "spill":
+            if C * L - int((cell_of >= 0).sum()) < len(overflowed):
+                raise ValueError(
+                    f"IVF build: total capacity C*L = {C * L} < n = {n}; "
+                    f"no spill placement exists — raise capacity"
+                )
+            _spill_place(overflowed, coarse, fetch_rows, C, L, fill, cell_of, slot_of)
+            logger.info("IVF build: %d rows spilled to the nearest cell with free space",
+                        len(overflowed))
+        else:  # "drop"
+            dropped_ids = overflowed.astype(np.int64)
+            logger.warning(
+                "IVF build: %d rows fit none of their %d candidate cells at capacity %d and "
+                "were dropped (ids on index.dropped_ids); raise capacity or n_cells",
+                len(overflowed), A, L,
+            )
+    placed = cell_of >= 0
+    moved = int((cell_of[placed] != cands[placed, 0]).sum())
+    del cands
+    t0 = _mark("placement", t0)
+
+    # Pass 2: residual codes and norms of the placed rows on the card, moved
+    # to the host in one transfer each.
+    placed_rows = np.flatnonzero(placed)
+    cc_all, slots_all = cell_of[placed_rows], slot_of[placed_rows]
+    mb = m // 2 if packed else m  # stored bytes a row
+    codes_dev = torch.empty((len(placed_rows), mb), dtype=dtype, device=dev)
+    norms_dev = torch.empty((len(placed_rows),), dtype=torch.float32, device=dev)
+    rows_dev = torch.from_numpy(placed_rows).to(dev)
+    cells_dev = torch.from_numpy(cc_all).to(dev)
+    for off in range(0, len(placed_rows), batch):
+        codes_b, norms_b = _residual_encode_batch(
+            coarse, pq, instances[rows_dev[off:off + batch]], cells_dev[off:off + batch],
+            use_kernel, dtype)
+        codes_dev[off:off + batch] = ops.pack_u4_codes(codes_b) if packed else codes_b
+        norms_dev[off:off + batch] = norms_b
+    codes_all = codes_dev.cpu().numpy()
+    norms_all = norms_dev.cpu().numpy()
+    del codes_dev, norms_dev, rows_dev, cells_dev
+    t0 = _mark("encode", t0)
+
+    cell_codes = np.zeros((C, L, mb), dtype=codes_all.dtype)
+    cell_ids = np.full((C, L), -1, dtype=np.int32)
+    cell_norms = np.zeros((C, L), np.float32)
+    cell_codes[cc_all, slots_all] = codes_all
+    cell_ids[cc_all, slots_all] = placed_rows
+    cell_norms[cc_all, slots_all] = norms_all
+    index = IvfPq(
+        coarse_centroids=coarse, pq=pq, cell_codes=torch.from_numpy(cell_codes).to(dev),
+        cell_ids=torch.from_numpy(cell_ids).to(dev), cell_norms=torch.from_numpy(cell_norms).to(dev),
+        dropped_ids=dropped_ids,
+    )
+    _mark("scatter", t0)
+    logger.info(
+        "IVF build: %d rows -> %d cells, capacity %d (mean %.0f, util %.0f%%, %d rows in "
+        "secondary cells)",
+        n, C, L, counts0.mean(), 100.0 * (n - len(dropped_ids)) / (C * L), moved,
+    )
+    return index
+
+
+# ---------------------------------------------------------------------------
+# Search
+# ---------------------------------------------------------------------------
+
+
+def _coarse_scores(queries: Tensor, coarse: Tensor, metric: str) -> Tuple[Tensor, Tensor, Tensor]:
+    """``(qc, score_c, q_sqn)``: the ``(nq, C)`` products ``q.c``, the
+    cells' probe scores (larger is nearer: ``q.c`` for ``"dot"``, the
+    negated squared distance for ``"l2"``) and ``|q|^2`` (None for
+    ``"dot"``)."""
+    qc = torch.matmul(queries, coarse.T)
+    if metric == "dot":
+        return qc, qc, None
+    q_sqn = torch.sum(queries * queries, dim=1)
+    c_sqn = torch.sum(coarse * coarse, dim=1)
+    return qc, -(q_sqn[:, None] + c_sqn[None, :] - 2.0 * qc), q_sqn
+
+
+def _probe_and_score_lut(
+    queries: Tensor, coarse: Tensor, cell_codes: Tensor, cell_ids: Tensor, cell_norms: Tensor,
+    pq: Pq, nprobe: int, top_k: int, splits, metric: str = "l2",
+) -> Tuple[Tensor, Tensor]:
+    """The ADC-table probe: the final ``(dists, ids)``, ``(nq, top_k)``.
+
+    The union of the probed cells is scored once against every query by
+    :func:`reductive_tpu_torch.ops.adc_scores_kernel` over ``-q.rec``
+    tables (``q.rec = sum_j T[q, j, code_j]``; the orthonormal projection
+    keeps inner products), in chunks of cells whose ``(nq, cells * L)``
+    scores stay under ``_PROBE_LUT_BUDGET``; each query masks the cells it
+    did not probe and the empty slots, and a running top-k keeps the best,
+    ties in (cell, slot) order.  Queries that probe the same cell share its
+    rows.  ``splits`` sets the tables' precision (2: about 2^-18
+    relative)."""
+    C, L, mb = cell_codes.shape
+    m = pq.quantized_len
+    nq = queries.shape[0]
+    qc, score_c, q_sqn = _coarse_scores(queries, coarse, metric)
+    probe = _smallest(-score_c, None, nprobe)[1]  # (nq, nprobe)
+    cells_u = torch.unique(probe)                 # ascending
+    U = cells_u.shape[0]
+    tables = adc_tables(pq, queries, metric="dot")  # (nq, m, k): -q.rec
+    cc = max(1, min(U, _PROBE_LUT_BUDGET // (4 * max(nq, 1) * L)))
+    K = min(top_k, U * L)
+    best_d = best_i = None
+    for c0 in range(0, U, cc):
+        cu = cells_u[c0:c0 + cc]
+        n_c = cu.shape[0]
+        ids_c = cell_ids[cu].reshape(n_c * L)
+        raw = ops.adc_scores_kernel(tables, cell_codes[cu].reshape(n_c * L, mb), splits=splits,
+                                    packed=mb != m).reshape(nq, n_c, L)
+        qc_c = qc[:, cu][:, :, None]
+        if metric == "dot":
+            sc = raw - qc_c
+        else:
+            sc = q_sqn[:, None, None] + cell_norms[cu].reshape(1, n_c, L) + 2.0 * raw - 2.0 * qc_c
+        probed = (probe[:, :, None] == cu[None, None, :]).any(dim=1)  # (nq, n_c)
+        mask = probed[:, :, None] & (ids_c.reshape(1, n_c, L) >= 0)
+        sc = torch.where(mask, sc, torch.full_like(sc, float("inf"))).reshape(nq, n_c * L)
+        d, pos = _smallest(sc, None, min(K, n_c * L))
+        i = ids_c[pos]
+        if best_d is not None:
+            d, i = _smallest(torch.cat([best_d, d], dim=1), torch.cat([best_i, i], dim=1), K)
+        best_d, best_i = d, i
+    ids = torch.where(torch.isfinite(best_d), best_i, torch.full_like(best_i, -1))
+    return _pad(best_d, ids, top_k)
+
+
+def _probe_and_score(
+    queries: Tensor, coarse: Tensor, cell_codes: Tensor, cell_ids: Tensor, cell_norms: Tensor,
+    pq: Pq, nprobe: int, use_kernel: bool, splits, metric: str = "l2",
+    valid: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor]:
+    """The decode probe: flattened ``(scores, ids)``, ``(nq, nprobe * L)``,
+    of the ``nprobe`` best cells of every query (empty slots at ``+inf`` /
+    ``-1``).  ``metric="dot"`` probes the largest ``q.c`` and scores
+    ``-(q.c + q.rec)``; ``valid`` (``(C,)`` bool) keeps cells out of the
+    probe selection.
+
+    The probed candidates are decoded (with the kernel:
+    :func:`reductive_tpu_torch.ops.pq_decode` at ``splits``; without: a
+    gather; packed cells unpacked first, exactly) and dotted with the
+    (rotated) queries, the probes in chunks so that the ``(nq, probes, L,
+    d)`` reconstruction stays under ``_PROBE_RECON_BUDGET``, and the cell
+    rows too when one probe alone exceeds it."""
+    cb = pq.codebooks
+    m, _, ds = cb.shape
+    d = m * ds
+    nq = queries.shape[0]
+    L, mb = cell_codes.shape[1], cell_codes.shape[2]
+    qc, score_c, q_sqn = _coarse_scores(queries, coarse, metric)
+    if valid is not None:
+        score_c = torch.where(valid[None, :], score_c, torch.full_like(score_c, -float("inf")))
+    probe = _smallest(-score_c, None, nprobe)[1]  # (nq, nprobe)
+    qc_g = torch.gather(qc, 1, probe)
+    codes_g = cell_codes[probe]                   # (nq, nprobe, L, mb)
+    ids_g = cell_ids[probe]
+    norms_g = cell_norms[probe]
+    qr = torch.matmul(queries, pq.projection) if pq.projection is not None else queries
+
+    def qdot(codes_chunk: Tensor) -> Tensor:  # (nq, pc, lc, mb) -> (nq, pc, lc)
+        pc, lc = codes_chunk.shape[1], codes_chunk.shape[2]
+        flat = codes_chunk.reshape(nq * pc * lc, mb)
+        if mb != m:  # packed cells: the unpack is exact
+            flat = ops.unpack_u4_codes(flat)
+        if use_kernel:
+            rec = ops.pq_decode(cb, flat, splits=splits)
+        else:
+            rec = primitives.reconstruct_batch(cb, flat, method="gather")
+        return torch.bmm(rec.reshape(nq, pc * lc, d), qr[:, :, None]).reshape(nq, pc, lc)
+
+    budget = _PROBE_RECON_BUDGET
+    if nq * L * d * 4 <= budget:
+        pc = max(1, min(nprobe, budget // max(1, nq * L * d * 4)))
+        dot = torch.cat([qdot(codes_g[:, p0:p0 + pc]) for p0 in range(0, nprobe, pc)], dim=1)
+    else:
+        lc = max(1, budget // max(1, nq * d * 4))
+        dot = torch.stack([
+            torch.cat([qdot(codes_g[:, p, None, l0:l0 + lc]) for l0 in range(0, L, lc)], dim=2)[:, 0]
+            for p in range(nprobe)
+        ], dim=1)
+
+    if metric == "dot":
+        scores = -(qc_g[:, :, None] + dot)
+    else:
+        scores = q_sqn[:, None, None] + norms_g - 2.0 * qc_g[:, :, None] - 2.0 * dot
+    scores = torch.where(ids_g >= 0, scores, torch.full_like(scores, float("inf")))
+    return scores.reshape(nq, -1), ids_g.reshape(nq, -1)
+
+
+def _pad(dists: Tensor, ids: Tensor, top_k: int) -> Tuple[Tensor, Tensor]:
+    """Pads ``(nq, kk)`` results to ``top_k`` columns with ``+inf`` / ``-1``."""
+    pad = top_k - dists.shape[1]
+    if pad <= 0:
+        return dists, ids
+    nq = dists.shape[0]
+    return (torch.cat([dists, dists.new_full((nq, pad), float("inf"))], dim=1),
+            torch.cat([ids, ids.new_full((nq, pad), -1)], dim=1))
+
+
+def _padded_topk(flat_scores: Tensor, flat_ids: Tensor, top_k: int) -> Tuple[Tensor, Tensor]:
+    """Top-``top_k`` by ascending score, ties by position, padded with
+    ``+inf`` / ``-1`` when fewer candidates exist."""
+    dists, ids = _smallest(flat_scores, flat_ids, min(top_k, flat_scores.shape[1]))
+    return _pad(dists, ids, top_k)
+
+
+def _ivf_search_once(
+    index: IvfPq, queries: Tensor, top_k: int, nprobe: int, use_kernel: bool, splits, metric: str,
+) -> Tuple[Tensor, Tensor]:
+    """One probe route, chosen before any launch: with the kernels, the
+    ADC-table probe, unless one query's tables do not fit a block's shared
+    memory, and then the decode probe; without, the decode probe."""
+    pq = index.pq
+    m, k = pq.n_subquantizers, pq.n_quantizer_centroids
+    args = (index.coarse_centroids, index.cell_codes, index.cell_ids, index.cell_norms, pq, nprobe)
+    if use_kernel and query_tile(m, k, splits) > 0:
+        qb = max_query_batch(m, k, splits)
+        parts = [_probe_and_score_lut(queries[i:i + qb], *args, top_k, splits, metric)
+                 for i in range(0, queries.shape[0], qb)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    if use_kernel:
+        logger.info("IVF search: one query's ADC tables (m=%d, k=%d, splits=%r) do not fit a "
+                    "block's shared memory; scoring by the decode probe", m, k, splits)
+    return _padded_topk(*_probe_and_score(queries, *args, use_kernel, splits, metric), top_k)
+
+
+def ivf_search(
+    index: IvfPq,
+    queries: Tensor,
+    top_k: int = 10,
+    *,
+    nprobe: int = 8,
+    use_kernel: Optional[bool] = None,
+    splits=2,
+    refine_with: Optional[Tensor] = None,
+    refine_factor: int = 4,
+    metric: str = "l2",
+) -> Tuple[Tensor, Tensor]:
+    """Top-``top_k`` approximate neighbours of each query, scanning only its
+    ``nprobe`` nearest coarse cells.  Returns ``(distances, ids)`` of shape
+    ``(nq, top_k)``: f32 approximate squared distances, ascending, and int64
+    corpus rows; fewer than ``top_k`` candidates pad with ``-1`` /
+    ``+inf``.
+
+    ``use_kernel=None`` means the kernels when the index lies on a GPU: the
+    ADC-table probe (:func:`_probe_and_score_lut`, the ADC kernel over the
+    union of the probed cells, tables at ``splits`` precision: 1, 2, 3 or
+    ``"int8"``), or, where one query's tables do not fit a block's shared
+    memory, the decode probe with the decode kernel at ``splits``.  Without
+    the kernels the decode probe decodes by a gather (f32 exact).
+
+    ``metric="dot"`` ranks by maximum inner product: cells are probed by
+    largest ``q.c`` and the returned "distances" are negated inner products.
+    ``refine_with`` (the original ``(n, d)`` vectors) re-scores the best
+    ``top_k * refine_factor`` candidates exactly and keeps ``top_k``, as
+    :func:`reductive_tpu_torch.search.search` does; a reader raises
+    ``NotImplementedError``.
+    """
+    _check_metric(metric)
+    if top_k <= 0:
+        raise ValueError("top_k must be >= 1")
+    if not 1 <= nprobe <= index.n_cells:
+        raise ValueError(f"nprobe must be in 1..{index.n_cells} (the index's cells), got {nprobe}")
+    if use_kernel is None:
+        use_kernel = index.cell_codes.is_cuda
+    if refine_with is not None:
+        if refine_factor < 1:
+            raise ValueError("refine_factor must be >= 1")
+        if not isinstance(refine_with, Tensor):
+            raise NotImplementedError(_READER_MSG)
+        _, cand = _ivf_search_once(index, queries, top_k * refine_factor, nprobe, use_kernel,
+                                   splits, metric)
+        return _refine(queries, refine_with, cand.to(torch.int64), top_k, metric)
+    dists, ids = _ivf_search_once(index, queries, top_k, nprobe, use_kernel, splits, metric)
+    return dists.to(torch.float32), ids.to(torch.int64)

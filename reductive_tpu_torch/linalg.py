@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from ._precision import check_precision
+
 __all__ = [
     "squared_euclidean_distance",
     "euclidean_distance",
@@ -58,7 +60,7 @@ def one_hot_sums(
     return sums, counts
 
 
-def squared_euclidean_distance(u: Tensor, v: Tensor) -> Tensor:
+def squared_euclidean_distance(u: Tensor, v: Tensor, *, precision="highest") -> Tensor:
     """Squared Euclidean distance(s) between ``u`` and ``v``.
 
     * ``(d,) x (d,)``  -> scalar.
@@ -67,8 +69,10 @@ def squared_euclidean_distance(u: Tensor, v: Tensor) -> Tensor:
       between row ``i`` of ``u`` and row ``j`` of ``v``.
 
     The result is not clamped at zero, so tiny negative values can appear
-    for near-identical inputs.
+    for near-identical inputs.  ``precision`` takes ``"highest"`` only (the
+    JAX package's keyword; the products here are float32).
     """
+    check_precision(precision)
     if u.ndim == 1 and v.ndim == 1:
         if u.shape[0] != v.shape[0]:
             raise ValueError(
@@ -102,19 +106,21 @@ def squared_euclidean_distance(u: Tensor, v: Tensor) -> Tensor:
     )
 
 
-def euclidean_distance(u: Tensor, v: Tensor) -> Tensor:
+def euclidean_distance(u: Tensor, v: Tensor, *, precision="highest") -> Tensor:
     """Euclidean distance(s): the square root of
     :func:`squared_euclidean_distance`, with the same shape rules."""
-    return torch.sqrt(squared_euclidean_distance(u, v))
+    return torch.sqrt(squared_euclidean_distance(u, v, precision=precision))
 
 
-def covariance(x: Tensor, observation_axis: int = 0) -> Tensor:
+def covariance(x: Tensor, observation_axis: int = 0, *, precision="highest") -> Tensor:
     """Covariance matrix of ``x`` with observations along ``observation_axis``.
 
     For an ``n x m`` matrix with ``n`` observations along axis 0, returns the
     ``m x m`` matrix ``C`` with ``C[i, j]`` the covariance between variables
-    ``i`` and ``j``: mean-centered, normalized by ``n - 1``.
+    ``i`` and ``j``: mean-centered, normalized by ``n - 1``.  ``precision``
+    takes ``"highest"`` only.
     """
+    check_precision(precision)
     if x.ndim != 2:
         raise ValueError(f"covariance expects a rank-2 array, got rank {x.ndim}")
     if observation_axis not in (0, 1):

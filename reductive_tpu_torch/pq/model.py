@@ -21,6 +21,7 @@ import torch
 from torch import Tensor
 
 from .._device import resolve_device
+from .._precision import check_precision
 from . import primitives
 
 __all__ = [
@@ -107,8 +108,8 @@ class Pq:
     # -- encode
 
     def quantize_batch(
-        self, x: Tensor, dtype: torch.dtype = torch.uint8, *, method: str = "exact",
-        out: Optional[Tensor] = None,
+        self, x: Tensor, dtype: torch.dtype = torch.uint8, *, precision="highest",
+        method: str = "exact", out: Optional[Tensor] = None,
     ) -> Tensor:
         """Encode ``(n, d)`` vectors to ``(n, m)`` codes of ``dtype``.
 
@@ -119,8 +120,10 @@ class Pq:
         ``method="kernel-f32"`` is the same kernel at fp32 accuracy (a 3xTF32
         split product on the tensor cores, the assignment the f32 training
         kernel makes too), which flips fewer still.  ``out`` receives the codes
-        where given.
+        where given.  ``precision`` takes ``"highest"`` only (the JAX
+        package's keyword; :mod:`reductive_tpu_torch._precision`).
         """
+        check_precision(precision)
         if self.projection is not None:
             x = torch.matmul(x, self.projection)
         if method in _ENCODE_KERNEL_DTYPES:
@@ -132,19 +135,23 @@ class Pq:
             )
         if method != "exact":
             raise ValueError(f"unknown quantize method {method!r}")
-        codes = primitives.quantize_batch(self.codebooks, x, dtype=dtype)
+        codes = primitives.quantize_batch(self.codebooks, x, dtype=dtype, precision=precision)
         return codes if out is None else out.copy_(codes)
 
-    def quantize_vector(self, x: Tensor, dtype: torch.dtype = torch.uint8) -> Tensor:
+    def quantize_vector(
+        self, x: Tensor, dtype: torch.dtype = torch.uint8, *, precision="highest"
+    ) -> Tensor:
         """Encode a single ``(d,)`` vector to ``(m,)`` codes."""
+        check_precision(precision)
         if self.projection is not None:
             x = torch.matmul(x, self.projection)
-        return primitives.quantize(self.codebooks, x, dtype=dtype)
+        return primitives.quantize(self.codebooks, x, dtype=dtype, precision=precision)
 
     # -- decode
 
     def reconstruct_batch(
-        self, codes: Tensor, *, method: str = "auto", out: Optional[Tensor] = None
+        self, codes: Tensor, *, precision="highest", method: str = "auto",
+        out: Optional[Tensor] = None,
     ) -> Tensor:
         """Decode ``(n, m)`` codes to approximate ``(n, d)`` vectors.
 
@@ -152,8 +159,9 @@ class Pq:
         all bit-identical) or one of the fused-kernel routes: ``"kernel"``
         (bit-exact), ``"kernel-fast"`` (codebook rounded to bfloat16) and
         ``"kernel-int8"`` (weight-only int8).  ``out`` receives the result
-        where given.
+        where given.  ``precision`` takes ``"highest"`` only.
         """
+        check_precision(precision)
         if method in _DECODE_KERNEL_SPLITS:
             from ..ops.decode import pq_decode
 
@@ -169,8 +177,9 @@ class Pq:
             return rec
         return out.copy_(rec)
 
-    def reconstruct(self, code: Tensor) -> Tensor:
+    def reconstruct(self, code: Tensor, *, precision="highest") -> Tensor:
         """Decode a single ``(m,)`` code row to a ``(d,)`` vector."""
+        check_precision(precision)
         rec = primitives.reconstruct(self.codebooks, code)
         if self.projection is not None:
             rec = torch.matmul(rec, self.projection.T)

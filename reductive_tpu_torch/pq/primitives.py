@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from .._precision import check_precision
+
 __all__ = [
     "reconstructed_len",
     "check_code_dtype",
@@ -76,7 +78,8 @@ def nearest_centroids(cb2: Tensor, c_sqn: Tensor, xs: Tensor, batch: int | None 
 
 
 def quantize_batch(
-    codebooks: Tensor, x: Tensor, dtype: torch.dtype = torch.uint8, *, batch: int | None = None
+    codebooks: Tensor, x: Tensor, dtype: torch.dtype = torch.uint8, *, precision="highest",
+    batch: int | None = None,
 ) -> Tensor:
     """Encode ``(n, m * ds)`` vectors to ``(n, m)`` centroid indices of
     ``dtype``, in float32 (``allow_tf32`` stays off).  Argmin ties break to
@@ -87,7 +90,9 @@ def quantize_batch(
     the same bits (a scaling by two is exact).  ``batch``: code these rows as
     a batch of that many rows codes them (see :func:`nearest_centroids`); the
     verified wrappers pass their batch's size when they code its flagged rows.
+    ``precision`` takes ``"highest"`` only (the JAX package's keyword).
     """
+    check_precision(precision)
     check_code_dtype(codebooks, dtype)
     m, k, ds = codebooks.shape
     if x.ndim != 2 or x.shape[1] != m * ds:
@@ -100,11 +105,13 @@ def quantize_batch(
     return nearest_centroids(codebooks + codebooks, c_sqn, xs, batch).to(dtype)
 
 
-def quantize(codebooks: Tensor, x: Tensor, dtype: torch.dtype = torch.uint8) -> Tensor:
+def quantize(
+    codebooks: Tensor, x: Tensor, dtype: torch.dtype = torch.uint8, *, precision="highest"
+) -> Tensor:
     """Encode a single vector."""
     if x.ndim != 1:
         raise ValueError(f"quantize expects a rank-1 vector, got rank {x.ndim}")
-    return quantize_batch(codebooks, x[None, :], dtype=dtype)[0]
+    return quantize_batch(codebooks, x[None, :], dtype=dtype, precision=precision)[0]
 
 
 def reconstruct_batch(codebooks: Tensor, codes: Tensor, *, method: str = "auto") -> Tensor:

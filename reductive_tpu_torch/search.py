@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
+from ._precision import check_precision
 from .pq import primitives
 from .pq.model import Pq
 
@@ -31,9 +32,13 @@ __all__ = ["adc_tables", "adc_scores", "adc_scores_decode", "search"]
 _STREAM_SCORE_ELEMS = 64 * (1 << 20)
 _DEFAULT_STREAM_CHUNK = 1 << 20
 
+# A reader (anything with ``read`` and no ``shape``) in place of an (n, d)
+# tensor: ``search`` and ``ivf`` raise this where the JAX package streams from
+# disk.
 _READER_MSG = (
-    "refine_with a reader is not ported yet (it needs the IVF module's reader "
-    "protocol): see ROADMAP.md, 'ivf.py' under 'Modules to port'; pass an (n, d) tensor"
+    "a reader in place of an (n, d) tensor is not ported yet: see ROADMAP.md, "
+    "queue 1 ('Modules to port'), item 2 (native/, data.py, conformance.py); "
+    "pass an (n, d) tensor"
 )
 
 
@@ -61,7 +66,7 @@ def _check_metric(metric: str) -> None:
         raise ValueError(f"unknown metric {metric!r} (expected 'l2' or 'dot')")
 
 
-def adc_tables(pq: Pq, queries: Tensor, *, metric: str = "l2") -> Tensor:
+def adc_tables(pq: Pq, queries: Tensor, *, metric: str = "l2", precision="highest") -> Tensor:
     """Per-query lookup tables, ``(nq, m, k)``.
 
     With ``metric="l2"`` (default) entry ``[q, j, c]`` is the squared
@@ -70,8 +75,10 @@ def adc_tables(pq: Pq, queries: Tensor, *, metric: str = "l2") -> Tensor:
     exact squared distance to the reconstruction.  With ``metric="dot"`` the
     entry is the **negated** inner product, so ascending score order ranks
     by descending inner product and every top-k downstream works unchanged.
+    ``precision`` takes ``"highest"`` only (the JAX package's keyword).
     """
     _check_metric(metric)
+    check_precision(precision)
     if queries.ndim != 2:
         raise ValueError(f"queries must be (nq, d), got {tuple(queries.shape)}")
     codebooks = pq.codebooks

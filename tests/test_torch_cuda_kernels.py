@@ -1379,3 +1379,121 @@ def test_the_wide_statistics_are_the_accumulation_of_their_codes(dev, n, m, k, d
         v_sums, v_counts, v_codes, _ = pq_assign_stats_verify_flags(cb, x)
         want = ops.stats.cell_stats_reference(v_codes, x, k)
         assert _same_bits(v_sums, want[0]) and torch.equal(v_counts, want[1])
+
+
+def _ivf_setup(dev, k, n_cells=64, per=300, d=64, m=16, seed=30):
+    """A clustered corpus (rows around ``n_cells`` centres x 3.0, noise 0.3)
+    and an IVF-PQ model trained on it on the card (k-means++, 3 Lloyd's
+    steps each stage), with 16 queries near corpus rows."""
+    from reductive_tpu_torch import ivf
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    centers = 3.0 * torch.randn((n_cells, d), generator=gen, device=dev)
+    member = torch.randint(0, n_cells, (n_cells * per,), generator=gen, device=dev)
+    x = centers[member] + 0.3 * torch.randn((n_cells * per, d), generator=gen, device=dev)
+    coarse, pq = ivf.train_ivf_pq(gen, x, n_cells, m, k.bit_length() - 1, coarse_iterations=3,
+                                  pq_iterations=3)
+    planted = torch.arange(0, x.shape[0], x.shape[0] // 16, device=dev)[:16]
+    q = x[planted] + 0.05 * torch.randn((16, d), generator=gen, device=dev)
+    return x, coarse, pq, q, planted
+
+
+def _ivf_atol(q):
+    # 2e-5 of the terms |q|^2 + g - 2 q.c - 2 q.rec (or q.c + q.rec), which
+    # cancel into a distance far below them for a query near a row.
+    return 2e-5 * float((q * q).sum(1).max())
+
+
+@pytest.mark.parametrize("capacity", [None, "auto"])
+def test_ivf_build_kernel_route_against_the_plain_route(dev, capacity):
+    from reductive_tpu_torch import ivf
+    x, coarse, pq, _, _ = _ivf_setup(dev, 256)
+    ops.reset_launch_counts()
+    kern = ivf.build_ivf(coarse, pq, x, capacity=capacity, use_kernel=True)
+    assert ops.launch_counts() == {"encode_bf16": 1}
+    plain = ivf.build_ivf(coarse, pq, x, capacity=capacity, use_kernel=False)
+    # The placement is the same plain product on both routes.  The kernel
+    # route's codes are the bf16 encode's (its plain version's but for at
+    # most 1% of near-ties); where they differ from the plain route's exact
+    # codes, the centroid taken is within 2^-7 of the products' scale of the
+    # best, and the norms follow the codes.
+    assert torch.equal(kern.cell_ids, plain.cell_ids)
+    occ = kern.cell_ids >= 0
+    rows = kern.cell_ids[occ].long()
+    assert torch.equal(torch.sort(rows).values, torch.arange(x.shape[0], device=dev))
+    res = x[rows] - coarse[occ.nonzero()[:, 0]]
+    cb = pq.codebooks
+    got, exact = kern.cell_codes[occ].long(), plain.cell_codes[occ].long()
+    want = ops.pq_encode_reference(cb, res, dtype=torch.int32, compute_dtype=torch.bfloat16)
+    assert int((got != want).sum()) <= max(2, got.numel() // 100)
+    m, _, ds = cb.shape
+    dg, dw = _chosen_dist(cb, res, got), _chosen_dist(cb, res, exact)
+    cn = cb.double().pow(2).sum(dim=2).sqrt().amax(dim=1)
+    xn = res.reshape(-1, m, ds).double().pow(2).sum(dim=2).sqrt()
+    assert bool(((dg - dw).abs() <= 2.0 ** -7 * (2 * xn * cn[None] + cn[None] ** 2)).all())
+    same = (got == exact).all(dim=1)
+    assert torch.equal(kern.cell_norms[occ][same], plain.cell_norms[occ][same])
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+@pytest.mark.parametrize("nprobe", [1, 8])
+def test_ivf_search_kernel_route_against_the_plain_route(dev, metric, nprobe):
+    from reductive_tpu_torch import ivf
+    x, coarse, pq, q, _ = _ivf_setup(dev, 256)
+    index = ivf.build_ivf(coarse, pq, x, capacity="auto")
+    ops.reset_launch_counts()
+    d_k, i_k = ivf.ivf_search(index, q, 11, nprobe=nprobe, splits=3, metric=metric)
+    assert ops.launch_counts() == {"adc": 1}
+    d_p, i_p = ivf.ivf_search(index, q, 11, nprobe=nprobe, use_kernel=False, metric=metric)
+    assert ops.launch_counts() == {"adc": 1}
+    atol = _ivf_atol(q)
+    assert torch.allclose(d_k, d_p, rtol=2e-5, atol=atol)
+    # Ids equal wherever the plain scores are further apart than that.
+    gap = torch.diff(d_p, dim=1)
+    apart = torch.ones_like(i_p[:, :10], dtype=torch.bool)
+    apart[:, 1:] &= gap[:, :9] > atol
+    apart &= gap[:, :10] > atol
+    assert torch.equal(i_k[:, :10][apart], i_p[:, :10][apart])
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+def test_ivf_lut_probe_against_the_decode_probe(dev, metric):
+    from reductive_tpu_torch import ivf
+    x, coarse, pq, q, _ = _ivf_setup(dev, 256)
+    index = ivf.build_ivf(coarse, pq, x, capacity="auto")
+    args = (index.coarse_centroids, index.cell_codes, index.cell_ids, index.cell_norms, pq, 8)
+    ops.reset_launch_counts()
+    d_l, i_l = ivf._probe_and_score_lut(q, *args, 10, 3, metric)
+    d_d, i_d = ivf._padded_topk(*ivf._probe_and_score(q, *args, True, 3, metric), 10)
+    assert ops.launch_counts() == {"adc": 1, "decode": 1}
+    assert torch.equal(i_l.long(), i_d.long())
+    assert torch.allclose(d_l, d_d, rtol=2e-5, atol=_ivf_atol(q))
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_ivf_packed_cells_score_as_the_unpacked(dev, use_kernel):
+    from reductive_tpu_torch import ivf
+    x, coarse, pq, q, _ = _ivf_setup(dev, 16)
+    unpacked = ivf.build_ivf(coarse, pq, x, capacity="auto")
+    packed = ivf.build_ivf(coarse, pq, x, capacity="auto", packed=True)
+    assert packed.packed and torch.equal(ops.unpack_u4_codes(packed.cell_codes.reshape(-1, 8)),
+                                         unpacked.cell_codes.reshape(-1, 16))
+    ops.reset_launch_counts()
+    for metric in ("l2", "dot"):
+        a = ivf.ivf_search(unpacked, q, 10, nprobe=8, use_kernel=use_kernel, metric=metric)
+        b = ivf.ivf_search(packed, q, 10, nprobe=8, use_kernel=use_kernel, metric=metric)
+        assert _same_bits(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert ops.launch_counts() == ({"adc": 2, "adc_u4": 2} if use_kernel else {})
+
+
+def test_ivf_training_takes_the_kernels(dev):
+    from reductive_tpu_torch import ivf
+    x, _, _, _, _ = _ivf_setup(dev, 256, d=128, n_cells=256, per=100)
+    ops.reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    coarse, pq = ivf.train_ivf_pq(gen, x, 256, 16, 8, coarse_iterations=2, pq_iterations=2)
+    counts = ops.launch_counts()
+    assert coarse.shape == (256, 128) and pq.codebooks.shape == (16, 256, 8)
+    assert bool(torch.isfinite(coarse).all()) and bool(torch.isfinite(pq.codebooks).all())
+    assert counts["stats_f32_wide"] == 2 and counts["encode_bf16_wide"] == 1
+    assert counts["stats_f32"] == 2
+    assert not any(name.endswith("_shallow") for name in counts)

@@ -13,7 +13,7 @@ from reductive_tpu import io as jio
 from reductive_tpu.ops import pq_encode as j_pq_encode
 from reductive_tpu.pq.model import Pq as JPq
 from reductive_tpu.search import search as j_search
-from reductive_tpu_torch import Pq, convert
+from reductive_tpu_torch import IvfPq, Pq, convert
 from reductive_tpu_torch import io as tio
 from reductive_tpu_torch.pq import (
     quantize_batch_into, quantize_vector_into, reconstruct_batch_into, reconstruct_into,
@@ -186,9 +186,14 @@ def test_io_rejects_what_it_does_not_hold(tmp_path):
              codebooks=np.zeros((1, 2, 4), np.float32))
     with pytest.raises(ValueError, match="newer than supported"):
         tio.load(tmp_path / "new.npz", device="cpu")
+    # A minimal IVF-PQ artifact (one cell, one empty slot) loads as an index.
     np.savez(tmp_path / "ivf.npz", format=np.array("reductive-tpu-ivfpq"), version=np.array(1),
-             codebooks=np.zeros((1, 2, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tio.load(tmp_path / "ivf.npz", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+             codebooks=np.zeros((1, 2, 4), np.float32),
+             coarse_centroids=np.zeros((1, 4), np.float32),
+             cell_codes=np.zeros((1, 1, 1), np.uint8), cell_ids=np.full((1, 1), -1, np.int32),
+             cell_norms=np.zeros((1, 1), np.float32))
+    index = tio.load(tmp_path / "ivf.npz", device="cpu")
+    assert isinstance(index, IvfPq) and index.n_cells == 1 and index.capacity == 1
+    assert not index.packed and index.dropped_ids.size == 0
+    with pytest.raises(TypeError, match="Pq or an IvfPq"):
         tio.save(tmp_path / "x.npz", object())
