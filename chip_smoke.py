@@ -28,7 +28,12 @@ benches/ivf10m.py's shape (10,000,000 clustered rows of d=128, 4,096 cells,
 a residual PQ of m=16 at 8 bits): ``train_ivf_pq``, ``build_ivf`` on the
 host path and ``ivf_search`` at nprobe 8 and 32 by both probes, every row
 placed once, the planted rows found, the probes held to each other, to the
-plain route and packed cells to unpacked.  The serving phase also searches
+plain route and packed cells to unpacked; its ``ivf_update`` line is the
+index's life on the card there: ``build_ivf(placement="device")`` over the
+10M rows with its respill, the device build bit for bit the host build on a
+2^20-row prefix (packed too), and churn (``ivf_remove`` of 100,000 ids,
+``ivf_add`` of their vectors under new ids by the fast path and the host
+path).  The serving phase also searches
 a corpus whose k-th place is always tied and holds the ids to a stable sort's.
 Every ADC kernel, the int8 ones included, is held to its plain version bit
 for bit, and so are the ADC tables the wrappers build on the card (the int8
@@ -64,6 +69,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from reductive_tpu_torch import (
@@ -1688,20 +1694,191 @@ def phase_ivf(gen):
         differ += bits_differ(a[0], b[0]) + int((a[1] != b[1]).sum())
     require(differ == 0, f"ivf: packed cells score otherwise than unpacked ({differ} differ)")
     search_ms["lut_nprobe8_packed"] = time_ms(lambda: ivf.ivf_search(packed, q, TOP_K, nprobe=8))
-    del xp, sub, unpacked, packed
+    del sub, unpacked, packed
 
     launches = ops.launch_counts()
     for name in IVF_KERNELS:
         require(launches.get(name, 0) > 0, f"ivf: kernel {name} was never launched")
     require_no_shallow("ivf", launches)
+    peak = torch.cuda.max_memory_allocated()
+    del index
+    torch.cuda.empty_cache()
+    update_launches = ivf_update(x, coarse, rpq, q, planted, scale, build, coarse4, pq4)
     emit("ivf", n=n, d=d, n_cells=C, m=IVF_M, bits=IVF_BITS, iterations=IVF_ITERATIONS,
-         queries=16, train_s=train, build_s=build, capacity=index.capacity,
-         rows_outside_nearest_cell=moved, rows_spilled=spilled, dropped=int(index.dropped_ids.size),
+         queries=16, train_s=train, build_s=build, capacity=-(-5 * n // (4 * C)),
+         rows_outside_nearest_cell=moved, rows_spilled=spilled, dropped=0,
          search_ms=search_ms, recall_at_10=recall,
          kernel_vs_plain=kernel_vs_plain, lut_vs_decode_prefix=lut_vs_decode,
-         packed_bits_differ=differ, peak_memory_bytes=torch.cuda.max_memory_allocated(),
-         launches=launches)
-    del x, index
+         packed_bits_differ=differ, peak_memory_bytes=peak, launches=launches)
+    del x
+    torch.cuda.empty_cache()
+    return launches, update_launches
+
+
+def ivf_update(x, coarse, rpq, q, planted, scale, host_build, coarse4, pq4):
+    """The IVF index's life on the card at IVF10M, every count at 0 before:
+    ``build_ivf(capacity="auto", placement="device")`` over the whole corpus
+    (the stages from its INFO log; the respill's rows from its record), the
+    device build against the host build bit for bit on the 2^20-row prefix
+    at ``capacity=None`` (8 bits, and 4 bits packed), then churn on the
+    device-built index: ``ivf_remove`` of the ids ``1, 101, 201, ...``
+    (100,000 rows; the planted rows stay) and ``ivf_add`` of their vectors
+    under the ids ``n + j`` in two batches, (a) the rows the build stored in
+    their nearest cell, which must take the device fast path, and (b) the
+    rest, which must take the host path.  Requires: every row in one slot,
+    none dropped, a row within its nearest cell's capacity stored there,
+    1-recall@10 >= 0.9 at nprobe 8 and the kernel route's ids the plain
+    route's on well-separated ranks, as the ``ivf`` line; after the churn
+    every live id in one slot, no removed id found, 1-recall@10 >= 0.9 for
+    16 re-added rows of each batch under their new ids, the planted rows'
+    recall unchanged, each added row's code the encode kernel's of its
+    residual against its storage cell, and ``donate=True`` bit for bit the
+    copy-on-write add; ``encode_bf16`` and ``adc`` launched and no
+    ``*_shallow`` launch.  Prints the ``ivf_update`` line and returns the
+    launches."""
+    dev = x.device
+    n, d = x.shape
+    C = coarse.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_start = time.perf_counter()
+
+    t0 = time.perf_counter()
+    index, log = with_log(lambda: ivf.build_ivf(coarse, rpq, x, capacity="auto",
+                                                placement="device"))
+    torch.cuda.synchronize()
+    build = {args[0]: args[1] for args, _ in log.find("IVF build pass")}
+    build["total"] = time.perf_counter() - t0
+    respill = log.find("IVF respill")
+    placed, n_over, rounds, redraws, left = respill[0][0] if respill else (0, 0, 0, 0, 0)
+    L = index.capacity
+    occ = index.cell_ids >= 0
+    cells = torch.full((n,), -1, dtype=torch.long, device=dev)  # each row's storage cell
+    cells[index.cell_ids[occ].long()] = occ.nonzero()[:, 0]
+    del occ
+    require(bool((cells >= 0).all()) and int((index.cell_ids >= 0).sum()) == n
+            and index.dropped_ids.size == 0, "ivf_update: a corpus row is not in exactly one slot")
+    require(index.cell_codes.shape == (C, -(-5 * n // (4 * C)), IVF_M), "ivf_update: cells shape")
+    # A row ranked within its nearest cell's capacity (corpus order) is stored there.
+    nearest = ivf._assign_block(x, coarse, 262_144).long()
+    counts = torch.bincount(nearest, minlength=C)
+    by_cell, order = torch.sort(nearest, stable=True)
+    rank = torch.empty_like(nearest)
+    rank[order] = torch.arange(n, device=dev) - (torch.cumsum(counts, 0) - counts)[by_cell]
+    over = rank >= L
+    require(int(over.sum()) == n_over and bool(((cells == nearest) | over).all()),
+            "ivf_update: a row within its nearest cell's capacity is stored elsewhere")
+    del by_cell, order, rank, over
+    _, i_k = ivf.ivf_search(index, q, TOP_K, nprobe=8)
+    recall = {"planted_before": float((i_k == planted[:, None]).any(1).float().mean())}
+    require(recall["planted_before"] >= 0.9,
+            f"ivf_update: 1-recall@10 at nprobe 8 is {recall['planted_before']}")
+    d_k, i_k = ivf.ivf_search(index, q, TOP_K + 1, nprobe=8)
+    d_p, i_p = ivf.ivf_search(index, q, TOP_K + 1, nprobe=8, use_kernel=False)
+    same, ranks = apart_ids_equal(d_p, i_p, i_k, 1e-5 * scale)
+    require(same, "ivf_update: the kernel route's ids differ from the plain route's on "
+                  "well-separated ranks")
+    kernel_vs_plain = {"ranks_compared": ranks,
+                       "ids_equal_share": float((i_k == i_p).float().mean()),
+                       "max_abs_diff": float((d_k - d_p).abs().max())}
+
+    # The device build is the host build bit for bit at capacity=None.
+    xp = x[:IVF_PREFIX]
+    identity, prefix_s = {}, {}
+    for name, cq, pq_, packed in (("bits8", coarse, rpq, False), ("bits4_packed", coarse4, pq4, True)):
+        built = {}
+        for where in ("device", "host"):
+            t0 = time.perf_counter()
+            built[where] = ivf.build_ivf(cq, pq_, xp, placement=where, packed=packed)
+            torch.cuda.synchronize()
+            prefix_s.setdefault(name, {})[where] = time.perf_counter() - t0
+        a, b = built["device"], built["host"]
+        identity[name] = (torch.equal(a.cell_ids, b.cell_ids) and torch.equal(a.cell_codes, b.cell_codes)
+                          and bits_differ(a.cell_norms, b.cell_norms) == 0)
+        require(identity[name], f"ivf_update: the device build is not the host build ({name})")
+        del a, b, built
+
+    # Churn: remove 100,000 ids, add their vectors back under new ids.
+    gone = np.arange(1, n, 100)
+    gone_t = torch.from_numpy(gone).to(dev)
+    removed = ivf.ivf_remove(index, gone)
+    remove_ms = host_ms(lambda: ivf.ivf_remove(index, gone), 5)
+    require(int((removed.cell_ids >= 0).sum()) == n - gone.size, "ivf_update: remove count")
+    home = cells[gone_t] == nearest[gone_t]
+    ja, jb = torch.nonzero(home)[:, 0], torch.nonzero(~home)[:, 0]
+    xa, xb = x[gone_t[ja]], x[gone_t[jb]]
+    ids_a, ids_b = (n + ja).cpu().numpy(), (n + jb).cpu().numpy()
+    # 16 queries near rows of each batch, and their recall under the old ids
+    # before the churn.
+    queries = {}
+    for name, j in (("batch_a", ja), ("batch_b", jb)):
+        j = j[:16]
+        queries[name] = (x[gone_t[j]] + 0.05 * torch.randn((j.numel(), d), generator=gen, device=dev),
+                         j)
+        _, i_o = ivf.ivf_search(index, queries[name][0], TOP_K, nprobe=8)
+        recall[f"{name}_before"] = float((i_o == gone_t[j][:, None]).any(1).float().mean())
+    idx_a, log_a = with_log(lambda: ivf.ivf_add(removed, xa, ids_a))
+    require(bool(log_a.find("IVF add (device fast path)")),
+            "ivf_update: batch (a) did not take the device fast path")
+    add_a_ms = host_ms(lambda: ivf.ivf_add(removed, xa, ids_a), 3)
+    idx_b, log_b = with_log(lambda: ivf.ivf_add(idx_a, xb, ids_b))
+    require(bool(log_b.find("IVF add: ")) and not log_b.find("IVF add (device fast path)"),
+            "ivf_update: batch (b) did not take the host path")
+    add_b_ms = host_ms(lambda: ivf.ivf_add(idx_a, xb, ids_b), 3)
+    # The donated add writes into removed's cells (and so index's): both unused after.
+    donated = ivf.ivf_add(removed, xa, ids_a, donate=True)
+    require(donated.cell_codes is removed.cell_codes and torch.equal(donated.cell_ids, idx_a.cell_ids)
+            and torch.equal(donated.cell_codes, idx_a.cell_codes)
+            and bits_differ(donated.cell_norms, idx_a.cell_norms) == 0,
+            "ivf_update: the donated add differs from the copy-on-write add")
+    del index, removed, donated, idx_a
+
+    g = gone.size
+    live = idx_b.cell_ids[idx_b.cell_ids >= 0].long()
+    want = torch.ones((n + g,), dtype=torch.long, device=dev)
+    want[gone_t] = 0
+    require(torch.equal(torch.bincount(live, minlength=n + g), want),
+            "ivf_update: a live id is not in exactly one slot after the churn")
+    del live, want
+    cc, ss = (idx_b.cell_ids >= n).nonzero().unbind(1)
+    j = idx_b.cell_ids[cc, ss].long() - n
+    res = x[gone_t[j]] - coarse[cc]
+    require(j.numel() == g and torch.equal(idx_b.cell_codes[cc, ss], ops.pq_encode(rpq.codebooks, res)),
+            "ivf_update: an added row's code is not the encode of its residual")
+    del cc, ss, j, res
+    # A re-added row is found under its new id: at 0.9 or more, or, for the
+    # rows the build stored outside their nearest cell, as often as the build
+    # found them (their residuals against a far cell lie outside the PQ's
+    # training residuals, so the build's own index may find them less).
+    for name, (qn, j) in queries.items():
+        _, i_n = ivf.ivf_search(idx_b, qn, TOP_K, nprobe=8)
+        recall[name] = float((i_n == (n + j)[:, None]).any(1).float().mean())
+        floor = min(0.9, recall[f"{name}_before"]) if name == "batch_b" else 0.9
+        require(recall[name] >= floor, f"ivf_update: 1-recall@10 of {name} is {recall[name]}")
+        require(not bool(torch.isin(i_n, gone_t).any()), "ivf_update: a removed id was found")
+    _, i_c = ivf.ivf_search(idx_b, q, TOP_K, nprobe=8)
+    recall["planted_after"] = float((i_c == planted[:, None]).any(1).float().mean())
+    require(recall["planted_after"] == recall["planted_before"] and not bool(torch.isin(i_c, gone_t).any()),
+            "ivf_update: the churn changed the planted rows' recall")
+    search_ms = time_ms(lambda: ivf.ivf_search(idx_b, q, TOP_K, nprobe=8))
+
+    launches = ops.launch_counts()
+    for name in ("encode_bf16", "adc"):
+        require(launches.get(name, 0) > 0, f"ivf_update: kernel {name} was never launched")
+    require_no_shallow("ivf_update", launches)
+    emit("ivf_update", seconds=time.perf_counter() - t_start, n=n, capacity=L, build_s=build, host_build_s=host_build, n_over=n_over,
+         respill={"placed_on_device": placed, "rounds": rounds, "redraws": redraws,
+                  "left_to_host_spill": left},
+         recall_at_10=recall, kernel_vs_plain=kernel_vs_plain, prefix_identity=identity,
+         prefix_build_s=prefix_s,
+         churn={"removed": g, "batch_a_rows": int(ja.numel()), "batch_b_rows": int(jb.numel()),
+                "remove_ms": remove_ms, "add_a_ms": add_a_ms, "add_b_ms": add_b_ms,
+                "add_a_rows_per_s": ja.numel() / add_a_ms * 1e3,
+                "add_b_rows_per_s": jb.numel() / add_b_ms * 1e3,
+                "search_ms_nprobe8_after": search_ms},
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=launches)
+    del idx_b, xa, xb, cells, nearest
     torch.cuda.empty_cache()
     return launches
 
@@ -1916,12 +2093,12 @@ def main() -> int:
     exact_launches, exact_out = phase_exact(pq, corpus, train_out)
     pq4, codes4, packed4, packed_launches = phase_packed(corpus, gen)
     probe, wide_launches, wide_rows = phase_wide(corpus, gen)
-    ivf_launches = phase_ivf(gen)
+    ivf_launches, ivf_update_launches = phase_ivf(gen)
     # Launches of each kernel on the main paths together; every count was set
     # to 0 just before its path was driven and read just after.
     launches = collections.Counter()
     for counts in (serve_launches, train_launches, exact_launches, packed_launches, wide_launches,
-                   ivf_launches):
+                   ivf_launches, ivf_update_launches):
         launches.update(counts)
     for name in KERNELS:
         require(launches[name] > 0, f"kernel {name} was launched on no path")

@@ -9,11 +9,17 @@ query scores only the ``nprobe`` nearest cells.
   code tensor plus ``(C, L)`` ids (``-1`` = empty slot, masked when scored)
   and ``(C, L)`` norms ``||centroid + rec||^2``, so a probe is a gather of
   whole blocks.
-* **Build** (:func:`build_ivf`, host placement): pass 1 takes each row's
+* **Build** (:func:`build_ivf`).  Host placement: pass 1 takes each row's
   nearest coarse cells on the card and moves the candidate matrix to the
   host once; the host places rows into cells; pass 2 residual-encodes on the
   card and moves codes and norms to the host once; the host scatters them
-  into the cells, which go back to the device.
+  into the cells, which go back to the device.  Device placement
+  (:func:`_build_ivf_device`): the placement, the encode and the cells stay
+  on the card, and only a bounded build's overflow rows are placed apart
+  (:func:`_respill_device`).
+* **Updates.**  :func:`ivf_add` puts new rows in free slots (a fast path on
+  the card when every row fits its nearest cell) and :func:`ivf_remove`
+  frees slots by id; the cells keep their shapes.
 * **Search** (:func:`ivf_search`) scores by the IVFADC decomposition
   ``||q - c - rec||^2 = ||q||^2 + g - 2 q.c - 2 q.rec`` (Jégou et al.,
   2011, Eq. 13) with ``g`` from the build.  With the kernels
@@ -25,8 +31,7 @@ query scores only the ``nprobe`` nearest cells.
   INFO level.  Without the kernels (CPU tensors) it decodes by a gather.
 
 Random draws take a ``torch.Generator`` on the instances' device where the
-JAX package takes a key.  Not ported yet: ``ivf_add`` / ``ivf_remove``,
-the device build (``placement="device"``), ``ivf_search_sharded``, and
+JAX package takes a key.  Not ported yet: ``ivf_search_sharded``, and
 readers in place of in-memory tensors (ROADMAP.md, queue 1).
 """
 
@@ -50,7 +55,7 @@ from .search import _READER_MSG, _check_metric, _refine, _smallest, adc_tables
 
 logger = logging.getLogger("reductive_tpu")
 
-__all__ = ["IvfPq", "train_ivf_pq", "build_ivf", "ivf_search"]
+__all__ = ["IvfPq", "train_ivf_pq", "build_ivf", "ivf_add", "ivf_remove", "ivf_search"]
 
 # Bytes of transient (nq, probes, L, d) f32 reconstruction one step of the
 # decode probe may hold: it takes the probes in chunks, and the cell rows too
@@ -59,12 +64,6 @@ _PROBE_RECON_BUDGET = 1 << 30
 # Bytes of transient (nq, cells * L) f32 scores one chunk of the ADC-table
 # probe may hold.  Module-level so that tests can shrink it.
 _PROBE_LUT_BUDGET = 1 << 28
-
-_DEVICE_BUILD_MSG = (
-    'placement="device" is not ported yet: see ROADMAP.md, queue 1, item 1, '
-    'sub-slice 5 (the device build and respill); use placement="host"'
-)
-
 
 @dataclasses.dataclass
 class IvfPq:
@@ -75,8 +74,9 @@ class IvfPq:
     ``c`` (encoded from the residual ``x - coarse_centroids[c]``),
     ``cell_ids[c, l]`` its corpus row (int32, ``-1`` for an empty slot) and
     ``cell_norms[c, l]`` the f32 ``||centroid + rec||^2``.  ``dropped_ids``
-    is build metadata, not a tensor: the corpus rows :func:`build_ivf`
-    dropped under ``on_overflow="drop"``, empty otherwise.
+    is build metadata, not a tensor: the corpus ids :func:`build_ivf` and
+    later :func:`ivf_add` calls dropped under ``on_overflow="drop"``, empty
+    otherwise.
     """
 
     coarse_centroids: Tensor  # (C, d)
@@ -349,12 +349,274 @@ def _residual_encode_batch(
     return codes, torch.einsum("nd,nd->n", full, full)
 
 
-def _mark(stage: str, t0: float) -> float:
-    """Logs a build pass's seconds at INFO; each pass ends where the host
-    waits for the card (a transfer), so the clock covers its device work."""
+def _encode_rows(
+    coarse: Tensor, pq: Pq, instances: Tensor, rows: Optional[Tensor], cells: Tensor, *,
+    batch: int, use_kernel: bool, dtype: torch.dtype, packed: bool,
+) -> Tuple[Tensor, Tensor]:
+    """Stored codes (two u4 codes a byte where ``packed``) and norms of
+    ``instances[rows]`` (every row where None) against the centroids
+    ``cells`` names, ``batch`` rows at a time by
+    :func:`_residual_encode_batch`, on the cells' device."""
+    n, m = cells.shape[0], pq.quantized_len
+    codes = torch.empty((n, m // 2 if packed else m), dtype=dtype, device=cells.device)
+    norms = torch.empty((n,), dtype=torch.float32, device=cells.device)
+    for off in range(0, n, batch):
+        xb = instances[off:off + batch] if rows is None else instances[rows[off:off + batch]]
+        codes_b, norms_b = _residual_encode_batch(coarse, pq, xb, cells[off:off + batch],
+                                                  use_kernel, dtype)
+        codes[off:off + batch] = ops.pack_u4_codes(codes_b) if packed else codes_b
+        norms[off:off + batch] = norms_b
+    return codes, norms
+
+
+def _mark(stage: str, t0: float, dev: Optional[torch.device] = None) -> float:
+    """Logs a build pass's seconds at INFO.  A pass of the host build ends
+    where the host waits for the card (a transfer); a stage of the device
+    build names its device, which is synchronised first.  Either way the
+    clock covers the pass's device work."""
+    if dev is not None and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     t = time.perf_counter()
     logger.info("IVF build pass %s: %.6f s", stage, t - t0)
     return t
+
+
+def _pass1_rows(batch: int, C: int) -> int:
+    """Rows a pass-1 chunk takes: ``batch``, fewer where the ``(rows, C)``
+    f32 distances would pass 1 GB, never under 8,192."""
+    return max(8192, min(batch, (1 << 28) // max(1, C)))
+
+
+def _assign_block(instances: Tensor, coarse: Tensor, batch: int) -> Tensor:
+    """The nearest coarse cell of every row, ``(n,)`` int32 on the rows'
+    device, by :func:`_coarse_topk` in the host build's pass-1 chunks
+    (:func:`_pass1_rows`).  On the card a product's rounding may follow its
+    row count, so the same chunks give the same argmins, and the two builds
+    at ``capacity=None`` the same cells."""
+    n = instances.shape[0]
+    b1 = _pass1_rows(batch, coarse.shape[0])
+    out = torch.empty((n,), dtype=torch.int32, device=instances.device)
+    for off in range(0, n, b1):
+        out[off:off + b1] = _coarse_topk(instances[off:off + b1], coarse, 1)[:, 0]
+    return out
+
+
+def _respill_device(
+    positions: Tensor, coarse: Tensor, fetch_rows, C: int, L: int, fill: Tensor, rounds: int = 64,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Places the rows ``positions`` names (``fetch_rows`` takes positions
+    and gives their rows) each in the nearest cell with space, on the rows'
+    device.  Returns ``(cell, slot, remaining)``: ``(P,)`` int32 aligned
+    with ``positions`` (``-1`` where unplaced), and the positions left
+    unplaced, for :func:`_spill_place`.  ``fill`` (``(C,)`` int32 cell
+    occupancy on the same device) is updated in place.
+
+    The loop state (``fill``, placed cell, placed slot) keeps fixed shapes
+    on the device; the host reads one scalar a round, the rows left.
+
+    1. One pass caches each row's ``T`` nearest cells (``T`` at most 16,
+       the cache about 1 GB at most).
+    2. Each round a row targets its first cached cell with space.  A stable
+       sort groups the rows by target, so each cell's free slots go to its
+       rows in position order (the host greedy's priority); the others try
+       again next round against the new occupancy.
+    3. A round that places nothing redraws the candidates of the rows left
+       among the cells that still have space, at most 8 times in
+       ``rounds``.  The caller has checked that the free slots suffice, so
+       each redraw places rows.
+    """
+    dev = coarse.device
+    P = positions.shape[0]
+    pc = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    ps = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    if not P:
+        return pc, ps, positions
+    T = int(min(C, max(4, (1 << 28) // P), 16))
+
+    def draw(idx: Tensor, cells: Optional[Tensor]) -> Tensor:
+        """The ``T`` nearest cells of the rows at ``positions[idx]`` among
+        ``cells`` (all where None), padded with the sentinel ``C``."""
+        pos = positions[idx]
+        sub = coarse if cells is None else coarse[cells]
+        t = min(T, sub.shape[0])
+        b2 = max(4096, (1 << 26) // max(1, sub.shape[0]))
+        cand = torch.cat([_coarse_topk(fetch_rows(pos[off:off + b2]), sub, t)
+                          for off in range(0, pos.shape[0], b2)])
+        if cells is not None:
+            cand = cells[cand]
+        if t < T:
+            cand = torch.cat([cand, cand.new_full((pos.shape[0], T - t), C)], dim=1)
+        return cand.to(torch.int32)
+
+    cand = draw(torch.arange(P, device=dev), None)
+    iota = torch.arange(P, dtype=torch.int32, device=dev)
+    sentinel = fill.new_zeros(1)  # free space of the cell C: none
+    prev_left, redraws, n_left, n_rounds = P + 1, 0, P, 0
+    for _ in range(rounds):
+        free = torch.cat([L - fill, sentinel])
+        ok = free[cand] > 0
+        has = ok.any(dim=1) & (pc < 0)
+        first = ok.to(torch.int32).argmax(dim=1, keepdim=True)
+        tgt = torch.where(has, cand.gather(1, first)[:, 0], C)
+        by_tgt, order = torch.sort(tgt, stable=True)  # the rows left without a target sort last
+        counts = torch.bincount(tgt, minlength=C + 1)[:C]
+        starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+        rank = torch.empty_like(tgt)
+        rank[order] = iota - starts[by_tgt.clamp(max=C - 1)]
+        accept = has & (rank < free[tgt])
+        slot = fill[tgt.clamp(max=C - 1)] + rank
+        pc = torch.where(accept, tgt, pc)
+        ps = torch.where(accept, slot, ps)
+        fill += torch.bincount(torch.where(accept, tgt, C), minlength=C + 1)[:C].to(fill.dtype)
+        n_rounds += 1
+        n_left = int((pc < 0).sum())
+        if n_left == 0:
+            break
+        if n_left == prev_left:  # every cached candidate is full: redraw
+            space = torch.nonzero(fill < L)[:, 0]
+            if space.numel() == 0 or redraws >= 8:
+                break
+            idx_left = torch.nonzero(pc < 0)[:, 0]
+            cand[idx_left] = draw(idx_left, space)
+            redraws += 1
+            prev_left = P + 1
+        else:
+            prev_left = n_left
+    logger.info("IVF respill: %d of %d rows placed on the device in %d rounds (%d redraws), "
+                "%d left to the host spill", P - n_left, P, n_rounds, redraws, n_left)
+    remaining = positions[torch.nonzero(pc < 0)[:, 0]] if n_left else positions[:0]
+    return pc, ps, remaining
+
+
+def _scatter_updates(
+    cell_codes: Tensor, cell_ids: Tensor, cell_norms: Tensor, cc: Tensor, ss: Tensor,
+    codes: Tensor, ids: Tensor, norms: Tensor, *, donate: bool = False,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Writes rows into slots ``(cc, ss)`` of the three cell tensors and
+    returns them.  By default copy-on-write: the given tensors are cloned
+    first and stay as they were.  ``donate=True`` updates the given tensors
+    in place, and so every index that shares them (where the JAX package
+    invalidates a donated buffer, these are overwritten)."""
+    if not donate:
+        cell_codes, cell_ids, cell_norms = cell_codes.clone(), cell_ids.clone(), cell_norms.clone()
+    cell_codes[cc, ss] = codes
+    cell_ids[cc, ss] = ids.to(cell_ids.dtype)
+    cell_norms[cc, ss] = norms.to(cell_norms.dtype)
+    return cell_codes, cell_ids, cell_norms
+
+
+def _build_ivf_device(
+    coarse: Tensor, pq: Pq, instances: Tensor, *, capacity, on_overflow: str, dtype: torch.dtype,
+    batch: int, use_kernel: bool, packed: bool,
+) -> IvfPq:
+    """The build with the placement, the encode and the cells on the
+    instances' device (:func:`build_ivf` ``placement="device"``); the host
+    reads a few scalars, and, under a bounded capacity, the overflow.
+
+    1. Pass 1 (:func:`_assign_block`) takes each row's nearest cell.
+    2. A stable sort groups the rows by cell, and ``rank = pos -
+       starts[cell]`` numbers each row within its cell in corpus order, the
+       host greedy's slot numbering: at ``capacity=None`` the cells equal
+       the host build's bit for bit.
+    3. ``slot_to_row`` (``(C * L,)``) comes by gathers: slot ``(c, l)``
+       holds the ``l``-th row of cell ``c``, ``-1`` past its count.
+    4. Pass 2 encodes every row against its nearest cell in corpus order,
+       in the host build's ``batch`` chunks (:func:`_encode_rows`), into codes and
+       ``(n,)`` norms; the cells are three gathers through ``slot_to_row``.
+
+    Under a bounded capacity the rows ranked past ``L`` in their nearest
+    cell (the overflow, ascending by corpus row) are dropped
+    (``on_overflow="drop"``) or placed by :func:`_respill_device` in the
+    nearest cell with space, the rows it leaves by :func:`_spill_place`,
+    then re-encoded against that cell and written into the fresh cells in
+    place.  Unlike the host build there is no tier of ``overflow_candidates``
+    cells: a row within capacity always sits in its nearest cell.  Each
+    stage's seconds are logged at INFO (``"IVF build pass ..."``: assign,
+    placement, encode, gather, spill)."""
+    dev = instances.device
+    n = instances.shape[0]
+    C = coarse.shape[0]
+
+    t0 = time.perf_counter()
+    assign = _assign_block(instances, coarse, batch)
+    t0 = _mark("assign", t0, dev)
+
+    counts = torch.bincount(assign, minlength=C)
+    if capacity is None:
+        L = int(counts.max())
+    elif capacity == "auto":
+        L = int(np.ceil(1.25 * n / C))
+    else:
+        L = int(capacity)
+    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    by_cell, order = torch.sort(assign, stable=True)
+    order = order.to(torch.int32)
+    rank = torch.arange(n, dtype=torch.int32, device=dev) - starts[by_cell]
+    cap_counts = counts.clamp(max=L)
+    n_over = n - int(cap_counts.sum())
+    over_rows = None
+    if n_over:
+        if on_overflow == "error":
+            raise ValueError(
+                f"IVF build: {n_over} rows exceed their nearest cell's capacity {L}; raise "
+                f'capacity/n_cells, or use on_overflow="spill"'
+            )
+        if on_overflow == "spill" and C * L - (n - n_over) < n_over:
+            raise ValueError(
+                f"IVF build: total capacity C*L = {C * L} < n = {n}; "
+                f"no spill placement exists — raise capacity"
+            )
+        over_rows = torch.sort(order[rank >= L]).values  # ascending by corpus row
+    flat = torch.arange(C * L, dtype=torch.int32, device=dev)
+    flat_c, flat_l = flat // L, flat % L
+    occupied = flat_l < cap_counts[flat_c]
+    src = (starts[flat_c] + flat_l).clamp(max=n - 1)
+    slot_to_row = torch.where(occupied, order[src], -1)
+    del by_cell, order, rank, starts, flat, flat_c, flat_l, src
+    t0 = _mark("placement", t0, dev)
+
+    enc = dict(batch=batch, use_kernel=use_kernel, dtype=dtype, packed=packed)
+    codes_all, norms_all = _encode_rows(coarse, pq, instances, None, assign, **enc)
+    del assign
+    t0 = _mark("encode", t0, dev)
+
+    rows = slot_to_row.clamp(min=0)
+    cell_codes = codes_all[rows].masked_fill_(~occupied[:, None], 0).reshape(C, L, -1)
+    cell_norms = norms_all[rows].masked_fill_(~occupied, 0.0).reshape(C, L)
+    index = IvfPq(coarse_centroids=coarse, pq=pq, cell_codes=cell_codes,
+                  cell_ids=slot_to_row.reshape(C, L), cell_norms=cell_norms)
+    del codes_all, norms_all, rows, occupied
+    t0 = _mark("gather", t0, dev)
+
+    if n_over and on_overflow == "drop":
+        index.dropped_ids = over_rows.cpu().numpy().astype(np.int64)
+        logger.warning(
+            "IVF build: %d rows exceeded their nearest cell's capacity %d and were dropped "
+            "(ids on index.dropped_ids)", n_over, L,
+        )
+    elif n_over:
+        fill = cap_counts.to(torch.int32)
+        pc, ps, left = _respill_device(torch.arange(n_over, device=dev), coarse,
+                                       lambda p: instances[over_rows[p]], C, L, fill)
+        if left.numel():
+            left_np, over_np = left.cpu().numpy(), over_rows.cpu().numpy()
+            cell_of = np.full(n_over, -1, np.int64)
+            slot_of = np.full(n_over, -1, np.int64)
+            _spill_place(left_np, coarse, lambda p: instances[torch.from_numpy(over_np[p]).to(dev)],
+                         C, L, fill.cpu().numpy().astype(np.int64), cell_of, slot_of)
+            pc[left] = torch.from_numpy(cell_of[left_np]).to(dev, torch.int32)
+            ps[left] = torch.from_numpy(slot_of[left_np]).to(dev, torch.int32)
+        codes, norms = _encode_rows(coarse, pq, instances, over_rows, pc, **enc)
+        _scatter_updates(index.cell_codes, index.cell_ids, index.cell_norms, pc, ps, codes,
+                         over_rows, norms, donate=True)
+        _mark("spill", t0, dev)
+        logger.info("IVF build (device): %d rows spilled to the nearest cell with free space",
+                    n_over)
+    logger.info(
+        "IVF build (device): %d rows -> %d cells, capacity %d (util %.0f%%)",
+        n, C, L, 100.0 * (n - len(index.dropped_ids)) / (C * L),
+    )
+    return index
 
 
 def build_ivf(
@@ -398,11 +660,22 @@ def build_ivf(
 
     ``packed=True`` (``k <= 16``, even ``m``, ``dtype=torch.uint8``) stores
     two u4 codes a byte; search scores such cells bit for bit as the
-    unpacked ones.  ``placement="host"`` is this path, and ``"auto"`` takes
-    it (the JAX package picks the device build only on a TPU);
-    ``"device"`` and a reader in place of a tensor raise
-    ``NotImplementedError``.  ``use_kernel=None`` means the encode kernel
-    when the instances lie on a GPU.
+    unpacked ones.  ``use_kernel=None`` means the encode kernel when the
+    instances lie on a GPU.  A reader in place of a tensor raises
+    ``NotImplementedError``.
+
+    ``placement`` says where the cells are made:
+
+    * ``"host"``: the path above.
+    * ``"device"``: :func:`_build_ivf_device`, the placement, encode and
+      cells on the instances' device; only a bounded build's overflow rows
+      are placed apart.  At ``capacity=None`` its cells equal the host
+      path's bit for bit.  Under a bounded capacity a row within capacity
+      always sits in its nearest cell, and an overflow row goes to the
+      nearest cell with space (no tier of ``overflow_candidates`` cells).
+    * ``"auto"`` (default): ``"device"`` when the instances lie on a GPU
+      and ``capacity is None`` (the JAX package takes it so on a TPU),
+      ``"host"`` otherwise.
     """
     if placement not in ("auto", "host", "device"):
         raise ValueError(f'placement must be "auto", "host", or "device", got {placement!r}')
@@ -424,8 +697,11 @@ def build_ivf(
             raise ValueError(f"packed=True requires even m, got {m}")
         if dtype != torch.uint8:
             raise ValueError("packed=True requires dtype=uint8")
+    if placement == "auto":
+        placement = "device" if instances.is_cuda and capacity is None else "host"
     if placement == "device":
-        raise NotImplementedError(_DEVICE_BUILD_MSG)
+        return _build_ivf_device(coarse, pq, instances, capacity=capacity, on_overflow=on_overflow,
+                                 dtype=dtype, batch=batch, use_kernel=use_kernel, packed=packed)
     dev = instances.device
 
     def fetch_rows(rows: np.ndarray) -> Tensor:
@@ -437,7 +713,7 @@ def build_ivf(
     # Pass 1: the A nearest cells of every row, held on the card and moved
     # to the host in one transfer.
     t0 = time.perf_counter()
-    b1 = max(8192, min(batch, (1 << 28) // max(1, C)))
+    b1 = _pass1_rows(batch, C)
     cands_dev = torch.empty((n, A), dtype=torch.int16 if C <= 32767 else torch.int32, device=dev)
     for off in range(0, n, b1):
         cands_dev[off:off + b1] = _coarse_topk(instances[off:off + b1], coarse, A)
@@ -488,23 +764,16 @@ def build_ivf(
     # to the host in one transfer each.
     placed_rows = np.flatnonzero(placed)
     cc_all, slots_all = cell_of[placed_rows], slot_of[placed_rows]
-    mb = m // 2 if packed else m  # stored bytes a row
-    codes_dev = torch.empty((len(placed_rows), mb), dtype=dtype, device=dev)
-    norms_dev = torch.empty((len(placed_rows),), dtype=torch.float32, device=dev)
-    rows_dev = torch.from_numpy(placed_rows).to(dev)
-    cells_dev = torch.from_numpy(cc_all).to(dev)
-    for off in range(0, len(placed_rows), batch):
-        codes_b, norms_b = _residual_encode_batch(
-            coarse, pq, instances[rows_dev[off:off + batch]], cells_dev[off:off + batch],
-            use_kernel, dtype)
-        codes_dev[off:off + batch] = ops.pack_u4_codes(codes_b) if packed else codes_b
-        norms_dev[off:off + batch] = norms_b
+    codes_dev, norms_dev = _encode_rows(
+        coarse, pq, instances, torch.from_numpy(placed_rows).to(dev),
+        torch.from_numpy(cc_all).to(dev), batch=batch, use_kernel=use_kernel, dtype=dtype,
+        packed=packed)
     codes_all = codes_dev.cpu().numpy()
     norms_all = norms_dev.cpu().numpy()
-    del codes_dev, norms_dev, rows_dev, cells_dev
+    del codes_dev, norms_dev
     t0 = _mark("encode", t0)
 
-    cell_codes = np.zeros((C, L, mb), dtype=codes_all.dtype)
+    cell_codes = np.zeros((C, L, codes_all.shape[1]), dtype=codes_all.dtype)
     cell_ids = np.full((C, L), -1, dtype=np.int32)
     cell_norms = np.zeros((C, L), np.float32)
     cell_codes[cc_all, slots_all] = codes_all
@@ -522,6 +791,243 @@ def build_ivf(
         n, C, L, counts0.mean(), 100.0 * (n - len(dropped_ids)) / (C * L), moved,
     )
     return index
+
+
+# ---------------------------------------------------------------------------
+# Updates
+# ---------------------------------------------------------------------------
+
+
+def _add_fast_gate(cell_ids: Tensor, assign: Tensor, L: int) -> Tuple[Tensor, Tensor]:
+    """The placement of an add batch in which every row fits a free slot of
+    its nearest cell (``assign``), on the cells' device.  Returns
+    ``(overflow, slot)``: ``overflow`` (a 0-d bool tensor, the one value the
+    host reads) is true when some cell has fewer free slots than rows, and
+    ``slot[r]`` is row ``r``'s slot, the ``rank(r)``-th free slot of its
+    cell in ascending order (ranks in batch order within a cell, as
+    :func:`_assign_free_slots` numbers them)."""
+    C = cell_ids.shape[0]
+    n_new = assign.shape[0]
+    occupied = cell_ids >= 0
+    counts = torch.bincount(assign, minlength=C)
+    overflow = (counts > L - occupied.sum(dim=1)).any()
+    by_cell, order = torch.sort(assign, stable=True)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty((n_new,), dtype=torch.int64, device=assign.device)
+    rank[order] = torch.arange(n_new, device=assign.device) - starts[by_cell]
+    # A stable sort of the occupancy puts each cell's free slots first, in
+    # ascending order.
+    free_order = torch.sort(occupied.to(torch.int32), dim=1, stable=True).indices
+    return overflow, free_order[assign, rank.clamp(max=L - 1)].to(torch.int32)
+
+
+def _assign_free_slots(cell_of: np.ndarray, slot_of: np.ndarray, cell_ids: Tensor) -> np.ndarray:
+    """The real free slots of rows :func:`_greedy_place` placed, whose
+    slots ``fill + rank`` assume that each cell is filled from slot 0, as
+    it is after a build but not after :func:`ivf_remove` leaves holes.  The
+    rows of each cell, in ``slot_of`` order, take its free slots in
+    ascending order; the occupancy is read on the cells' device, only in
+    the cells touched."""
+    out = np.full_like(slot_of, -1)
+    placed = np.flatnonzero(cell_of >= 0)
+    if not len(placed):
+        return out
+    rows = placed[np.lexsort((slot_of[placed], cell_of[placed]))]
+    cells = cell_of[rows]
+    touched, tinv = np.unique(cells, return_inverse=True)
+    run_start = np.searchsorted(cells, touched)  # cells is sorted: each run's first row
+    ranks = np.arange(len(rows)) - run_start[tinv]
+    dev = cell_ids.device
+    occ = cell_ids[torch.from_numpy(touched).to(dev)] >= 0
+    free_order = torch.sort(occ.to(torch.int32), dim=1, stable=True).indices
+    slots = free_order[torch.from_numpy(tinv).to(dev), torch.from_numpy(ranks).to(dev)]
+    out[rows] = slots.cpu().numpy()
+    return out
+
+
+def _host_ids(ids) -> np.ndarray:
+    """Ids given as a tensor (on any device) or an array, as int64 numpy."""
+    if isinstance(ids, Tensor):
+        ids = ids.cpu().numpy()
+    return np.asarray(ids, dtype=np.int64)
+
+
+def ivf_add(
+    index: IvfPq,
+    instances: Tensor,
+    ids=None,
+    *,
+    overflow_candidates: int = 4,
+    on_overflow: str = "spill",
+    batch: int = 262_144,
+    use_kernel: Optional[bool] = None,
+    donate: bool = False,
+) -> IvfPq:
+    """Adds the ``(n_new, d)`` rows ``instances`` (a tensor on the index's
+    device) to the index and returns the new index; by default the input
+    index stays as it was.
+
+    A new row goes to a free slot of its nearest coarse cell, else of the
+    first of its ``overflow_candidates`` nearest cells with one; under
+    ``on_overflow="spill"`` (default) a row that fits none of them goes to
+    the nearest cell anywhere with space, ``"error"`` raises and ``"drop"``
+    warns and adds its id to ``dropped_ids`` (which carries the input
+    index's).  Slots :func:`ivf_remove` freed are taken again.  The
+    quantizers are not retrained: when the cells fill up (``ValueError``:
+    total free capacity), rebuild with :func:`build_ivf` at a larger
+    capacity.
+
+    ``ids`` (int64 array or tensor) are the corpus ids of the new rows;
+    the default is ``max(live ids) + 1 + arange(n_new)``.  They must be
+    non-negative (``-1`` marks an empty slot), below 2^31 (the cells hold
+    int32), distinct, and none may be live in the index.
+
+    When every row fits a free slot of its nearest cell (the fast path,
+    logged at INFO as ``"IVF add (device fast path)"``) the placement
+    (:func:`_add_fast_gate`), encode and writes stay on the device, and the
+    host reads one flag; otherwise the host places the rows as
+    :func:`build_ivf` does and :func:`_assign_free_slots` maps them to real
+    free slots.  The encode takes ``batch`` rows at a time
+    (:func:`_residual_encode_batch`; packed indexes through
+    :func:`reductive_tpu_torch.ops.pack_u4_codes`).
+
+    By default the cells are copied before the write (one copy of the cell
+    tensors on the device).  ``donate=True`` writes into the input index's
+    cell tensors in place, and so into every index that shares them: the
+    index :func:`ivf_remove` returns shares ``cell_codes`` and
+    ``cell_norms`` with its input, so a donated add to it overwrites the
+    codes and norms of the index before the remove as well, which then no
+    longer match its ids.  Use it where only the newest index is kept.
+    """
+    if _is_reader(instances):
+        raise TypeError(
+            "ivf_add takes a device/host array; for reader-scale corpora rebuild with "
+            "build_ivf(reader)"
+        )
+    if on_overflow not in ("spill", "error", "drop"):
+        raise ValueError(f'on_overflow must be "spill", "error", or "drop", got {on_overflow!r}')
+    dev = index.cell_ids.device
+    if not isinstance(instances, Tensor):
+        raise ValueError(f"instances must be a tensor on the index's device ({dev}), got "
+                         f"{type(instances).__name__}")
+    if instances.device != dev:
+        raise ValueError(f"instances lie on {instances.device}, the index on {dev}: move them there")
+    if use_kernel is None:
+        use_kernel = instances.is_cuda
+    n_new = instances.shape[0]
+    coarse, pq = index.coarse_centroids, index.pq
+    C, L = index.n_cells, index.capacity
+
+    if ids is None:
+        start = max(int(index.cell_ids.max()) + 1, 0)  # -1 (no live slot) starts at 0
+        ids = start + np.arange(n_new, dtype=np.int64)
+        if ids[-1] >= 2 ** 31:
+            raise ValueError(
+                f"auto-assigned ids would exceed int32 (next id {start}, {n_new} new rows); "
+                f"pass explicit ids"
+            )
+    else:
+        ids = _host_ids(ids)
+        if ids.shape != (n_new,):
+            raise ValueError(f"ids has shape {ids.shape}, expected ({n_new},)")
+        if ids.min(initial=0) < 0:
+            raise ValueError("ids must be non-negative (-1 marks empty slots)")
+        if ids.max(initial=0) >= 2 ** 31:
+            # A wrapped id would be stored negative (empty) or alias a live one.
+            raise ValueError(
+                f"ids must fit int32 (max allowed {2 ** 31 - 1}, got {int(ids.max())})")
+        if len(np.unique(ids)) != n_new:
+            raise ValueError("duplicate ids in the batch")
+        clash = torch.isin(torch.from_numpy(ids.astype(np.int32)).to(dev),
+                           index.cell_ids.ravel()).cpu().numpy()
+        if clash.any():
+            raise ValueError(
+                f"{int(clash.sum())} ids already live in the index "
+                f"(first: {np.sort(ids[clash])[:5].tolist()}); ivf_remove them first"
+            )
+    ids_dev = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    enc = dict(batch=batch, use_kernel=use_kernel, dtype=index.cell_codes.dtype,
+               packed=index.packed)
+
+    assign = _assign_block(instances, coarse, batch)
+    overflow, slot = _add_fast_gate(index.cell_ids, assign, L)
+    if not bool(overflow):
+        codes, norms = _encode_rows(coarse, pq, instances, None, assign, **enc)
+        cell_codes, cell_ids, cell_norms = _scatter_updates(
+            index.cell_codes, index.cell_ids, index.cell_norms, assign, slot, codes, ids_dev, norms,
+            donate=donate)
+        logger.info("IVF add (device fast path): %d rows placed", n_new)
+        return IvfPq(coarse_centroids=coarse, pq=pq, cell_codes=cell_codes, cell_ids=cell_ids,
+                     cell_norms=cell_norms, dropped_ids=index.dropped_ids)
+    del assign, slot
+
+    fill = (index.cell_ids >= 0).sum(dim=1).cpu().numpy().astype(np.int64)
+    free_total = int(C * L - fill.sum())
+    if free_total < n_new and on_overflow != "drop":
+        raise ValueError(
+            f"IVF add: total free capacity {free_total} < {n_new} new rows; rebuild with "
+            f"build_ivf at a larger capacity"
+        )
+
+    def fetch_rows(rows: np.ndarray) -> Tensor:
+        return instances[torch.from_numpy(rows).to(dev)]
+
+    A, b1 = min(overflow_candidates, C), _pass1_rows(batch, C)
+    cands = torch.cat([_coarse_topk(instances[off:off + b1], coarse, A)
+                       for off in range(0, n_new, b1)]).cpu().numpy().astype(np.int64)
+    cell_of, slot_of, fill = _greedy_place(cands, C, L, fill)
+    overflowed = np.flatnonzero(cell_of < 0)
+    dropped_ids = np.empty(0, np.int64)
+    if len(overflowed):
+        if on_overflow == "error":
+            raise ValueError(
+                f"IVF add: {len(overflowed)} rows fit none of their {A} candidate cells at "
+                f'capacity {L}; raise capacity or use on_overflow="spill"'
+            )
+        if on_overflow == "spill":
+            _spill_place(overflowed, coarse, fetch_rows, C, L, fill, cell_of, slot_of)
+        else:  # "drop"
+            dropped_ids = ids[overflowed]
+            logger.warning("IVF add: %d rows dropped (ids on index.dropped_ids)", len(overflowed))
+    slot_of = _assign_free_slots(cell_of, slot_of, index.cell_ids)
+
+    placed = np.flatnonzero(cell_of >= 0)
+    cell_codes, cell_ids, cell_norms = index.cell_codes, index.cell_ids, index.cell_norms
+    if len(placed):
+        placed_dev = torch.from_numpy(placed).to(dev)
+        cells = torch.from_numpy(cell_of[placed]).to(dev, torch.int32)
+        codes, norms = _encode_rows(coarse, pq, instances, placed_dev, cells, **enc)
+        cell_codes, cell_ids, cell_norms = _scatter_updates(
+            cell_codes, cell_ids, cell_norms, cells,
+            torch.from_numpy(slot_of[placed]).to(dev, torch.int32), codes, ids_dev[placed_dev],
+            norms, donate=donate)
+    logger.info("IVF add: %d rows placed (%d dropped)", len(placed), len(dropped_ids))
+    return IvfPq(coarse_centroids=coarse, pq=pq, cell_codes=cell_codes, cell_ids=cell_ids,
+                 cell_norms=cell_norms,
+                 dropped_ids=np.concatenate([index.dropped_ids, dropped_ids]))
+
+
+def ivf_remove(index: IvfPq, ids) -> IvfPq:
+    """Removes the rows of the given corpus ids (array or tensor) and
+    returns the new index: their slots become empty (``-1``, masked when
+    scored) for :func:`ivf_add` to take again, and the cells keep their
+    shapes.  Ids not in the index are ignored, so a remove can be repeated;
+    ids outside ``[0, 2^31)`` cannot be in it and are dropped before the
+    int32 cast.  The match runs on the index's device.
+
+    Only ``cell_ids`` is new: the result shares ``cell_codes`` and
+    ``cell_norms`` with the input, so an ``ivf_add(..., donate=True)`` on
+    either index writes into both (see :func:`ivf_add`)."""
+    ids = np.unique(_host_ids(ids).ravel())
+    ids = ids[(ids >= 0) & (ids < 2 ** 31)]
+    cell_ids = index.cell_ids
+    kill = torch.isin(cell_ids, torch.from_numpy(ids.astype(np.int32)).to(cell_ids.device))
+    kill &= cell_ids >= 0
+    if logger.isEnabledFor(logging.INFO):  # the count waits for the device
+        logger.info("IVF remove: %d of %d requested ids removed", int(kill.sum()), len(ids))
+    return IvfPq(coarse_centroids=index.coarse_centroids, pq=index.pq,
+                 cell_codes=index.cell_codes, cell_ids=cell_ids.masked_fill(kill, -1),
+                 cell_norms=index.cell_norms, dropped_ids=index.dropped_ids)
 
 
 # ---------------------------------------------------------------------------

@@ -1411,11 +1411,16 @@ def test_ivf_build_kernel_route_against_the_plain_route(dev, capacity):
     kern = ivf.build_ivf(coarse, pq, x, capacity=capacity, use_kernel=True)
     assert ops.launch_counts() == {"encode_bf16": 1}
     plain = ivf.build_ivf(coarse, pq, x, capacity=capacity, use_kernel=False)
-    # The placement is the same plain product on both routes.  The kernel
-    # route's codes are the bf16 encode's (its plain version's but for at
-    # most 1% of near-ties); where they differ from the plain route's exact
-    # codes, the centroid taken is within 2^-7 of the products' scale of the
-    # best, and the norms follow the codes.
+    _check_ivf_build_routes(x, coarse, pq, kern, plain)
+
+
+def _check_ivf_build_routes(x, coarse, pq, kern, plain):
+    """The placement is the same plain product on both routes.  The kernel
+    route's codes are the bf16 encode's (its plain version's but for at most
+    1% of near-ties); where they differ from the plain route's exact codes,
+    the centroid taken is within 2^-7 of the products' scale of the best,
+    and the norms follow the codes."""
+    dev = x.device
     assert torch.equal(kern.cell_ids, plain.cell_ids)
     occ = kern.cell_ids >= 0
     rows = kern.cell_ids[occ].long()
@@ -1440,6 +1445,13 @@ def test_ivf_search_kernel_route_against_the_plain_route(dev, metric, nprobe):
     from reductive_tpu_torch import ivf
     x, coarse, pq, q, _ = _ivf_setup(dev, 256)
     index = ivf.build_ivf(coarse, pq, x, capacity="auto")
+    _check_ivf_search_routes(index, q, nprobe, metric)
+
+
+def _check_ivf_search_routes(index, q, nprobe, metric):
+    """The kernel route's distances within 2e-5 of the plain route's, and
+    its ids equal wherever the plain scores lie further apart than that."""
+    from reductive_tpu_torch import ivf
     ops.reset_launch_counts()
     d_k, i_k = ivf.ivf_search(index, q, 11, nprobe=nprobe, splits=3, metric=metric)
     assert ops.launch_counts() == {"adc": 1}
@@ -1453,6 +1465,111 @@ def test_ivf_search_kernel_route_against_the_plain_route(dev, metric, nprobe):
     apart[:, 1:] &= gap[:, :9] > atol
     apart &= gap[:, :10] > atol
     assert torch.equal(i_k[:, :10][apart], i_p[:, :10][apart])
+
+
+def _ivf_nearest(x, coarse):
+    from reductive_tpu_torch import ivf
+    return ivf._assign_block(x, coarse, 262_144).long()
+
+
+def test_ivf_device_build_kernel_route_against_the_plain_route(dev):
+    from reductive_tpu_torch import ivf
+    x, coarse, pq, _, _ = _ivf_setup(dev, 256)
+    L = -(-int(1.05 * x.shape[0]) // coarse.shape[0])
+    ops.reset_launch_counts()
+    kern = ivf.build_ivf(coarse, pq, x, capacity=L, placement="device", use_kernel=True)
+    counts = torch.bincount(_ivf_nearest(x, coarse), minlength=coarse.shape[0])
+    assert int((counts - L).clamp(min=0).sum()) > 0  # overflow: the respill re-encoded its rows
+    assert ops.launch_counts() == {"encode_bf16": 2}
+    plain = ivf.build_ivf(coarse, pq, x, capacity=L, placement="device", use_kernel=False)
+    _check_ivf_build_routes(x, coarse, pq, kern, plain)
+
+
+@pytest.mark.parametrize("k", [256, 16])
+def test_ivf_unbounded_device_build_is_the_host_build(dev, k):
+    from reductive_tpu_torch import ivf
+    x, coarse, pq, _, _ = _ivf_setup(dev, k)
+    for packed in (False, True) if k == 16 else (False,):
+        for use_kernel in (True, False):
+            a = ivf.build_ivf(coarse, pq, x, placement="device", packed=packed,
+                              use_kernel=use_kernel, batch=5000)
+            b = ivf.build_ivf(coarse, pq, x, placement="host", packed=packed,
+                              use_kernel=use_kernel, batch=5000)
+            assert torch.equal(a.cell_ids, b.cell_ids) and torch.equal(a.cell_codes, b.cell_codes)
+            assert _same_bits(a.cell_norms, b.cell_norms)
+    auto, device = ivf.build_ivf(coarse, pq, x), ivf.build_ivf(coarse, pq, x, placement="device")
+    assert torch.equal(auto.cell_codes, device.cell_codes) and torch.equal(auto.cell_ids,
+                                                                            device.cell_ids)
+
+
+@pytest.mark.parametrize("share", [1.0, 1.05])
+def test_ivf_bounded_device_build_invariants(dev, share):
+    from reductive_tpu_torch import ivf
+    x, coarse, pq, _, _ = _ivf_setup(dev, 256)
+    n, C = x.shape[0], coarse.shape[0]
+    L = -(-int(share * n) // C)
+    index = ivf.build_ivf(coarse, pq, x, capacity=L, placement="device")
+    assert index.capacity == L and index.dropped_ids.size == 0
+    occ = index.cell_ids >= 0
+    rows = index.cell_ids[occ].long()
+    assert torch.equal(torch.sort(rows).values, torch.arange(n, device=dev))
+    cells = occ.nonzero()[:, 0]
+    nearest = _ivf_nearest(x, coarse)
+    fits = torch.bincount(nearest, minlength=C)[nearest[rows]] <= L
+    assert torch.equal(cells[fits], nearest[rows][fits]) and bool((~fits).any())
+    # A stored code is the kernel's code of its residual against its storage cell.
+    res = x[rows] - coarse[cells]
+    assert torch.equal(index.cell_codes[occ], ops.pq_encode(pq.codebooks, res))
+
+
+def _ivf_churn(dev, x, coarse, index, gen):
+    """Removes every 7th row and adds rows near it under new ids in two
+    batches; returns the new index and the added rows."""
+    from reductive_tpu_torch import ivf
+    n = x.shape[0]
+    gone = torch.arange(0, n, 7, device=dev)
+    index = ivf.ivf_remove(index, gone)
+    new = x[gone] + 0.05 * torch.randn((gone.numel(), x.shape[1]), generator=gen, device=dev)
+    half = gone.numel() // 2
+    index = ivf.ivf_add(index, new[:half], ids=torch.arange(n, n + half))
+    index = ivf.ivf_add(index, new[half:], ids=torch.arange(n + half, n + gone.numel()))
+    return index, new
+
+
+def test_ivf_add_fast_path_against_the_host_path(dev, monkeypatch):
+    from reductive_tpu_torch import ivf
+    x, coarse, pq, _, _ = _ivf_setup(dev, 256)
+    index = ivf.ivf_remove(ivf.build_ivf(coarse, pq, x, capacity="auto"),
+                           torch.arange(0, x.shape[0], 7, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    new = x[:300] + 0.05 * torch.randn((300, x.shape[1]), generator=gen, device=dev)
+    ids = torch.arange(10 ** 6, 10 ** 6 + 300)
+    ops.reset_launch_counts()
+    fast = ivf.ivf_add(index, new, ids=ids)
+    assert ops.launch_counts() == {"encode_bf16": 1}
+    gate = ivf._add_fast_gate
+    monkeypatch.setattr(ivf, "_add_fast_gate", lambda cell_ids, assign, L: (
+        torch.tensor(True, device=dev), gate(cell_ids, assign, L)[1]))
+    host = ivf.ivf_add(index, new, ids=ids)
+    assert torch.equal(fast.cell_ids, host.cell_ids)
+    assert torch.equal(fast.cell_codes, host.cell_codes)
+    assert _same_bits(fast.cell_norms, host.cell_norms)
+    donated = ivf.ivf_add(ivf.IvfPq(index.coarse_centroids, pq, index.cell_codes.clone(),
+                                    index.cell_ids.clone(), index.cell_norms.clone()),
+                          new, ids=ids, donate=True)
+    assert torch.equal(donated.cell_codes, host.cell_codes) and _same_bits(donated.cell_norms,
+                                                                          host.cell_norms)
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+def test_ivf_search_after_churn_kernel_route_against_the_plain_route(dev, metric):
+    from reductive_tpu_torch import ivf
+    x, coarse, pq, q, _ = _ivf_setup(dev, 256)
+    index = ivf.build_ivf(coarse, pq, x, capacity="auto", placement="device")
+    index, new = _ivf_churn(dev, x, coarse, index, torch.Generator(device=dev).manual_seed(6))
+    live = index.cell_ids[index.cell_ids >= 0].long()
+    assert live.numel() == x.shape[0] and torch.equal(torch.unique(live), torch.sort(live).values)
+    _check_ivf_search_routes(index, torch.cat([q, new[:16]]), 8, metric)
 
 
 @pytest.mark.parametrize("metric", ["l2", "dot"])

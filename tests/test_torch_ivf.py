@@ -480,8 +480,11 @@ def test_validation_errors():
             coarse, Pq(codebooks=torch.zeros((1, 16, 8))), x, packed=True)),
         (ValueError, "dtype=uint8", lambda: ivf.build_ivf(coarse, pq, x, packed=True,
                                                           dtype=torch.int32)),
-        (NotImplementedError, "sub-slice 5", lambda: ivf.build_ivf(coarse, pq, x,
-                                                                   placement="device")),
+        (ValueError, "on_overflow", lambda: ivf.ivf_add(index, x[:2], on_overflow="panic")),
+        (ValueError, "int32", lambda: ivf.ivf_add(index, x[:2], ids=np.array([7, 2 ** 32]))),
+        (ValueError, "instances lie on meta", lambda: ivf.ivf_add(
+            index, torch.empty((2, 8), device="meta"))),
+        (TypeError, r"build_ivf\(reader\)", lambda: ivf.ivf_add(index, Reader())),
         (NotImplementedError, "item 2", lambda: ivf.build_ivf(coarse, pq, Reader())),
         (NotImplementedError, "item 2", lambda: ivf.train_ivf_pq(gen, Reader(), 4, 2, 3)),
         (NotImplementedError, "item 2", lambda: ivf.ivf_search(index, x[:2], 3, nprobe=2,
