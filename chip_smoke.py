@@ -63,6 +63,7 @@ import collections
 import json
 import logging
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -73,8 +74,12 @@ import numpy as np
 import torch
 
 from reductive_tpu_torch import (
-    Pq, io, ivf, kmeans, ops, train_opq_chunked, train_pq, train_pq_chunked,
+    Pq, conformance, io, ivf, kmeans, linalg, native, ops, stream_encode, stream_encode_resumable,
+    train_gaussian_opq_streamed, train_opq_chunked, train_opq_streamed, train_pq,
+    train_pq_chunked, train_pq_streamed,
 )
+from reductive_tpu_torch.data import _device_batches, _reader_batches
+from reductive_tpu_torch.pq.streamed import streamed_covariance
 from reductive_tpu_torch.ops import _build
 from reductive_tpu_torch.ops.adc import adc_launcher, adc_table_int8, quantize_tables_int8
 from reductive_tpu_torch.ops.assign import (
@@ -181,6 +186,22 @@ IVF_N, IVF_D, IVF_C, IVF_M, IVF_BITS = 10_000_000, 128, 4096, 16, 8
 IVF_ITERATIONS = 4
 IVF_PREFIX = 1 << 20
 IVF_NPROBE = (8, 32)
+# The stream phase.  Corpus S: the 768-d transformer-embedding width of
+# BASELINE.json's configs #4 and #5 (benches/streaming_train.py's run of it):
+# 256 centres from N(0, 2^2) plus unit noise, m=24, k=256 (ds=32), written to
+# disk in 2^20-row blocks; its rows cut from config #5's 100M to 2^22 (12.9 GB
+# as fvecs), width, m and k not cut.  Corpus I: the ivf phase's corpus and
+# model, written to a second file.  The conformance gate: the reference's
+# tests' 256 x 20 instances, m=10, 7 bits, 10 iterations, at the goldens'
+# seeds (tests/goldens/rng_reference.json, read as data).
+STREAM_N, STREAM_D, STREAM_M, STREAM_BITS = 1 << 22, 768, 24, 8
+STREAM_BATCH = 1 << 18
+STREAM_BLOCK = 1 << 20
+STREAM_ITERATIONS = 4
+STREAM_PEAK_LIMIT = 4e9         # bytes a streamed training may add on the card
+GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
+                       "rng_reference.json")
+GATE_BANDS = {"pq": 0.08, "opq": 0.10, "gaussian_opq": 0.12}
 IVF_KERNELS = ("stats_f32_wide", "encode_bf16_wide", "stats_f32", "encode_bf16", "adc", "adc_u4",
                "decode")
 
@@ -1604,7 +1625,9 @@ def phase_ivf(gen):
     into a near row's distance), the kernel route's ids the plain route's
     wherever the plain scores lie more than 1e-5 of that size apart, packed
     scores bit for bit the unpacked ones, and each of ``IVF_KERNELS``
-    launched with no ``*_shallow`` launch.  Returns the launches."""
+    launched with no ``*_shallow`` launch.  Returns the launches of this
+    phase and of ``ivf_update``, and the corpus, its coarse centroids,
+    residual PQ and queries, for the stream phase's corpus I."""
     dev = gen.device
     n, d, C = IVF_N, IVF_D, IVF_C
     x = clustered_corpus(gen, n, d, C)
@@ -1710,9 +1733,8 @@ def phase_ivf(gen):
          search_ms=search_ms, recall_at_10=recall,
          kernel_vs_plain=kernel_vs_plain, lut_vs_decode_prefix=lut_vs_decode,
          packed_bits_differ=differ, peak_memory_bytes=peak, launches=launches)
-    del x
     torch.cuda.empty_cache()
-    return launches, update_launches
+    return launches, update_launches, (x, coarse, rpq, q)
 
 
 def ivf_update(x, coarse, rpq, q, planted, scale, host_build, coarse4, pq4):
@@ -1881,6 +1903,358 @@ def ivf_update(x, coarse, rpq, q, planted, scale, host_build, coarse4, pq4):
     del idx_b, xa, xb, cells, nearest
     torch.cuda.empty_cache()
     return launches
+
+
+# -- corpora on disk -------------------------------------------------------------
+
+
+def once(fn):
+    """Result and seconds (host clock, synchronised before and after) of one
+    call: a streamed pass is too long to run twice for a warm-up."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def progress(step: str, fields) -> None:
+    """One line on stderr as a stream step ends, so that a run stopped later
+    still shows what came before."""
+    print(json.dumps({"stream_step": step, **fields}), file=sys.stderr, flush=True)
+
+
+def counted(fn, total):
+    """``fn()`` with every launch count at 0 before; returns its result and
+    the launches it made, which are added to ``total``."""
+    ops.reset_launch_counts()
+    out = fn()
+    counts = ops.launch_counts()
+    total.update(counts)
+    return out, counts
+
+
+def peak_over(base: int) -> int:
+    """Bytes of device memory allocated at the peak since the last reset
+    beyond ``base`` (what was allocated before the run)."""
+    return torch.cuda.max_memory_allocated() - base
+
+
+def require_free_disk(where: str, nbytes: int) -> int:
+    free = shutil.disk_usage(where).free
+    require(free >= 2 * nbytes,
+            f"stream: {free} bytes free in {where}; the corpus needs twice its {nbytes} bytes")
+    return free
+
+
+def open_native(path):
+    reader = native.VecsReader(path)
+    require(reader._handle is not None, f"stream: {path} was opened without the native library")
+    return reader
+
+
+class Interrupted(RuntimeError):
+    pass
+
+
+class Interrupting:
+    """A reader over the same file whose prefetched batches stop with an
+    exception after ``after`` batches: an encode job killed mid-stream."""
+
+    def __init__(self, reader, after):
+        self.reader, self.after = reader, after
+        self.n, self.dim, self.path = reader.n, reader.dim, reader.path
+
+    def prefetch_batches(self, *args, **kwargs):
+        for i, item in enumerate(self.reader.prefetch_batches(*args, **kwargs)):
+            if i == self.after:
+                raise Interrupted("stopped")
+            yield item
+
+
+def write_stream_corpus(path, gen):
+    """Corpus S, made on the card in 2^20-row blocks and appended to
+    ``path``: benches/streaming_train.py's mixture at the streaming width."""
+    dev = gen.device
+    centres = 2.0 * torch.randn((256, STREAM_D), generator=gen, device=dev)
+    for off in range(0, STREAM_N, STREAM_BLOCK):
+        rows = centres[torch.randint(0, 256, (STREAM_BLOCK,), generator=gen, device=dev)]
+        rows += torch.randn((STREAM_BLOCK, STREAM_D), generator=gen, device=dev)
+        native.write_fvecs(path, rows, append=off > 0)
+
+
+def stream_corpus_s(reader, out_dir, total, dev):
+    """Corpus S through the out-of-core path; see :func:`phase_stream`."""
+    n, d, B = STREAM_N, STREAM_D, STREAM_BATCH
+    batches = -(-n // B)
+    payload = n * d * 4
+    out = {}
+
+    # The time split of a pass: the read alone, the read and the copy to the
+    # card, then the streamed training's passes (read, copy, kernel).
+    _, seconds = once(lambda: sum(b.shape[0] for _, b in reader.prefetch_batches(B, copy=False)))
+    out["read_pass_s"], out["read_gb_per_s"] = seconds, payload / seconds / 1e9
+    _, seconds = once(lambda: sum(xb.shape[0] for _, xb in _device_batches(
+        _reader_batches(reader, B, 0, n, copy=False), dev)))
+    out["read_copy_pass_s"], out["read_copy_gb_per_s"] = seconds, payload / seconds / 1e9
+    progress("read", out)
+
+    # Streamed PQ, f32, against the chunked trainer over the resident corpus.
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ((pq_s, losses), seconds), counts = counted(lambda: once(lambda: logged_losses(
+        lambda: train_pq_streamed(gen, reader, STREAM_M, STREAM_BITS, STREAM_ITERATIONS,
+                                  batch_size=B, device=dev))), total)
+    peak = peak_over(base)
+    require(peak < STREAM_PEAK_LIMIT,
+            f"stream: the streamed training added {peak} bytes on the card, over {STREAM_PEAK_LIMIT}")
+    require(counts.get("stats_f32", 0) == STREAM_ITERATIONS * batches
+            and sum(v for k, v in counts.items() if k.startswith("stats")) == counts["stats_f32"],
+            f"stream: the streamed PQ launched {counts}, expected {STREAM_ITERATIONS * batches} "
+            "stats_f32 (every batch through the kernel)")
+    require(len(losses) == STREAM_ITERATIONS and all(b <= a * (1 + 1e-6)
+                                                     for a, b in zip(losses, losses[1:])),
+            f"stream: the streamed PQ's losses {losses}")
+    out["pq_streamed_f32"] = {
+        "seconds_per_iteration": seconds / STREAM_ITERATIONS,
+        "rows_per_s": STREAM_ITERATIONS * n / seconds, "peak_bytes_added": peak,
+        "resident_bytes_before": base, "losses": losses, "launches": counts}
+    progress("pq_streamed_f32", out["pq_streamed_f32"])
+
+    # One iteration each of a bf16 transfer and the verified mode, from there.
+    for name, kw, kernel in (("pq_streamed_bf16_transfer", dict(transfer_dtype=torch.bfloat16),
+                              "stats_f32"),
+                             ("pq_streamed_verified", dict(compute_dtype="verified"),
+                              "stats_verify")):
+        torch.cuda.reset_peak_memory_stats()
+        (pq_1, seconds), counts = counted(lambda: once(lambda: train_pq_streamed(
+            None, reader, STREAM_M, STREAM_BITS, 1, batch_size=B, initial_model=pq_s, device=dev,
+            **kw)),
+            total)
+        require(counts.get(kernel, 0) == batches, f"stream: {name} launched {counts}")
+        require(bool(torch.isfinite(pq_1.codebooks).all()), f"stream: {name} not finite")
+        out[name] = {"seconds_per_iteration": seconds, "rows_per_s": n / seconds,
+                     "peak_bytes_added": peak_over(base), "launches": counts}
+        progress(name, out[name])
+
+    # The corpus on the card, then the chunked trainer from the same seed.
+    x = torch.empty((n, d), device=dev)
+    for off, b in reader.prefetch_batches(B, copy=False):
+        x[off:off + b.shape[0]].copy_(torch.from_numpy(b))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    (pq_c, seconds), counts = counted(lambda: once(lambda: train_pq_chunked(
+        gen, x, STREAM_M, STREAM_BITS, STREAM_ITERATIONS, chunk=B)), total)
+    require(bool(torch.equal(pq_s.codebooks, pq_c.codebooks)),
+            "stream: the streamed PQ differs from the resident chunked PQ at batch_size == chunk")
+    out["pq_chunked_resident"] = {"seconds_per_iteration": seconds / STREAM_ITERATIONS,
+                                  "rows_per_s": STREAM_ITERATIONS * n / seconds,
+                                  "codebooks_equal": True, "launches": counts}
+    progress("pq_chunked_resident", out["pq_chunked_resident"])
+
+    # The streamed covariance against the resident one; the OPQ trainers.
+    cov, seconds = once(lambda: streamed_covariance(reader, batch_size=B, device=dev))
+    want = linalg.covariance(x, 0)
+    cov_err = float((cov - want).abs().max() / want.abs().max())
+    require(cov_err < 1e-4, f"stream: the streamed covariance is {cov_err} off the resident one")
+    out["covariance"] = {"seconds": seconds, "max_rel_err": cov_err}
+    progress("covariance", out["covariance"])
+    for name, trainer, n_it, passes in (
+            ("gaussian_opq_streamed", train_gaussian_opq_streamed, 2, 1 + 2),
+            ("opq_streamed", train_opq_streamed, 2, 1 + 2 * 2)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # the resident corpus included
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        ((model, losses), seconds), counts = counted(lambda: once(lambda: logged_losses(
+            lambda: trainer(gen, reader, STREAM_M, STREAM_BITS, n_it, batch_size=B,
+                            device=dev))), total)
+        gram = model.projection.T @ model.projection
+        ortho = float((gram - torch.eye(d, device=dev)).abs().max())
+        require(ortho < 1e-5 and bool(torch.isfinite(model.codebooks).all()),
+                f"stream: {name}'s projection is {ortho} off orthonormal")
+        out[name] = {"iterations": n_it, "passes": passes, "seconds": seconds,
+                     "seconds_per_pass": seconds / passes, "peak_bytes_added": peak_over(base),
+                     "losses": losses, "orthonormal_err": ortho, "launches": counts}
+        progress(name, out[name])
+
+    # The streaming encode (the default encode, uint8), f32 and bf16 on the wire.
+    want = pq_s.quantize_batch(x, method="kernel").cpu().numpy()
+    codes, seconds = once(lambda: stream_encode(pq_s, reader, batch_size=B))
+    require(bool((codes == want).all()), "stream: stream_encode's codes differ from quantize_batch's")
+    codes_bf16, seconds_bf16 = once(lambda: stream_encode(pq_s, reader, batch_size=B,
+                                                          transfer_dtype=torch.bfloat16))
+    require(bool((codes_bf16 == want).all()),
+            "stream: stream_encode's codes with a bf16 transfer differ from quantize_batch's")
+    out["stream_encode"] = {"seconds": seconds, "rows_per_s": n / seconds,
+                            "bf16_transfer_seconds": seconds_bf16,
+                            "bf16_transfer_rows_per_s": n / seconds_bf16,
+                            "codes_equal": True, "bf16_codes_equal": True}
+    progress("stream_encode", out["stream_encode"])
+    del x
+
+    # Resumable: interrupted after 5 batches, resumed, then called again.
+    path = os.path.join(out_dir, "codes.u8")
+    try:
+        stream_encode_resumable(pq_s, Interrupting(reader, 5), path, batch_size=B, flush_every=1)
+        require(False, "stream: the interrupted encode ran to its end")
+    except Interrupted:
+        pass
+    with open(path + ".progress.json") as f:
+        done = json.load(f)["completed_rows"]
+    require(0 < done < n, f"stream: the interrupted encode recorded {done} rows done")
+    resumed, seconds = once(lambda: stream_encode_resumable(pq_s, reader, path, batch_size=B))
+    require(bool((np.asarray(resumed) == want).all()),
+            "stream: the resumed encode differs from the uninterrupted one")
+    (again, seconds_again), counts = counted(lambda: once(lambda: stream_encode_resumable(
+        pq_s, reader, path, batch_size=B)), total)
+    require(not counts and bool((np.asarray(again) == want).all()),
+            f"stream: the third call encoded again ({counts})")
+    out["stream_encode_resumable"] = {"rows_done_when_stopped": done,
+                                      "resume_seconds": seconds,
+                                      "third_call_seconds": seconds_again, "equal": True}
+    progress("stream_encode_resumable", out["stream_encode_resumable"])
+    return out
+
+
+def conformance_on_card(dev):
+    """The three conformant trainers at the gate, on the card, against the
+    goldens' objectives (1e-3) and the reference's bands."""
+    with open(GOLDENS) as f:
+        golden = json.load(f)
+    shape, m = tuple(golden["gate"]["shape"]), golden["gate"]["m"]
+    trainers = {"pq": conformance.train_pq_conformant, "opq": conformance.train_opq_conformant,
+                "gaussian_opq": conformance.train_gaussian_opq_conformant}
+    out = {}
+    for name, trainer in trainers.items():
+        for seed, g in golden["seeds"].items():
+            x, master = conformance.reference_test_instances(int(seed), shape)
+            model = trainer(x, m, GATE_BITS, 10, 1, master=master, device=dev)
+            xt = torch.from_numpy(x).to(dev)
+            loss = float((xt - model.reconstruct_batch(model.quantize_batch(xt)))
+                         .pow(2).sum(1).sqrt().mean())
+            recorded = g[f"{name}_objective"]
+            rel = abs(loss - recorded) / recorded
+            require(rel <= 1e-3 and loss < GATE_BANDS[name],
+                    f"stream: conformant {name} at seed {seed}: {loss} against {recorded}")
+            out[f"{name}_{seed}"] = {"objective": loss, "golden": recorded, "rel": rel}
+    return out
+
+
+def build_stages(log):
+    return {args[0]: args[1] for args, _ in log.find("IVF build pass")}
+
+
+def stream_corpus_i(gen, ivf_data, out_dir, total):
+    """Corpus I (the ivf phase's corpus and model) from a file: training,
+    both builds and the refine, against the same over the tensor."""
+    x, coarse, rpq, q = ivf_data
+    dev = x.device
+    n = x.shape[0]
+    path = os.path.join(out_dir, "ivf.fvecs")
+    file_bytes = n * (x.shape[1] + 1) * 4
+    free = require_free_disk(out_dir, file_bytes)
+    _, seconds = once(lambda: [native.write_fvecs(path, x[off:off + STREAM_BLOCK], append=off > 0)
+                               for off in range(0, n, STREAM_BLOCK)])
+    out = {"rows": n, "file_bytes": os.path.getsize(path), "free_bytes": free,
+           "write_s": seconds}
+    reader = open_native(path)
+    require(reader.n == n, "stream: corpus I's file has another row count")
+
+    (trained, seconds), counts = counted(lambda: once(lambda: ivf.train_ivf_pq(
+        torch.Generator(device=dev).manual_seed(SEED), reader, IVF_C, IVF_M, IVF_BITS,
+        coarse_iterations=IVF_ITERATIONS, pq_iterations=IVF_ITERATIONS)), total)
+    require(bool(torch.isfinite(trained[0]).all() and torch.isfinite(trained[1].codebooks).all()),
+            "stream: train_ivf_pq over the reader gave non-finite centroids")
+    out["train_ivf_pq_s"] = seconds
+    out["train_launches"] = counts
+
+    builds = {}
+    for placement in ("host", "device"):
+        row = {}
+        for source, corpus in (("tensor", x), ("reader", reader)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ((index, log), seconds), counts = counted(lambda: once(lambda: with_log(
+                lambda: ivf.build_ivf(coarse, rpq, corpus, capacity="auto", placement=placement))),
+                total)
+            row[source] = {"seconds": seconds, "stages_s": build_stages(log),
+                           "peak_bytes_added": peak_over(base), "launches": counts}
+            builds[source] = index
+        for name in ("cell_codes", "cell_ids", "cell_norms"):
+            require(bool(torch.equal(getattr(builds["reader"], name), getattr(builds["tensor"], name))),
+                    f"stream: the {placement} build from the reader differs in {name}")
+        row["cells_equal"] = True
+        out[f"build_{placement}"] = row
+        if placement == "host":
+            del builds["reader"]
+    index = builds["tensor"]
+    del builds
+
+    # Refine by the reader against refine by the tensor, IVF and flat.
+    got = ivf.ivf_search(index, q, TOP_K, nprobe=8, refine_with=reader)
+    want = ivf.ivf_search(index, q, TOP_K, nprobe=8, refine_with=x)
+    require(bool(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])),
+            "stream: ivf_search refined by the reader differs from refined by the tensor")
+    out["ivf_search_refine_ms"] = {
+        "reader": time_ms(lambda: ivf.ivf_search(index, q, TOP_K, nprobe=8, refine_with=reader)),
+        "tensor": time_ms(lambda: ivf.ivf_search(index, q, TOP_K, nprobe=8, refine_with=x))}
+    progress("ivf_search_refine_ms", out["ivf_search_refine_ms"])
+    del index
+    flat = train_pq_chunked(gen, x[:N_PREFIX], IVF_M, IVF_BITS, IVF_ITERATIONS)
+    codes = flat.quantize_batch(x, method="kernel")
+    got = search(flat, q, codes, TOP_K, refine_with=reader)
+    want = search(flat, q, codes, TOP_K, refine_with=x)
+    require(bool(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])),
+            "stream: search refined by the reader differs from refined by the tensor")
+    out["search_refine_ms"] = {
+        "reader": time_ms(lambda: search(flat, q, codes, TOP_K, refine_with=reader)),
+        "tensor": time_ms(lambda: search(flat, q, codes, TOP_K, refine_with=x))}
+    progress("search_refine_ms", out["search_refine_ms"])
+    reader.close()
+    return out
+
+
+def phase_stream(gen, ivf_data):
+    """Corpora on disk, every count at 0 before each step: corpus S (the
+    768-d streaming width, 2^22 rows, 12.9 GB as fvecs) written, read by the
+    native reader (required: its handle on every reader opened), the
+    streamed PQ trainer (4 iterations, f32, batches of 2^18 rows: the added
+    device memory under 4 GB, exactly 4 x 16 statistics launches, then bit
+    for bit the chunked trainer over the corpus on the card at chunk=2^18),
+    one iteration of a bf16 transfer and of the verified mode, the streamed
+    covariance against the resident one, Gaussian OPQ and OPQ streamed, the
+    streaming encode (codes bit for bit ``quantize_batch(method="kernel")``'s
+    on the resident corpus, f32 and bf16 on the wire) and the resumable
+    encode (interrupted, resumed bit for bit, a third call encoding
+    nothing); the conformant trainers at the gate against the goldens; and
+    corpus I (the ivf phase's 10M rows, 5.1 GB) read back for
+    ``train_ivf_pq``, both builds (cells bit for bit the tensor builds') and
+    the refine of ``ivf_search`` and ``search`` (equal to the tensor's).
+    Returns the launches."""
+    require(native.NATIVE_AVAILABLE, "stream: the native reader library did not build")
+    total = collections.Counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        file_bytes = STREAM_N * (STREAM_D + 1) * 4
+        free = require_free_disk(tmp, file_bytes)
+        path = os.path.join(tmp, "stream.fvecs")
+        _, seconds = once(lambda: write_stream_corpus(path, gen))
+        out["corpus_s"] = {"rows": STREAM_N, "d": STREAM_D, "m": STREAM_M, "k": 2 ** STREAM_BITS,
+                           "batch": STREAM_BATCH, "file_bytes": os.path.getsize(path),
+                           "free_bytes": free, "write_s": seconds}
+        with open_native(path) as reader:
+            require(reader.n == STREAM_N and reader.dim == STREAM_D,
+                    "stream: corpus S's file has another shape")
+            out["corpus_s"].update(stream_corpus_s(reader, tmp, total, gen.device))
+        os.remove(path)
+        out["conformance"] = conformance_on_card(gen.device)
+        out["corpus_i"] = stream_corpus_i(gen, ivf_data, tmp, total)
+    require_no_shallow("stream", total)
+    emit("stream", **out, launches=dict(total))
+    return total
 
 
 def bf16_entries(cb, x):
@@ -2093,12 +2467,15 @@ def main() -> int:
     exact_launches, exact_out = phase_exact(pq, corpus, train_out)
     pq4, codes4, packed4, packed_launches = phase_packed(corpus, gen)
     probe, wide_launches, wide_rows = phase_wide(corpus, gen)
-    ivf_launches, ivf_update_launches = phase_ivf(gen)
+    ivf_launches, ivf_update_launches, ivf_data = phase_ivf(gen)
+    stream_launches = phase_stream(gen, ivf_data)
+    del ivf_data
+    torch.cuda.empty_cache()
     # Launches of each kernel on the main paths together; every count was set
     # to 0 just before its path was driven and read just after.
     launches = collections.Counter()
     for counts in (serve_launches, train_launches, exact_launches, packed_launches, wide_launches,
-                   ivf_launches, ivf_update_launches):
+                   ivf_launches, ivf_update_launches, stream_launches):
         launches.update(counts)
     for name in KERNELS:
         require(launches[name] > 0, f"kernel {name} was launched on no path")

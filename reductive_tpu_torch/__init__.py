@@ -3,9 +3,15 @@
 The product-quantization engine on an NVIDIA Hopper GPU: train a quantizer
 (k-means, PQ, OPQ, Gaussian OPQ, in memory and at corpus scale), encode
 vectors to codes, decode codes back, and answer queries by ADC search over
-the encoded corpus, exhaustively or through an IVF-PQ index (``ivf``).  Plain tensor code is PyTorch; the hot loops are CUDA
-kernels written for ``sm_90a`` under ``csrc/``, compiled at first use, each
-beside a plain PyTorch version of the same function.
+the encoded corpus, exhaustively or through an IVF-PQ index (``ivf``).
+Corpora larger than the card stay on disk: ``native.VecsReader`` reads
+fvecs/bvecs/ivecs files, the streamed trainers (``train_*_streamed``) and
+the streaming encode (``stream_encode``, ``stream_encode_resumable``) re-read
+them batch by batch, and ``ivf`` and ``search`` take a reader in place of a
+tensor.  ``conformance`` replays the reference's RNG streams.  Plain tensor
+code is PyTorch; the hot loops are CUDA kernels written for ``sm_90a`` under
+``csrc/``, compiled at first use, each beside a plain PyTorch version of the
+same function; ``native/vecio.cpp`` is compiled by ``g++`` at first use.
 
 The package imports ``torch`` and ``numpy`` only.  Functions that take
 tensors run where their tensors are; everything that creates state from
@@ -16,11 +22,14 @@ Top-level surface::
     from reductive_tpu_torch import (
         Pq, train_pq, train_opq, train_gaussian_opq,
         kmeans, linalg, search, io, convert, ops, errors,
-        ivf, IvfPq,
+        ivf, IvfPq, native, data, conformance, SyntheticReader,
+        stream_encode, stream_encode_resumable, train_pq_streamed,
+        train_opq_streamed, train_gaussian_opq_streamed,
     )
 """
 
-from . import convert, errors, io, ivf, kmeans, linalg, ops, pq, search
+from . import conformance, convert, data, errors, io, ivf, kmeans, linalg, native, ops, pq, search
+from .data import SyntheticReader, stream_encode, stream_encode_resumable
 from .ivf import IvfPq
 from .pq import (
     GaussianOpq,
@@ -29,12 +38,16 @@ from .pq import (
     PqTrainer,
     bucket_eigenvalues,
     create_projection_matrix,
+    streamed_covariance,
     train_gaussian_opq,
     train_gaussian_opq_chunked,
+    train_gaussian_opq_streamed,
     train_opq,
     train_opq_chunked,
+    train_opq_streamed,
     train_pq,
     train_pq_chunked,
+    train_pq_streamed,
 )
 
 __version__ = "0.9.0"
@@ -51,14 +64,24 @@ __all__ = [
     "train_opq_chunked",
     "train_gaussian_opq",
     "train_gaussian_opq_chunked",
+    "train_pq_streamed",
+    "train_opq_streamed",
+    "train_gaussian_opq_streamed",
+    "streamed_covariance",
+    "stream_encode",
+    "stream_encode_resumable",
+    "SyntheticReader",
     "bucket_eigenvalues",
     "create_projection_matrix",
+    "conformance",
     "convert",
+    "data",
     "errors",
     "io",
     "ivf",
     "kmeans",
     "linalg",
+    "native",
     "ops",
     "pq",
     "search",

@@ -30,9 +30,17 @@ query scores only the ``nprobe`` nearest cells.
   decodes the probed candidates instead (the decode kernel), and says so at
   INFO level.  Without the kernels (CPU tensors) it decodes by a gather.
 
+A corpus larger than the card is given as a reader
+(:class:`reductive_tpu_torch.native.VecsReader`, or anything with
+``n``/``dim``/``read``): :func:`train_ivf_pq` reads a sorted sample of its
+rows, :func:`build_ivf` reads it in the chunks and batches it would slice a
+tensor in (:class:`_ReaderRows`), so the cells equal those of a build from
+the same rows given as a tensor, and ``refine_with`` reads the candidate rows
+only.
+
 Random draws take a ``torch.Generator`` on the instances' device where the
-JAX package takes a key.  Not ported yet: ``ivf_search_sharded``, and
-readers in place of in-memory tensors (ROADMAP.md, queue 1).
+JAX package takes a key.  Not ported yet: ``ivf_search_sharded`` (ROADMAP.md,
+queue 1).
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ from ._device import check_generator
 from .ops.adc import max_query_batch, query_tile
 from .pq import primitives
 from .pq.model import Pq
-from .search import _READER_MSG, _check_metric, _refine, _smallest, adc_tables
+from .search import _check_metric, _is_reader, _reader_rows, _refine, _smallest, adc_tables
 
 logger = logging.getLogger("reductive_tpu")
 
@@ -114,10 +122,36 @@ class IvfPq:
         return self.cell_codes.shape[2] != self.pq.quantized_len
 
 
-def _is_reader(instances) -> bool:
-    """A corpus given as a reader (anything with ``read`` and no ``shape``)
-    rather than an array, as the JAX package defines it."""
-    return not hasattr(instances, "shape") and hasattr(instances, "read")
+class _ReaderRows:
+    """A reader seen as an ``(n, d)`` float32 tensor on ``device``, for the
+    build's indexing: ``rows[a:b]`` reads a range; ``rows[idx]`` (an int
+    tensor, ascending where the build takes it so) reads the rows it names,
+    a range where they are one (a pass-2 batch with no row dropped), the
+    covering range where it is at most twice as long, else row by row.  Each
+    read is copied to ``device``."""
+
+    def __init__(self, reader, device: torch.device):
+        self.reader = reader
+        self.device = device
+        self.shape = (reader.n, reader.dim)
+        self.is_cuda = device.type == "cuda"
+
+    def _put(self, rows) -> Tensor:
+        return torch.as_tensor(rows).to(self.device, torch.float32)
+
+    def __getitem__(self, key) -> Tensor:
+        if isinstance(key, slice):
+            start, stop, _ = key.indices(self.shape[0])
+            return self._put(self.reader.read(start, max(0, stop - start)))
+        idx = key.cpu().numpy().astype(np.int64).reshape(-1)
+        if not idx.size:
+            return torch.empty((0, self.shape[1]), device=self.device)
+        if bool(np.all(np.diff(idx) > 0)) and idx[-1] - idx[0] < 2 * idx.size:
+            block = self._put(self.reader.read(int(idx[0]), int(idx[-1] - idx[0] + 1)))
+            if idx[-1] - idx[0] + 1 == idx.size:
+                return block
+            return block[torch.from_numpy(idx - idx[0]).to(self.device)]
+        return self._put(_reader_rows(self.reader, idx))
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +161,7 @@ def _is_reader(instances) -> bool:
 
 def train_ivf_pq(
     generator: torch.Generator,
-    instances: Tensor,
+    instances,
     n_cells: int,
     n_subquantizers: int,
     n_subquantizer_bits: int,
@@ -160,24 +194,33 @@ def train_ivf_pq(
     (:func:`~reductive_tpu_torch.kmeans.random_distinct_indices`, only when
     the corpus has more rows), the k-means++ seeds, then the residual
     quantizer's initial codebooks.  ``use_kernel=None`` means the CUDA
-    kernels when the instances lie on a GPU.  A reader in place of a tensor
-    raises ``NotImplementedError``.
+    kernels when the instances lie on a GPU.
+
+    ``instances`` may be a reader for a corpus larger than the card: then
+    training runs on the generator's device, over ``min(train_sample or
+    262,144, n - 1)`` distinct rows drawn first from the generator, read in
+    ascending order (as the JAX package samples a reader; only the sample
+    occupies device memory).
     """
-    if _is_reader(instances):
-        raise NotImplementedError(_READER_MSG)
     if coarse_metric not in ("l2", "spherical"):
         raise ValueError(f'unknown coarse_metric {coarse_metric!r} (use "l2" or "spherical")')
     if residual_quantizer not in ("pq", "gaussian_opq"):
         raise ValueError(
             f'unknown residual_quantizer {residual_quantizer!r} (use "pq" or "gaussian_opq")'
         )
-    check_generator(generator, instances.device)
+    if _is_reader(instances):
+        n = instances.n
+        cap = min(train_sample or 262_144, n - 1)
+        idx = np.sort(kmeans.random_distinct_indices(generator, n, cap).cpu().numpy())
+        x_train = torch.as_tensor(_reader_rows(instances, idx)).to(generator.device, torch.float32)
+    else:
+        check_generator(generator, instances.device)
+        n = instances.shape[0]
+        x_train = instances
+        if train_sample is not None and n > train_sample:
+            x_train = instances[kmeans.random_distinct_indices(generator, n, train_sample)]
     if use_kernel is None:
-        use_kernel = instances.is_cuda
-    n = instances.shape[0]
-    x_train = instances
-    if train_sample is not None and n > train_sample:
-        x_train = instances[kmeans.random_distinct_indices(generator, n, train_sample)]
+        use_kernel = x_train.is_cuda
     logger.info(
         "IVF-PQ training: %d coarse cells (%d iters) + residual PQ m=%d k=%d",
         n_cells, coarse_iterations, n_subquantizers, 2 ** n_subquantizer_bits,
@@ -622,7 +665,7 @@ def _build_ivf_device(
 def build_ivf(
     coarse: Tensor,
     pq: Pq,
-    instances: Tensor,
+    instances,
     *,
     capacity=None,
     overflow_candidates: int = 4,
@@ -661,8 +704,13 @@ def build_ivf(
     ``packed=True`` (``k <= 16``, even ``m``, ``dtype=torch.uint8``) stores
     two u4 codes a byte; search scores such cells bit for bit as the
     unpacked ones.  ``use_kernel=None`` means the encode kernel when the
-    instances lie on a GPU.  A reader in place of a tensor raises
-    ``NotImplementedError``.
+    instances lie on a GPU.
+
+    ``instances`` may be a reader for a corpus larger than the card (see
+    :class:`_ReaderRows`): the build then runs on the coarse centroids'
+    device and reads pass 1's chunks and pass 2's batches where it would
+    slice a tensor, and the overflow rows by index, so its cells equal, bit
+    for bit, the build from the same rows as a tensor.
 
     ``placement`` says where the cells are made:
 
@@ -682,7 +730,7 @@ def build_ivf(
     if on_overflow not in ("spill", "error", "drop"):
         raise ValueError(f'on_overflow must be "spill", "error", or "drop", got {on_overflow!r}')
     if _is_reader(instances):
-        raise NotImplementedError(_READER_MSG)
+        instances = _ReaderRows(instances, coarse.device)
     if use_kernel is None:
         use_kernel = instances.is_cuda
     n = instances.shape[0]
@@ -1204,7 +1252,7 @@ def ivf_search(
     nprobe: int = 8,
     use_kernel: Optional[bool] = None,
     splits=2,
-    refine_with: Optional[Tensor] = None,
+    refine_with=None,
     refine_factor: int = 4,
     metric: str = "l2",
 ) -> Tuple[Tensor, Tensor]:
@@ -1223,10 +1271,10 @@ def ivf_search(
 
     ``metric="dot"`` ranks by maximum inner product: cells are probed by
     largest ``q.c`` and the returned "distances" are negated inner products.
-    ``refine_with`` (the original ``(n, d)`` vectors) re-scores the best
-    ``top_k * refine_factor`` candidates exactly and keeps ``top_k``, as
-    :func:`reductive_tpu_torch.search.search` does; a reader raises
-    ``NotImplementedError``.
+    ``refine_with`` (the original ``(n, d)`` vectors, or a reader for a
+    corpus larger than the card, of which only the candidate rows are read)
+    re-scores the best ``top_k * refine_factor`` candidates exactly and
+    keeps ``top_k``, as :func:`reductive_tpu_torch.search.search` does.
     """
     _check_metric(metric)
     if top_k <= 0:
@@ -1238,8 +1286,6 @@ def ivf_search(
     if refine_with is not None:
         if refine_factor < 1:
             raise ValueError("refine_factor must be >= 1")
-        if not isinstance(refine_with, Tensor):
-            raise NotImplementedError(_READER_MSG)
         _, cand = _ivf_search_once(index, queries, top_k * refine_factor, nprobe, use_kernel,
                                    splits, metric)
         return _refine(queries, refine_with, cand.to(torch.int64), top_k, metric)

@@ -10,6 +10,11 @@
 * :func:`~reductive_tpu_torch.pq.opq.train_opq`,
   :func:`~reductive_tpu_torch.pq.opq.train_gaussian_opq` and their chunked
   forms: PQ with a learned or closed-form rotation.
+* :func:`~reductive_tpu_torch.pq.streamed.train_pq_streamed`,
+  :func:`~reductive_tpu_torch.pq.streamed.train_opq_streamed`,
+  :func:`~reductive_tpu_torch.pq.streamed.train_gaussian_opq_streamed` and
+  :func:`~reductive_tpu_torch.pq.streamed.streamed_covariance`: the same
+  trainers over a corpus on disk, re-read through a reader every pass.
 * :class:`~reductive_tpu_torch.pq.traits.PqTrainer`, ``Opq``,
   ``GaussianOpq``: the reference's trait-style surface.
 """
@@ -29,6 +34,12 @@ from .opq import (
     train_gaussian_opq_chunked,
     train_opq,
     train_opq_chunked,
+)
+from .streamed import (
+    streamed_covariance,
+    train_gaussian_opq_streamed,
+    train_opq_streamed,
+    train_pq_streamed,
 )
 from .train import train_pq, train_pq_chunked
 from .traits import GaussianOpq, Opq, PqTrainer, entropy_generator
@@ -50,6 +61,10 @@ __all__ = [
     "train_opq_chunked",
     "train_gaussian_opq",
     "train_gaussian_opq_chunked",
+    "train_pq_streamed",
+    "train_opq_streamed",
+    "train_gaussian_opq_streamed",
+    "streamed_covariance",
     "bucket_eigenvalues",
     "create_projection_matrix",
 ]

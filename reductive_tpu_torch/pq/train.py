@@ -233,6 +233,16 @@ def losses_from_stats(sums: Tensor, counts: Tensor, sumsq: Tensor, n_elems: int)
     return (sumsq.to(torch.float32) - explained_from_stats(sums, counts)) / float(n_elems)
 
 
+# The kernel route without a projection takes all of ``x`` in one launch
+# unless ``chunk`` is at least this many rows: a launch of fewer rows leaves
+# an H100 partly idle, so the default ``chunk`` (which sizes the plain
+# route's slices) does not split the kernel's pass, while a ``chunk`` from
+# here on bounds what one launch takes, as a streamed pass's batches do
+# (``pq/streamed.py``), and the two trainers give the same bits at
+# ``batch_size == chunk``.
+KERNEL_CHUNK_MIN = 1 << 18
+
+
 def assign_stats_streamed(
     x: Tensor,
     codebooks: Tensor,
@@ -248,7 +258,9 @@ def assign_stats_streamed(
     With ``use_kernel`` and no projection this is one call of
     :func:`reductive_tpu_torch.ops.pq_assign_stats` over all of ``x``
     (of :func:`reductive_tpu_torch.ops.pq_assign_stats_verified` with
-    ``compute_dtype="verified"``).  With
+    ``compute_dtype="verified"``), or, where ``chunk`` is at least
+    :data:`KERNEL_CHUNK_MIN` rows, one call a ``chunk``-row slice, the
+    slices' statistics added in order.  With
     a ``projection``, ``chunk``-row slices are rotated on the fly and go
     through the kernel one by one, so the rotated corpus is never
     materialized.  Without ``use_kernel`` the slices go through
@@ -263,7 +275,7 @@ def assign_stats_streamed(
                 return pq_assign_stats_verified(codebooks, xc)
             return pq_assign_stats(codebooks, xc, compute_dtype=compute_dtype)
 
-        if projection is None:
+        if projection is None and chunk < KERNEL_CHUNK_MIN:
             return kernel_stats(x)
 
     m, k, ds = codebooks.shape

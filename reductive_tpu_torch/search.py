@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -31,15 +32,6 @@ __all__ = ["adc_tables", "adc_scores", "adc_scores_decode", "search"]
 # matrix would exceed this many f32 elements (64M = 256 MB).
 _STREAM_SCORE_ELEMS = 64 * (1 << 20)
 _DEFAULT_STREAM_CHUNK = 1 << 20
-
-# A reader (anything with ``read`` and no ``shape``) in place of an (n, d)
-# tensor: ``search`` and ``ivf`` raise this where the JAX package streams from
-# disk.
-_READER_MSG = (
-    "a reader in place of an (n, d) tensor is not ported yet: see ROADMAP.md, "
-    "queue 1 ('Modules to port'), item 2 (native/, data.py, conformance.py); "
-    "pass an (n, d) tensor"
-)
 
 
 def _resolve_stream_chunk(
@@ -251,15 +243,43 @@ def _search_one(
     return best_d, best_i
 
 
+def _is_reader(corpus) -> bool:
+    """A corpus given as a reader (anything with ``read`` and no ``shape``,
+    such as :class:`reductive_tpu_torch.native.VecsReader`) rather than an
+    ``(n, d)`` tensor, as the JAX package defines it."""
+    return not hasattr(corpus, "shape") and hasattr(corpus, "read")
+
+
+def _reader_rows(reader, rows: np.ndarray):
+    """Rows by index from a reader: ``read_rows`` where it has one."""
+    if hasattr(reader, "read_rows"):
+        return reader.read_rows(rows)
+    return np.concatenate([np.asarray(reader.read(int(i), 1)) for i in rows])
+
+
+def _n_rows(corpus) -> int:
+    return corpus.n if _is_reader(corpus) else corpus.shape[0]
+
+
 def _refine(
-    queries: Tensor, corpus: Tensor, cand_idx: Tensor, top_k: int, metric: str,
+    queries: Tensor, corpus, cand_idx: Tensor, top_k: int, metric: str,
 ) -> Tuple[Tensor, Tensor]:
     """Exact re-scoring of ADC candidates against the original vectors:
     gather the candidate rows, compute true squared distances (or negated
     inner products), and keep the best ``top_k``; among equal scores the
     earlier candidate in the list first, as ``jax.lax.top_k`` keeps them in
-    the JAX package.  O(nq * R * d)."""
-    cand = corpus[cand_idx.clamp(0, corpus.shape[0] - 1)].to(torch.float32)  # (nq, R, d)
+    the JAX package.  O(nq * R * d).
+
+    ``corpus`` is an ``(n, d)`` tensor, or a reader for a corpus larger than
+    the card: only the candidate rows (``nq * R``, a few thousand) are read
+    from disk and copied to the queries' device.  Ids are clipped to
+    ``[0, n - 1]`` either way; padding candidates (``-1``) score ``+inf``."""
+    safe = cand_idx.clamp(0, _n_rows(corpus) - 1)
+    if _is_reader(corpus):
+        rows = _reader_rows(corpus, safe.reshape(-1).cpu().numpy())
+        cand = torch.as_tensor(rows).to(queries.device, torch.float32).reshape(*safe.shape, -1)
+    else:
+        cand = corpus[safe].to(torch.float32)  # (nq, R, d)
     q = queries.to(torch.float32)
     if metric == "dot":
         d2 = -torch.einsum("qrd,qd->qr", cand, q)
@@ -282,7 +302,7 @@ def search(
     splits=2,
     stream_chunk: Optional[int] = None,
     packed: bool = False,
-    refine_with: Optional[Tensor] = None,
+    refine_with=None,
     refine_factor: int = 4,
     metric: str = "l2",
 ) -> Tuple[Tensor, Tensor]:
@@ -306,8 +326,9 @@ def search(
     ``method="kernel"``): half the code memory, twice the corpus on a card.
     On CPU tensors ``method="kernel"`` is the kernel's plain version.
 
-    ``refine_with`` (an ``(n, d)`` tensor of the original vectors) enables
-    the two-stage refine: ADC retrieves ``top_k * refine_factor``
+    ``refine_with`` (an ``(n, d)`` tensor of the original vectors, or a
+    reader such as :class:`reductive_tpu_torch.native.VecsReader` for a
+    corpus larger than the card) enables the two-stage refine: ADC retrieves ``top_k * refine_factor``
     candidates, which are re-scored with exact distances and the best
     ``top_k`` returned.
 
@@ -329,11 +350,9 @@ def search(
     if refine_with is not None:
         if refine_factor < 1:
             raise ValueError("refine_factor must be >= 1")
-        if not isinstance(refine_with, Tensor):
-            raise NotImplementedError(_READER_MSG)
-        if refine_with.shape[0] != codes.shape[0]:
+        if _n_rows(refine_with) != codes.shape[0]:
             raise ValueError(
-                f"refine_with has {refine_with.shape[0]} rows, codes have {codes.shape[0]}"
+                f"refine_with has {_n_rows(refine_with)} rows, codes have {codes.shape[0]}"
             )
         r = min(top_k * refine_factor, codes.shape[0])
         _, cand_idx = search(

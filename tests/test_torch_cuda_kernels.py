@@ -1614,3 +1614,104 @@ def test_ivf_training_takes_the_kernels(dev):
     assert counts["stats_f32_wide"] == 2 and counts["encode_bf16_wide"] == 1
     assert counts["stats_f32"] == 2
     assert not any(name.endswith("_shallow") for name in counts)
+
+
+# -- corpora on disk: the streamed trainers, the streaming encode, readers ----
+
+
+def _fvecs(dev, tmp_path, n, d, seed=0):
+    """Clustered rows written as an fvecs file, and the rows on the card."""
+    from reductive_tpu_torch.native import write_fvecs
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    centres = 2.0 * torch.randn((64, d), generator=gen, device=dev)
+    x = centres[torch.randint(0, 64, (n,), generator=gen, device=dev)]
+    x += torch.randn((n, d), generator=gen, device=dev)
+    path = str(tmp_path / "corpus.fvecs")
+    write_fvecs(path, x)
+    return path, x
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16, "verified"])
+@pytest.mark.parametrize("n,d,m,batch", [(20000, 64, 8, 8192), (9000, 96, 3, 4096)])
+def test_streamed_pq_equals_chunked_on_the_card(dev, tmp_path, compute_dtype, n, d, m, batch):
+    """At batch_size == chunk (a chunk of at least train.KERNEL_CHUNK_MIN
+    rows splits the chunked trainer's kernel pass too): the same launches,
+    the same bits.  ds = 8 takes the narrow kernel, ds = 32 its widest
+    instance."""
+    from reductive_tpu_torch import native, train_pq_chunked, train_pq_streamed
+    from reductive_tpu_torch.pq import train as train_module
+
+    path, x = _fvecs(dev, tmp_path, n, d)
+    old = train_module.KERNEL_CHUNK_MIN
+    train_module.KERNEL_CHUNK_MIN = batch  # small shapes: split at this test's batch
+    try:
+        with native.VecsReader(path) as r:
+            ops.reset_launch_counts()
+            got = train_pq_streamed(torch.Generator(device=dev).manual_seed(3), r, m, 8, 3,
+                                    batch_size=batch, compute_dtype=compute_dtype)
+            streamed = ops.launch_counts()
+        ops.reset_launch_counts()
+        want = train_pq_chunked(torch.Generator(device=dev).manual_seed(3), x, m, 8, 3,
+                                chunk=batch, compute_dtype=compute_dtype)
+        assert ops.launch_counts() == streamed
+    finally:
+        train_module.KERNEL_CHUNK_MIN = old
+    name = {torch.float32: "stats_f32", torch.bfloat16: "stats_bf16"}.get(compute_dtype,
+                                                                          "stats_verify")
+    assert streamed[name] == 3 * -(-n // batch)
+    assert torch.equal(got.codebooks, want.codebooks)
+
+
+@pytest.mark.parametrize("rotated", [False, True])
+def test_stream_encode_codes_are_quantize_batch_on_the_card(dev, tmp_path, rotated):
+    """The default encode streamed from disk, f32 and bf16 on the wire, gives
+    ``Pq.quantize_batch(method="kernel")``'s codes on the resident rows bit for
+    bit (the kernel rounds the rows to bf16 as the host does), and the tail
+    batch too; the resumable encode gives the same codes.  With a projection
+    the rotation is a product whose rounding may follow its row count, so the
+    codes are held to the quantizer's on each (padded) batch."""
+    from reductive_tpu_torch import Pq, native
+    from reductive_tpu_torch.data import stream_encode, stream_encode_resumable
+
+    path, x = _fvecs(dev, tmp_path, 10007, 64)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    proj = torch.linalg.qr(torch.randn((64, 64), generator=gen, device=dev))[0] if rotated else None
+    pq = Pq(codebooks=torch.randn((8, 256, 8), generator=gen, device=dev), projection=proj)
+    if rotated:
+        pad = torch.nn.functional.pad
+        want = torch.cat([pq.quantize_batch(pad(x[o:o + 4096], (0, 0, 0, 4096 - x[o:o + 4096].shape[0])),
+                                            method="kernel")[:x[o:o + 4096].shape[0]]
+                          for o in range(0, x.shape[0], 4096)]).cpu().numpy()
+    else:
+        want = pq.quantize_batch(x, method="kernel").cpu().numpy()
+    with native.VecsReader(path) as r:
+        ops.reset_launch_counts()
+        got = stream_encode(pq, r, batch_size=4096)
+        assert ops.launch_counts() == {"encode_bf16": 3}
+        bf16 = stream_encode(pq, r, batch_size=4096, transfer_dtype=torch.bfloat16)
+        resumed = stream_encode_resumable(pq, r, str(tmp_path / "codes.u8"), batch_size=4096)
+    assert (got == want).all()
+    assert (resumed == want).all()
+    if not rotated:  # a projection sees the rounded rows
+        assert (bf16 == want).all()
+
+
+@pytest.mark.parametrize("placement", ["host", "device"])
+def test_ivf_build_from_a_reader_equals_the_tensor_build(dev, tmp_path, placement):
+    from reductive_tpu_torch import ivf, native
+
+    x, coarse, pq, q, _ = _ivf_setup(dev, 256)
+    from reductive_tpu_torch.native import write_fvecs
+
+    path = str(tmp_path / "ivf.fvecs")
+    write_fvecs(path, x)
+    with native.VecsReader(path) as r:
+        for capacity in (None, "auto"):
+            want = ivf.build_ivf(coarse, pq, x, capacity=capacity, placement=placement)
+            got = ivf.build_ivf(coarse, pq, r, capacity=capacity, placement=placement)
+            for name in ("cell_codes", "cell_ids", "cell_norms"):
+                assert torch.equal(getattr(got, name), getattr(want, name)), (capacity, name)
+        a = ivf.ivf_search(want, q, 10, nprobe=8, refine_with=r)
+        b = ivf.ivf_search(want, q, 10, nprobe=8, refine_with=x)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

@@ -452,10 +452,14 @@ def test_artifact_round_trip(tmp_path, writer, reader, packed):
 
 
 class Reader:
-    n, dim = 10, 8
+    """A reader over the rows of ``x`` (``read`` only: no ``read_rows``)."""
+
+    def __init__(self, x):
+        self.x = x.numpy()
+        self.n, self.dim = self.x.shape
 
     def read(self, start, count):
-        return np.zeros((count, self.dim), np.float32)
+        return self.x[start:start + count].copy()
 
 
 def test_validation_errors():
@@ -484,13 +488,20 @@ def test_validation_errors():
         (ValueError, "int32", lambda: ivf.ivf_add(index, x[:2], ids=np.array([7, 2 ** 32]))),
         (ValueError, "instances lie on meta", lambda: ivf.ivf_add(
             index, torch.empty((2, 8), device="meta"))),
-        (TypeError, r"build_ivf\(reader\)", lambda: ivf.ivf_add(index, Reader())),
-        (NotImplementedError, "item 2", lambda: ivf.build_ivf(coarse, pq, Reader())),
-        (NotImplementedError, "item 2", lambda: ivf.train_ivf_pq(gen, Reader(), 4, 2, 3)),
-        (NotImplementedError, "item 2", lambda: ivf.ivf_search(index, x[:2], 3, nprobe=2,
-                                                               refine_with=Reader())),
+        (TypeError, r"build_ivf\(reader\)", lambda: ivf.ivf_add(index, Reader(x))),
         (TypeError, "torch.Generator", lambda: ivf.train_ivf_pq(object(), x, 4, 2, 3)),
     ]
     for exc, match, call in cases:
         with pytest.raises(exc, match=match):
             call()
+    # A reader in place of a tensor, refused before the port read corpora
+    # from disk, is served: the build, training and refine over it equal
+    # those over the same rows as a tensor.
+    built = ivf.build_ivf(coarse, pq, Reader(x))
+    for name in ("cell_codes", "cell_ids", "cell_norms"):
+        assert torch.equal(getattr(built, name), getattr(index, name))
+    c_r, pq_r = ivf.train_ivf_pq(torch.Generator().manual_seed(3), Reader(x), 4, 2, 3)
+    assert tuple(c_r.shape) == (4, 8) and tuple(pq_r.codebooks.shape) == (2, 8, 4)
+    got = ivf.ivf_search(index, x[:2], 3, nprobe=2, refine_with=Reader(x))
+    want = ivf.ivf_search(index, x[:2], 3, nprobe=2, refine_with=x)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])

@@ -390,7 +390,12 @@ def test_search_waiting_parameters_raise():
     _, tpq, x, q, codes = _setup(n=40)
 
     class Reader:
+        """A corpus on disk seen through ``read`` alone."""
+
         n = 40
+
+        def read(self, start, count):
+            return x[start:start + count]
 
     # Packed codes are served (the name dates from when they waited too); the
     # einsum scorer still refuses them, in the JAX package's words.
@@ -399,5 +404,11 @@ def test_search_waiting_parameters_raise():
     d0, i0 = search(tpq, t(q), t(codes), 3, method="kernel")
     np.testing.assert_array_equal(i.numpy(), i0.numpy())
     np.testing.assert_array_equal(d.numpy(), d0.numpy())
-    msg = _message(lambda: search(tpq, t(q), t(codes), 3, refine_with=Reader()), NotImplementedError)
-    assert "ROADMAP" in msg and "reader" in msg
+    # A reader in place of refine_with's tensor is served: the candidates'
+    # rows are read from it, and the refine equals the tensor's.
+    got = search(tpq, t(q), t(codes), 3, refine_with=Reader())
+    want = search(tpq, t(q), t(codes), 3, refine_with=t(x))
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    assert "refine_with has 40 rows, codes have 39" == _message(
+        lambda: search(tpq, t(q), t(codes[:39]), 3, refine_with=Reader()))
