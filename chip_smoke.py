@@ -33,7 +33,11 @@ index's life on the card there: ``build_ivf(placement="device")`` over the
 10M rows with its respill, the device build bit for bit the host build on a
 2^20-row prefix (packed too), and churn (``ivf_remove`` of 100,000 ids,
 ``ivf_add`` of their vectors under new ids by the fast path and the host
-path).  The serving phase also searches
+path).  The sharded phase runs ``parallel/`` on ``torch.distributed``, its
+ranks child processes of this script on the one card: a one-rank NCCL group
+(the flagship chunked PQ and IVF10M's coarse k-means bit for bit the
+single-card trainers') and two ranks over gloo (every sharded entry against
+its single-card counterpart, the same bits on both ranks).  The serving phase also searches
 a corpus whose k-th place is always tied and holds the ids to a stable sort's.
 Every ADC kernel, the int8 ones included, is held to its plain version bit
 for bit, and so are the ADC tables the wrappers build on the card (the int8
@@ -60,10 +64,12 @@ codes, counts and flags equal bit for bit on the whole corpus
 from __future__ import annotations
 
 import collections
+import hashlib
 import json
 import logging
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -204,6 +210,23 @@ GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "gol
 GATE_BANDS = {"pq": 0.08, "opq": 0.10, "gaussian_opq": 0.12}
 IVF_KERNELS = ("stats_f32_wide", "encode_bf16_wide", "stats_f32", "encode_bf16", "adc", "adc_u4",
                "decode")
+IVF_SAVED = ("ivf10m.npz", "ivf10m_queries.npz")  # the ivf phase's index for the sharded ranks
+# The sharded phase: its ranks are child processes of this script on the one
+# card, a one-rank NCCL group and two ranks over gloo; the flagship trainers'
+# iterations, IVF10M's coarse k-means (its iterations cut to 2), OPQ on the
+# N_PREFIX rows, and corpus S's mixture at the streaming width cut to 2^20
+# rows on disk.
+SHARDED_RANK_FLAG = "--sharded-rank"
+SHARDED_TIMEOUT = 300           # seconds the ranks of one group may take
+SHARDED_ITERATIONS = 8
+SHARDED_KMEANS_ITERATIONS = 2
+SHARDED_OPQ_ITERATIONS = 2
+SHARDED_STREAM_N = 1 << 20
+SHARDED_STREAM_ITERATIONS = 2
+SHARDED_STREAM_FILE = "sharded_stream.fvecs"
+SHARDED_KERNELS = ("stats_f32", "stats_f32_wide", "encode_bf16", "encode_f32", "decode", "adc")
+LAUNCHER_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                "TORCHELASTIC_RUN_ID", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE")
 
 
 class SmokeFailure(RuntimeError):
@@ -1608,7 +1631,7 @@ def apart_ids_equal(d_ref, i_ref, i_got, tol, top_k=TOP_K):
     return same, int(apart.sum())
 
 
-def phase_ivf(gen):
+def phase_ivf(gen, work):
     """IVF-PQ serving at benches/ivf10m.py's shape through the entry points,
     every count at 0 before: ``train_ivf_pq`` (k-means++ and the coarse
     Lloyd's steps on the deep statistics kernel, the residual assignment on
@@ -1627,7 +1650,9 @@ def phase_ivf(gen):
     scores bit for bit the unpacked ones, and each of ``IVF_KERNELS``
     launched with no ``*_shallow`` launch.  Returns the launches of this
     phase and of ``ivf_update``, and the corpus, its coarse centroids,
-    residual PQ and queries, for the stream phase's corpus I."""
+    residual PQ and queries, for the stream phase's corpus I.  The index, its
+    queries and planted rows are saved into ``work`` (``IVF_SAVED``) for the
+    sharded phase's ranks."""
     dev = gen.device
     n, d, C = IVF_N, IVF_D, IVF_C
     x = clustered_corpus(gen, n, d, C)
@@ -1724,6 +1749,8 @@ def phase_ivf(gen):
         require(launches.get(name, 0) > 0, f"ivf: kernel {name} was never launched")
     require_no_shallow("ivf", launches)
     peak = torch.cuda.max_memory_allocated()
+    io.save(os.path.join(work, IVF_SAVED[0]), index)
+    np.savez(os.path.join(work, IVF_SAVED[1]), q=q.cpu().numpy(), planted=planted.cpu().numpy())
     del index
     torch.cuda.empty_cache()
     update_launches = ivf_update(x, coarse, rpq, q, planted, scale, build, coarse4, pq4)
@@ -1972,12 +1999,13 @@ class Interrupting:
             yield item
 
 
-def write_stream_corpus(path, gen):
-    """Corpus S, made on the card in 2^20-row blocks and appended to
-    ``path``: benches/streaming_train.py's mixture at the streaming width."""
+def write_stream_corpus(path, gen, n=STREAM_N):
+    """Corpus S (``n`` rows), made on the card in 2^20-row blocks and
+    appended to ``path``: benches/streaming_train.py's mixture at the
+    streaming width."""
     dev = gen.device
     centres = 2.0 * torch.randn((256, STREAM_D), generator=gen, device=dev)
-    for off in range(0, STREAM_N, STREAM_BLOCK):
+    for off in range(0, n, STREAM_BLOCK):
         rows = centres[torch.randint(0, 256, (STREAM_BLOCK,), generator=gen, device=dev)]
         rows += torch.randn((STREAM_BLOCK, STREAM_D), generator=gen, device=dev)
         native.write_fvecs(path, rows, append=off > 0)
@@ -2257,6 +2285,341 @@ def phase_stream(gen, ivf_data):
     return total
 
 
+# -- the sharded phase: parallel/ on torch.distributed ---------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def digest(*tensors) -> str:
+    """sha256 of the tensors' bytes: two ranks' results compared bit for bit."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def bits_equal(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and digest(a) == digest(b)
+
+
+def kmeans_inputs(dev):
+    """IVF10M's coarse k-means shape: 2^20 clustered rows of d=128 and the
+    first 4,096 of them as the initial centroids, from SEED + 2."""
+    n, d, c = IVF10M
+    x = clustered_corpus(torch.Generator(device=dev).manual_seed(SEED + 2), n, d, c)
+    return x, x[:c].clone()
+
+
+def train_generator(dev):
+    return torch.Generator(device=dev).manual_seed(SEED + 1)
+
+
+def per_iteration(train, it):
+    """``train(it)``'s result and the seconds of one Lloyd's iteration: the
+    difference of a run of ``it`` iterations and a run of one (each
+    synchronised, after a warm-up run of one), so that the set-up (sums of
+    squares, initial draws) drops out."""
+    train(1)
+    _, t1 = once(lambda: train(1))
+    out, t = once(lambda: train(it))
+    return out, (t - t1) / (it - 1)
+
+
+def time_all_reduce(mesh, dev):
+    """The all-reduce of one flagship iteration's sums and counts (147,456
+    bytes) over the data axis's group: CUDA events around it, median of 50."""
+    from reductive_tpu_torch._collectives import all_reduce
+
+    sums, counts = torch.randn((M, K, DS), device=dev), torch.randn((M, K), device=dev)
+    group = mesh.get_group("data")
+    return {"bytes": 4 * (sums.numel() + counts.numel()),
+            "ms": time_ms(lambda: all_reduce(group, sums, counts), reps=50)}
+
+
+def sharded_nccl_rank(work, out, total):
+    """The one-rank NCCL group: ``train_pq_chunked_sharded`` at the flagship
+    width against ``train_pq_chunked``, ``sharded_kmeans`` at IVF10M's
+    coarse shape against ``kmeans_with_centroids_chunked`` (each bit for bit:
+    one rank sweeps all the rows in the single-card trainer's launches), and
+    the all-reduce of one iteration's statistics timed."""
+    from reductive_tpu_torch import parallel
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = parallel.make_mesh()
+    _, _, corpus = flagship(dev)
+    it = SHARDED_ITERATIONS
+    single, t_single = per_iteration(
+        lambda n: train_pq_chunked(train_generator(dev), corpus, M, BITS, n), it)
+    sharded, t_sharded = per_iteration(lambda n: counted(
+        lambda: parallel.train_pq_chunked_sharded(train_generator(dev), corpus, M, BITS, n,
+                                                  mesh=mesh), total)[0], it)
+    require(bits_equal(sharded.codebooks, single.codebooks),
+            "sharded: one-rank NCCL train_pq_chunked_sharded differs from train_pq_chunked")
+    np.save(os.path.join(work, "pq_single.npy"), single.codebooks.cpu().numpy())
+    out["pq"] = {"iterations": it, "s_per_iteration": t_sharded,
+                 "single_card_s_per_iteration": t_single, "bit_equal": True,
+                 "mse": reconstruction_mse(single, corpus)}
+    out["all_reduce"] = time_all_reduce(mesh, dev)
+    del corpus
+    x, c0 = kmeans_inputs(dev)
+    it = SHARDED_KMEANS_ITERATIONS
+    (c1, l1), t_single = per_iteration(
+        lambda n: kmeans.kmeans_with_centroids_chunked(x, c0, n), it)
+    (c2, l2), t_sharded = per_iteration(lambda n: counted(
+        lambda: parallel.sharded_kmeans(mesh, x, c0, n), total)[0], it)
+    require(bits_equal(c1, c2) and bits_equal(l1, l2),
+            "sharded: one-rank NCCL sharded_kmeans differs from kmeans_with_centroids_chunked")
+    np.save(os.path.join(work, "kmeans_single.npy"), c1.cpu().numpy())
+    out["kmeans"] = {"shape": list(IVF10M), "iterations": it, "s_per_iteration": t_sharded,
+                     "single_card_s_per_iteration": t_single, "bit_equal": True,
+                     "loss": float(l2)}
+
+
+def sharded_gloo_rank(work, out, total, digests):
+    """One of two gloo ranks on the one card: each sharded entry in turn,
+    its result held to the single-card entry's; the digests of what must be
+    the same bits on both ranks go to the parent."""
+    from reductive_tpu_torch import parallel
+    from reductive_tpu_torch.pq.train import _streamed_sumsq, lloyd_iteration_chunked
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = parallel.make_mesh()
+    _, pq, corpus = flagship(dev)
+    seconds = out["seconds"] = {}
+
+    # Chunked PQ over the flagship corpus, 2,000,000 rows a rank.
+    it = SHARDED_ITERATIONS
+    (got, _), seconds["train_pq_chunked_sharded"] = once(lambda: counted(
+        lambda: parallel.train_pq_chunked_sharded(train_generator(dev), corpus, M, BITS, it,
+                                                  mesh=mesh), total))
+    digests["train_pq_chunked_sharded"] = digest(got.codebooks)
+    single = Pq(codebooks=torch.from_numpy(np.load(os.path.join(work, "pq_single.npy"))).to(dev))
+    mse, mse_single = reconstruction_mse(got, corpus), reconstruction_mse(single, corpus)
+    require(abs(mse - mse_single) <= 1e-4 * mse_single,
+            f"sharded: two-rank PQ mse {mse} against the single card's {mse_single}")
+    codes_a = got.quantize_batch(corpus, method="kernel")
+    codes_b = single.quantize_batch(corpus, method="kernel")
+    out["pq"] = {"iterations": it, "mse": mse, "single_card_mse": mse_single,
+                 "max_abs_diff_vs_single_card": float((got.codebooks - single.codebooks).abs().max()),
+                 "codes_differ_share": float((codes_a != codes_b).float().mean())}
+    del codes_a, codes_b
+    out["all_reduce"] = time_all_reduce(mesh, dev)
+
+    # The data x model step: a (1, 2) mesh, each rank 8 of the 16
+    # subquantizers over every row, bit for bit the single-card step.
+    mesh2 = parallel.make_mesh((1, 2), ("data", "model"))
+    j = mesh2.get_local_rank("model")
+    half = M // 2
+    block = corpus[:, j * half * DS:(j + 1) * half * DS].contiguous()
+    cb = pq.codebooks[j * half:(j + 1) * half].contiguous()
+    ((new, loss), _), seconds["sharded_pq_train_step"] = once(lambda: counted(
+        lambda: parallel.sharded_pq_train_step(block.view(N_CORPUS, half, DS), cb, mesh=mesh2),
+        total))
+    want, _ = lloyd_iteration_chunked(block, cb, _streamed_sumsq(block, half, chunk=32768))
+    require(bits_equal(new, want), "sharded: the model-axis step differs from the single-card step")
+    digests["sharded_pq_train_step_loss"] = digest(loss)
+    out["pq_train_step"] = {"mesh": [1, 2], "loss": float(loss)}
+    del block
+
+    # OPQ on the prefix.
+    (opq, _), seconds["train_opq_chunked_sharded"] = once(lambda: counted(
+        lambda: parallel.train_opq_chunked_sharded(train_generator(dev), corpus[:N_PREFIX], M,
+                                                   BITS, SHARDED_OPQ_ITERATIONS, mesh=mesh),
+        total))
+    eye = torch.eye(D, device=dev)
+    ortho = float((opq.projection.T @ opq.projection - eye).abs().max())
+    require(ortho <= 1e-5, f"sharded: the OPQ projection is {ortho} off orthonormal")
+    digests["train_opq_chunked_sharded"] = digest(opq.projection, opq.codebooks)
+    out["opq"] = {"rows": N_PREFIX, "iterations": SHARDED_OPQ_ITERATIONS, "ortho_err": ortho,
+                  "mse": reconstruction_mse(opq, corpus[:N_PREFIX])}
+
+    # Encode and exhaustive search over the flagship codes.
+    (codes, _), seconds["encode_sharded"] = once(lambda: counted(
+        lambda: parallel.encode_sharded(pq, corpus, mesh=mesh), total))
+    require(torch.equal(codes, ops.pq_encode(pq.codebooks, corpus)),
+            "sharded: encode_sharded differs from the single-card encode")
+    digests["encode_sharded"] = digest(codes)
+    gq = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for nq in (16, 128):
+        q = torch.randn((nq, D), generator=gq, device=dev)
+        for metric in ("l2", "dot"):
+            name = f"search_sharded_{nq}_{metric}"
+            (res, _), seconds[name] = once(lambda: counted(
+                lambda: search_module.search_sharded(pq, q, codes, TOP_K, mesh=mesh,
+                                                     metric=metric), total))
+            want = search(pq, q, codes, TOP_K, metric=metric)
+            require(bits_equal(res[0], want[0]) and torch.equal(res[1], want[1]),
+                    f"sharded: {name} differs from search")
+            digests[name] = digest(*res)
+    del corpus, codes
+
+    # Sharded k-means at IVF10M's coarse shape.
+    x, c0 = kmeans_inputs(dev)
+    it = SHARDED_KMEANS_ITERATIONS
+    ((c, loss), _), seconds["sharded_kmeans"] = once(lambda: counted(
+        lambda: parallel.sharded_kmeans(mesh, x, c0, it), total))
+    digests["sharded_kmeans"] = digest(c, loss)
+    single_c = torch.from_numpy(np.load(os.path.join(work, "kmeans_single.npy"))).to(dev)
+    out["kmeans"] = {"iterations": it, "loss": float(loss),
+                     "max_abs_diff_vs_single_card": float((c - single_c).abs().max())}
+    del x, c0
+
+    # IVF search over the ivf phase's index, its cells split over the ranks.
+    index = io.load(os.path.join(work, IVF_SAVED[0]))
+    saved = np.load(os.path.join(work, IVF_SAVED[1]))
+    q, planted = torch.from_numpy(saved["q"]).to(dev), torch.from_numpy(saved["planted"]).to(dev)
+    half_cells = index.n_cells // 2
+    (d8, i8), seconds["ivf_search_sharded_nprobe8"] = once(lambda: counted(
+        lambda: ivf.ivf_search_sharded(index, q, TOP_K, nprobe=8, mesh=mesh), total)[0])
+    sd8, si8 = ivf.ivf_search(index, q, TOP_K, nprobe=8)
+    recall = float((i8 == planted[:, None]).any(1).float().mean())
+    recall_single = float((si8 == planted[:, None]).any(1).float().mean())
+    require(recall >= recall_single, f"sharded: recall {recall} below the single card's")
+    require(bool((d8[:, -1] <= sd8[:, -1]).all()), "sharded: a k-th score worse than ivf_search's")
+    (dfull, ifull), seconds["ivf_search_sharded_full"] = once(lambda: counted(
+        lambda: ivf.ivf_search_sharded(index, q, TOP_K, nprobe=half_cells, mesh=mesh),
+        total)[0])
+    sdf, sif = ivf.ivf_search(index, q, TOP_K, nprobe=index.n_cells)
+    require(bits_equal(dfull, sdf) and torch.equal(ifull, sif),
+            "sharded: ivf_search_sharded over every cell differs from ivf_search")
+    digests["ivf_search_sharded"] = digest(d8, i8, dfull, ifull)
+    out["ivf"] = {"recall_at_10_nprobe8": recall, "single_card_recall_at_10_nprobe8": recall_single,
+                  "kth_score_no_worse": True, "full_coverage_nprobe_a_rank": half_cells,
+                  "full_coverage_bit_equal": True}
+    del index
+
+    # A 768-d corpus on disk, each rank reading its half through its own reader.
+    require(native.NATIVE_AVAILABLE, "sharded: the native reader library did not build")
+    with open_native(os.path.join(work, SHARDED_STREAM_FILE)) as reader:
+        (spq, _), seconds["train_pq_streamed_sharded"] = once(lambda: counted(
+            lambda: parallel.train_pq_streamed_sharded(
+                train_generator(dev), reader, STREAM_M, STREAM_BITS,
+                SHARDED_STREAM_ITERATIONS, mesh=mesh, batch_size=STREAM_BATCH), total))
+        digests["train_pq_streamed_sharded"] = digest(spq.codebooks)
+        (scodes, _), seconds["stream_encode_sharded"] = once(lambda: counted(
+            lambda: parallel.stream_encode_sharded(spq, reader, mesh=mesh,
+                                                   batch_size=STREAM_BATCH), total))
+        require(np.array_equal(scodes, stream_encode(spq, reader, batch_size=STREAM_BATCH)),
+                "sharded: stream_encode_sharded differs from stream_encode")
+        digests["stream_encode_sharded"] = hashlib.sha256(scodes.tobytes()).hexdigest()
+    out["stream"] = {"rows": SHARDED_STREAM_N, "d": STREAM_D, "m": STREAM_M,
+                     "iterations": SHARDED_STREAM_ITERATIONS, "codes_bit_equal": True}
+
+
+def sharded_rank(role: str, rank: str, world: str, port: str, work: str) -> int:
+    """A rank of the sharded phase, started by :func:`phase_sharded` as
+    ``chip_smoke.py --sharded-rank ROLE RANK WORLD PORT WORK``: ``nccl``,
+    the one-rank NCCL group (``initialize_distributed()`` with no launcher),
+    or ``gloo``, one of two ranks over gloo on the one card.  Writes its
+    result to ``WORK/ROLE_RANK.json``."""
+    import torch.distributed as dist
+
+    from reductive_tpu_torch import parallel
+
+    rank_, world_ = int(rank), int(world)
+    if role == "nccl":
+        parallel.initialize_distributed()
+    else:
+        parallel.initialize_distributed(f"127.0.0.1:{port}", world_, rank_, backend="gloo")
+    out = {"role": role, "rank": rank_, "world_size": dist.get_world_size(),
+           "backend": dist.get_backend(), "device": str(torch.cuda.current_device())}
+    total, digests = collections.Counter(), {}
+    t0 = time.perf_counter()
+    if role == "nccl":
+        sharded_nccl_rank(work, out, total)
+    else:
+        sharded_gloo_rank(work, out, total, digests)
+    out.update(seconds_total=time.perf_counter() - t0, launches=dict(total), digests=digests)
+    with open(os.path.join(work, f"{role}_{rank_}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_sharded_ranks(work, role, world):
+    """Start ``world`` ranks of ``role`` as child processes of this script
+    and wait for them; one that fails, or outlives SHARDED_TIMEOUT, stops
+    the others and fails the run (its log's end on stderr)."""
+    port = str(free_port())
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
+    logs = [open(os.path.join(work, f"{role}_{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), SHARDED_RANK_FLAG, role,
+                               str(r), str(world), port, work],
+                              stdout=logs[r], stderr=subprocess.STDOUT, env=env)
+             for r in range(world)]
+    deadline = time.monotonic() + SHARDED_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p for p in procs if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    for r in bad:
+        with open(os.path.join(work, f"{role}_{r}.log")) as f:
+            print(f"--- sharded {role} rank {r} (exit {procs[r].returncode}):\n{f.read()[-6000:]}",
+                  file=sys.stderr, flush=True)
+    require(not bad, f"sharded: {role} ranks {bad} failed or did not finish")
+    results = []
+    for r in range(world):
+        with open(os.path.join(work, f"{role}_{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_sharded(gen, work):
+    """``parallel/`` on ``torch.distributed``, each rank a child process of
+    this script on the one card, every count at 0 before each sharded call
+    in each rank: a one-rank NCCL group (the flagship chunked PQ and IVF10M's
+    coarse k-means bit for bit the single-card trainers', the all-reduce of
+    an iteration's 147,456 bytes timed), then two ranks over gloo (chunked
+    PQ, the data x model step, OPQ, encode and exhaustive search, k-means,
+    IVF search over the ivf phase's index, the streamed PQ trainer and
+    encode over a 768-d corpus on disk), each against its single-card entry,
+    every result the same bits on both ranks.  Two processes on one card,
+    with gloo through the host: the times measure no scaling.  Returns the
+    launches, summed over the ranks."""
+    path = os.path.join(work, SHARDED_STREAM_FILE)
+    require_free_disk(work, SHARDED_STREAM_N * (STREAM_D + 1) * 4)
+    _, write_s = once(lambda: write_stream_corpus(path, gen, SHARDED_STREAM_N))
+    t0 = time.perf_counter()
+    nccl = run_sharded_ranks(work, "nccl", 1)
+    gloo = run_sharded_ranks(work, "gloo", 2)
+    seconds = time.perf_counter() - t0
+    differ = [key for key in gloo[0]["digests"] if gloo[0]["digests"][key] != gloo[1]["digests"][key]]
+    require(gloo[0]["digests"].keys() == gloo[1]["digests"].keys() and not differ,
+            f"sharded: the two ranks' results differ: {differ}")
+    launches = collections.Counter()
+    for result in nccl + gloo:
+        launches.update(result["launches"])
+    for name in SHARDED_KERNELS:
+        require(launches[name] > 0, f"sharded: kernel {name} was launched in no rank")
+    require_no_shallow("sharded", launches)
+    same_bits = sorted(gloo[0]["digests"])
+    for result in nccl + gloo:
+        del result["digests"]
+    emit("sharded", world_sizes={"nccl": nccl[0]["world_size"], "gloo": gloo[0]["world_size"]},
+         backends={"nccl": nccl[0]["backend"], "gloo": gloo[0]["backend"]},
+         note="the gloo ranks are two processes on one card, gloo through the host: "
+              "their times measure no scaling",
+         nccl=nccl[0], gloo=gloo, ranks_same_bits=same_bits,
+         launches_by_rank=[r["launches"] for r in nccl + gloo], launches=dict(launches),
+         corpus_write_s=write_s, seconds=seconds)
+    os.remove(path)
+    return launches
+
+
 def bf16_entries(cb, x):
     """The C entries of the bf16 encode (uint8 codes) and statistics kernels
     alone, as two callables, the operands prepared outside (``_prepare``'s
@@ -2454,10 +2817,26 @@ def main() -> int:
          wgmma_serialized=[ln.strip() for out in ptxas.values() for ln in out.splitlines()
                            if "Performance Loss" in ln])
 
-    dev = torch.device("cuda")
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run_phases(card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def flagship(dev):
+    """The generator after the flagship model and corpus, the model (random
+    codebooks) and the 4,000,000-row corpus, made on the card from SEED."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     pq = Pq(codebooks=torch.randn((M, K, DS), generator=gen, device=dev))
     corpus = torch.randn((N_CORPUS, D), generator=gen, device=dev)
+    return gen, pq, corpus
+
+
+def run_phases(card: str, work: str) -> int:
+    """Every phase in turn, then the kernels line and the result line;
+    ``work`` holds the files the phases share."""
+    gen, pq, corpus = flagship(torch.device("cuda"))
 
     phase_kernels(pq, corpus, gen)
     codes, serve_launches = phase_serve(pq, corpus)
@@ -2467,7 +2846,7 @@ def main() -> int:
     exact_launches, exact_out = phase_exact(pq, corpus, train_out)
     pq4, codes4, packed4, packed_launches = phase_packed(corpus, gen)
     probe, wide_launches, wide_rows = phase_wide(corpus, gen)
-    ivf_launches, ivf_update_launches, ivf_data = phase_ivf(gen)
+    ivf_launches, ivf_update_launches, ivf_data = phase_ivf(gen, work)
     stream_launches = phase_stream(gen, ivf_data)
     del ivf_data
     torch.cuda.empty_cache()
@@ -2480,10 +2859,14 @@ def main() -> int:
     for name in KERNELS:
         require(launches[name] > 0, f"kernel {name} was launched on no path")
     require_no_shallow("main paths", launches)
-    rows = kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4)
-    for row in wide_rows:
+    rows = kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4) + wide_rows
+    # The sharded phase's ranks make their own corpora: this process's large
+    # tensors go first.
+    del pq, corpus, codes, pq4, codes4, packed4
+    torch.cuda.empty_cache()
+    launches.update(phase_sharded(gen, work))
+    for row in rows:
         row["launches"] = launches[row["name"]]
-    rows += wide_rows
     torch.cuda.synchronize()
 
     by_name = {row["name"]: row for row in rows}
@@ -2506,4 +2889,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [SHARDED_RANK_FLAG]:
+        sys.exit(sharded_rank(*sys.argv[2:]))
     sys.exit(main())

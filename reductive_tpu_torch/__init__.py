@@ -8,7 +8,12 @@ Corpora larger than the card stay on disk: ``native.VecsReader`` reads
 fvecs/bvecs/ivecs files, the streamed trainers (``train_*_streamed``) and
 the streaming encode (``stream_encode``, ``stream_encode_resumable``) re-read
 them batch by batch, and ``ivf`` and ``search`` take a reader in place of a
-tensor.  ``conformance`` replays the reference's RNG streams.  Plain tensor
+tensor.  ``conformance`` replays the reference's RNG streams.  ``parallel``
+scales out over several cards, one process a card in one
+``torch.distributed`` group: sharded k-means, PQ and OPQ training (in
+memory and streamed from disk) and encode, and ``search.search_sharded`` /
+``ivf.ivf_search_sharded`` over a sharded corpus or index;
+``utils.profiling`` traces and times.  Plain tensor
 code is PyTorch; the hot loops are CUDA kernels written for ``sm_90a`` under
 ``csrc/``, compiled at first use, each beside a plain PyTorch version of the
 same function; ``native/vecio.cpp`` is compiled by ``g++`` at first use.
@@ -24,11 +29,14 @@ Top-level surface::
         kmeans, linalg, search, io, convert, ops, errors,
         ivf, IvfPq, native, data, conformance, SyntheticReader,
         stream_encode, stream_encode_resumable, train_pq_streamed,
-        train_opq_streamed, train_gaussian_opq_streamed,
+        train_opq_streamed, train_gaussian_opq_streamed, parallel, utils,
     )
 """
 
-from . import conformance, convert, data, errors, io, ivf, kmeans, linalg, native, ops, pq, search
+from . import (
+    conformance, convert, data, errors, io, ivf, kmeans, linalg, native, ops, parallel, pq,
+    search, utils,
+)
 from .data import SyntheticReader, stream_encode, stream_encode_resumable
 from .ivf import IvfPq
 from .pq import (
@@ -83,6 +91,8 @@ __all__ = [
     "linalg",
     "native",
     "ops",
+    "parallel",
     "pq",
     "search",
+    "utils",
 ]

@@ -233,7 +233,9 @@ def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty((0,), dtype=np.dtype(dtype))).dtype
 
 
-def _encode(pq: Pq, x: Tensor, dtype: torch.dtype, use_kernel: bool) -> Tensor:
+def _encode(
+    pq: Pq, x: Tensor, dtype: torch.dtype, use_kernel: bool, compute_dtype=torch.bfloat16,
+) -> Tensor:
     """Codes of one device batch: the projection (an f32 product) and the
     encode kernel (:func:`reductive_tpu_torch.ops.pq_encode`, bf16
     products: ``Pq.quantize_batch(method="kernel")``), or the exact f32
@@ -246,7 +248,7 @@ def _encode(pq: Pq, x: Tensor, dtype: torch.dtype, use_kernel: bool) -> Tensor:
     if use_kernel:
         from .ops.assign import pq_encode
 
-        return pq_encode(pq.codebooks, x, dtype=dtype)
+        return pq_encode(pq.codebooks, x, dtype=dtype, compute_dtype=compute_dtype)
     from .pq import primitives
 
     return primitives.quantize_batch(pq.codebooks, x, dtype=dtype)
@@ -261,6 +263,7 @@ def stream_encode_batches(
     use_kernel: Optional[bool] = None,
     max_in_flight: int = 2,
     transfer_dtype=None,
+    compute_dtype=torch.bfloat16,
 ) -> Iterator[Tuple[int, np.ndarray]]:
     """Encode a stream of ``(offset, (b, d) float32)`` batches on the
     device of ``pq``.
@@ -275,7 +278,8 @@ def stream_encode_batches(
     before the copy to the device, halving the bytes on the wire; on the
     kernel path the codes are bit-identical to an f32 transfer (see
     :func:`_encode`), while the plain path and a projection see the
-    reduced input.
+    reduced input.  ``compute_dtype`` sets the kernel's products
+    (``torch.float32``: ``Pq.quantize_batch(method="kernel-f32")``'s).
     """
     dev = pq.codebooks.device
     if use_kernel is None:
@@ -293,7 +297,7 @@ def stream_encode_batches(
         b = xb.shape[0]
         if b < batch_size:
             xb = torch.nn.functional.pad(xb, (0, 0, 0, batch_size - b))
-        codes = _encode(pq, xb, dtype, use_kernel)[:b]
+        codes = _encode(pq, xb, dtype, use_kernel, compute_dtype)[:b]
         event = None
         if dev.type == "cuda":
             host = torch.empty(codes.shape, dtype=codes.dtype, pin_memory=True)

@@ -39,8 +39,9 @@ the same rows given as a tensor, and ``refine_with`` reads the candidate rows
 only.
 
 Random draws take a ``torch.Generator`` on the instances' device where the
-JAX package takes a key.  Not ported yet: ``ivf_search_sharded`` (ROADMAP.md,
-queue 1).
+JAX package takes a key.  :func:`ivf_search_sharded` shards the cells over
+the ranks of a device mesh (one process a card) and merges the ranks'
+results.
 """
 
 from __future__ import annotations
@@ -58,12 +59,17 @@ from . import kmeans, linalg, ops
 from ._device import check_generator
 from .ops.adc import max_query_batch, query_tile
 from .pq import primitives
-from .pq.model import Pq
-from .search import _check_metric, _is_reader, _reader_rows, _refine, _smallest, adc_tables
+from .pq.model import Pq, _on_device
+from .search import (
+    _check_metric, _is_reader, _merge_ranks, _reader_rows, _refine, _smallest, adc_tables,
+)
 
 logger = logging.getLogger("reductive_tpu")
 
-__all__ = ["IvfPq", "train_ivf_pq", "build_ivf", "ivf_add", "ivf_remove", "ivf_search"]
+__all__ = [
+    "IvfPq", "train_ivf_pq", "build_ivf", "ivf_add", "ivf_remove", "ivf_search",
+    "ivf_search_sharded",
+]
 
 # Bytes of transient (nq, probes, L, d) f32 reconstruction one step of the
 # decode probe may hold: it takes the probes in chunks, and the cell rows too
@@ -1099,6 +1105,7 @@ def _coarse_scores(queries: Tensor, coarse: Tensor, metric: str) -> Tuple[Tensor
 def _probe_and_score_lut(
     queries: Tensor, coarse: Tensor, cell_codes: Tensor, cell_ids: Tensor, cell_norms: Tensor,
     pq: Pq, nprobe: int, top_k: int, splits, metric: str = "l2",
+    scored: Optional[Tuple[Tensor, Tensor, Optional[Tensor]]] = None,
 ) -> Tuple[Tensor, Tensor]:
     """The ADC-table probe: the final ``(dists, ids)``, ``(nq, top_k)``.
 
@@ -1110,11 +1117,12 @@ def _probe_and_score_lut(
     did not probe and the empty slots, and a running top-k keeps the best,
     ties in (cell, slot) order.  Queries that probe the same cell share its
     rows.  ``splits`` sets the tables' precision (2: about 2^-18
-    relative)."""
+    relative).  ``scored``: :func:`_coarse_scores` of these cells where the
+    caller has them (:func:`ivf_search_sharded`)."""
     C, L, mb = cell_codes.shape
     m = pq.quantized_len
     nq = queries.shape[0]
-    qc, score_c, q_sqn = _coarse_scores(queries, coarse, metric)
+    qc, score_c, q_sqn = scored or _coarse_scores(queries, coarse, metric)
     probe = _smallest(-score_c, None, nprobe)[1]  # (nq, nprobe)
     cells_u = torch.unique(probe)                 # ascending
     U = cells_u.shape[0]
@@ -1148,13 +1156,12 @@ def _probe_and_score_lut(
 def _probe_and_score(
     queries: Tensor, coarse: Tensor, cell_codes: Tensor, cell_ids: Tensor, cell_norms: Tensor,
     pq: Pq, nprobe: int, use_kernel: bool, splits, metric: str = "l2",
-    valid: Optional[Tensor] = None,
+    scored: Optional[Tuple[Tensor, Tensor, Optional[Tensor]]] = None,
 ) -> Tuple[Tensor, Tensor]:
     """The decode probe: flattened ``(scores, ids)``, ``(nq, nprobe * L)``,
     of the ``nprobe`` best cells of every query (empty slots at ``+inf`` /
     ``-1``).  ``metric="dot"`` probes the largest ``q.c`` and scores
-    ``-(q.c + q.rec)``; ``valid`` (``(C,)`` bool) keeps cells out of the
-    probe selection.
+    ``-(q.c + q.rec)``; ``scored`` as for :func:`_probe_and_score_lut`.
 
     The probed candidates are decoded (with the kernel:
     :func:`reductive_tpu_torch.ops.pq_decode` at ``splits``; without: a
@@ -1167,9 +1174,7 @@ def _probe_and_score(
     d = m * ds
     nq = queries.shape[0]
     L, mb = cell_codes.shape[1], cell_codes.shape[2]
-    qc, score_c, q_sqn = _coarse_scores(queries, coarse, metric)
-    if valid is not None:
-        score_c = torch.where(valid[None, :], score_c, torch.full_like(score_c, -float("inf")))
+    qc, score_c, q_sqn = scored or _coarse_scores(queries, coarse, metric)
     probe = _smallest(-score_c, None, nprobe)[1]  # (nq, nprobe)
     qc_g = torch.gather(qc, 1, probe)
     codes_g = cell_codes[probe]                   # (nq, nprobe, L, mb)
@@ -1226,6 +1231,7 @@ def _padded_topk(flat_scores: Tensor, flat_ids: Tensor, top_k: int) -> Tuple[Ten
 
 def _ivf_search_once(
     index: IvfPq, queries: Tensor, top_k: int, nprobe: int, use_kernel: bool, splits, metric: str,
+    scored: Optional[Tuple[Tensor, Tensor, Optional[Tensor]]] = None,
 ) -> Tuple[Tensor, Tensor]:
     """One probe route, chosen before any launch: with the kernels, the
     ADC-table probe, unless one query's tables do not fit a block's shared
@@ -1235,13 +1241,17 @@ def _ivf_search_once(
     args = (index.coarse_centroids, index.cell_codes, index.cell_ids, index.cell_norms, pq, nprobe)
     if use_kernel and query_tile(m, k, splits) > 0:
         qb = max_query_batch(m, k, splits)
-        parts = [_probe_and_score_lut(queries[i:i + qb], *args, top_k, splits, metric)
-                 for i in range(0, queries.shape[0], qb)]
+        parts = [_probe_and_score_lut(
+            queries[i:i + qb], *args, top_k, splits, metric,
+            scored=None if scored is None else tuple(
+                None if t is None else t[i:i + qb] for t in scored))
+            for i in range(0, queries.shape[0], qb)]
         return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
     if use_kernel:
         logger.info("IVF search: one query's ADC tables (m=%d, k=%d, splits=%r) do not fit a "
                     "block's shared memory; scoring by the decode probe", m, k, splits)
-    return _padded_topk(*_probe_and_score(queries, *args, use_kernel, splits, metric), top_k)
+    return _padded_topk(
+        *_probe_and_score(queries, *args, use_kernel, splits, metric, scored=scored), top_k)
 
 
 def ivf_search(
@@ -1291,3 +1301,71 @@ def ivf_search(
         return _refine(queries, refine_with, cand.to(torch.int64), top_k, metric)
     dists, ids = _ivf_search_once(index, queries, top_k, nprobe, use_kernel, splits, metric)
     return dists.to(torch.float32), ids.to(torch.int64)
+
+
+def ivf_search_sharded(
+    index: IvfPq,
+    queries: Tensor,
+    top_k: int = 10,
+    *,
+    nprobe: int = 8,
+    mesh,
+    cell_axis: str = "data",
+    use_kernel: Optional[bool] = None,
+    splits=2,
+    metric: str = "l2",
+) -> Tuple[Tensor, Tensor]:
+    """IVF search over cells sharded over the ranks of ``cell_axis`` of
+    ``mesh`` (:func:`reductive_tpu_torch.parallel.make_mesh`), one process
+    a rank, each making the same call with the whole ``index``.
+
+    Rank ``r`` of ``R`` moves cells ``[r C'/R, (r+1) C'/R)`` to its device,
+    ``C'`` being the cell count rounded up to a multiple of ``R`` with empty
+    cells (ids ``-1``), which no probe prefers to a real cell; it probes the
+    ``nprobe`` nearest of its own cells for every query by
+    :func:`ivf_search`'s route, and the ranks' ``(nq, top_k)`` results are
+    gathered in rank order and the best ``top_k`` kept.  A cell among a
+    query's ``nprobe`` nearest of all is among the nearest of its own rank
+    (fewer than ``nprobe`` cells are nearer anywhere), so the probed cells
+    are a superset of :func:`ivf_search`'s at the same ``nprobe``, and the
+    result is at least as good; with every cell probed it is
+    :func:`ivf_search`'s bit for bit (each query's cell products are taken
+    against all the cells at once, as there).  ``metric="dot"`` reads
+    "nearest" as the largest inner product.  ``cell_ids`` are corpus rows,
+    so the merged ids are too.  Returns ``(distances, ids)`` on the rank's
+    device, f32 and int64.
+    """
+    from .parallel.mesh import axis_group, mesh_device
+
+    _check_metric(metric)
+    group, size, rank = axis_group(mesh, cell_axis)
+    C = index.n_cells
+    per = -(-C // size)
+    if nprobe > per:
+        raise ValueError(f"nprobe={nprobe} exceeds the per-shard cell count {per}")
+    dev = mesh_device(mesh)
+    if use_kernel is None:
+        use_kernel = dev.type == "cuda"
+    lo, hi = min(rank * per, C), min((rank + 1) * per, C)
+    pad = per - (hi - lo)
+
+    def cells(t: Tensor, fill) -> Tensor:
+        local = t[lo:hi].to(dev)
+        return torch.cat([local, local.new_full((pad,) + tuple(t.shape[1:]), fill)])
+
+    local = IvfPq(
+        coarse_centroids=cells(index.coarse_centroids, 0.0), pq=_on_device(index.pq, dev),
+        cell_codes=cells(index.cell_codes, 0), cell_ids=cells(index.cell_ids, -1),
+        cell_norms=cells(index.cell_norms, 0.0),
+    )
+    queries = queries.to(dev)
+    qc, score_c, q_sqn = _coarse_scores(queries, index.coarse_centroids.to(dev), metric)
+    nq = queries.shape[0]
+    scored = (
+        torch.cat([qc[:, lo:hi], qc.new_zeros((nq, pad))], dim=1),
+        torch.cat([score_c[:, lo:hi], score_c.new_full((nq, pad), -float("inf"))], dim=1),
+        q_sqn,
+    )
+    dists, ids = _ivf_search_once(local, queries, top_k, nprobe, use_kernel, splits, metric,
+                                  scored=scored)
+    return _merge_ranks(group, dists.to(torch.float32), ids.to(torch.int64), top_k)

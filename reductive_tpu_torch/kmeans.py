@@ -29,6 +29,7 @@ from typing import Callable, Optional, Tuple, Union
 import torch
 from torch import Tensor
 
+from ._collectives import all_reduce, group_size
 from ._device import check_generator, instances_on
 from .linalg import one_hot_sums, squared_euclidean_distance
 
@@ -223,7 +224,7 @@ def mean_squared_error(centroids: Tensor, x: Tensor, assignments: Tensor) -> Ten
     return torch.sum(err * err) / x.numel()
 
 
-def lloyd_iteration_batched(xs: Tensor, codebooks: Tensor) -> Tuple[Tensor, Tensor]:
+def lloyd_iteration_batched(xs: Tensor, codebooks: Tensor, *, group=None) -> Tuple[Tensor, Tensor]:
     """One Lloyd's step for ``m`` independent clusterings at once:
     ``xs`` is ``(m, n, ds)``, ``codebooks`` ``(m, k, ds)``.  Returns the new
     ``(m, k, ds)`` codebooks and the ``(m,)`` losses, each the MSE of its
@@ -232,6 +233,9 @@ def lloyd_iteration_batched(xs: Tensor, codebooks: Tensor) -> Tuple[Tensor, Tens
 
     The batch axis takes the place of the JAX package's ``vmap`` over
     subquantizers.  The ``(m, n, k)`` distance tensor is materialized.
+    With ``group`` (a process group whose ranks each hold ``n`` rows), the
+    sums and counts, then the squared errors, are summed over the group, and
+    the losses are normalized by the global row count.
     """
     m, n, ds = xs.shape
     k = codebooks.shape[1]
@@ -247,10 +251,11 @@ def lloyd_iteration_batched(xs: Tensor, codebooks: Tensor) -> Tuple[Tensor, Tens
     flat = xs.reshape(m * n, ds)
     sums = one_hot_sums(codes.T, xs.transpose(0, 1), k)[0].reshape(m * k, ds)
     counts = torch.bincount(cells, minlength=m * k).to(xs.dtype)
+    sums, counts = all_reduce(group, sums, counts)
     new = _means(sums, counts, xs.dtype)
     err = new[cells] - flat
-    losses = torch.sum((err * err).reshape(m, n * ds), dim=1) / (n * ds)
-    return new.reshape(m, k, ds), losses
+    (sse,) = all_reduce(group, torch.sum((err * err).reshape(m, n * ds), dim=1))
+    return new.reshape(m, k, ds), sse / (n * group_size(group) * ds)
 
 
 def kmeans_iteration(

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from ._collectives import all_reduce, group_size
 from ._precision import check_precision
 
 __all__ = [
@@ -125,12 +126,20 @@ def covariance(x: Tensor, observation_axis: int = 0, *, precision="highest") -> 
         raise ValueError(f"covariance expects a rank-2 array, got rank {x.ndim}")
     if observation_axis not in (0, 1):
         raise ValueError(f"observation_axis must be 0 or 1, got {observation_axis}")
-    n_obs = x.shape[observation_axis]
-    if n_obs == 0:
+    if x.shape[observation_axis] == 0:
         raise ValueError("Cannot compute a covariance from zero observations")
+    return row_covariance(x if observation_axis == 0 else x.T)
 
-    centered = x - torch.mean(x, dim=observation_axis, keepdim=True)
-    normalization = float(n_obs - 1)
-    if observation_axis == 0:
-        return torch.matmul(centered.T, centered / normalization)
-    return torch.matmul(centered, centered.T / normalization)
+
+def row_covariance(x: Tensor, group=None) -> Tensor:
+    """Covariance of the rows of ``x`` (observations along axis 0): the
+    mean is the column sums over ``n``, then ``centered^T (centered / (n -
+    1))``.  With ``group`` (a process group whose ranks each hold ``n_local``
+    rows), ``x`` is this rank's shard: the column sums and the products are
+    summed over the group, so every rank gets the covariance of all the rows
+    (and at one rank the bits of the single-process call)."""
+    n = x.shape[0] * group_size(group)
+    (col_sums,) = all_reduce(group, torch.sum(x, dim=0, keepdim=True))
+    centered = x - col_sums / n
+    (cov,) = all_reduce(group, torch.matmul(centered.T, centered / float(n - 1)))
+    return cov

@@ -186,6 +186,13 @@ class Pq:
         return rec
 
 
+def _on_device(pq: Pq, device: torch.device) -> Pq:
+    """``pq`` with its tensors on ``device`` (the same tensors where they lie
+    there already)."""
+    return Pq(codebooks=pq.codebooks.to(device),
+              projection=None if pq.projection is None else pq.projection.to(device))
+
+
 # ---------------------------------------------------------------------------
 # Preallocated-output serving entries.  A serving loop reuses one output
 # buffer instead of allocating per call.  The JAX package gets that by

@@ -13,6 +13,13 @@ come to the host, for the greedy bucketing.  The Procrustes step is
 SVD's choice; ``R`` is orthonormal either way.  Eigenvectors are defined up
 to sign, so a projection made here and one made by another eigensolver
 agree up to the sign of each column.
+
+The corpus-scale alternation (``_opq_iteration_chunked``) takes a process
+group (``group=``) for the data-parallel trainer
+:func:`reductive_tpu_torch.parallel.train_opq_chunked_sharded`: each rank
+passes its shard, the centroid statistics and the cross matrix are
+all-reduced over the group (the JAX package's ``axis_name=`` ``psum``), and
+the group's first rank's rotation goes to every rank.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from .._collectives import all_reduce, broadcast_first
 from .._device import check_generator, instances_on
 from ..errors import check_quantizer_invariants
 from ..kmeans import lloyd_iteration_batched
@@ -200,7 +208,7 @@ def train_opq(
 
 def _opq_iteration_chunked(
     x: Tensor, projection: Tensor, codebooks: Tensor, *,
-    chunk: int, use_kernel: bool, compute_dtype,
+    chunk: int, use_kernel: bool, compute_dtype, group=None,
 ) -> tuple[Tensor, Tensor, Tensor]:
     """One OPQ alternation at corpus scale, in ``chunk``-row slices, without
     the rotated corpus, the ``(m, n, k)`` distance tensor or the
@@ -222,16 +230,23 @@ def _opq_iteration_chunked(
     the decode is bit-exact.  Returns the
     new projection, the new codebooks and the explained sum of squares
     (``sse = sum |x|^2 - explained``).
+
+    With ``group`` (a process group; the data-parallel form of
+    :func:`reductive_tpu_torch.parallel.train_opq_chunked_sharded`), ``x``
+    is this rank's shard: the sums and counts are summed over the group
+    before the codebook update and ``M`` before the SVD, and the group's
+    first rank's ``R`` goes to every rank, so that no rank's SVD can differ
+    from another's by a bit.
     """
     m, k, ds = codebooks.shape
     d = x.shape[1]
     verified = is_verified(compute_dtype)
     exact = verified or compute_dtype == torch.float32
 
-    sums, counts = assign_stats_streamed(
+    sums, counts = all_reduce(group, *assign_stats_streamed(
         x, codebooks, chunk=chunk, use_kernel=use_kernel,
         compute_dtype=compute_dtype, projection=projection,
-    )
+    ))
     new_codebooks = centroids_from_stats(sums, counts, x.dtype)
 
     if use_kernel:
@@ -255,7 +270,9 @@ def _opq_iteration_chunked(
             rec = primitives.reconstruct_batch(new_codebooks, codes, method="gather")
         cross += torch.matmul(xc.T, rec)
 
-    return _procrustes(cross.to(x.dtype)), new_codebooks, explained_from_stats(sums, counts).sum()
+    (cross,) = all_reduce(group, cross)
+    rotation = broadcast_first(group, _procrustes(cross.to(x.dtype)))
+    return rotation, new_codebooks, explained_from_stats(sums, counts).sum()
 
 
 def train_opq_chunked(

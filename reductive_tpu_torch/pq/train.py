@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 from torch import Tensor
 
+from .._collectives import all_reduce, group_size
 from .._device import check_generator, instances_on
 from ..errors import check_quantizer_invariants
 from ..kmeans import _means, lloyd_iteration_batched, random_distinct_indices
@@ -106,7 +107,7 @@ def _best_of_attempts(codebooks: Tensor, losses: Tensor) -> tuple[Tensor, Tensor
 
 
 def train_pq_subspace_with_centroids(
-    xs: Tensor, initial: Tensor, n_iterations: int
+    xs: Tensor, initial: Tensor, n_iterations: int, *, group=None
 ) -> tuple[Tensor, Tensor]:
     """Train all subquantizers from explicitly supplied initial centroids.
 
@@ -114,7 +115,9 @@ def train_pq_subspace_with_centroids(
     ``(n_attempts, m, k, ds)``, one full set per (attempt, subquantizer).
     Runs ``n_iterations`` batched Lloyd's steps per attempt and keeps the
     best attempt per subquantizer.  Returns ``(m, k, ds)`` codebooks and
-    ``(m,)`` losses."""
+    ``(m,)`` losses.  With ``group`` (a process group), ``xs`` is this
+    rank's shard and each step's statistics are summed over the group
+    (:func:`reductive_tpu_torch.parallel.train_pq_sharded`)."""
     if n_iterations <= 0:
         raise ValueError("The number of iterations must be >= 1")
     xs_m = xs.transpose(0, 1).contiguous()  # (m, n, ds)
@@ -122,7 +125,7 @@ def train_pq_subspace_with_centroids(
     for cb in initial:
         loss = None
         for _ in range(n_iterations):
-            cb, loss = lloyd_iteration_batched(xs_m, cb)
+            cb, loss = lloyd_iteration_batched(xs_m, cb, group=group)
         codebooks.append(cb)
         losses.append(loss)
     return _best_of_attempts(torch.stack(codebooks), torch.stack(losses))
@@ -303,6 +306,7 @@ def lloyd_iteration_chunked(
     use_kernel: bool = True,
     compute_dtype=torch.float32,
     projection: Optional[Tensor] = None,
+    group=None,
 ) -> tuple[Tensor, Tensor]:
     """One Lloyd's step over all ``m`` subquantizers without the
     ``(m, n, k)`` distance tensor.
@@ -318,13 +322,19 @@ def lloyd_iteration_chunked(
     ``torch.bfloat16`` assigns with bfloat16-rounded inputs and sums the
     rounded instances (counts stay exact); ``"verified"`` has the exact
     path's cell memberships.
+
+    With ``group`` (a process group whose ranks each hold an equal shard of
+    the instances), ``x`` is this rank's shard and ``sumsq`` the global one:
+    the sums and counts are summed over the group by one all-reduce before
+    the update, which then runs on every rank alike (the JAX package's
+    ``psum`` over the data axis).
     """
-    n = x.shape[0]
+    n = x.shape[0] * group_size(group)
     ds = codebooks.shape[2]
-    sums, counts = assign_stats_streamed(
+    sums, counts = all_reduce(group, *assign_stats_streamed(
         x, codebooks, chunk=chunk, use_kernel=use_kernel,
         compute_dtype=compute_dtype, projection=projection,
-    )
+    ))
     new_codebooks = centroids_from_stats(sums, counts, codebooks.dtype)
     losses = losses_from_stats(sums, counts, sumsq, n * ds)
     return new_codebooks, losses

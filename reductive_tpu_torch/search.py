@@ -11,7 +11,9 @@ orthonormal.  Matrix products are float32.
 
 Top-k order: results are sorted ascending by score, and among equal scores
 by ascending index; of several rows tied exactly at the k-th score the lowest
-indices are kept.  That is what the JAX package's ``top_k`` gives.
+indices are kept.  That is what the JAX package's ``top_k`` gives, and what
+lets :func:`search_sharded` (the corpus sharded over the ranks of a device
+mesh, one process a card) merge the ranks' results into :func:`search`'s.
 """
 
 from __future__ import annotations
@@ -22,11 +24,12 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from ._collectives import all_gather_rows
 from ._precision import check_precision
 from .pq import primitives
-from .pq.model import Pq
+from .pq.model import Pq, _on_device
 
-__all__ = ["adc_tables", "adc_scores", "adc_scores_decode", "search"]
+__all__ = ["adc_tables", "adc_scores", "adc_scores_decode", "search", "search_sharded"]
 
 # search() switches to the streamed scorer when the full (nq, n) score
 # matrix would exceed this many f32 elements (64M = 256 MB).
@@ -340,12 +343,7 @@ def search(
         raise ValueError("top_k must be >= 1")
     if top_k > codes.shape[0]:
         raise ValueError(f"top_k={top_k} exceeds corpus size {codes.shape[0]}")
-    if method == "auto":
-        method = (
-            "kernel" if codes.is_cuda and (packed or codes.dtype == torch.uint8) else "einsum"
-        )
-    if method not in ("einsum", "kernel", "decode"):
-        raise ValueError(f"unknown search method {method!r}")
+    method = _check_method(method, codes.is_cuda, codes.dtype, packed)
     _check_metric(metric)
     if refine_with is not None:
         if refine_factor < 1:
@@ -360,16 +358,18 @@ def search(
             splits=splits, stream_chunk=stream_chunk, packed=packed, metric=metric,
         )
         return _refine(queries, refine_with, cand_idx, top_k, metric)
-    if packed and method != "kernel":
-        raise ValueError(
-            'packed-u4 codes require method="kernel" (the einsum scorer '
-            "consumes unpacked codes — see reductive_tpu.ops.unpack_u4_codes)"
-        )
-
     stream_chunk = _resolve_stream_chunk(
         queries.shape[0], codes.shape[0], stream_chunk, method, pq.reconstructed_len,
     )
+    return _search_batched(pq, queries, codes, top_k, stream_chunk, chunk_size, method, splits,
+                           packed, metric)
 
+
+def _search_batched(
+    pq: Pq, queries: Tensor, codes: Tensor, top_k: int, stream_chunk: Optional[int],
+    chunk_size: int, method: str, splits, packed: bool, metric: str,
+) -> Tuple[Tensor, Tensor]:
+    """:func:`_search_one` over query batches the kernel takes."""
     def one(q: Tensor) -> Tuple[Tensor, Tensor]:
         return _search_one(
             pq, q, codes, top_k, stream_chunk, chunk_size, method, splits, packed, metric
@@ -385,3 +385,92 @@ def search(
             parts = [one(queries[i:i + qb]) for i in range(0, queries.shape[0], qb)]
             return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
     return one(queries)
+
+
+def _check_method(method: str, on_cuda: bool, codes_dtype: torch.dtype, packed: bool) -> str:
+    """``method``, with ``"auto"`` resolved: the ADC kernel for ``uint8`` or
+    packed codes on a GPU, the plain scorer otherwise."""
+    if method == "auto":
+        method = "kernel" if on_cuda and (packed or codes_dtype == torch.uint8) else "einsum"
+    if method not in ("einsum", "kernel", "decode"):
+        raise ValueError(f"unknown search method {method!r}")
+    if packed and method != "kernel":
+        raise ValueError(
+            'packed-u4 codes require method="kernel" (the einsum scorer '
+            "consumes unpacked codes — see reductive_tpu.ops.unpack_u4_codes)"
+        )
+    return method
+
+
+def search_sharded(
+    pq: Pq,
+    queries: Tensor,
+    codes,
+    top_k: int = 10,
+    *,
+    mesh,
+    data_axis: str = "data",
+    chunk_size: int = 16384,
+    method: str = "auto",
+    splits=2,
+    packed: bool = False,
+    metric: str = "l2",
+    stream_chunk: Optional[int] = None,
+) -> Tuple[Tensor, Tensor]:
+    """Exhaustive ADC search over a corpus sharded over the ranks of
+    ``data_axis`` of ``mesh`` (:func:`reductive_tpu_torch.parallel.make_mesh`),
+    one process a rank, each making the same call.
+
+    Every rank takes the same arguments: ``codes`` is the whole ``(n, m)``
+    corpus (a tensor anywhere, or a host array), of which rank ``r`` of
+    ``R`` moves rows ``[r n'/R, (r+1) n'/R)`` to its device and scores them
+    with :func:`search`'s scorer (the ADC kernel on a GPU); ``n'`` is ``n``
+    rounded up to a multiple of ``R``, the added rows zero codes scored
+    ``+inf`` with id ``-1``.  The ``(nq, top_k)`` results of the ranks are
+    gathered in rank order and merged by the same selection, so every rank
+    returns what :func:`search` returns on the whole corpus, scores bit for
+    bit: the global top ``top_k`` lies in the union of the ranks' (ties at
+    the k-th place keep the lowest ids, which the rank order puts first).
+    ``stream_chunk`` resolves at the per-rank corpus size; the other
+    options are :func:`search`'s.  Returns ``(distances, indices)`` on the
+    rank's device.
+    """
+    from .parallel.mesh import axis_group, mesh_device
+
+    if top_k <= 0:
+        raise ValueError("top_k must be >= 1")
+    dev = mesh_device(mesh)
+    codes = torch.as_tensor(codes)
+    method = _check_method(method, dev.type == "cuda", codes.dtype, packed)
+    _check_metric(metric)
+    group, size, rank = axis_group(mesh, data_axis)
+    n = codes.shape[0]
+    per = -(-n // size)
+    if top_k > per or top_k > n:
+        raise ValueError(f"top_k={top_k} exceeds the per-shard corpus {per}")
+    lo, hi = min(rank * per, n), min((rank + 1) * per, n)
+    local = codes[lo:hi].to(dev)
+    if hi - lo < per:
+        local = torch.cat([local, local.new_zeros((per - (hi - lo),) + tuple(codes.shape[1:]))])
+    queries = queries.to(dev)
+    pq = _on_device(pq, dev)
+    stream_chunk = _resolve_stream_chunk(
+        queries.shape[0], per, stream_chunk, method, pq.reconstructed_len,
+    )
+    d, i = _search_batched(pq, queries, local, top_k, stream_chunk, chunk_size, method, splits,
+                           packed, metric)
+    i = i + rank * per
+    if per * size != n:  # the padding rows never win
+        pad = i >= n
+        d = d.masked_fill(pad, float("inf"))
+        i = i.masked_fill(pad, -1)
+    return _merge_ranks(group, d, i, top_k)
+
+
+def _merge_ranks(group, dists: Tensor, ids: Tensor, top_k: int) -> Tuple[Tensor, Tensor]:
+    """Every rank's ``(nq, kk)`` results gathered in rank order and the best
+    ``top_k`` of them kept, ties by that order: the same on every rank."""
+    nq = dists.shape[0]
+    d_all = all_gather_rows(group, dists).transpose(0, 1).reshape(nq, -1)
+    i_all = all_gather_rows(group, ids).transpose(0, 1).reshape(nq, -1)
+    return _smallest(d_all, i_all, top_k)

@@ -25,7 +25,9 @@ MODULES = sorted(
 def test_every_module_is_listed():
     for name in ("errors", "io", "convert", "search", "pq.model", "pq.primitives",
                  "ops.assign", "ops.decode", "ops.adc", "ops._build",
-                 "linalg", "kmeans", "pq.train", "pq.opq", "pq.traits", "ops.stats"):
+                 "linalg", "kmeans", "pq.train", "pq.opq", "pq.traits", "ops.stats",
+                 "parallel", "parallel.launch", "parallel.mesh", "parallel.sharded",
+                 "utils", "utils.profiling", "_collectives"):
         assert f"reductive_tpu_torch.{name}" in MODULES
 
 
@@ -146,3 +148,17 @@ def test_errors_mirror_the_jax_package():
         jerrors.check_quantizer_invariants(3, 8, 10, 1, 100, 10)
     assert str(terr.value) == str(jerr.value)
     assert type(terr.value).__name__ == type(jerr.value).__name__
+
+
+def test_parallel_and_utils_are_exported_under_the_jax_packages_names():
+    import reductive_tpu
+    import reductive_tpu.parallel
+    import reductive_tpu.utils
+    from reductive_tpu_torch import ivf, parallel, search, utils
+
+    assert parallel.__all__ == reductive_tpu.parallel.__all__
+    assert set(utils.__all__) == set(reductive_tpu.utils.__all__) - {"host_callbacks_supported"}
+    for name in parallel.__all__:
+        assert getattr(parallel, name) is not getattr(reductive_tpu.parallel, name)
+    assert "search_sharded" in search.__all__ and "ivf_search_sharded" in ivf.__all__
+    assert {"parallel", "utils"} <= set(reductive_tpu_torch.__all__)

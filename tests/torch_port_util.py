@@ -1,7 +1,15 @@
 """Shared helpers of the ``test_torch_*`` files: seeded float32 inputs that
-go through both packages, and distance bookkeeping for near-tie codes."""
+go through both packages, distance bookkeeping for near-tie codes, and the
+ranks of a process group run in child processes (:func:`run_ranks`)."""
+
+import os
+import socket
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
@@ -74,3 +82,71 @@ def near_tie_rows(cb, x, a, b, rel):
         scale = 2 * xn * cn[None] + cn[None] ** 2
         assert (np.abs(da - db) / scale)[differ].max() <= rel
     return differ
+
+
+# ---------------------------------------------------------------------------
+# Ranks of a process group in child processes
+# ---------------------------------------------------------------------------
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_RANK_HEAD = """\
+import os, sys
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+import torch.distributed as dist
+
+torch.set_num_threads(1)
+from reductive_tpu_torch.parallel import initialize_distributed, make_mesh
+
+rank, world, port, workdir = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+initialize_distributed(f"127.0.0.1:{{port}}", world, rank, backend="gloo")
+inputs = dict(np.load(os.path.join(workdir, "inputs.npz")))
+out = {{}}
+"""
+
+_RANK_TAIL = """
+np.savez(os.path.join(workdir, f"out_{rank}.npz"), **out)
+dist.destroy_process_group()
+"""
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(body: str, world: int, workdir, inputs: dict, timeout: float = 240) -> list:
+    """Run ``body`` in ``world`` child processes, the ranks of one gloo
+    process group on the CPU (``torch.distributed``), and return each
+    rank's ``out`` dict of arrays.  The children import the port and numpy
+    only, never a test module (so no JAX); ``body`` sees ``rank``,
+    ``world``, ``workdir``, ``inputs`` (the arrays given here) and fills
+    ``out``.  A child that fails or outlives ``timeout`` fails the test."""
+    workdir = str(workdir)
+    np.savez(os.path.join(workdir, "inputs.npz"), **inputs)
+    script = os.path.join(workdir, "ranks.py")
+    with open(script, "w") as f:
+        f.write(_RANK_HEAD.format(root=_ROOT) + textwrap.dedent(body) + _RANK_TAIL)
+    port = str(free_port())
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    procs = [subprocess.Popen([sys.executable, script, str(r), str(world), port, workdir],
+                              cwd=_ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0].decode(errors="replace"))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        pytest.fail("the ranks timed out")
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            pytest.fail(f"rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    return [dict(np.load(os.path.join(workdir, f"out_{r}.npz"))) for r in range(world)]
