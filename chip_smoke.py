@@ -37,7 +37,12 @@ path).  The sharded phase runs ``parallel/`` on ``torch.distributed``, its
 ranks child processes of this script on the one card: a one-rank NCCL group
 (the flagship chunked PQ and IVF10M's coarse k-means bit for bit the
 single-card trainers') and two ranks over gloo (every sharded entry against
-its single-card counterpart, the same bits on both ranks).  The serving phase also searches
+its single-card counterpart, the same bits on both ranks).  The examples phase, last,
+runs the port's two user programs end to end through their ``main(argv)``
+over 1,000,000 rows at the flagship width: the pipeline (train, persist,
+stream-encode from disk, search; IVF, disk and virtual lifecycles; OPQ with
+packed 4-bit codes) and the serving program (IVF-PQ L2 and MIPS queries,
+updates, the sharded scan over a one-rank NCCL group).  The serving phase also searches
 a corpus whose k-th place is always tied and holds the ids to a stable sort's.
 Every ADC kernel, the int8 ones included, is held to its plain version bit
 for bit, and so are the ADC tables the wrappers build on the card (the int8
@@ -225,6 +230,22 @@ SHARDED_STREAM_N = 1 << 20
 SHARDED_STREAM_ITERATIONS = 2
 SHARDED_STREAM_FILE = "sharded_stream.fvecs"
 SHARDED_KERNELS = ("stats_f32", "stats_f32_wide", "encode_bf16", "encode_f32", "decode", "adc")
+# The examples phase: the port's two user programs through their main(argv)
+# at the flagship width (d=128, m=16; k=256, and k=16 packed), the rows cut to
+# SIFT1M's 1,000,000 (examples/pipeline.py's corpus stands for SIFT/Deep1B-style
+# data) and the iterations from the programs' 10 to 4; the serving program's
+# sharded scan over a one-rank NCCL group in this process.  The bars are
+# tests/test_examples.py's.
+EXAMPLES_N, EXAMPLES_D = 1_000_000, 128
+EXAMPLES_SHAPE = ["--n", str(EXAMPLES_N), "--d", str(EXAMPLES_D), "--m", "16", "--queries", "16"]
+EXAMPLES_RUNS = {
+    "pipeline_pq8": ("pipeline", EXAMPLES_SHAPE + ["--bits", "8", "--iters", "4", "--ivf", "1024",
+                                                   "--disk", "--virtual"]),
+    "pipeline_opq4": ("pipeline", EXAMPLES_SHAPE + ["--bits", "4", "--iters", "4", "--opq"]),
+    "serving": ("serving", EXAMPLES_SHAPE + ["--bits", "8", "--cells", "1024"]),
+}
+EXAMPLES_KERNELS = ("adc", "adc_u4", "decode")
+PIPELINE_RECALL_BAR, SERVING_BAR = 0.75, 0.9
 LAUNCHER_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
                 "TORCHELASTIC_RUN_ID", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE")
 
@@ -1970,7 +1991,7 @@ def peak_over(base: int) -> int:
 def require_free_disk(where: str, nbytes: int) -> int:
     free = shutil.disk_usage(where).free
     require(free >= 2 * nbytes,
-            f"stream: {free} bytes free in {where}; the corpus needs twice its {nbytes} bytes")
+            f"{free} bytes free in {where}; a corpus of {nbytes} bytes needs twice that")
     return free
 
 
@@ -2620,6 +2641,64 @@ def phase_sharded(gen, work):
     return launches
 
 
+# -- the examples phase: the user programs end to end ------------------------
+
+
+def phase_examples(work):
+    """The port's user programs (``reductive_tpu_torch.examples``) through
+    their ``main(argv)``, each run with every count at 0 before it (their
+    printed lines go to stderr): the pipeline at 8 bits with the IVF, disk
+    and virtual lifecycles, the pipeline's OPQ at 4 bits (packed codes), and
+    the serving program (its sharded scan over a one-rank NCCL group that
+    the program sets up and tears down; this phase runs last).  Fails when a
+    recall or agreement is below its bar, the sharded scan disagrees with
+    ``search``, or a statistics kernel, an encode kernel, ``adc``,
+    ``adc_u4`` or ``decode`` was launched in no run.  Returns the
+    launches."""
+    import contextlib
+
+    from reductive_tpu_torch.examples import pipeline, serving
+
+    programs = {"pipeline": pipeline, "serving": serving}
+    total = collections.Counter()
+    runs = {}
+    for name, (program, argv) in EXAMPLES_RUNS.items():
+        if program == "pipeline":
+            # The corpus goes to the default temporary directory, on the
+            # filesystem of ``work``.
+            require_free_disk(work, EXAMPLES_N * (EXAMPLES_D + 1) * 4)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            result, counts = counted(lambda: programs[program].main(argv), total)
+        runs[name] = {"argv": argv, "result": result, "seconds": time.perf_counter() - t0,
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                      "launches": counts}
+        progress(f"examples_{name}", {"seconds": runs[name]["seconds"]})
+        if program == "pipeline":
+            recalls = {"recall": result["recall"]}
+            recalls.update({key: result[key]["recall"] for key in ("ivf", "disk", "virtual")
+                            if key in result})
+            low = {key: r for key, r in recalls.items() if r < PIPELINE_RECALL_BAR}
+            require(not low, f"examples: {name} recalls below {PIPELINE_RECALL_BAR}: {low}")
+        else:
+            lines = {key: result[key] for key in ("self_hit", "mips_agreement", "retrievable")}
+            low = {key: v for key, v in lines.items() if v < SERVING_BAR}
+            require(not low, f"examples: {name} below {SERVING_BAR}: {low}")
+            require(result["sharded_agreement"] == 1.0,
+                    f"examples: the sharded scan agrees {result['sharded_agreement']} "
+                    "with search, not 1.00")
+    for prefix in ("stats_", "encode_"):
+        require(any(n > 0 for key, n in total.items() if key.startswith(prefix)),
+                f"examples: no {prefix}* kernel was launched")
+    for name in EXAMPLES_KERNELS:
+        require(total[name] > 0, f"examples: kernel {name} was launched in no run")
+    require_no_shallow("examples", total)
+    emit("examples", runs=runs, launches=dict(total))
+    return total
+
+
 def bf16_entries(cb, x):
     """The C entries of the bf16 encode (uint8 codes) and statistics kernels
     alone, as two callables, the operands prepared outside (``_prepare``'s
@@ -2865,6 +2944,7 @@ def run_phases(card: str, work: str) -> int:
     del pq, corpus, codes, pq4, codes4, packed4
     torch.cuda.empty_cache()
     launches.update(phase_sharded(gen, work))
+    launches.update(phase_examples(work))
     for row in rows:
         row["launches"] = launches[row["name"]]
     torch.cuda.synchronize()

@@ -13,7 +13,9 @@ scales out over several cards, one process a card in one
 ``torch.distributed`` group: sharded k-means, PQ and OPQ training (in
 memory and streamed from disk) and encode, and ``search.search_sharded`` /
 ``ivf.ivf_search_sharded`` over a sharded corpus or index;
-``utils.profiling`` traces and times.  Plain tensor
+``utils.profiling`` traces and times.  ``examples`` holds the two user
+programs (``python -m reductive_tpu_torch.examples.pipeline``, ``.serving``),
+the whole lifecycle end to end.  Plain tensor
 code is PyTorch; the hot loops are CUDA kernels written for ``sm_90a`` under
 ``csrc/``, compiled at first use, each beside a plain PyTorch version of the
 same function; ``native/vecio.cpp`` is compiled by ``g++`` at first use.

@@ -33,8 +33,6 @@ __all__ = ["initialize_distributed"]
 
 logger = logging.getLogger("reductive_tpu")
 
-_initialized = False
-
 # Environment variables by which a launcher says that this process is one of
 # several.  If one of them does and the group cannot be joined, going on as
 # a single process would make every rank train on its own share alone and
@@ -94,9 +92,7 @@ def initialize_distributed(
     environment says that this process is one of several: then it raises a
     ``RuntimeError``, since each process would train on its share alone.
     """
-    global _initialized
-    if _initialized or dist.is_initialized():
-        _initialized = True
+    if dist.is_initialized():
         return
     backend = kwargs.pop("backend", "nccl" if torch.cuda.is_available() else "gloo")
     explicit = (
@@ -133,4 +129,3 @@ def initialize_distributed(
     if torch.cuda.is_available():
         local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
         torch.cuda.set_device(local % torch.cuda.device_count())
-    _initialized = True

@@ -27,7 +27,8 @@ def test_every_module_is_listed():
                  "ops.assign", "ops.decode", "ops.adc", "ops._build",
                  "linalg", "kmeans", "pq.train", "pq.opq", "pq.traits", "ops.stats",
                  "parallel", "parallel.launch", "parallel.mesh", "parallel.sharded",
-                 "utils", "utils.profiling", "_collectives"):
+                 "utils", "utils.profiling", "_collectives",
+                 "examples", "examples.pipeline", "examples.serving"):
         assert f"reductive_tpu_torch.{name}" in MODULES
 
 

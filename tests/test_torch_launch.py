@@ -24,7 +24,6 @@ def clean(monkeypatch):
     """No launcher environment, no group before, none after."""
     for name in launch._MULTIPROCESS_ENV_SIGNALS + ("RANK", "LOCAL_RANK", "MASTER_PORT"):
         monkeypatch.delenv(name, raising=False)
-    monkeypatch.setattr(launch, "_initialized", False)
     assert not dist.is_initialized()
     yield monkeypatch
     if dist.is_initialized():

@@ -298,7 +298,6 @@ def mesh1():
     with pytest.MonkeyPatch.context() as mp:
         for name in launch._MULTIPROCESS_ENV_SIGNALS + ("RANK", "LOCAL_RANK", "MASTER_PORT"):
             mp.delenv(name, raising=False)
-        mp.setattr(launch, "_initialized", False)
         assert not dist.is_initialized()
         launch.initialize_distributed()
         assert dist.get_world_size() == 1 and dist.get_backend() == "gloo"
