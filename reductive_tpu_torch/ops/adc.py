@@ -41,6 +41,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from ..utils.profiling import span
 from . import _build
 from .decode import decode_table, effective_codebook
 from .packing import check_packed, unpack_u4_codes
@@ -304,10 +305,13 @@ def adc_scores_reference(
         codes = unpack_u4_codes(codes)
     tables = tables.to(torch.float32)
     if splits == "int8":
-        t8, scale, offset = quantize_tables_int8(tables)
+        with span("adc.table"):
+            t8, scale, offset = quantize_tables_int8(tables)
         acc = _lookup_sum(t8.to(torch.int32), codes)
         return acc.to(torch.float32) * scale[:, None] + offset[:, None]
-    return _lookup_sum(effective_codebook(tables, splits), codes)
+    with span("adc.table"):
+        table = effective_codebook(tables, splits)
+    return _lookup_sum(table, codes)
 
 
 def adc_scores_kernel(
@@ -344,10 +348,11 @@ def adc_scores_kernel(
         codes = codes.to(torch.uint8 if packed else torch.int32)
     codes = codes.contiguous()
     out = torch.empty((nq, n), dtype=torch.float32, device=codes.device)
-    if int8:
-        table = adc_table_int8(tables)
-    else:
-        table = (decode_table(tables.reshape(nq, m * k, 1), splits)[0].view(nq, m, k),)
+    with span("adc.table"):
+        if int8:
+            table = adc_table_int8(tables)
+        else:
+            table = (decode_table(tables.reshape(nq, m * k, 1), splits)[0].view(nq, m, k),)
     with torch.cuda.device(codes.device):
         adc_launcher(table, codes, out, packed=packed, plan=plan)()
     return out

@@ -22,6 +22,7 @@ from torch import Tensor
 
 from .._device import resolve_device
 from .._precision import check_precision
+from ..utils.profiling import span
 from . import primitives
 
 __all__ = [
@@ -124,19 +125,23 @@ class Pq:
         package's keyword; :mod:`reductive_tpu_torch._precision`).
         """
         check_precision(precision)
-        if self.projection is not None:
-            x = torch.matmul(x, self.projection)
-        if method in _ENCODE_KERNEL_DTYPES:
-            from ..ops.assign import pq_encode
+        with span("pq.quantize_batch"):
+            if self.projection is not None:
+                with span("pq.project"):
+                    x = torch.matmul(x, self.projection)
+            if method in _ENCODE_KERNEL_DTYPES:
+                from ..ops.assign import pq_encode
 
-            return pq_encode(
-                self.codebooks, x, dtype=dtype,
-                compute_dtype=_ENCODE_KERNEL_DTYPES[method], out=out,
-            )
-        if method != "exact":
-            raise ValueError(f"unknown quantize method {method!r}")
-        codes = primitives.quantize_batch(self.codebooks, x, dtype=dtype, precision=precision)
-        return codes if out is None else out.copy_(codes)
+                with span("assign.encode"):
+                    return pq_encode(
+                        self.codebooks, x, dtype=dtype,
+                        compute_dtype=_ENCODE_KERNEL_DTYPES[method], out=out,
+                    )
+            if method != "exact":
+                raise ValueError(f"unknown quantize method {method!r}")
+            codes = primitives.quantize_batch(self.codebooks, x, dtype=dtype,
+                                              precision=precision)
+            return codes if out is None else out.copy_(codes)
 
     def quantize_vector(
         self, x: Tensor, dtype: torch.dtype = torch.uint8, *, precision="highest"

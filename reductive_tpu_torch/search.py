@@ -28,6 +28,7 @@ from ._collectives import all_gather_rows
 from ._precision import check_precision
 from .pq import primitives
 from .pq.model import Pq, _on_device
+from .utils.profiling import span
 
 __all__ = ["adc_tables", "adc_scores", "adc_scores_decode", "search", "search_sharded"]
 
@@ -190,34 +191,42 @@ def _smallest_long(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     thr = vals[:, k - 1:]
     below = vals < thr
     need = k - below.sum(dim=1, keepdim=True)
-    main = n // b * b
-    low = scores[:, :main].view(nq, main // b, b).amin(dim=2)
-    if main < n:
-        low = torch.cat([low, scores[:, main:].amin(dim=1, keepdim=True)], dim=1)
-    nb = low.shape[1]
-    blocks = torch.arange(nb, device=dev).masked_fill(low > thr, nb)
-    first = torch.topk(blocks, min(2 * k - 1, nb), dim=1, largest=False).values
-    # Positions of those blocks' columns; a missing block (nb) lies past n.
-    at = (first[:, :, None] * b + torch.arange(b, device=dev)).reshape(nq, -1)
-    tied = (torch.gather(scores, 1, at.clamp(max=n - 1)) == thr) & (at < n)
-    take = tied & (torch.cumsum(tied, dim=1, dtype=torch.int32) <= need)
-    keys = torch.cat([sel.masked_fill(~below, n), at.masked_fill(~take, n)], dim=1)
-    pos = torch.topk(keys, k, dim=1, largest=False).values  # the k kept, by position
-    pos = torch.where((pos < n).all(dim=1, keepdim=True), pos, torch.sort(sel, dim=1).values)
-    vals, order = torch.sort(torch.gather(scores, 1, pos), dim=1, stable=True)
-    return vals, torch.gather(pos, 1, order)
+    with span("select.repair"):
+        main = n // b * b
+        low = scores[:, :main].view(nq, main // b, b).amin(dim=2)
+        if main < n:
+            low = torch.cat([low, scores[:, main:].amin(dim=1, keepdim=True)], dim=1)
+        nb = low.shape[1]
+        blocks = torch.arange(nb, device=dev).masked_fill(low > thr, nb)
+        first = torch.topk(blocks, min(2 * k - 1, nb), dim=1, largest=False).values
+        # Positions of those blocks' columns; a missing block (nb) lies past n.
+        at = (first[:, :, None] * b + torch.arange(b, device=dev)).reshape(nq, -1)
+        tied = (torch.gather(scores, 1, at.clamp(max=n - 1)) == thr) & (at < n)
+        take = tied & (torch.cumsum(tied, dim=1, dtype=torch.int32) <= need)
+        keys = torch.cat([sel.masked_fill(~below, n), at.masked_fill(~take, n)], dim=1)
+        pos = torch.topk(keys, k, dim=1, largest=False).values  # the k kept, by position
+        pos = torch.where((pos < n).all(dim=1, keepdim=True), pos, torch.sort(sel, dim=1).values)
+        vals, order = torch.sort(torch.gather(scores, 1, pos), dim=1, stable=True)
+        return vals, torch.gather(pos, 1, order)
 
 
 def _scores(pq, tables, queries, codes, chunk_size, method, splits, packed, metric) -> Tensor:
-    if method == "kernel":
-        from .ops.adc import adc_scores_kernel
+    with span("search.adc"):
+        if method == "kernel":
+            from .ops.adc import adc_scores_kernel
 
-        return adc_scores_kernel(tables, codes, splits=splits, packed=packed)
-    if method == "decode":
-        return adc_scores_decode(
-            pq, queries, codes, splits=splits, use_kernel=codes.is_cuda, metric=metric,
-        )
-    return adc_scores(tables, codes, chunk_size=chunk_size)
+            return adc_scores_kernel(tables, codes, splits=splits, packed=packed)
+        if method == "decode":
+            return adc_scores_decode(
+                pq, queries, codes, splits=splits, use_kernel=codes.is_cuda, metric=metric,
+            )
+        return adc_scores(tables, codes, chunk_size=chunk_size)
+
+
+def _select(scores: Tensor, top_k: int) -> Tuple[Tensor, Tensor]:
+    """:func:`_smallest` of one chunk's scores."""
+    with span("search.select"):
+        return _smallest(scores, None, top_k)
 
 
 def _search_one(
@@ -227,21 +236,25 @@ def _search_one(
     """Dense search (``chunk`` None), or streamed: a loop over corpus chunks
     keeps only a running ``(nq, top_k)`` best-so-far, so memory is
     O(nq * (chunk + top_k)) whatever the corpus size."""
-    tables = adc_tables(pq, queries, metric=metric) if method != "decode" else None
+    tables = None
+    if method != "decode":
+        with span("search.tables"):
+            tables = adc_tables(pq, queries, metric=metric)
     n = codes.shape[0]
     if chunk is None:
         scores = _scores(pq, tables, queries, codes, chunk_size, method, splits, packed, metric)
-        return _smallest(scores, None, top_k)
+        return _select(scores, top_k)
     best_d = best_i = None
     for start in range(0, n, chunk):
         part = codes[start:start + chunk]
-        d, i = _smallest(
-            _scores(pq, tables, queries, part, chunk_size, method, splits, packed, metric),
-            None, top_k,
+        d, i = _select(
+            _scores(pq, tables, queries, part, chunk_size, method, splits, packed, metric), top_k
         )
         i = i + start
         if best_d is not None:
-            d, i = _smallest(torch.cat([best_d, d], dim=1), torch.cat([best_i, i], dim=1), top_k)
+            with span("search.merge"):
+                d, i = _smallest(torch.cat([best_d, d], dim=1), torch.cat([best_i, i], dim=1),
+                                 top_k)
         best_d, best_i = d, i
     return best_d, best_i
 
@@ -345,24 +358,23 @@ def search(
         raise ValueError(f"top_k={top_k} exceeds corpus size {codes.shape[0]}")
     method = _check_method(method, codes.is_cuda, codes.dtype, packed)
     _check_metric(metric)
+    n = codes.shape[0]
     if refine_with is not None:
         if refine_factor < 1:
             raise ValueError("refine_factor must be >= 1")
-        if _n_rows(refine_with) != codes.shape[0]:
-            raise ValueError(
-                f"refine_with has {_n_rows(refine_with)} rows, codes have {codes.shape[0]}"
-            )
-        r = min(top_k * refine_factor, codes.shape[0])
-        _, cand_idx = search(
-            pq, queries, codes, r, chunk_size=chunk_size, method=method,
-            splits=splits, stream_chunk=stream_chunk, packed=packed, metric=metric,
-        )
-        return _refine(queries, refine_with, cand_idx, top_k, metric)
+        if _n_rows(refine_with) != n:
+            raise ValueError(f"refine_with has {_n_rows(refine_with)} rows, codes have {n}")
     stream_chunk = _resolve_stream_chunk(
-        queries.shape[0], codes.shape[0], stream_chunk, method, pq.reconstructed_len,
+        queries.shape[0], n, stream_chunk, method, pq.reconstructed_len,
     )
-    return _search_batched(pq, queries, codes, top_k, stream_chunk, chunk_size, method, splits,
-                           packed, metric)
+    with span("search"):
+        if refine_with is None:
+            return _search_batched(pq, queries, codes, top_k, stream_chunk, chunk_size, method,
+                                   splits, packed, metric)
+        r = min(top_k * refine_factor, n)
+        _, cand_idx = _search_batched(pq, queries, codes, r, stream_chunk, chunk_size, method,
+                                      splits, packed, metric)
+        return _refine(queries, refine_with, cand_idx, top_k, metric)
 
 
 def _search_batched(

@@ -1,5 +1,5 @@
-"""Utilities: profiling and timing helpers."""
+"""Utilities: profiling and timing helpers, and the package's spans."""
 
-from .profiling import benchmark, device_sync, trace
+from .profiling import benchmark, device_sync, recorded_spans, span, trace
 
-__all__ = ["trace", "device_sync", "benchmark"]
+__all__ = ["trace", "device_sync", "benchmark", "span", "recorded_spans"]

@@ -158,7 +158,9 @@ def test_parallel_and_utils_are_exported_under_the_jax_packages_names():
     from reductive_tpu_torch import ivf, parallel, search, utils
 
     assert parallel.__all__ == reductive_tpu.parallel.__all__
-    assert set(utils.__all__) == set(reductive_tpu.utils.__all__) - {"host_callbacks_supported"}
+    spans = {"span", "recorded_spans"}  # the port's own spans
+    assert set(utils.__all__) == (set(reductive_tpu.utils.__all__)
+                                  - {"host_callbacks_supported"}) | spans
     for name in parallel.__all__:
         assert getattr(parallel, name) is not getattr(reductive_tpu.parallel, name)
     assert "search_sharded" in search.__all__ and "ivf_search_sharded" in ivf.__all__
