@@ -47,6 +47,10 @@ a corpus whose k-th place is always tied and holds the ids to a stable sort's.
 Every ADC kernel, the int8 ones included, is held to its plain version bit
 for bit, and so are the ADC tables the wrappers build on the card (the int8
 tables, scales and offsets, and the f32 tables of the bf16 splits).
+The selection kernel (``ops.select``: the k smallest of long score rows) is
+held to its plain version bit for bit on ADC scores of a streamed chunk (128
+queries over 524,288 codes, top 100) and of 130 rows of an odd length, alone
+and merged with a prior list, and the serving path must launch it.
 Every phase prints one JSON line.  The run fails (non-zero exit, no result
 line) without a CUDA device, when a kernel does not build, does not launch
 or disagrees, or when a path did not go through its kernels.  The last line
@@ -101,6 +105,7 @@ from reductive_tpu_torch.ops.decode import (
     decode_table, effective_codebook, launch_decode, quantize_codebook_int8,
 )
 from reductive_tpu_torch.ops.probe import probe_wgmma_tf32
+from reductive_tpu_torch.ops.select import select_smallest_kernel, select_smallest_reference
 from reductive_tpu_torch.ops.stats import (
     cell_stats, cell_stats_reference, pq_assign_stats_verify_flags, stats_from_codes,
 )
@@ -166,8 +171,14 @@ KERNELS = {
     "stats_bf16_pad": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:50"),
     "stats_verify_pad": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:272"),
     "cell_stats": ("reductive_tpu_torch/csrc/stats.cu", "reductive_tpu/ops/stats.py:50"),
+    # No TPU kernel: the JAX package selects with jax.lax.top_k.
+    "select": ("reductive_tpu_torch/csrc/select.cu", "none (jax.lax.top_k)"),
 }
-SERVE_KERNELS = ("encode_f32", "encode_bf16", "decode", "decode_int8", "adc", "adc_int8")
+SERVE_KERNELS = ("encode_f32", "encode_bf16", "decode", "decode_int8", "adc", "adc_int8", "select",
+                 "select_merge")
+# The selection kernel's shape on the main path: a streamed chunk of 128
+# queries' scores over 524,288 codes, top 100 (the flat search cell's).
+SELECT_NQ, SELECT_N, SELECT_K = 128, 524_288, 100
 PACKED_KERNELS = ("decode_u4", "decode_int8_u4", "adc_u4", "adc_int8_u4")
 # cell_stats: the accumulation from the codes, which every wide statistics
 # launch runs in its C entry after the assignment.
@@ -364,6 +375,24 @@ def compare_adc(tables, codes, splits):
     require(n_bits == 0, f"adc splits={splits}: {n_bits} scores differ in some bit")
     return {"n_mismatch": n_bits, "n_bits_differ": n_bits,
             "max_abs_err": float((got - want).abs().max())}
+
+
+def compare_select(scores, k):
+    """The selection kernel against its plain version (``torch.topk`` and the
+    tie repair), bit for bit: alone, and merged with a prior list at an offset
+    as the streamed search's step does."""
+    n = scores.shape[1]
+    prior = select_smallest_reference(torch.flip(scores, dims=(1,)), k)
+    pairs = [(select_smallest_kernel(scores, k), select_smallest_reference(scores, k)),
+             (select_smallest_kernel(scores, k, prior=prior, offset=n),
+              select_smallest_reference(scores, k, prior=prior, offset=n))]
+    torch.cuda.synchronize()
+    n_bits = sum(bits_differ(got[0], want[0]) for got, want in pairs)
+    n_ids = sum(int((got[1] != want[1]).sum()) for got, want in pairs)
+    require(n_bits == 0 and n_ids == 0,
+            f"select: {n_bits} values differ in some bit, {n_ids} ids differ")
+    return {"n_mismatch": n_ids, "n_bits_differ": n_bits,
+            "max_abs_err": max(float((got[0] - want[0]).abs().max()) for got, want in pairs)}
 
 
 def compare_adc_tables(tables):
@@ -673,6 +702,14 @@ def phase_kernels(pq, corpus, gen):
             rows.append({"kernel": "adc_int8" if splits == "int8" else "adc_splits2",
                          "shape": f"{shape2} nq={nq}", **res,
                          "kernel_ms": ms, "plain_ms": plain_ms})
+    # The selection kernel on ADC scores: a streamed chunk of the flat search
+    # cell's shape, and 130 rows of an odd length (rows off 16 bytes).
+    codes_s = pq.quantize_batch(corpus[:SELECT_N], method="kernel-f32")
+    for nq_s, n_s in ((SELECT_NQ, SELECT_N), (SELECT_NQ + 2, SELECT_N - 61)):
+        scores_s = ops.adc_scores_kernel(adc_tables(pq, corpus[1000:1000 + nq_s]), codes_s[:n_s])
+        rows.append({"kernel": "select", "shape": f"nq={nq_s} n={n_s} k={SELECT_K}",
+                     **compare_select(scores_s, SELECT_K)})
+    del codes_s, scores_s
     emit("kernels", compared=rows, adc_tables=tables_rows, shared_assignment=shared)
 
 
@@ -2778,6 +2815,9 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
     adc4_bytes = 4 * nq * M * K4 + n * M // 2 + 4 * nq * n
     idx4_flat = codes4.to(torch.int64) + torch.arange(M, device=codes.device)[None, :] * K4
     tables4_t = tables4.reshape(nq, M * K4).T.contiguous()
+    # The selection kernel's: 128 queries' ADC scores over a chunk of 524,288 codes.
+    sel_scores = ops.adc_scores_kernel(adc_tables(pq, corpus[1000:1000 + SELECT_NQ]),
+                                       codes[:SELECT_N])
 
     f32, bf16 = torch.float32, torch.bfloat16
     stats_bytes = 4 * n * D + cb_bytes + 4 * M * K * (DS + 1)
@@ -2855,6 +2895,11 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
          library_adc_int8(tables4, idx4_flat),
          lambda: compare_packed_adc(tables4, codes4, packed4, "int8"),
          bound(adc4_bytes, nq * n * M, "int8"), adc_entry(tables4, packed4, "int8", True)),
+        ("select", lambda: select_smallest_kernel(sel_scores, SELECT_K),
+         lambda: select_smallest_reference(sel_scores, SELECT_K),
+         lambda: torch.topk(sel_scores, SELECT_K, dim=1, largest=False),
+         lambda: compare_select(sel_scores, SELECT_K),
+         bound(4 * SELECT_NQ * SELECT_N, 0, "f32")),
     ]
     rows = []
     for name, kernel, plain, library, compare, (bound_ms, bound_by), *alone in specs:
@@ -2868,7 +2913,8 @@ def kernel_table(pq, corpus, codes, launches, pq4, codes4, packed4):
             "ms": time_ms(kernel), "plain_ms": time_ms(plain, 3),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None if library is None else time_ms(library, 3),
-            "shape": f"n={n} d={D} m={M} k={k_here}" + (f" nq={nq}" if name.startswith("adc") else ""),
+            "shape": f"nq={SELECT_NQ} n={SELECT_N} k={SELECT_K}" if name == "select" else
+                     f"n={n} d={D} m={M} k={k_here}" + (f" nq={nq}" if name.startswith("adc") else ""),
             **({"kernel_ms": time_ms(alone[0])} if alone else {}),
             **(split if name in split_names else {}),
             **{key: res[key] for key in ("n_mismatch_flags", "flagged", "rows_moved") if key in res},

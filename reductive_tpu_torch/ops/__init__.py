@@ -9,6 +9,8 @@ PyTorch version.
 * :mod:`~reductive_tpu_torch.ops.stats`: fused assign + per-centroid sums
   and counts, the Lloyd's iteration of the trainers.
 * :mod:`~reductive_tpu_torch.ops.packing`: two u4 codes a byte.
+* :mod:`~reductive_tpu_torch.ops.select`: the k smallest of long f32 rows,
+  ties by position, merged with a prior list (the streamed search's).
 
 ``pq_encode_verified`` and ``pq_assign_stats_verified`` are the exact modes:
 results equal to the f32 einsum path on every code and cell.

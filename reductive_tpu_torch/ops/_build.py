@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
-SOURCES = ("encode", "decode", "adc", "stats", "probe")
+SOURCES = ("encode", "decode", "adc", "stats", "probe", "select")
 
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -60,6 +60,7 @@ _ENTRIES = {
     "rt_cell_stats": ("stats", (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P)),
     "rt_cell_stats_scratch": ("stats", (_L, _I, _I, _I), _L),
     "rt_probe_wgmma_tf32": ("probe", (_P, _P, _P, _P, _I, _I, _P)),
+    "rt_select": ("select", (_P, _I, _L, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P, _I, _I, _P)),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

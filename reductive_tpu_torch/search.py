@@ -27,6 +27,7 @@ from torch import Tensor
 from ._collectives import all_gather_rows
 from ._precision import check_precision
 from .pq import primitives
+from .ops.select import ID_LIMIT, MAX_K, _smallest_long, select_smallest_kernel
 from .pq.model import Pq, _on_device
 from .utils.profiling import span
 
@@ -150,10 +151,19 @@ def adc_scores_decode(
     return q_sqn[:, None] + rec_sqn[None, :] - 2.0 * qrec
 
 
-# _smallest takes rows up to this long by one stable sort; longer rows by
-# torch.topk and a repair of the ties at the k-th place, found block by block.
+# _smallest takes rows up to this long by one stable sort; longer rows on the
+# card by the selection kernel (ops/select.py), elsewhere by torch.topk and a
+# repair of the ties at the k-th place, found block by block.
 _SORT_ROW = 2048
-_TIE_BLOCK = 256
+
+
+def _kernel_selects(scores: Tensor, k: int, offset: int = 0) -> bool:
+    """Whether ``scores`` go to the selection kernel: CUDA f32 rows longer
+    than ``_SORT_ROW`` at ``k`` up to its ``MAX_K``, with ids ``offset +
+    column`` below its ``ID_LIMIT``."""
+    n = scores.shape[1]
+    return (scores.is_cuda and scores.dtype == torch.float32 and _SORT_ROW < n
+            and offset + n <= ID_LIMIT and k <= MAX_K)
 
 
 def _smallest(scores: Tensor, idx: Optional[Tensor], top_k: int) -> Tuple[Tensor, Tensor]:
@@ -161,53 +171,21 @@ def _smallest(scores: Tensor, idx: Optional[Tensor], top_k: int) -> Tuple[Tensor
     (column positions, or ``idx`` gathered at them where given), ascending by
     score and, among equal scores, by position: of the scores tied at the
     k-th place the lowest positions are kept, as ``jax.lax.top_k`` keeps them.
-    No wait for the card, and the same result every time."""
+    No wait for the card, and the same result every time.  The route is a
+    choice by shape, type and device, not a fallback: rows up to
+    ``_SORT_ROW`` by one stable sort; longer CUDA f32 rows at ``k`` up to
+    1,024 by the selection kernel (:func:`~reductive_tpu_torch.ops.select.
+    select_smallest_kernel`); the rest by :func:`_smallest_long`, the
+    kernel's plain version.  All three give the same bits."""
     k = min(top_k, scores.shape[1])
     if scores.shape[1] <= _SORT_ROW:
         vals, pos = torch.sort(scores, dim=1, stable=True)
         vals, pos = vals[:, :k], pos[:, :k]
+    elif _kernel_selects(scores, k):
+        vals, pos = select_smallest_kernel(scores, k)
     else:
         vals, pos = _smallest_long(scores, k)
     return vals, pos if idx is None else torch.gather(idx, 1, pos)
-
-
-def _smallest_long(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
-    """:func:`_smallest` of long rows.  ``torch.topk`` gives the k-th
-    smallest score ``thr`` and every score below it; which of the scores
-    equal to ``thr`` it keeps is its own choice.  The ``need`` of them that
-    belong to the result are the first ones by position.  They lie in the
-    first ``need`` blocks of ``_TIE_BLOCK`` columns that hold a tie, so among
-    the first ``2k - 1`` blocks whose minimum is at most ``thr`` (at most
-    ``k - 1`` more hold a score below it): those blocks are gathered and a
-    running count over their ties keeps the first ``need``.  One pass over
-    the scores (the blocks' minima) besides ``torch.topk``.  A block whose
-    minimum is NaN is gathered too; a row where fewer than ``k`` are found
-    (NaN blocks in the way, or a NaN ``thr``) keeps ``torch.topk``'s
-    choice."""
-    nq, n = scores.shape
-    dev = scores.device
-    b = _TIE_BLOCK
-    vals, sel = torch.topk(scores, k, dim=1, largest=False)
-    thr = vals[:, k - 1:]
-    below = vals < thr
-    need = k - below.sum(dim=1, keepdim=True)
-    with span("select.repair"):
-        main = n // b * b
-        low = scores[:, :main].view(nq, main // b, b).amin(dim=2)
-        if main < n:
-            low = torch.cat([low, scores[:, main:].amin(dim=1, keepdim=True)], dim=1)
-        nb = low.shape[1]
-        blocks = torch.arange(nb, device=dev).masked_fill(low > thr, nb)
-        first = torch.topk(blocks, min(2 * k - 1, nb), dim=1, largest=False).values
-        # Positions of those blocks' columns; a missing block (nb) lies past n.
-        at = (first[:, :, None] * b + torch.arange(b, device=dev)).reshape(nq, -1)
-        tied = (torch.gather(scores, 1, at.clamp(max=n - 1)) == thr) & (at < n)
-        take = tied & (torch.cumsum(tied, dim=1, dtype=torch.int32) <= need)
-        keys = torch.cat([sel.masked_fill(~below, n), at.masked_fill(~take, n)], dim=1)
-        pos = torch.topk(keys, k, dim=1, largest=False).values  # the k kept, by position
-        pos = torch.where((pos < n).all(dim=1, keepdim=True), pos, torch.sort(sel, dim=1).values)
-        vals, order = torch.sort(torch.gather(scores, 1, pos), dim=1, stable=True)
-        return vals, torch.gather(pos, 1, order)
 
 
 def _scores(pq, tables, queries, codes, chunk_size, method, splits, packed, metric) -> Tensor:
@@ -244,19 +222,29 @@ def _search_one(
     if chunk is None:
         scores = _scores(pq, tables, queries, codes, chunk_size, method, splits, packed, metric)
         return _select(scores, top_k)
-    best_d = best_i = None
+    best = None
     for start in range(0, n, chunk):
         part = codes[start:start + chunk]
-        d, i = _select(
-            _scores(pq, tables, queries, part, chunk_size, method, splits, packed, metric), top_k
-        )
+        scores = _scores(pq, tables, queries, part, chunk_size, method, splits, packed, metric)
+        if _kernel_selects(scores, top_k, start):
+            # The chunk's selection and its merge with the best-so-far in the
+            # kernel's launches, ids offset by the chunk's start.  Ranking by
+            # (score, id) keeps the lower ids among ties, as the stable merge
+            # of the concatenation does, because the chunks come in id order.
+            # A chunk that takes the kernel yields top_k columns (top_k <= 1,024
+            # < its length).  The chunks after one that does not (the last,
+            # shorter one, or ids past the kernel's limit) do not either.
+            with span("search.select"):
+                best = select_smallest_kernel(scores, top_k, prior=best, offset=start)
+            continue
+        d, i = _select(scores, top_k)
         i = i + start
-        if best_d is not None:
+        if best is not None:
             with span("search.merge"):
-                d, i = _smallest(torch.cat([best_d, d], dim=1), torch.cat([best_i, i], dim=1),
+                d, i = _smallest(torch.cat([best[0], d], dim=1), torch.cat([best[1], i], dim=1),
                                  top_k)
-        best_d, best_i = d, i
-    return best_d, best_i
+        best = (d, i)
+    return best
 
 
 def _is_reader(corpus) -> bool:

@@ -44,7 +44,12 @@ accumulation of their own codes bit for bit.  The int8 ADC kernel equals its
 plain version bit for bit on every plan (1 to 130 queries, copies, each
 entry once, every query tile its C entry takes, m past 256, uint8, int32 and
 packed codes, views off a word), and the ADC tables built on the card equal their
-plain versions bit for bit.
+plain versions bit for bit.  The selection kernel (``ops.select``) equals its
+plain version (``torch.topk`` and the tie repair, then the concatenated merge)
+bit for bit on tie-heavy, signed-zero, infinite and random rows at k 1 to
+1,024 and rows of 2,049 to 8,841,823, alone and with a prior list; NaN rows
+rank as the CPU's stable sort; a streamed search through it equals the plain
+route's.
 """
 
 import pytest
@@ -1397,6 +1402,24 @@ def _ivf_setup(dev, k, n_cells=64, per=300, d=64, m=16, seed=30):
     return x, coarse, pq, q, planted
 
 
+def _select_launches(*rows):
+    """The selection kernel's launches for ``_smallest`` over rows of these
+    lengths at k up to 1,024: one of each pass a row longer than 2,048
+    (``search._SORT_ROW``); shorter rows take one stable sort."""
+    n = sum(r > 2048 for r in rows)
+    return {"select": n, "select_merge": n} if n else {}
+
+
+def _lut_row(index, q, nprobe, metric):
+    """The length of the ADC-table probe's scored rows: the cells the queries
+    probe, once each, times a cell's slots (one chunk of cells at these
+    shapes)."""
+    from reductive_tpu_torch import ivf
+    score_c = ivf._coarse_scores(q, index.coarse_centroids, metric)[1]
+    cells = torch.topk(score_c, nprobe, dim=1).indices.unique().numel()
+    return cells * index.cell_codes.shape[1]
+
+
 def _ivf_atol(q):
     # 2e-5 of the terms |q|^2 + g - 2 q.c - 2 q.rec (or q.c + q.rec), which
     # cancel into a distance far below them for a query near a row.
@@ -1452,11 +1475,12 @@ def _check_ivf_search_routes(index, q, nprobe, metric):
     """The kernel route's distances within 2e-5 of the plain route's, and
     its ids equal wherever the plain scores lie further apart than that."""
     from reductive_tpu_torch import ivf
+    lut, plain = _lut_row(index, q, nprobe, metric), nprobe * index.cell_codes.shape[1]
     ops.reset_launch_counts()
     d_k, i_k = ivf.ivf_search(index, q, 11, nprobe=nprobe, splits=3, metric=metric)
-    assert ops.launch_counts() == {"adc": 1}
+    assert ops.launch_counts() == {"adc": 1, **_select_launches(lut)}
     d_p, i_p = ivf.ivf_search(index, q, 11, nprobe=nprobe, use_kernel=False, metric=metric)
-    assert ops.launch_counts() == {"adc": 1}
+    assert ops.launch_counts() == {"adc": 1, **_select_launches(lut, plain)}
     atol = _ivf_atol(q)
     assert torch.allclose(d_k, d_p, rtol=2e-5, atol=atol)
     # Ids equal wherever the plain scores are further apart than that.
@@ -1581,7 +1605,8 @@ def test_ivf_lut_probe_against_the_decode_probe(dev, metric):
     ops.reset_launch_counts()
     d_l, i_l = ivf._probe_and_score_lut(q, *args, 10, 3, metric)
     d_d, i_d = ivf._padded_topk(*ivf._probe_and_score(q, *args, True, 3, metric), 10)
-    assert ops.launch_counts() == {"adc": 1, "decode": 1}
+    rows = (_lut_row(index, q, 8, metric), 8 * index.cell_codes.shape[1])
+    assert ops.launch_counts() == {"adc": 1, "decode": 1, **_select_launches(*rows)}
     assert torch.equal(i_l.long(), i_d.long())
     assert torch.allclose(d_l, d_d, rtol=2e-5, atol=_ivf_atol(q))
 
@@ -1595,11 +1620,15 @@ def test_ivf_packed_cells_score_as_the_unpacked(dev, use_kernel):
     assert packed.packed and torch.equal(ops.unpack_u4_codes(packed.cell_codes.reshape(-1, 8)),
                                          unpacked.cell_codes.reshape(-1, 16))
     ops.reset_launch_counts()
+    rows = []
     for metric in ("l2", "dot"):
         a = ivf.ivf_search(unpacked, q, 10, nprobe=8, use_kernel=use_kernel, metric=metric)
         b = ivf.ivf_search(packed, q, 10, nprobe=8, use_kernel=use_kernel, metric=metric)
         assert _same_bits(a[0], b[0]) and torch.equal(a[1], b[1])
-    assert ops.launch_counts() == ({"adc": 2, "adc_u4": 2} if use_kernel else {})
+        rows += [_lut_row(i, q, 8, metric) if use_kernel else 8 * i.cell_codes.shape[1]
+                 for i in (unpacked, packed)]
+    scoring = {"adc": 2, "adc_u4": 2} if use_kernel else {}
+    assert ops.launch_counts() == {**scoring, **_select_launches(*rows)}
 
 
 def test_ivf_training_takes_the_kernels(dev):
@@ -1715,3 +1744,130 @@ def test_ivf_build_from_a_reader_equals_the_tensor_build(dev, tmp_path, placemen
         a = ivf.ivf_search(want, q, 10, nprobe=8, refine_with=r)
         b = ivf.ivf_search(want, q, 10, nprobe=8, refine_with=x)
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# -- the selection kernel: the k smallest of long rows, ties by position -------
+
+
+def _select_rows(dev, kind, nq, n, k, seed):
+    """Rows of one kind: ``ties`` (seven integer levels), ``zeros`` (-0.0 and
+    +0.0 with some ones), ``inf`` (+inf but for fewer finite entries than k,
+    two of them -inf) or ``random``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "ties":
+        return torch.randint(0, 7, (nq, n), generator=gen, device=dev).to(torch.float32)
+    if kind == "zeros":
+        r = torch.rand((nq, n), generator=gen, device=dev)
+        return torch.where(r < 0.45, -0.0, torch.where(r < 0.9, 0.0, 1.0))
+    if kind == "inf":
+        x = torch.full((nq, n), float("inf"), device=dev)
+        few = max(1, min(k // 2, n // 4))
+        at = torch.randint(0, n, (nq, few), generator=gen, device=dev)
+        x.scatter_(1, at, torch.randn((nq, few), generator=gen, device=dev))
+        x.scatter_(1, at[:, :2], float("-inf"))
+        return x
+    return torch.randn((nq, n), generator=gen, device=dev)
+
+
+def _assert_same_selection(got, want):
+    assert got[0].shape == want[0].shape and torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["ties", "zeros", "inf", "random"])
+@pytest.mark.parametrize("nq,n", [(1, 8_841_823), (128, 524_288), (130, 2049), (130, 100_003)])
+@pytest.mark.parametrize("k", [1, 7, 100, 101, 1024])
+def test_select_kernel_is_its_plain_version_bit_for_bit(dev, kind, nq, n, k):
+    from reductive_tpu_torch.ops import select
+    scores = _select_rows(dev, kind, nq, n, k, seed=k + n)
+    ops.reset_launch_counts()
+    got = select.select_smallest_kernel(scores, k)
+    assert ops.launch_counts() == {"select": 1, "select_merge": 1}
+    _assert_same_selection(got, select.select_smallest_reference(scores, k))
+    # Merged with a prior list, as the streamed search does: ids offset + column.
+    earlier = _select_rows(dev, kind, nq, 3000, k, seed=k + n + 1)
+    prior = select.select_smallest_reference(earlier, k)
+    offset = 3000 + 1_000_003
+    got = select.select_smallest_kernel(scores, k, prior=prior, offset=offset)
+    _assert_same_selection(got, select.select_smallest_reference(scores, k, prior=prior,
+                                                                 offset=offset))
+
+
+@pytest.mark.parametrize("nq,n", [(3, 5000), (2, 524_288)])
+@pytest.mark.parametrize("k", [7, 100, 1024])
+def test_select_kernel_ranks_nan_as_the_stable_sort(dev, nq, n, k):
+    from reductive_tpu_torch.ops import select
+    gen = torch.Generator(device=dev).manual_seed(n + k)
+    scores = torch.randint(0, 5, (nq, n), generator=gen, device=dev).to(torch.float32)
+    nan = torch.rand((nq, n), generator=gen, device=dev) < 0.5
+    payloads = torch.tensor([0x7FC00000, 0xFFC00001 - (1 << 32), 0x7F800001], dtype=torch.int32,
+                            device=dev)
+    pick = payloads[torch.randint(0, 3, (nq, n), generator=gen, device=dev)].view(torch.float32)
+    scores = torch.where(nan, pick, scores)
+    scores[0, : n // 2] = pick[0, : n // 2]  # a row whose first half is all NaN
+    vals, ids = select.select_smallest_kernel(scores, k)
+    # torch.sort's rule, NaN above +inf whatever its sign, is the CPU's: on the
+    # card its radix sort ranks a NaN with the sign bit below -inf.
+    want_vals, want_ids = torch.sort(scores.cpu(), dim=1, stable=True)
+    assert torch.equal(ids.cpu(), want_ids[:, :k])
+    assert torch.equal(vals.cpu().view(torch.int32), want_vals[:, :k].view(torch.int32))
+
+
+def test_smallest_takes_the_kernel_for_long_cuda_rows_only(dev):
+    from reductive_tpu_torch import search as tsearch
+    scores = torch.randn((4, 5000), device=dev)
+    for k, n, launched in ((10, 5000, True), (1024, 5000, True), (1025, 5000, False),
+                           (10, 2048, False)):
+        ops.reset_launch_counts()
+        tsearch._smallest(scores[:, :n].contiguous(), None, k)
+        assert ops.launch_counts() == ({"select": 1, "select_merge": 1} if launched else {})
+    ops.reset_launch_counts()
+    tsearch._smallest(scores.double(), None, 10)
+    assert ops.launch_counts() == {}
+
+
+@pytest.mark.parametrize("top_k", [10, 100])
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+def test_a_streamed_search_selects_in_the_kernel_as_the_plain_route(dev, monkeypatch, top_k,
+                                                                    metric):
+    from reductive_tpu_torch import Pq
+    from reductive_tpu_torch import search as tsearch
+    gen = torch.Generator(device=dev).manual_seed(7)
+    m, k, ds, n = 16, 256, 8, 300_000
+    pq = Pq(codebooks=torch.randn((m, k, ds), generator=gen, device=dev))
+    distinct = torch.randint(0, k, (4096, m), generator=gen, device=dev, dtype=torch.uint8)
+    codes = distinct[torch.randint(0, 4096, (n,), generator=gen, device=dev)]
+    q = torch.randn((128, m * ds), generator=gen, device=dev)
+    ops.reset_launch_counts()
+    got = tsearch.search(pq, q, codes, top_k, stream_chunk=1 << 16, metric=metric)
+    chunks = -(-n // (1 << 16))
+    assert ops.launch_counts() == {"adc": chunks, "select": chunks, "select_merge": chunks}
+    monkeypatch.setattr(tsearch, "_kernel_selects", lambda scores, k, offset=0: False)
+    want = tsearch.search(pq, q, codes, top_k, stream_chunk=1 << 16, metric=metric)
+    _assert_same_selection(got, want)
+
+
+def test_a_streamed_search_past_the_kernels_ids_merges_on_the_plain_route(dev, monkeypatch):
+    # With the kernel's id limit lowered to three chunks, the later chunks are
+    # selected by position (still in the kernel, with no prior list) and merged
+    # by the concatenation's stable sort; the answer is the same.
+    from reductive_tpu_torch import Pq
+    from reductive_tpu_torch import search as tsearch
+    gen = torch.Generator(device=dev).manual_seed(8)
+    m, k, ds, n, chunk = 16, 256, 8, 300_000, 1 << 16
+    pq = Pq(codebooks=torch.randn((m, k, ds), generator=gen, device=dev))
+    distinct = torch.randint(0, k, (4096, m), generator=gen, device=dev, dtype=torch.uint8)
+    codes = distinct[torch.randint(0, 4096, (n,), generator=gen, device=dev)]
+    q = torch.randn((128, m * ds), generator=gen, device=dev)
+    want = tsearch.search(pq, q, codes, 100, stream_chunk=chunk)
+    monkeypatch.setattr(tsearch, "ID_LIMIT", 3 * chunk)
+    merges = []
+    kernel = tsearch.select_smallest_kernel
+    monkeypatch.setattr(tsearch, "select_smallest_kernel", lambda s, k, **kw: (
+        merges.append(kw.get("offset")), kernel(s, k, **kw))[1])
+    ops.reset_launch_counts()
+    got = tsearch.search(pq, q, codes, 100, stream_chunk=chunk)
+    chunks = -(-n // chunk)
+    assert merges == [0, chunk, 2 * chunk] + [None] * (chunks - 3)
+    assert ops.launch_counts() == {"adc": chunks, "select": chunks, "select_merge": chunks}
+    _assert_same_selection(got, want)

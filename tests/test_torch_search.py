@@ -165,8 +165,9 @@ def test_smallest_is_the_lexsort_oracle(sort_row, block, monkeypatch):
     # 1 to the whole row, blocks that do not divide the row; with ids given
     # (the streamed merge) the ids follow the positions.
     from reductive_tpu_torch import search as tsearch
+    from reductive_tpu_torch.ops import select
     monkeypatch.setattr(tsearch, "_SORT_ROW", sort_row)
-    monkeypatch.setattr(tsearch, "_TIE_BLOCK", block)
+    monkeypatch.setattr(select, "_TIE_BLOCK", block)
     rng = np.random.default_rng(block)
     for trial in range(40):
         nq, n = int(rng.integers(1, 4)), int(rng.integers(1, 3000))
