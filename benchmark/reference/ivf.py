@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from . import vq
+from . import answers, vq
 
 
 def slot_of_id(cell_ids: Tensor, n: int) -> Tensor:
@@ -80,9 +80,64 @@ def check_index(x: Tensor, coarse: Tensor, codebooks: Tensor, cell_codes: Tensor
 def probe(q: Tensor, coarse: Tensor, nprobe: int) -> Tensor:
     """``(nq, nprobe)`` nearest cells of each query by float64 distances,
     nearest first, the lowest index among equal distances."""
+    return torch.sort(cell_dists(q, coarse), dim=1, stable=True).indices[:, :nprobe]
+
+
+def cell_dists(q: Tensor, coarse: Tensor) -> Tensor:
+    """``(nq, C)`` float64 squared distances of the queries to the cells'
+    centres, by the program's formula ``|q|^2 + |c|^2 - 2 q.c``."""
     q, c = q.double(), coarse.double()
-    d = vq.sq_norms(q)[:, None] + vq.sq_norms(c)[None, :] - 2.0 * (q @ c.T)
-    return torch.sort(d, dim=1, stable=True).indices[:, :nprobe]
+    return vq.sq_norms(q)[:, None] + vq.sq_norms(c)[None, :] - 2.0 * (q @ c.T)
+
+
+def probe_eps(q: Tensor, coarse: Tensor) -> Tensor:
+    """``(nq,)`` float64 bound ``eps_q`` on how far the program's probe
+    score of any cell, and :func:`cell_dists`' distance, lie from the exact
+    squared distance.
+
+    The program (``ivf._coarse_scores``) scores a cell ``c`` by
+    ``-(|q|^2 + |c|^2 - 2 q.c)`` in float32: ``q.c`` by a matrix product,
+    each norm by a sum of ``d`` rounded squares, then one rounded addition
+    and one rounded subtraction (the factor 2 and the sign are exact).  With
+    the unit roundoff ``u`` (``2^-24``) and ``gamma_n = n u / (1 - n u)``,
+    a sum of ``d`` rounded products in any order is off by at most
+    ``gamma_d`` times the sum of the products' magnitudes, so each of the
+    ``3d`` terms ``q_i^2``, ``c_i^2`` and ``-2 q_i c_i`` carries a relative
+    error of at most ``gamma_{d+2}`` (its product, at most ``d - 1`` partial
+    sums, then the two combining steps).  The terms' magnitudes add up to
+    ``|q|^2 + |c|^2 + 2 sum |q_i c_i| <= (|q| + |c|)^2``, so
+
+        |score + D| <= gamma_{d+2} (|q| + |c|)^2,
+
+    ``D`` the exact distance.  :func:`cell_dists` evaluates the same formula
+    from the same float32 values at float64 (``u = 2^-53``): its own bound
+    is added.  ``eps_q`` takes the largest centre norm, so that it holds for
+    every cell of the query."""
+    d = q.shape[1]
+
+    def gamma(u):
+        return (d + 2) * u / (1 - (d + 2) * u)
+
+    c_norm = vq.sq_norms(coarse.double()).max().sqrt()
+    return (gamma(2.0 ** -24) + gamma(2.0 ** -53)) * (vq.sq_norms(q.double()).sqrt() + c_norm) ** 2
+
+
+def probe_kinds(q: Tensor, coarse: Tensor, nprobe: int) -> tuple[Tensor, Tensor]:
+    """``(must, edge)``, ``(nq, C)`` masks of the cells that every valid
+    probe of ``nprobe`` cells holds, and of those that a valid probe may
+    hold or not.
+
+    With ``t`` a query's ``nprobe``-th distance and ``eps`` its
+    :func:`probe_eps`, a *must* cell lies nearer than ``t - 2 eps``: the
+    program scores it above every cell at ``t`` or farther, and fewer than
+    ``nprobe`` cells lie nearer than ``t``, so it is probed.  An *edge* cell
+    lies within ``2 eps`` of ``t`` (the ``nprobe``-th cell is one).  The
+    rest lie farther than ``t + 2 eps``: the ``nprobe`` cells at ``t`` or
+    nearer all score above each of them, so no valid probe holds one."""
+    d = cell_dists(q, coarse)
+    t = torch.sort(d, dim=1).values[:, nprobe - 1:nprobe]
+    eps = 2.0 * probe_eps(q, coarse)[:, None]
+    return d < t - eps, (d - t).abs() <= eps
 
 
 def search(q: Tensor, coarse: Tensor, codebooks: Tensor, cell_codes: Tensor, cell_ids: Tensor,
@@ -90,19 +145,81 @@ def search(q: Tensor, coarse: Tensor, codebooks: Tensor, cell_codes: Tensor, cel
     """``(nq, top_k)`` float64 squared distances, ascending, of each query's
     ``top_k`` nearest stored rows (``|q - c - rec|^2``) among the cells
     :func:`probe` gives it; ``+inf`` past the rows those cells hold."""
+    return search_cells(q, coarse, codebooks, cell_codes, cell_ids, probe(q, coarse, nprobe),
+                        top_k, qblock)
+
+
+def search_cells(q: Tensor, coarse: Tensor, codebooks: Tensor, cell_codes: Tensor,
+                 cell_ids: Tensor, cells: Tensor, top_k: int, qblock: int = 8) -> Tensor:
+    """As :func:`search`, among the cells ``cells`` (``(nq, P)``, ``-1``
+    for none) of each query."""
     L = cell_codes.shape[1]
     c64 = coarse.double()
-    cells = probe(q, coarse, nprobe)
     out = torch.full((q.shape[0], top_k), float("inf"), dtype=torch.float64, device=q.device)
     for a in range(0, q.shape[0], qblock):
         p = cells[a:a + qblock]
-        full = vq.decode(codebooks, cell_codes[p]) + c64[p][:, :, None, :]  # (b, P, L, d)
+        pc = p.clamp_min(0)
+        full = vq.decode(codebooks, cell_codes[pc]) + c64[pc][:, :, None, :]  # (b, P, L, d)
         d = vq.sq_norms(q[a:a + qblock].double()[:, None, None, :] - full)
-        d = torch.where(cell_ids[p] >= 0, d, torch.full_like(d, float("inf")))
-        kk = min(top_k, nprobe * L)
+        held = (cell_ids[pc] >= 0) & (p >= 0)[:, :, None]
+        d = torch.where(held, d, torch.full_like(d, float("inf")))
+        kk = min(top_k, p.shape[1] * L)
         out[a:a + qblock, :kk] = torch.topk(d.reshape(d.shape[0], -1), kk, dim=1,
                                             largest=False).values
     return out
+
+
+def search_numbers(q: Tensor, coarse: Tensor, codebooks: Tensor, cell_codes: Tensor,
+                   cell_ids: Tensor, n: int, nprobe: int, top_k: int, d_prog: Tensor,
+                   ids_prog: Tensor) -> tuple[dict, dict]:
+    """The numbers a search's answers over an ``n``-row corpus are judged
+    by, and notes that judge nothing: of the queries, how many have a cell
+    at the probe's edge besides the ``nprobe``-th (:func:`probe_kinds`), and
+    ``rank_gap`` over those and over the others.
+
+    ``dist_err``, ``rank_gap`` and ``dup_ids`` are
+    :func:`answers.answer_numbers`' against :func:`search`, but for the
+    queries with edge cells: the program may probe any of those, so there
+    the reference's distances are its ``top_k`` over the must cells and the
+    edge cells that hold a row the program named.  Every valid probe holds
+    those cells, so the program's ``r``-th distance is no larger than the
+    reference's ``r``-th over them.  Over the same queries ``probe_miss``
+    counts the rows named that lie in neither a must nor an edge cell, and
+    the answers whose rows come from more than ``nprobe`` cells."""
+    L = cell_codes.shape[1]
+    d_ref = search(q, coarse, codebooks, cell_codes, cell_ids, nprobe, top_k)
+    slot = slot_of_id(cell_ids, n)
+    d_of = dist_of(q, coarse, codebooks, cell_codes, slot, ids_prog)
+    must, edge = probe_kinds(q, coarse, nprobe)
+    tied = edge.sum(dim=1) > 1
+    probe_miss = 0
+    if bool(tied.any()):
+        ids = ids_prog[tied].long()
+        ok = (ids >= 0) & (ids < n)
+        s = torch.where(ok, slot[ids.clamp(0, n - 1)], torch.full_like(ids, -1))
+        cell = torch.where(s >= 0, s // L, s)  # -1: no row, or a row no slot holds
+        held = cell >= 0
+        rows = torch.arange(cell.shape[0], device=q.device)[:, None].expand_as(cell)
+        must_t, edge_t = must[tied], edge[tied]
+        named = torch.zeros_like(edge_t)  # the cells that hold a row named
+        named[rows[held], cell[held]] = True
+        allowed = held & (must_t | edge_t)[rows, cell.clamp_min(0)]
+        probe_miss = int(((ids >= 0) & ~allowed).sum() + (named.sum(dim=1) > nprobe).sum())
+        keep = must_t | (edge_t & named)
+        width = max(1, int(keep.sum(dim=1).max()))
+        order = torch.sort(keep.to(torch.int8), dim=1, descending=True, stable=True).indices
+        order = order[:, :width]
+        cells = torch.where(torch.gather(keep, 1, order), order, torch.full_like(order, -1))
+        d_ref[tied] = search_cells(q[tied], coarse, codebooks, cell_codes, cell_ids, cells, top_k)
+    scale = vq.sq_norms(q.double())
+    numbers = answers.answer_numbers(d_prog, ids_prog, d_ref, d_of, scale)
+    numbers["probe_miss"] = probe_miss
+    notes = {"queries": q.shape[0], "edge_queries": int(tied.sum())}
+    for name, part in (("edge", tied), ("others", ~tied)):
+        if bool(part.any()):
+            notes[f"rank_gap.{name}"] = answers.answer_numbers(
+                d_prog[part], ids_prog[part], d_ref[part], d_of[part], scale[part])["rank_gap"]
+    return numbers, notes
 
 
 def dist_of(q: Tensor, coarse: Tensor, codebooks: Tensor, cell_codes: Tensor, slot: Tensor,

@@ -5,7 +5,11 @@
 A cell ``<config>.<traffic>`` is the file ``benchmark/workloads/<cell>.json``:
 its configuration (``benchmark/configs/<config>.json``), the traffic driver
 that runs it (``benchmark/traffic/<driver>.py``), the driver's parameters,
-and the limits of the numbers that decide ``correct``.  ``BENCHMARK.json``
+and the limits of the numbers that decide ``correct``.  For the CPU tests
+(``benchmark/tests/cells.py``) the workload file also carries ``cpu``, its
+parameters cut to a size the CPU runs in seconds, and ``control``, the
+control that must come out not correct; the configuration file carries
+``cpu``, its sizes cut alike.  A run reads neither.  ``BENCHMARK.json``
 names the metrics each cell reports; a per-layer metric is read by
 ``benchmark/metrics/<metric>.py`` or, where there is no such file, by the
 reader of its family (:func:`reader_path`).  So a cell, a configuration, a

@@ -15,23 +15,18 @@ from benchmark import run
 from benchmark.tests import cells
 
 BENCHMARK = cells.benchmark_with_ivf()
-CELLS = [w["name"] for w in BENCHMARK["workloads"]]
-CONTROLS = {
-    cells.IVF_SEARCH: "splits1",
-    "msmarco768-opq24.flat-search-b128": "splits1",
-    "msmarco768-opq24.ingest-1m": "fp8",
-    cells.IVF_BUILD: "fp8",
-}
+CELLS = cells.ready(BENCHMARK)
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "setup_phases", "checks"]
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_a_run_prints_the_contract_keys(cell):
+def check_contract(cell, benchmark):
+    """A run prints the contract's keys, the cell's end-to-end metrics and
+    its numbers, and comes out correct."""
     result = cells.run_tiny(cell)
     assert list(result) == KEYS
     assert result["correct"] is True, result["checks"]
     assert result["attempted"] >= 1 and result["failed"] == 0
-    e2e, _ = run.metrics_of(cell, BENCHMARK)
+    e2e, _ = run.metrics_of(cell, benchmark)
     assert set(result["metrics"]) == {e["name"] for e in e2e}
     for entry in e2e:
         m = result["metrics"][entry["name"]]
@@ -43,14 +38,30 @@ def test_a_run_prints_the_contract_keys(cell):
     json.dumps(result)
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_a_traced_run_reports_per_layer_metrics_only(cell):
+def check_traced(cell, benchmark):
+    """A traced run reports per-layer metrics only, and a breakdown."""
     result = cells.run_tiny(cell, trace=True)
     assert list(result) == KEYS[:5] + ["breakdown"] + KEYS[5:]
-    _, layer = run.metrics_of(cell, BENCHMARK)
+    _, layer = run.metrics_of(cell, benchmark)
     assert set(result["metrics"]) <= {e["name"] for e in layer}
     assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
     assert len(result["breakdown"]["idle_gaps"]) <= 10
+
+
+def check_control(cell):
+    """The cell's control (its path one precision lower) fails a limit."""
+    result = cells.run_tiny(cell, control=cells.tiny(cell)[0]["control"])
+    assert result["correct"] is False, result["checks"]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_run_prints_the_contract_keys(cell):
+    check_contract(cell, BENCHMARK)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_traced_run_reports_per_layer_metrics_only(cell):
+    check_traced(cell, BENCHMARK)
 
 
 def test_the_search_index_is_the_deployment_seeds():
@@ -78,9 +89,13 @@ def test_the_search_index_is_the_deployment_seeds():
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_the_control_is_not_correct(cell):
-    """The cell's control (its path one precision lower) fails a limit."""
-    result = cells.run_tiny(cell, control=CONTROLS[cell])
-    assert result["correct"] is False, result["checks"]
+    check_control(cell)
+
+
+def test_fp8_codes_in_the_ivf_search_cell_are_not_correct():
+    """The IVF search cell's other control: its index's codes by the
+    reference's float8 encode."""
+    assert cells.run_tiny(cells.IVF_SEARCH, control="fp8")["correct"] is False
 
 
 def _alter_answer(monkeypatch, module, name):
@@ -140,6 +155,25 @@ def test_lloyd_steps_that_leave_the_centres_unchanged_are_not_correct(monkeypatc
         assert result["checks"][name]["value"] > result["checks"][name]["limit"]
 
 
+def test_a_probe_that_skips_a_must_cell_is_not_correct(monkeypatch):
+    """Each query's nearest cell scored as the farthest, so never probed:
+    it lies far inside the probe, so every valid probe holds it."""
+    from reductive_tpu_torch import ivf
+
+    real = ivf._coarse_scores
+
+    def skipping(queries, coarse, metric):
+        qc, score, q_sqn = real(queries, coarse, metric)
+        score = score.scatter(1, score.argmax(dim=1, keepdim=True), float("-inf"))
+        return qc, score, q_sqn
+
+    monkeypatch.setattr(ivf, "_coarse_scores", skipping)
+    result = cells.run_tiny(cells.IVF_SEARCH)
+    assert result["correct"] is False
+    assert any(result["checks"][n]["value"] > result["checks"][n]["limit"]
+               for n in ("probe_miss", "rank_gap"))
+
+
 def test_a_row_stored_in_the_wrong_cell_is_not_correct(monkeypatch):
     from reductive_tpu_torch import ivf
 
@@ -168,7 +202,7 @@ def test_the_controls_are_not_correct_on_the_card():
         pytest.skip("needs a CUDA device")
     for cell in CELLS:
         workload, config = cells.tiny(cell)
-        for control, want in ((None, True), (CONTROLS[cell], False)):
+        for control, want in ((None, True), (workload["control"], False)):
             result = run.run_cell(cell, workload, config, BENCHMARK, seed=11, seconds=0.5,
                                   trace=False, device="cuda:0", control=control)
             assert result["correct"] is want, (cell, control, result["checks"])

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import ast
 import json
+import os
 import subprocess
 import sys
 
@@ -17,6 +18,7 @@ JAX = {"jax", "jaxlib", "flax", "reductive_tpu"}
 PROGRAM = {"reductive_tpu_torch"}
 FILES = sorted(p for p in run.BENCH.rglob("*.py") if "__pycache__" not in p.parts)
 REFERENCE = sorted((run.BENCH / "reference").glob("*.py"))
+ROOT = run.ROOT
 
 
 def top_level_imports(path):
@@ -40,22 +42,33 @@ def test_the_reference_imports_nothing_of_the_program(path):
     assert top_level_imports(path) <= {"__future__", "contextlib", "torch"}
 
 
-def _loaded_after(code: str) -> set:
+def _loaded_after(code: str, cwd=None) -> set:
+    """Top-level names loaded once ``code`` has run in a fresh process from
+    ``cwd`` (the repository's root: there the program is found too)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     out = subprocess.run([sys.executable, "-c", code + "\nimport json, sys\n"
                           "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))"],
-                         cwd=run.ROOT, capture_output=True, text=True, check=True, timeout=600)
+                         cwd=cwd or ROOT, env=env, capture_output=True, text=True, check=True,
+                         timeout=600)
     return set(json.loads(out.stdout.strip().splitlines()[-1]))
 
 
-def test_a_run_of_every_cell_loads_no_jax():
+def check_no_jax(cwd=None):
+    """A traced run of every cell that carries its CPU cut, in the
+    benchmark at ``cwd``, loads the program and no JAX."""
     code = ("from benchmark.tests import cells\n"
             "from benchmark import run\n"
-            "for w in run.load_json(run.ROOT / 'BENCHMARK.json')['workloads']:\n"
-            "    cells.run_tiny(w['name'], trace=True)\n"
+            "for cell in cells.ready(run.load_json(run.ROOT / 'BENCHMARK.json')):\n"
+            "    cells.run_tiny(cell, trace=True)\n"
             "assert not run.forbidden_modules()\n")
-    loaded = _loaded_after(code)
+    loaded = _loaded_after(code, cwd)
     assert "reductive_tpu_torch" in loaded
     assert not loaded & JAX
+
+
+def test_a_run_of_every_cell_loads_no_jax():
+    check_no_jax()
 
 
 def test_the_reference_loads_nothing_of_the_program():
