@@ -63,6 +63,7 @@ from .pq.model import Pq, _on_device
 from .search import (
     _check_metric, _is_reader, _merge_ranks, _reader_rows, _refine, _smallest, adc_tables,
 )
+from .utils.profiling import count, span
 
 logger = logging.getLogger("reductive_tpu")
 
@@ -1118,36 +1119,52 @@ def _probe_and_score_lut(
     ties in (cell, slot) order.  Queries that probe the same cell share its
     rows.  ``splits`` sets the tables' precision (2: about 2^-18
     relative).  ``scored``: :func:`_coarse_scores` of these cells where the
-    caller has them (:func:`ivf_search_sharded`)."""
+    caller has them (:func:`ivf_search_sharded`).
+
+    Spans: ``ivf.probe`` (the cells' scores, the probe and the union),
+    ``ivf.tables``, and for each chunk ``ivf.adc`` (the kernel),
+    ``ivf.mask`` (the scores assembled, the cells not probed masked) and
+    ``ivf.select`` (the chunk's top-k merged with the best-so-far).
+    Counters: ``ivf.slots_scored``, the (query, slot) pairs scored, and
+    ``ivf.slots_probed``, those of each query's own probed cells."""
     C, L, mb = cell_codes.shape
     m = pq.quantized_len
     nq = queries.shape[0]
-    qc, score_c, q_sqn = scored or _coarse_scores(queries, coarse, metric)
-    probe = _smallest(-score_c, None, nprobe)[1]  # (nq, nprobe)
-    cells_u = torch.unique(probe)                 # ascending
+    with span("ivf.probe"):
+        qc, score_c, q_sqn = scored or _coarse_scores(queries, coarse, metric)
+        probe = _smallest(-score_c, None, nprobe)[1]  # (nq, nprobe)
+        cells_u = torch.unique(probe)                 # ascending
     U = cells_u.shape[0]
-    tables = adc_tables(pq, queries, metric="dot")  # (nq, m, k): -q.rec
+    count("ivf.slots_probed", nq * nprobe * L)
+    with span("ivf.tables"):
+        tables = adc_tables(pq, queries, metric="dot")  # (nq, m, k): -q.rec
     cc = max(1, min(U, _PROBE_LUT_BUDGET // (4 * max(nq, 1) * L)))
     K = min(top_k, U * L)
     best_d = best_i = None
     for c0 in range(0, U, cc):
         cu = cells_u[c0:c0 + cc]
         n_c = cu.shape[0]
-        ids_c = cell_ids[cu].reshape(n_c * L)
-        raw = ops.adc_scores_kernel(tables, cell_codes[cu].reshape(n_c * L, mb), splits=splits,
-                                    packed=mb != m).reshape(nq, n_c, L)
-        qc_c = qc[:, cu][:, :, None]
-        if metric == "dot":
-            sc = raw - qc_c
-        else:
-            sc = q_sqn[:, None, None] + cell_norms[cu].reshape(1, n_c, L) + 2.0 * raw - 2.0 * qc_c
-        probed = (probe[:, :, None] == cu[None, None, :]).any(dim=1)  # (nq, n_c)
-        mask = probed[:, :, None] & (ids_c.reshape(1, n_c, L) >= 0)
-        sc = torch.where(mask, sc, torch.full_like(sc, float("inf"))).reshape(nq, n_c * L)
-        d, pos = _smallest(sc, None, min(K, n_c * L))
-        i = ids_c[pos]
-        if best_d is not None:
-            d, i = _smallest(torch.cat([best_d, d], dim=1), torch.cat([best_i, i], dim=1), K)
+        count("ivf.slots_scored", nq * n_c * L)
+        with span("ivf.adc"):
+            raw = ops.adc_scores_kernel(tables, cell_codes[cu].reshape(n_c * L, mb),
+                                        splits=splits, packed=mb != m).reshape(nq, n_c, L)
+        with span("ivf.mask"):
+            ids_c = cell_ids[cu].reshape(n_c * L)
+            qc_c = qc[:, cu][:, :, None]
+            if metric == "dot":
+                sc = raw - qc_c
+            else:
+                sc = (q_sqn[:, None, None] + cell_norms[cu].reshape(1, n_c, L) + 2.0 * raw
+                      - 2.0 * qc_c)
+            probed = (probe[:, :, None] == cu[None, None, :]).any(dim=1)  # (nq, n_c)
+            mask = probed[:, :, None] & (ids_c.reshape(1, n_c, L) >= 0)
+            sc = torch.where(mask, sc, torch.full_like(sc, float("inf"))).reshape(nq, n_c * L)
+        with span("ivf.select"):
+            d, pos = _smallest(sc, None, min(K, n_c * L))
+            i = ids_c[pos]
+            if best_d is not None:
+                d, i = _smallest(torch.cat([best_d, d], dim=1), torch.cat([best_i, i], dim=1),
+                                 K)
         best_d, best_i = d, i
     ids = torch.where(torch.isfinite(best_d), best_i, torch.full_like(best_i, -1))
     return _pad(best_d, ids, top_k)
@@ -1168,14 +1185,20 @@ def _probe_and_score(
     gather; packed cells unpacked first, exactly) and dotted with the
     (rotated) queries, the probes in chunks so that the ``(nq, probes, L,
     d)`` reconstruction stays under ``_PROBE_RECON_BUDGET``, and the cell
-    rows too when one probe alone exceeds it."""
+    rows too when one probe alone exceeds it.
+
+    Spans ``ivf.probe`` and ``ivf.mask`` as in :func:`_probe_and_score_lut`;
+    both counters add the pairs of the probed cells, all that is scored."""
     cb = pq.codebooks
     m, _, ds = cb.shape
     d = m * ds
     nq = queries.shape[0]
     L, mb = cell_codes.shape[1], cell_codes.shape[2]
-    qc, score_c, q_sqn = scored or _coarse_scores(queries, coarse, metric)
-    probe = _smallest(-score_c, None, nprobe)[1]  # (nq, nprobe)
+    with span("ivf.probe"):
+        qc, score_c, q_sqn = scored or _coarse_scores(queries, coarse, metric)
+        probe = _smallest(-score_c, None, nprobe)[1]  # (nq, nprobe)
+    count("ivf.slots_probed", nq * nprobe * L)
+    count("ivf.slots_scored", nq * nprobe * L)
     qc_g = torch.gather(qc, 1, probe)
     codes_g = cell_codes[probe]                   # (nq, nprobe, L, mb)
     ids_g = cell_ids[probe]
@@ -1204,11 +1227,12 @@ def _probe_and_score(
             for p in range(nprobe)
         ], dim=1)
 
-    if metric == "dot":
-        scores = -(qc_g[:, :, None] + dot)
-    else:
-        scores = q_sqn[:, None, None] + norms_g - 2.0 * qc_g[:, :, None] - 2.0 * dot
-    scores = torch.where(ids_g >= 0, scores, torch.full_like(scores, float("inf")))
+    with span("ivf.mask"):
+        if metric == "dot":
+            scores = -(qc_g[:, :, None] + dot)
+        else:
+            scores = q_sqn[:, None, None] + norms_g - 2.0 * qc_g[:, :, None] - 2.0 * dot
+        scores = torch.where(ids_g >= 0, scores, torch.full_like(scores, float("inf")))
     return scores.reshape(nq, -1), ids_g.reshape(nq, -1)
 
 
@@ -1235,7 +1259,8 @@ def _ivf_search_once(
 ) -> Tuple[Tensor, Tensor]:
     """One probe route, chosen before any launch: with the kernels, the
     ADC-table probe, unless one query's tables do not fit a block's shared
-    memory, and then the decode probe; without, the decode probe."""
+    memory, and then the decode probe (its top-k the span ``ivf.select``);
+    without, the decode probe."""
     pq = index.pq
     m, k = pq.n_subquantizers, pq.n_quantizer_centroids
     args = (index.coarse_centroids, index.cell_codes, index.cell_ids, index.cell_norms, pq, nprobe)
@@ -1250,8 +1275,9 @@ def _ivf_search_once(
     if use_kernel:
         logger.info("IVF search: one query's ADC tables (m=%d, k=%d, splits=%r) do not fit a "
                     "block's shared memory; scoring by the decode probe", m, k, splits)
-    return _padded_topk(
-        *_probe_and_score(queries, *args, use_kernel, splits, metric, scored=scored), top_k)
+    flat = _probe_and_score(queries, *args, use_kernel, splits, metric, scored=scored)
+    with span("ivf.select"):
+        return _padded_topk(*flat, top_k)
 
 
 def ivf_search(
@@ -1285,6 +1311,10 @@ def ivf_search(
     corpus larger than the card, of which only the candidate rows are read)
     re-scores the best ``top_k * refine_factor`` candidates exactly and
     keeps ``top_k``, as :func:`reductive_tpu_torch.search.search` does.
+
+    Under a ``torch.profiler`` session the call records the span
+    ``ivf.search`` around the probe's spans and counters and the refine
+    (:mod:`reductive_tpu_torch.utils.profiling`).
     """
     _check_metric(metric)
     if top_k <= 0:
@@ -1293,14 +1323,15 @@ def ivf_search(
         raise ValueError(f"nprobe must be in 1..{index.n_cells} (the index's cells), got {nprobe}")
     if use_kernel is None:
         use_kernel = index.cell_codes.is_cuda
-    if refine_with is not None:
-        if refine_factor < 1:
-            raise ValueError("refine_factor must be >= 1")
-        _, cand = _ivf_search_once(index, queries, top_k * refine_factor, nprobe, use_kernel,
-                                   splits, metric)
-        return _refine(queries, refine_with, cand.to(torch.int64), top_k, metric)
-    dists, ids = _ivf_search_once(index, queries, top_k, nprobe, use_kernel, splits, metric)
-    return dists.to(torch.float32), ids.to(torch.int64)
+    if refine_with is not None and refine_factor < 1:
+        raise ValueError("refine_factor must be >= 1")
+    with span("ivf.search"):
+        if refine_with is not None:
+            _, cand = _ivf_search_once(index, queries, top_k * refine_factor, nprobe, use_kernel,
+                                       splits, metric)
+            return _refine(queries, refine_with, cand.to(torch.int64), top_k, metric)
+        dists, ids = _ivf_search_once(index, queries, top_k, nprobe, use_kernel, splits, metric)
+        return dists.to(torch.float32), ids.to(torch.int64)
 
 
 def ivf_search_sharded(

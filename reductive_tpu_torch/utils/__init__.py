@@ -1,5 +1,5 @@
-"""Utilities: profiling and timing helpers, and the package's spans."""
+"""Utilities: profiling and timing helpers, and the package's spans and counters."""
 
-from .profiling import benchmark, device_sync, recorded_spans, span, trace
+from .profiling import benchmark, count, device_sync, recorded_spans, span, trace
 
-__all__ = ["trace", "device_sync", "benchmark", "span", "recorded_spans"]
+__all__ = ["trace", "device_sync", "benchmark", "span", "count", "recorded_spans"]

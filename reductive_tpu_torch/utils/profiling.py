@@ -6,9 +6,11 @@ trace of a block (a Chrome trace, viewable in Perfetto or
 benchmark that times by CUDA events on a GPU (the launches return before the
 card is done) and by the host clock on the CPU.
 
-The package's own spans (:func:`span`) mark the stages of its entry points.
-They record only while a ``torch.profiler`` session runs, on the clock the
-profiler stamps its events with, and :func:`recorded_spans` returns them.
+The package's own spans (:func:`span`) mark the stages of its entry points,
+and its counters (:func:`count`) add up the work of a request.  Both record
+only while a ``torch.profiler`` session runs, spans on the clock the profiler
+stamps its events with, and :func:`recorded_spans` returns them, a request's
+counts on its outermost span.
 """
 
 from __future__ import annotations
@@ -20,12 +22,12 @@ import itertools
 import os
 import threading
 import time
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["trace", "device_sync", "benchmark", "span", "recorded_spans", "Span"]
+__all__ = ["trace", "device_sync", "benchmark", "span", "count", "recorded_spans", "Span"]
 
 # Spans held at most: the newest are kept.  A traced 30 s window of
 # exhaustive search (128 queries over 17 chunks, 53 spans a request) records
@@ -49,7 +51,8 @@ class Span:
     host interval in ns on ``time.time_ns()`` (the clock of the profiler's
     events); and the seconds the current CUDA stream took from its start to
     its end (``device_s``, idle time on the stream included; ``None`` where
-    CUDA was not in use or its request was not timed, :data:`TIMED_EVERY`)."""
+    CUDA was not in use or its request was not timed, :data:`TIMED_EVERY`);
+    and, on an outermost span, its request's ``counts`` (:func:`count`)."""
 
     name: str
     id: int
@@ -59,6 +62,7 @@ class Span:
     end_ns: Optional[int] = None
     device_s: Optional[float] = None
     _events: Any = dataclasses.field(default=None, repr=False)
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 class _Off:
@@ -169,6 +173,22 @@ def span(name: str):
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _On(name)
+
+
+def count(name: str, n: int) -> None:
+    """Adds ``n`` to the counter ``name`` of the open request: the
+    ``counts`` of the outermost open span.
+
+    While no ``torch.profiler`` session runs it does nothing (one flag
+    check), and outside every span too.  It takes numbers the host already
+    has (a shape, an argument), so that counting never waits for the
+    card."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    stack = _RECORDER.stack()
+    if stack:
+        counts = stack[0].counts
+        counts[name] = counts.get(name, 0) + n
 
 
 def recorded_spans() -> List[Span]:

@@ -158,7 +158,7 @@ def test_parallel_and_utils_are_exported_under_the_jax_packages_names():
     from reductive_tpu_torch import ivf, parallel, search, utils
 
     assert parallel.__all__ == reductive_tpu.parallel.__all__
-    spans = {"span", "recorded_spans"}  # the port's own spans
+    spans = {"span", "count", "recorded_spans"}  # the port's own spans and counters
     assert set(utils.__all__) == (set(reductive_tpu.utils.__all__)
                                   - {"host_callbacks_supported"}) | spans
     for name in parallel.__all__:
